@@ -1,0 +1,24 @@
+"""llama4-maverick-400b-a17b [moe] — MoE 128e top-1, early fusion.
+[hf:meta-llama/Llama-4-Scout-17B-16E; unverified]"""
+from repro_torch.configs.base import ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    name="llama4-maverick-400b-a17b",
+    family="moe",
+    num_layers=48,
+    d_model=5120,
+    num_heads=40,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=8192,
+    vocab_size=202048,
+    qkv_bias=False,
+    norm="rmsnorm",
+    activation="swiglu",
+    rope="rope",
+    rope_theta=5e5,
+    moe=MoEConfig(num_experts=128, top_k=1, expert_ff=8192,
+                  capacity_factor=2.0),
+    frontend="vision_stub",  # early-fusion multimodal: patch embeddings stubbed
+    notes="MoE 128 experts top-1; early-fusion frontend stubbed per assignment",
+)

@@ -1,0 +1,137 @@
+"""Checked entry points of the port's kernels, with launch counters.
+
+Each wrapper validates device, dtype, shape and contiguity, then
+dispatches on where its tensors lie: on the CPU it runs the kernel's plain
+version (:mod:`repro_torch.kernels.ref`); on a CUDA device it launches the
+hand-written kernel or raises. There is no fallback from a failed launch.
+
+``LAUNCHES`` counts kernel launches per wrapper. A wrapper adds one where
+it launches its kernel and nowhere else, so a run that resets the counts
+before and reads them after shows which kernels its path went through.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+
+KERNELS = ("flash_attention", "paged_attention", "rmsnorm")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+def _on_cuda(what: str, *tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU ones; raises on a mix or on
+    any other device."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{what}: tensors on several devices {devices}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {dev}")
+    return dev.type == "cuda"
+
+
+def _require(cond: bool, what: str, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"{what}: {msg}")
+
+
+def _require_contiguous(what: str, **tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        _require(t.is_contiguous(), what, f"{name} must be contiguous")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Kernel K1. q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D), Hq a multiple of Hkv,
+    one dtype (f32 or bf16) -> (B,Sq,Hq,D). Any Sq/Sk."""
+    what = "flash_attention"
+    cuda = _on_cuda(what, q, k, v)
+    _require(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape, what,
+             f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+             f"v{tuple(v.shape)}")
+    B, Sq, Hq, D = q.shape
+    _require(k.shape[0] == B and k.shape[3] == D
+             and k.shape[2] > 0 and Hq % k.shape[2] == 0, what,
+             f"q{tuple(q.shape)} does not match k{tuple(k.shape)}")
+    _require(q.dtype in _DTYPES and k.dtype == q.dtype == v.dtype, what,
+             f"dtypes {q.dtype}/{k.dtype}/{v.dtype}; need one of {_DTYPES}")
+    _require(window >= 0, what, f"window must be >= 0, got {window}")
+    if not cuda:
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                     flash_attention_cuda)
+    _require(D in HEAD_DIMS, what, f"head dim {D} not in {HEAD_DIMS}")
+    _require_contiguous(what, q=q, k=k, v=v)
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    if out.numel():     # the C entry launches nothing for an empty output
+        LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, block_tables: torch.Tensor,
+                    lengths: torch.Tensor) -> torch.Tensor:
+    """Kernel K2. q (B,1,Hq,D); pools (P,ps,Hkv,D) of q's dtype;
+    block_tables (B,n_pages) int32 physical page ids in logical order,
+    padded with the null page 0; lengths (B,) int32 -> (B,1,Hq,D)."""
+    what = "paged_attention"
+    cuda = _on_cuda(what, q, k_pages, v_pages, block_tables, lengths)
+    _require(q.dim() == 4 and q.shape[1] == 1, what,
+             f"takes one query token per row, got q{tuple(q.shape)}")
+    B, _, Hq, D = q.shape
+    _require(k_pages.dim() == 4 and v_pages.shape == k_pages.shape
+             and k_pages.shape[3] == D and k_pages.shape[2] > 0
+             and Hq % k_pages.shape[2] == 0, what,
+             f"pools k{tuple(k_pages.shape)} v{tuple(v_pages.shape)} do not "
+             f"match q{tuple(q.shape)}")
+    _require(block_tables.dim() == 2 and block_tables.shape[0] == B
+             and block_tables.shape[1] > 0 and lengths.shape == (B,), what,
+             f"block_tables{tuple(block_tables.shape)} / "
+             f"lengths{tuple(lengths.shape)} do not match batch {B}")
+    _require(q.dtype in _DTYPES and k_pages.dtype == q.dtype == v_pages.dtype,
+             what, f"dtypes {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+    _require(block_tables.dtype == torch.int32 and lengths.dtype == torch.int32,
+             what, "block_tables and lengths must be int32")
+    if not cuda:
+        return ref.paged_decode_attention_ref(q, k_pages, v_pages,
+                                              block_tables, lengths)
+    from repro_torch.kernels.paged_attention import (VEC,
+                                                     paged_attention_cuda)
+    _require(D % VEC == 0 and D <= 1024, what,
+             f"head dim {D} must be a multiple of {VEC}, at most 1024")
+    _require_contiguous(what, q=q, k_pages=k_pages, v_pages=v_pages,
+                        block_tables=block_tables, lengths=lengths)
+    _require(all(t.data_ptr() % (VEC * t.element_size()) == 0
+                 for t in (k_pages, v_pages)), what,
+             f"pools must start on a {VEC}-element boundary")
+    out = paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths)
+    if out.numel():
+        LAUNCHES["paged_attention"] += 1
+    return out
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
+            eps: float = 1e-5) -> torch.Tensor:
+    """Kernel K3. x (..., d) f32 or bf16; scale (d,) f32 -> x's shape and
+    dtype."""
+    what = "rmsnorm"
+    cuda = _on_cuda(what, x, scale)
+    _require(x.dim() >= 1 and scale.shape == (x.shape[-1],), what,
+             f"scale{tuple(scale.shape)} does not match x{tuple(x.shape)}")
+    _require(x.dtype in _DTYPES and scale.dtype == torch.float32, what,
+             f"dtypes x {x.dtype} / scale {scale.dtype}")
+    if not cuda:
+        return ref.rmsnorm_ref(x, scale, eps)
+    from repro_torch.kernels.rmsnorm import rmsnorm_triton
+    _require_contiguous(what, x=x, scale=scale)
+    out = rmsnorm_triton(x.view(-1, x.shape[-1]), scale, eps)
+    if out.numel():
+        LAUNCHES["rmsnorm"] += 1
+    return out.view(x.shape)

@@ -1,0 +1,123 @@
+"""Shared building blocks: norms, rotary embeddings, MLPs, embeddings.
+
+The PyTorch counterpart of ``repro/models/layers.py``: functional
+``*_init(generator, ...) -> params`` and matching apply functions over
+plain nested dicts of tensors, in the JAX package's layouts (``x @ W``
+with ``W`` shaped ``(d_in, d_out)``). RMSNorm goes through kernel K3
+(:func:`repro_torch.kernels.ops.rmsnorm`), which takes its plain version
+on CPU tensors.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+
+def normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
+    """N(0, std^2) samples drawn in f32 on the generator's device."""
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    return t.normal_(generator=gen).mul_(std).to(dtype)
+
+
+# ---------------------------------------------------------------- norms
+def norm_init(d: int, kind: str, device) -> dict:
+    p = {"scale": torch.ones(d, dtype=torch.float32, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros(d, dtype=torch.float32, device=device)
+    return p
+
+
+def apply_norm(p, x, kind: str, eps: float = 1e-5):
+    """Norm in f32, output in x's dtype."""
+    if kind == "layernorm":
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = ((xf - mean) ** 2).mean(-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+        return y.to(x.dtype)
+    return ops.rmsnorm(x, p["scale"], eps=eps)
+
+
+# ---------------------------------------------------------------- rotary
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    half = head_dim // 2
+    return 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half))
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_freqs_on(head_dim: int, theta: float,
+                   device: torch.device) -> torch.Tensor:
+    """:func:`rope_freqs` (the reference's numpy values) kept on the
+    device: copying them from pageable host memory at every call would
+    block the host on the device twice per layer."""
+    return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S). Angles in
+    f32."""
+    half = x.shape[-1] // 2
+    freqs = _rope_freqs_on(x.shape[-1], float(theta), x.device)
+    ang = positions[..., None].float() * freqs                 # (..., S, half)
+    cos, sin = ang.cos()[..., None, :], ang.sin()[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- mlp
+def mlp_init(gen: torch.Generator, d: int, f: int, activation: str,
+             dtype) -> dict:
+    p = {"w_in": normal(gen, (d, f), 1.0 / math.sqrt(d), dtype),
+         "w_out": normal(gen, (f, d), 1.0 / math.sqrt(f), dtype)}
+    if activation == "swiglu":
+        p["w_gate"] = normal(gen, (d, f), 1.0 / math.sqrt(d), dtype)
+    return p
+
+
+def apply_mlp(p, x, activation: str):
+    if activation == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_in"])
+    elif activation == "gelu":
+        h = F.gelu(x @ p["w_in"], approximate="tanh")
+    else:
+        raise ValueError(activation)
+    return h @ p["w_out"]
+
+
+# ---------------------------------------------------------------- embedding
+VOCAB_PAD = 256  # pad vocab so it always divides the model axis (MaxText-style)
+
+
+def padded_vocab(vocab_size: int) -> int:
+    return -(-vocab_size // VOCAB_PAD) * VOCAB_PAD
+
+
+def embedding_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    pv = padded_vocab(cfg.vocab_size)
+    p = {"tok": normal(gen, (pv, cfg.d_model), 0.02, dtype)}
+    if not cfg.tie_embeddings:
+        p["head"] = normal(gen, (cfg.d_model, pv), 0.02, dtype)
+    return p
+
+
+def embed_tokens(p, tokens):
+    return p["tok"][tokens.long()]
+
+
+def lm_logits(p, x, tie: bool, true_vocab: int = 0):
+    """Logits over the PADDED vocab; padded entries masked to -1e30 when
+    true_vocab is given."""
+    logits = x @ p["tok"].T if tie else x @ p["head"]
+    if true_vocab and logits.shape[-1] != true_vocab:
+        pad = torch.arange(logits.shape[-1], device=logits.device) >= true_vocab
+        logits = logits.masked_fill(pad, -1e30)
+    return logits

@@ -1,0 +1,270 @@
+"""Decoder stack of the dense family: layer init, prefill, decode and the
+paged-KV serving triple.
+
+The PyTorch counterpart of the dense, full-attention subset of
+``repro/models/transformer.py``. Parameters keep the JAX layout: a
+leading stacked-layer axis on every leaf, and the JAX ``lax.scan`` over
+that axis becomes a Python loop. Caches and paged pools are updated IN
+PLACE (the JAX functions return new arrays); each function that writes
+says so, and returns the same cache objects it was given.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch._tree import layer_at, tree_leaves, tree_map
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
+                                       mlp_init, norm_init)
+
+
+@dataclass(frozen=True)
+class Runtime:
+    """Execution knobs threaded through the apply functions.
+
+    ``attention_backend="kernel"`` sends one-shot prefill through kernel
+    K1 and paged decode through kernel K2 (each takes its plain version on
+    CPU tensors); ``"dense"`` uses the plain PyTorch attention for both.
+    RMSNorm always goes through kernel K3 on CUDA tensors."""
+    attention_backend: str = "kernel"
+
+
+def _rope_q_k(cfg: ModelConfig, q, k, positions):
+    if cfg.rope == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k
+
+
+def _mlp_block(p, x, cfg: ModelConfig):
+    return x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg.norm),
+                         cfg.activation)
+
+
+# ===================================================================== init
+def layer_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    return {"norm1": norm_init(cfg.d_model, cfg.norm, gen.device),
+            "norm2": norm_init(cfg.d_model, cfg.norm, gen.device),
+            "attn": attn_mod.attn_init(gen, cfg, dtype),
+            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.activation,
+                            dtype)}
+
+
+def stack_init(gen: torch.Generator, cfg: ModelConfig, num_layers: int,
+               dtype) -> dict:
+    """Stacked (L, ...) layer parameters, drawn one layer at a time into
+    preallocated tensors, so peak memory is the stack plus one layer."""
+    first = layer_init(gen, cfg, dtype)
+    stacked = tree_map(lambda a: a.new_empty((num_layers, *a.shape)), first)
+    for i in range(num_layers):
+        layer = first if i == 0 else layer_init(gen, cfg, dtype)
+        tree_map(lambda dst, src: dst[i].copy_(src), stacked, layer)
+    return stacked
+
+
+def num_layers_of(stacked) -> int:
+    return tree_leaves(stacked)[0].shape[0]
+
+
+# ================================================================= forward
+def layer_apply(p, x, cfg: ModelConfig, rt: Runtime, positions, *,
+                causal: bool = True, return_cache: bool = False,
+                cache_span: int = 0):
+    """Full-sequence layer forward. Returns (x, cache_entry); cache_entry
+    is None unless return_cache, in which case it holds this layer's K/V
+    zero-padded to cache_span (the per-layer structure of cache_init)."""
+    h_in = apply_norm(p["norm1"], x, cfg.norm)
+    q, k, v = attn_mod.project_qkv(p["attn"], h_in, h_in, cfg)
+    q, k = _rope_q_k(cfg, q, k, positions)
+    o = attn_mod.attention(q, k, v, backend=rt.attention_backend,
+                           causal=causal)
+    x = x + o.reshape(*x.shape[:-1], -1) @ p["attn"]["wo"]
+    cache_entry = None
+    if return_cache:
+        pad = (0, 0, 0, 0, 0, cache_span - k.shape[1])
+        cache_entry = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+    return _mlp_block(p, x, cfg), cache_entry
+
+
+def stack_prefill(stacked, x, cfg: ModelConfig, rt: Runtime, positions, *,
+                  cache_span: int):
+    """Forward that also collects the stacked (L, B, span, Hkv, D) decode
+    cache (prefill)."""
+    L = num_layers_of(stacked)
+    caches = None
+    for i in range(L):
+        x, entry = layer_apply(layer_at(stacked, i), x, cfg, rt, positions,
+                               return_cache=True, cache_span=cache_span)
+        if caches is None:
+            caches = {n: t.new_empty((L, *t.shape)) for n, t in entry.items()}
+        for n, t in entry.items():
+            caches[n][i] = t
+    return x, caches
+
+
+# ================================================================= caches
+def cache_init(cfg: ModelConfig, num_layers: int, batch: int, max_len: int,
+               dtype, device) -> dict:
+    """Stacked (L, B, max_len, Hkv, D) decode cache."""
+    shape = (num_layers, batch, max_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def paged_cache_init(cfg: ModelConfig, num_layers: int, num_pages: int,
+                     page_size: int, dtype, device) -> dict:
+    """Stacked (L, P, page_size, Hkv, D) paged KV pools. The pool is
+    global — requests own *pages* via block tables, not slots — so there
+    is no batch axis. Page 0 is the reserved null page (see
+    :mod:`repro_torch.serving.pages`)."""
+    if (cfg.family in ("ssm", "hybrid") or cfg.attention_kind != "full"
+            or cfg.is_enc_dec):
+        raise ValueError(
+            "paged KV serving supports full-attention decoder-only "
+            f"models; got family={cfg.family!r}, "
+            f"attention_kind={cfg.attention_kind!r}, "
+            f"enc_dec={cfg.is_enc_dec}")
+    shape = (num_layers, num_pages, page_size, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ================================================================== decode
+def layer_decode(p, x, cache, pos, cfg: ModelConfig, rt: Runtime):
+    """Single-token step. x: (B,1,d); cache: this layer's {"k","v"}
+    (B, span, Hkv, D) views, written IN PLACE at ``pos``. Returns
+    (x, cache).
+
+    pos is a Python int (lockstep batch: every row writes the same slot)
+    or a (B,) int tensor (continuous batching: each row carries its own
+    position, writes its own slot, and masks its own valid length)."""
+    B = x.shape[0]
+    span = cache["k"].shape[1]
+    h_in = apply_norm(p["norm1"], x, cfg.norm)
+    q, k, v = attn_mod.project_qkv(p["attn"], h_in, h_in, cfg)
+    if isinstance(pos, torch.Tensor):
+        q, k = _rope_q_k(cfg, q, k, pos.reshape(-1, 1))
+        bidx = torch.arange(B, device=x.device)
+        cache["k"][bidx, pos.long()] = k[:, 0]
+        cache["v"][bidx, pos.long()] = v[:, 0]
+        cache_len = torch.clamp(pos + 1, max=span)
+    else:
+        q, k = _rope_q_k(cfg, q, k,
+                         torch.full((B, 1), pos, device=x.device))
+        cache["k"][:, pos] = k[:, 0]
+        cache["v"][:, pos] = v[:, 0]
+        cache_len = min(pos + 1, span)
+    o = attn_mod.decode_attention_simple(q, cache["k"], cache["v"], cache_len)
+    x = x + o.reshape(*x.shape[:-1], -1) @ p["attn"]["wo"]
+    return _mlp_block(p, x, cfg), cache
+
+
+def stack_decode(stacked, x, caches, pos, cfg: ModelConfig, rt: Runtime):
+    """Decode one token through every layer; ``caches`` is updated IN
+    PLACE and returned."""
+    for i in range(num_layers_of(stacked)):
+        x, _ = layer_decode(layer_at(stacked, i), x, layer_at(caches, i),
+                            pos, cfg, rt)
+    return x, caches
+
+
+def _paged_attend(q, k_pool, v_pool, block_tables, lengths, rt: Runtime):
+    """Backend switch for block-table attention: kernel K2 (its in-kernel
+    page gather) for backend 'kernel', the gather-then-
+    decode_attention_simple reference for 'dense'."""
+    if rt.attention_backend == "kernel":
+        return ops.paged_attention(q, k_pool, v_pool, block_tables, lengths)
+    return attn_mod.paged_decode_attention_ref(q, k_pool, v_pool,
+                                               block_tables, lengths)
+
+
+def layer_decode_paged(p, x, cache, pos, block_tables, cfg: ModelConfig,
+                       rt: Runtime):
+    """Single-token step against the paged KV pool. x: (B,1,d); cache:
+    this layer's {"k","v"} pools (P, page_size, Hkv, D), written IN PLACE;
+    pos: (B,) int32 per-row positions; block_tables: (B, n_pages) int32
+    physical page ids in logical order (retired rows all-null).
+
+    Each row writes its new K/V at (table[pos // page_size],
+    pos % page_size). Live rows own disjoint pages; retired rows all write
+    into the null page 0, an in-place scatter with duplicate indices whose
+    result is unspecified — harmless, because no live row's length reaches
+    a null-page entry of its table. Attention runs over ``pos + 1`` tokens
+    for every row, inactive ones included, as in the reference."""
+    B = x.shape[0]
+    h_in = apply_norm(p["norm1"], x, cfg.norm)
+    q, k, v = attn_mod.project_qkv(p["attn"], h_in, h_in, cfg)
+    q, k = _rope_q_k(cfg, q, k, pos.reshape(-1, 1))
+    ps = cache["k"].shape[1]
+    bidx = torch.arange(B, device=x.device)
+    # clamp like the reference's gather, which clamps out-of-range indices
+    col = torch.clamp(pos // ps, max=block_tables.shape[1] - 1).long()
+    pages = block_tables[bidx, col].long()
+    offs = (pos % ps).long()
+    cache["k"][pages, offs] = k[:, 0]
+    cache["v"][pages, offs] = v[:, 0]
+    o = _paged_attend(q, cache["k"], cache["v"], block_tables,
+                      (pos + 1).to(torch.int32), rt)
+    x = x + o.reshape(*x.shape[:-1], -1) @ p["attn"]["wo"]
+    return _mlp_block(p, x, cfg), cache
+
+
+def stack_decode_paged(stacked, x, caches, pos, block_tables,
+                       cfg: ModelConfig, rt: Runtime):
+    """Paged decode through every layer; block tables are shared across
+    layers (one logical address space, L physical pools). ``caches`` is
+    updated IN PLACE and returned."""
+    for i in range(num_layers_of(stacked)):
+        x, _ = layer_decode_paged(layer_at(stacked, i), x,
+                                  layer_at(caches, i), pos, block_tables,
+                                  cfg, rt)
+    return x, caches
+
+
+def layer_prefill_chunk(p, x, cache, block_tables, start_pos: int,
+                        cfg: ModelConfig, rt: Runtime):
+    """Chunked-prefill layer step: write this chunk's K/V into the paged
+    pool IN PLACE, then attend causally over the *gathered* logical
+    history (pages written by earlier chunks plus this one). x: (B, C, d)
+    at absolute positions ``start_pos .. start_pos + C - 1``.
+
+    As in the reference, the gather runs outside any kernel and the scores
+    go through ``dense_attention`` with ``q_offset``: the history is
+    ``n_live * page_size`` keys, more than the chunk's C queries, and the
+    keys past the chunk are masked causally."""
+    B, C = x.shape[0], x.shape[1]
+    positions = start_pos + torch.arange(C, device=x.device)
+    h_in = apply_norm(p["norm1"], x, cfg.norm)
+    q, k, v = attn_mod.project_qkv(p["attn"], h_in, h_in, cfg)
+    q, k = _rope_q_k(cfg, q, k, positions[None])
+    _, ps, Hkv, D = cache["k"].shape
+    npag = block_tables.shape[1]
+    pages = block_tables[:, positions // ps].long()             # (B, C)
+    offs = (positions % ps).long().expand(B, C)
+    cache["k"][pages, offs] = k
+    cache["v"][pages, offs] = v
+    idx = block_tables.long()
+    k_all = cache["k"][idx].reshape(B, npag * ps, Hkv, D)
+    v_all = cache["v"][idx].reshape(B, npag * ps, Hkv, D)
+    o = attn_mod.dense_attention(q, k_all, v_all, causal=True,
+                                 q_offset=start_pos)
+    x = x + o.reshape(*x.shape[:-1], -1) @ p["attn"]["wo"]
+    return _mlp_block(p, x, cfg), cache
+
+
+def stack_prefill_chunk(stacked, x, caches, block_tables, start_pos: int,
+                        cfg: ModelConfig, rt: Runtime):
+    """One prompt chunk through the layer stack; ``caches`` (the paged
+    pools) are updated IN PLACE and returned."""
+    for i in range(num_layers_of(stacked)):
+        x, _ = layer_prefill_chunk(layer_at(stacked, i), x,
+                                   layer_at(caches, i), block_tables,
+                                   start_pos, cfg, rt)
+    return x, caches

@@ -32,3 +32,8 @@ def run_with_devices(code: str, n_devices: int = 8, timeout: int = 600):
 @pytest.fixture
 def tmp_ckpt_dir(tmp_path):
     return str(tmp_path / "ckpt")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips inside the test without one")

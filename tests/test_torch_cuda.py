@@ -1,0 +1,146 @@
+"""Card-only tests of the port: each hand-written kernel against its plain
+PyTorch version on a CUDA device, over the shapes the CPU cannot reach
+(ragged sequence edges, sliding windows, GQA groups, null-padded and
+all-null block tables), plus the reduced model and engines through the
+kernels.
+
+The CPU tests (``tests/test_torch_*.py``) hold the plain versions to the
+JAX package; these hold the kernels to the plain versions. They import
+only the port — the machine with the card has no JAX — and skip, inside
+each test, where there is no card. Run them on the card with
+``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.cuda
+
+F32, BF16 = torch.float32, torch.bfloat16
+# tolerances of tests/test_kernels.py::_tol: the kernels sum in f32 in
+# another order than the plain versions, which in bf16 also round the
+# scores and the softmax weights to bf16
+TOL = {F32: 5e-4, BF16: 2e-2}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) \
+        .to(device=dev, dtype=dtype)
+
+
+def _close(out, want, dtype):
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("sq,sk,hq,hkv,d,causal,window", [
+    (128, 128, 32, 8, 128, True, 0),     # the serving path's prefill
+    (77, 77, 4, 4, 64, True, 0),         # ragged edge inside one tile
+    (300, 300, 8, 2, 128, True, 0),      # several tiles, ragged
+    (200, 200, 8, 2, 32, True, 96),      # sliding window skips tiles
+    (130, 130, 8, 1, 16, False, 0),      # non-causal, MQA
+    (100, 100, 4, 2, 64, False, 96),     # one-sided window, non-causal
+    (50, 77, 8, 2, 160, True, 0),        # Sq < Sk
+])
+def test_flash_kernel_matches_plain(dev, dtype, sq, sk, hq, hkv, d, causal,
+                                    window):
+    rng = np.random.default_rng(sq * 7 + sk + hq + d)
+    q = _rand(rng, (2, sq, hq, d), dtype, dev)
+    k = _rand(rng, (2, sk, hkv, d), dtype, dev)
+    v = _rand(rng, (2, sk, hkv, d), dtype, dev)
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    _close(out, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("hq,hkv,d,ps", [(32, 8, 128, 16), (4, 4, 32, 4),
+                                         (8, 2, 64, 16), (8, 1, 128, 32)])
+def test_paged_kernel_matches_plain(dev, dtype, hq, hkv, d, ps):
+    rng = np.random.default_rng(hq + d + ps)
+    B, npag = 5, 12
+    P = B * npag + 1
+    q = _rand(rng, (B, 1, hq, d), dtype, dev)
+    kp = _rand(rng, (P, ps, hkv, d), dtype, dev)
+    vp = _rand(rng, (P, ps, hkv, d), dtype, dev)
+    perm = rng.permutation(np.arange(1, P)).reshape(B, npag)
+    lengths = np.array([1, ps + 3, 5 * ps, npag * ps, 7], np.int32)
+    btab = np.zeros((B, npag), np.int32)
+    for b in range(B - 1):                  # null-padded past the length
+        live = -(-int(lengths[b]) // ps)
+        btab[b, :live] = perm[b, :live]
+    # the last row is all null pages, as a retired lane's table is
+    bt = torch.from_numpy(btab).to(dev)
+    ln = torch.from_numpy(lengths).to(dev)
+    before = ops.LAUNCHES["paged_attention"]
+    out = ops.paged_attention(q, kp, vp, bt, ln)
+    assert ops.LAUNCHES["paged_attention"] == before + 1
+    _close(out, ref.paged_decode_attention_ref(q, kp, vp, bt, ln), dtype)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("rows,d", [(1, 64), (7, 100), (512, 4096)])
+def test_rmsnorm_kernel_matches_plain(dev, dtype, rows, d):
+    rng = np.random.default_rng(rows + d)
+    x = _rand(rng, (rows, d), dtype, dev)
+    scale = _rand(rng, (d,), F32, dev)
+    before = ops.LAUNCHES["rmsnorm"]
+    out = ops.rmsnorm(x, scale)
+    assert ops.LAUNCHES["rmsnorm"] == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    _close(out, ref.rmsnorm_ref(x, scale), dtype)
+
+
+def test_kernels_refuse_what_they_do_not_take(dev):
+    q = torch.zeros(1, 8, 4, 48, device=dev)            # head dim 48
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q, q, q)
+    qp = torch.zeros(1, 1, 4, 30, device=dev)           # head dim 30
+    pool = torch.zeros(3, 4, 4, 30, device=dev)
+    bt = torch.ones(1, 2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ops.paged_attention(qp, pool, pool, bt, bt[:, 0])
+    x = torch.zeros(4, 8, device=dev).t()               # not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rmsnorm(x, torch.ones(4, device=dev))
+
+
+def test_reduced_engines_agree_through_the_kernels(dev):
+    """Continuous (K1 prefill) and paged (K2 decode) engines give the same
+    greedy tokens on the card, and each kernel was launched."""
+    from repro_torch.data.pipeline import synth_requests
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serving import SimClock
+
+    kw = dict(layers=2, d_model=128, vocab=512, d_ff=256)
+    cont, cfg = build_engine("granite-3-8b", batch=4, prompt_len=40,
+                             max_new_tokens=24, reduce_kw=kw,
+                             clock=SimClock(), device=dev)
+    paged, _ = build_engine("granite-3-8b", batch=4, prompt_len=40,
+                            max_new_tokens=24, scheduler="paged",
+                            page_size=16, prefill_chunk_tokens=16,
+                            reduce_kw=kw, clock=SimClock(), device=dev)
+    reqs = synth_requests(cfg, 6, 40, max_new_tokens=(3, 24))
+    ops.reset_launches()
+    rc = cont.run(reqs)
+    assert ops.LAUNCHES["flash_attention"] > 0
+    rp = paged.run(reqs)
+    assert ops.LAUNCHES["paged_attention"] > 0 and ops.LAUNCHES["rmsnorm"] > 0
+    toks_c = {m.rid: m.tokens.tolist() for m in rc.metrics}
+    toks_p = {m.rid: m.tokens.tolist() for m in rp.metrics}
+    assert toks_c == toks_p

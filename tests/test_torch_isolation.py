@@ -1,0 +1,71 @@
+"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
+nothing of JAX or of the JAX package, and the port's entry points run on
+the card by default, never falling back to the CPU.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import jax  # noqa: F401  (the test files import both packages)
+
+from repro_torch.launch.serve import build_engine
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path) -> set:
+    mods = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add(node.module)
+    return mods
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_neither_jax_nor_repro(path):
+    bad = sorted(m for m in _imported_modules(path)
+                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_launcher_import_pulls_in_no_jax():
+    code = ("import sys, repro_torch.launch.serve, repro_torch.bridge, "
+            "repro_torch.kernels.rmsnorm, repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.paged_attention; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == "[]"
+
+
+def test_default_device_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        build_engine("granite-3-8b", batch=1, prompt_len=4, max_new_tokens=2)
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    """Without a card, and alone outside a checkout, the smoke test exits
+    non-zero and prints no result."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((REPO / "chip_smoke.py").read_text())
+    for cwd, script in ((REPO, REPO / "chip_smoke.py"), (tmp_path, lone)):
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0 and '"ok"' not in out.stdout
