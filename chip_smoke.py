@@ -16,6 +16,16 @@ and needs one card. Phases, one JSON line each:
    calls), the kernel's eager call time (host included), and the bound
    (the larger of operations over the card's peak rate for the input type
    and bytes over 3.35 TB/s);
+2b. the training path's attention kernels (B2 forward with lse, B3 dq,
+   B4 dk/dv) through their wrapper as training calls it (q, k, v that
+   require grad through ``ops.flash_attention``, then
+   ``torch.autograd.grad``; one launch of each) against their plain
+   versions on the same inputs at the training shape (B1 S4096 Hq32 Hkv8
+   D128 causal) and a ragged length (S4000), in f32 and bf16: max abs
+   error and that error over the plain result's max magnitude (tolerance
+   5e-4 f32, 2e-2 bf16, on the relative error), times and bounds as in
+   phase 2; PyTorch has no call that computes dq or dk/dv alone, so the
+   line also gives SDPA's forward plus backward beside B2 + B3 + B4;
 3. serving at full width and full depth: granite-3-8b, 40 layers, f32,
    random weights from a seeded ``torch.Generator``, through the port's
    ``build_engine`` for the continuous and the paged scheduler on one
@@ -27,7 +37,21 @@ and needs one card. Phases, one JSON line each:
    ``torch.profiler`` (``repro_torch.core.profile``): launches per
    forward pass, the device's busy share, device time by kernel group,
    copies and synchronisations;
-6. the ``kernels`` summary line, with the launch counts of phase 3.
+6. train: granite-3-8b at full width cut to 8 layers (f32 params,
+   gradients, master copy and AdamW moments of 40 layers do not fit one
+   80 GB card). First (6a) the gradient of every parameter leaf at the
+   seeded params on step 0's first microbatch, through the kernels and
+   through the plain attention path: each leaf within 1e-4 relative in L2
+   norm. Then 3 steps of 2 x 4096 tokens in 2 microbatches with remat,
+   through ``build_train_step`` and ``train_loop.run``, on the kernels;
+   per step loss, grad_norm, seconds, tokens/s and each kernel's
+   launches, and the peak memory. Then the same 3 steps from the same
+   seeded params and batches on the plain attention path: per-step loss
+   and grad_norm within 1e-5 (relative) of the kernel run.
+   One more kernel step, after the counts are read, runs under
+   ``torch.profiler`` (device time by kernel group, busy share);
+7. the ``kernels`` summary line, with the launch counts of the serving
+   (phase 3) and training (phase 6) runs.
 
 Any failure raises and exits non-zero. Without a CUDA device, or outside a
 checkout, it exits non-zero before printing any result. The last line of
@@ -35,6 +59,8 @@ standard output is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -46,6 +72,9 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 ARCH = "granite-3-8b"
+TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 3, 2, 4096
+TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-5}   # relative, kernel vs plain
+GRAD_TOL = 1e-4   # per leaf, |g_kernel - g_plain| / |g_plain| (L2 norms)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
 HBM_BYTES_PER_S = 3.35e12
 TOL = {"float32": 5e-4, "bfloat16": 2e-2}
@@ -53,6 +82,15 @@ KERNELS = {
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:40"),
+    "flash_attention_lse": dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:97"),
+    "flash_attention_dq": dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:183"),
+    "flash_attention_dkv": dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:225"),
     "paged_attention": dict(
         route="cuda", source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:46"),
@@ -125,7 +163,11 @@ def main() -> int:
     failures = []
 
     def record(line, main_path):
-        line["ok"] = line["max_abs_err"] <= line["tol"]
+        # the training kernels are held to an error relative to the plain
+        # result's largest magnitude, and to one launch each through their
+        # wrapper; the others to an absolute error
+        line["ok"] = (line.get("rel_err", line["max_abs_err"]) <= line["tol"]
+                      and line.get("launches_in_one_call", 1) == 1)
         emit(line)
         if not line["ok"]:
             failures.append(line)
@@ -206,9 +248,52 @@ def main() -> int:
                                             eps=1e-5)),
                 "library": "rms_norm", "bound_ms": b_ms, "bound_by": b_by},
                 main_path=(rows == 128 and dname == "float32"))
+    _train_kernels(rand, record)
+    torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{[(f['kernel'], f['shape'], f['dtype']) for f in failures]}")
+
+    launches = _serve(dev)     # phases 3 to 5; frees the served model
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["train"] = _train(dev)   # phase 6
+
+    # ----------------------------------------------------------- 7 kernels
+    total = {k: sum(launches[e][k] for e in launches) for k in KERNELS}
+    need = {"flash_attention": launches["continuous"]["flash_attention"],
+            "paged_attention": launches["paged"]["paged_attention"],
+            **{k: launches["train"][k] for k in (
+                "flash_attention_lse", "flash_attention_dq",
+                "flash_attention_dkv")},
+            "rmsnorm": min(launches[e]["rmsnorm"] for e in launches)}
+    line = {"kernels": [
+        {"name": name, **meta, "launches": total[name],
+         "max_abs_err": summary[name]["max_abs_err"],
+         "ms": summary[name]["kernel_ms"],
+         "plain_ms": summary[name]["plain_ms"],
+         "bound_ms": summary[name]["bound_ms"],
+         "bound_by": summary[name]["bound_by"],
+         "library_ms": summary[name]["library_ms"]}
+        for name, meta in KERNELS.items()]}
+    print(json.dumps(line), flush=True)
+    missing = [k for k, n in need.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"the serving or training path never launched "
+                             f"{missing}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def _serve(dev) -> dict:
+    """Phases 3 to 5: serve full-width granite-3-8b through the continuous
+    and the paged engine, check parity, profile. Returns each engine's
+    launch counts; the model, engines and caches go with its frame."""
+    import torch
+
+    from repro_torch.kernels import ops
 
     # ------------------------------------------------------------- 3 serve
     from repro_torch._tree import tree_leaves
@@ -303,29 +388,302 @@ def main() -> int:
     from repro_torch.core.profile import profile_run
     for name, eng in engines.items():
         emit({"phase": "profile", **profile_run(eng, reqs)})
+    return launches
 
-    # ----------------------------------------------------------- 6 kernels
-    total = {k: sum(launches[e][k] for e in launches) for k in KERNELS}
-    need = {"flash_attention": launches["continuous"]["flash_attention"],
-            "paged_attention": launches["paged"]["paged_attention"],
-            "rmsnorm": min(launches[e]["rmsnorm"] for e in launches)}
-    line = {"kernels": [
-        {"name": name, **meta, "launches": total[name],
-         "max_abs_err": summary[name]["max_abs_err"],
-         "ms": summary[name]["kernel_ms"],
-         "plain_ms": summary[name]["plain_ms"],
-         "bound_ms": summary[name]["bound_ms"],
-         "bound_by": summary[name]["bound_by"],
-         "library_ms": summary[name]["library_ms"]}
-        for name, meta in KERNELS.items()]}
-    print(json.dumps(line), flush=True)
-    missing = [k for k, n in need.items() if n <= 0]
-    if missing:
-        raise AssertionError(f"the serving path never launched {missing}")
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+
+def _train_kernels(rand, record) -> None:
+    """Phase 2b: kernels B2 (forward with lse), B3 (dq) and B4 (dk, dv)
+    through their wrapper as the training path calls it: q, k and v that
+    require grad go through ``ops.flash_attention`` (B2, with the lse rows
+    it saves for the backward) and ``torch.autograd.grad`` of its output
+    (B3 and B4, on the delta of the kernel's own o), each launched exactly
+    once. o, lse, dq, dk and dv are held against the plain versions on the
+    same inputs. Times are of the launchers alone, B3 and B4 reading the
+    plain forward's lse and delta = rowsum(dO * O). Bounds count the
+    causal (q, k) pairs these inputs need, S (S + 1) / 2 per head: 2, 3
+    and 4 products of D multiply-adds each (QK^T and PV; + dO V^T and
+    ds K; + p^T dO and ds^T q), and every input read and output written
+    once."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_dkv_cuda, flash_attention_dq_cuda,
+        flash_attention_lse_cuda)
+
+    B, Hq, Hkv, D = 1, 32, 8, 128
+    kw = dict(causal=True, window=0)
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        isz = torch.finfo(dtype).bits // 8
+        for S in (TRAIN_SEQ, 4000):
+            q, do = rand((B, S, Hq, D), dtype), rand((B, S, Hq, D), dtype)
+            k, v = rand((B, S, Hkv, D), dtype), rand((B, S, Hkv, D), dtype)
+            # the wrapper, differentiated as the training step does
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            before = dict(ops.LAUNCHES)
+            o = ops.flash_attention(*leaves, **kw)
+            lse = o.grad_fn.saved_tensors[4]    # the rows B2 saved
+            dq, dk, dv = torch.autograd.grad(o, leaves, do)
+            torch.cuda.synchronize()
+            rose = {n: ops.LAUNCHES[n] - before[n] for n in ops.KERNELS}
+            o, lse = o.detach(), lse.clone()
+            del leaves
+            o_ref, lse_ref = ref.flash_attention_lse_ref(q, k, v, **kw)
+            delta = ref.attention_delta(o_ref, do)
+            held = {
+                "flash_attention_lse": ((o, lse), (o_ref, lse_ref)),
+                "flash_attention_dq": ((dq,), (ref.flash_attention_dq_ref(
+                    q, k, v, do, lse_ref, delta, **kw),)),
+                "flash_attention_dkv": ((dk, dv), ref.flash_attention_dkv_ref(
+                    q, k, v, do, lse_ref, delta, **kw)),
+            }
+            args = (q, k, v, do, lse_ref, delta)
+            pairs = B * Hq * S * (S + 1) // 2
+            rows = 4 * B * Hq * S                      # lse or delta, f32
+            qkv_bytes = isz * B * S * D * (Hq + 2 * Hkv)
+            cases = {
+                "flash_attention_lse": (
+                    lambda: flash_attention_lse_cuda(q, k, v, **kw),
+                    lambda: ref.flash_attention_lse_ref(q, k, v, **kw),
+                    4 * D * pairs,
+                    qkv_bytes + isz * B * S * Hq * D + rows),
+                "flash_attention_dq": (
+                    lambda: flash_attention_dq_cuda(*args, **kw),
+                    lambda: ref.flash_attention_dq_ref(*args, **kw),
+                    6 * D * pairs,
+                    qkv_bytes + 2 * isz * B * S * Hq * D + 2 * rows),
+                "flash_attention_dkv": (
+                    lambda: flash_attention_dkv_cuda(*args, **kw),
+                    lambda: ref.flash_attention_dkv_ref(*args, **kw),
+                    8 * D * pairs,
+                    qkv_bytes + isz * B * S * (Hq * D + 2 * Hkv * D)
+                    + 2 * rows),
+            }
+            shape = f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} causal"
+            group_ms = 0.0
+            for name, (kernel, plain, flops, nbytes) in cases.items():
+                got, want = held[name]
+                errs = [_err(g, w) for g, w in zip(got, want)]
+                rel = max(e / max(float(w.float().abs().max()), 1e-30)
+                          for e, w in zip(errs, want))
+                b_ms, b_by = bound(flops, nbytes, dname)
+                times = _times(kernel, plain, None)
+                group_ms += times["kernel_ms"]
+                line = {
+                    "phase": "train_kernel", "kernel": name, "shape": shape,
+                    "dtype": dname, "via": "ops.flash_attention + "
+                                           "torch.autograd.grad",
+                    "launches_in_one_call": rose[name],
+                    "max_abs_err": max(errs),
+                    "rel_err": rel, "tol": TOL[dname], **times,
+                    "library": "none: no single PyTorch call",
+                    "bound_ms": b_ms, "bound_by": b_by}
+                record(line, main_path=(S == TRAIN_SEQ
+                                        and dname == "float32"))
+            if rose["flash_attention"]:
+                raise AssertionError(f"the differentiated wrapper launched "
+                                     f"K1: {rose} at {shape} {dname}")
+            del held, o, lse, dq, dk, dv
+            # SDPA forward + backward: the nearest library yardstick
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                          for t in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+
+            def sdpa_fwd_bwd():
+                o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=True)
+                torch.autograd.grad(o, (qt, kt, vt), dot)
+
+            emit({"phase": "train_kernel_group", "shape": shape,
+                  "dtype": dname, "b2_b3_b4_ms": group_ms,
+                  "sdpa_fwd_bwd_ms": _eager_ms(sdpa_fwd_bwd),
+                  "library": "scaled_dot_product_attention(enable_gqa=True) "
+                             "forward + backward, eager"})
+            del q, k, v, do, o_ref, lse_ref, delta, args, cases, qt, kt, vt
+            torch.cuda.empty_cache()
+
+
+def _train_config(backend: str):
+    """The training phase's RunConfig: full-width granite-3-8b cut to
+    TRAIN_LAYERS layers, f32, on the attention ``backend``."""
+    from repro_torch.configs import RunConfig, ShapeConfig, get_arch
+    cfg = dataclasses.replace(get_arch(ARCH), num_layers=TRAIN_LAYERS)
+    return RunConfig(
+        model=cfg, shape=ShapeConfig("train_4k", "train", TRAIN_SEQ,
+                                     TRAIN_BATCH),
+        microbatches=2, remat=True, attention_backend=backend,
+        learning_rate=1e-3, warmup_steps=2, opt_state_dtype="float32",
+        opt_master=True, param_dtype="float32")
+
+
+def _train(dev) -> dict:
+    """Phase 6: train full-width granite-3-8b cut to TRAIN_LAYERS layers
+    through the kernels, then again on the plain attention path from the
+    same seeded params and batches; the per-step losses and grad norms
+    must agree. Returns the kernel run's launch counts."""
+    import torch
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core.profile import profile_device
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import train_loop
+    from repro_torch.runtime.steps import build_train_step
+
+    _train_grads(dev)    # phase 6a
+    cfg = _train_config("kernel").model
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    runs = {}
+    for backend in ("kernel", "dense"):
+        rcfg = _train_config(backend)
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)    # left by earlier phases
+        t0 = time.perf_counter()
+        step, model, opt = build_train_step(rcfg, total_steps=TRAIN_STEPS,
+                                            device=dev)
+        params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+        opt_state = opt.init(params)
+        torch.cuda.synchronize(dev)
+        setup_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                           device=str(dev))
+        per_step = []
+
+        def counted(p, o, batch):
+            before = dict(ops.LAUNCHES)
+            out = step(p, o, batch)
+            per_step.append({k: ops.LAUNCHES[k] - before[k]
+                             for k in ops.KERNELS})
+            return out
+
+        ops.reset_launches()
+        res = train_loop.run(counted, params, opt_state, data.batch_at,
+                             total_steps=TRAIN_STEPS)
+        launches = dict(ops.LAUNCHES)
+        if backend == "kernel":    # one more step, traced, after the count
+            # [1]: keep only the summary, not the step's (params, state)
+            prof = profile_device(lambda: step(params, opt_state,
+                                               data.batch_at(TRAIN_STEPS)))[1]
+            emit({"phase": "train_profile", "backend": backend,
+                  "step": TRAIN_STEPS, **prof})
+        steps = [{**m, "tokens_per_s": tokens / m["step_s"],
+                  "launches": per_step[i]} for i, m in enumerate(res.metrics)]
+        emit({"phase": "train", "backend": backend, "arch": ARCH,
+              "layers": TRAIN_LAYERS,
+              "reduced": f"depth {cfg.num_layers} of 40 layers: f32 params, "
+                         "grads, master and two AdamW moments of 40 layers "
+                         "(~164 GB) exceed one 80 GB card",
+              "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "microbatches": 2, "remat": True, "setup_s": setup_s,
+              "allocated_before_bytes": held,
+              "retries": res.retries, "steps": steps,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+              "launches": launches})
+        runs[backend] = (res.metrics, launches, per_step, res.retries)
+        del step, model, opt, params, opt_state, res, counted
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    (km, launches, per_step, k_retries), (dm, _, _, d_retries) = \
+        runs["kernel"], runs["dense"]
+    rel = {key: [abs(a[key] - b[key]) / abs(b[key]) for a, b in zip(km, dm)]
+           for key in TRAIN_TOL}
+    parity = {"phase": "train_parity", "steps": len(km),
+              "losses_kernel": [m["loss"] for m in km],
+              "losses_dense": [m["loss"] for m in dm],
+              "rel_diff": rel, "tol": TRAIN_TOL}
+    emit(parity)
+    need = ("flash_attention_lse", "flash_attention_dq", "flash_attention_dkv",
+            "rmsnorm")
+    if (len(km) != TRAIN_STEPS or len(dm) != TRAIN_STEPS or k_retries
+            or d_retries):
+        raise AssertionError(f"training did not take {TRAIN_STEPS} clean "
+                             f"steps: {parity}")
+    if any(max(rel[key]) > TRAIN_TOL[key] for key in TRAIN_TOL):
+        raise AssertionError(f"kernel and plain training disagree: {parity}")
+    short = [(i, k) for i, c in enumerate(per_step) for k in need if c[k] < 1]
+    if short:
+        raise AssertionError(f"training steps launched no {short}")
+    return launches
+
+
+def _train_grads(dev) -> None:
+    """Phase 6a: the gradient of every parameter leaf (each layer's slice
+    its own leaf, as in the training step) at the seeded initial params on
+    the first microbatch of step 0, through the kernels and through the
+    plain attention path. Every leaf's gradient must agree within
+    GRAD_TOL, relative in L2 norm: a global loss or grad norm cannot see a
+    gradient that is wrong in one leaf or only in direction."""
+    import torch
+
+    from repro_torch._tree import tree_map
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.runtime.steps import make_model
+
+    rcfg = _train_config("kernel")
+    cfg, n_mb = rcfg.model, rcfg.microbatches
+    models = {b: make_model(_train_config(b), device=dev)
+              for b in ("kernel", "dense")}
+    params = models["kernel"].init_params(
+        torch.Generator(device=dev).manual_seed(0))
+    batch = {k: v[:TRAIN_BATCH // n_mb] for k, v in SyntheticLM(
+        cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=str(dev)).batch_at(0)
+        .items()}
+    grads, losses = {}, {}
+    for backend, model in models.items():
+        tree = {k: tree_map(lambda a: a.detach().requires_grad_(), v)
+                for k, v in params.items() if k != "layers"}
+        tree["layers"] = [
+            tree_map(lambda a: a[i].detach().requires_grad_(),
+                     params["layers"]) for i in range(cfg.num_layers)]
+        named = _named_leaves(tree)
+        loss, _ = model.loss(tree, batch)
+        g = torch.autograd.grad(loss, [t for _, t in named])
+        grads[backend] = dict(zip((n for n, _ in named), g))
+        losses[backend] = float(loss.detach())
+        del tree, named, loss, g
+    kg, dg = grads["kernel"], grads["dense"]
+    rel = {n: float((kg[n] - dg[n]).norm() / dg[n].norm()) for n in dg}
+    worst = max(rel, key=rel.get)
+
+    def norm(g):
+        return float(torch.stack([t.norm() for t in g.values()]).norm())
+
+    line = {"phase": "train_grads", "tokens": TRAIN_SEQ * TRAIN_BATCH // n_mb,
+            "leaves": len(rel), "losses": losses,
+            "grad_norm": {"kernel": norm(kg), "dense": norm(dg)},
+            "max_rel_diff": rel[worst], "worst_leaf": worst,
+            "tol": GRAD_TOL, "rel_diff_by_leaf": rel}
+    emit(line)
+    del grads, kg, dg, params, models
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not rel[worst] <= GRAD_TOL:
+        raise AssertionError(f"kernel and plain gradients disagree: leaf "
+                             f"{worst} at {rel[worst]} > {GRAD_TOL}")
+
+
+def _named_leaves(tree, prefix: str = "") -> list:
+    """[(dotted name, leaf)] of nested dicts and lists, in tree order."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return [(prefix[:-1], tree)]
+    return [kv for k, v in items for kv in _named_leaves(v, f"{prefix}{k}.")]
+
+
+def _eager_ms(fn, iters: int = 5) -> float:
+    """Device and host time of one eager call, CUDA events around a run of
+    calls after a warm-up; for calls of milliseconds, where the host's
+    share is small."""
+    for _ in range(2):
+        fn()
+    return _events_ms(fn, iters)
 
 
 def _err(out, want) -> float:

@@ -1,16 +1,16 @@
-"""Where a serving run's time goes on the card.
+"""Where a serving run's or a training step's time goes on the card.
 
-:func:`profile_run` runs an engine over a request set once under
-``torch.profiler`` (CPU and CUDA activity) and summarises it: decode
-steps, kernel launches per forward pass (decode step or prefill chunk),
-the device's busy share over the run (union of kernel and copy intervals
-over the run's span), device time by kernel group (matrix products, the
-three hand-written kernels, everything else), the top kernels by device
-time, the copies by direction (a pageable host-to-device copy blocks the
-host until the device drains) and the host's synchronisation calls.
-Timings under the profiler are inflated by the tracing itself.
-``chip_smoke.py`` runs it on its serving workload; on CPU tensors the
-device figures are zero.
+:func:`profile_device` runs a callable once under ``torch.profiler`` (CPU
+and CUDA activity) and summarises it: kernel launches, the device's busy
+share over the run (union of kernel and copy intervals over the run's
+span), device time by kernel group (matrix products, the hand-written
+kernels, everything else), the top kernels by device time, the copies by
+direction (a pageable host-to-device copy blocks the host until the
+device drains) and the host's synchronisation calls. :func:`profile_run`
+adds an engine run's decode steps and launches per forward pass (decode
+step or prefill chunk). Timings under the profiler are inflated by the
+tracing itself. ``chip_smoke.py`` runs them on its serving workload and
+on one training step; on CPU tensors the device figures are zero.
 """
 from __future__ import annotations
 
@@ -22,7 +22,9 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.serving.roles import sync
 
 # kernel name fragment -> group (first match wins)
-GROUPS = (("attn_fwd_kernel", "K1 flash_attention"),
+GROUPS = (("attn_fwd_kernel", "K1/B2 flash forward"),
+          ("attn_dq_kernel", "B3 flash dq"),
+          ("attn_dkv_kernel", "B4 flash dkv"),
           ("paged_attn_kernel", "K2 paged_attention"),
           ("_rmsnorm_rows", "K3 rmsnorm"),
           ("gemm", "matmul"), ("gemv", "matmul"), ("cutlass", "matmul"),
@@ -51,12 +53,12 @@ def _union_us(intervals) -> float:
     return total
 
 
-def profile_run(engine, requests) -> dict:
-    """Run ``requests`` once under the profiler and summarise it."""
+def profile_device(fn) -> tuple:
+    """Run ``fn()`` once under the profiler; returns (its result, the
+    summary of the device's activity)."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        report = engine.run(requests)
-        sync(engine.device)
+        out = fn()
     events = prof.events()
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     spans = [(e.time_range.start, e.time_range.end) for e in device]
@@ -71,6 +73,26 @@ def profile_run(engine, requests) -> dict:
                     if e.device_type == DeviceType.CPU and e.name in SYNC_CALLS)
     span_us = (max(s[1] for s in spans) - min(s[0] for s in spans)
                if spans else 0.0)
+    return out, {
+        "kernel_launches": len(kernels),
+        "device_span_ms": span_us / 1e3,
+        "device_busy_share": (_union_us(spans) / span_us) if span_us else 0.0,
+        "device_ms_by_group": {k: v / 1e3 for k, v in by_group.most_common()},
+        "top_kernels_ms": [[name[:80], us / 1e3]
+                           for name, us in by_name.most_common(8)],
+        "copies": dict(copies),
+        "sync_calls": dict(syncs),
+    }
+
+
+def profile_run(engine, requests) -> dict:
+    """Run ``requests`` once under the profiler and summarise it."""
+    def run():
+        report = engine.run(requests)
+        sync(engine.device)
+        return report
+
+    report, dev = profile_device(run)
     s = report.summary()
     forwards = s["decode_steps"] + s["prefills"]
     return {
@@ -78,12 +100,6 @@ def profile_run(engine, requests) -> dict:
         "decode_steps": s["decode_steps"], "prefills": s["prefills"],
         "makespan_s": s["makespan_s"], "tok_p50_s": s["tok_p50_s"],
         "ttft_p50_s": s["ttft_p50_s"],
-        "kernel_launches": len(kernels),
-        "launches_per_forward": len(kernels) / max(forwards, 1),
-        "device_busy_share": (_union_us(spans) / span_us) if span_us else 0.0,
-        "device_ms_by_group": {k: v / 1e3 for k, v in by_group.most_common()},
-        "top_kernels_ms": [[name[:80], us / 1e3]
-                           for name, us in by_name.most_common(8)],
-        "copies": dict(copies),
-        "sync_calls": dict(syncs),
+        "launches_per_forward": dev["kernel_launches"] / max(forwards, 1),
+        **dev,
     }

@@ -1,7 +1,11 @@
-// Causal / sliding-window GQA flash attention, forward only (kernel K1).
+// Causal / sliding-window GQA flash attention forward: kernel K1 and, with
+// an lse output, kernel B2.
 //
-// Replaces the TPU kernel src/repro/kernels/flash_attention.py::_attn_kernel
-// (entry point flash_attention_fwd). Same function: online softmax over key tiles,
+// Replaces the TPU kernels src/repro/kernels/flash_attention.py::_attn_kernel
+// (K1, the serving path's prefill) and ::_attn_kernel_lse (B2, the training
+// forward, which also writes the logsumexp rows the backward kernels of
+// flash_attention_bwd.cu read). Both run this one kernel: B2 passes an lse
+// pointer, K1 passes null. Same function: online softmax over key tiles,
 // -1e30 for masked scores, the row sum l clamped at 1e-30, every product and
 // sum in f32 whatever the input type, and the output in q's type. With
 // causal=0 a nonzero window is one-sided (only qpos - kpos < window), as in
@@ -26,29 +30,19 @@
 // query rows past Sq are not stored), so any prompt length is served.
 //
 // Layouts: q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), out like q, all contiguous;
-// q head h reads kv head h / (Hq / Hkv).
+// q head h reads kv head h / (Hq / Hkv). lse (B, Hq, Sq) f32 is m + log(l)
+// of the scaled scores, l clamped at 1e-30 as in the TPU kernel.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stddef.h>
 
+#include "attn_tile.cuh"
 #include "smem_opt_in.cuh"
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int THREADS = 256;
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using namespace attn;
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -59,8 +53,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int NC>  // head dim D = 16 * NC
 __global__ void __launch_bounds__(THREADS)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                T* __restrict__ o, int Sq, int Sk, int Hq, int Hkv, int causal, int window,
-                float scale) {
+                T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int Hq,
+                int Hkv, int causal, int window, float scale) {
   constexpr int D = 16 * NC;
   constexpr int KSTR = D + 1;   // padded K row: the score loop reads down a column
   constexpr int PSTR = BK + 1;
@@ -144,11 +138,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       float mx = NEG_INF;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int kp = k0 + cl + 16 * c;
-        bool ok = kp < Sk;
-        if (causal) ok = ok && qp >= kp;
-        if (window > 0) ok = ok && qp - kp < window;
-        if (!ok) s[r][c] = NEG_INF;
+        if (!visible(qp, k0 + cl + 16 * c, Sk, causal, window)) s[r][c] = NEG_INF;
         mx = fmaxf(mx, s[r][c]);
       }
 #pragma unroll
@@ -191,6 +181,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     const int qp = q0 + rg * 4 + r;
     if (qp >= Sq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && cl == 0) lse[(size_t(b) * Hq + h) * Sq + qp] = m[r] + logf(denom);
     T* orow = o + ((size_t(b) * Sq + qp) * Hq + h) * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) orow[cl + 16 * c] = from_f32<T>(acc[r][c] / denom);
@@ -198,8 +189,9 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 }
 
 template <typename T, int NC>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-                   int Hq, int Hkv, int causal, int window, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int Sq, int Sk, int Hq, int Hkv, int causal, int window, float scale,
+                   cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<16 * NC>();
   static SmemOptIn opt_in;  // one per kernel instance
   cudaError_t err = opt_in_smem(opt_in, attn_fwd_kernel<T, NC>, smem);
@@ -207,39 +199,58 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   attn_fwd_kernel<T, NC><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, Hq, Hkv, causal, window, scale);
+      static_cast<T*>(o), lse, Sq, Sk, Hq, Hkv, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-                       int Hq, int Hkv, int D, int causal, int window, float scale,
-                       cudaStream_t stream) {
+cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                       int Sq, int Sk, int Hq, int Hkv, int D, int causal, int window,
+                       float scale, cudaStream_t stream) {
+#define REPRO_FWD_CASE(NC)                                                                \
+  case 16 * NC:                                                                           \
+    return launch<T, NC>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, causal, window, scale, stream);
   switch (D) {
-    case 16: return launch<T, 1>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window, scale, stream);
-    case 32: return launch<T, 2>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window, scale, stream);
-    case 64: return launch<T, 4>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window, scale, stream);
-    case 128: return launch<T, 8>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window, scale, stream);
-    case 160: return launch<T, 10>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window, scale, stream);
+    REPRO_FWD_CASE(1)
+    REPRO_FWD_CASE(2)
+    REPRO_FWD_CASE(4)
+    REPRO_FWD_CASE(8)
+    REPRO_FWD_CASE(10)
     default: return cudaErrorInvalidValue;
   }
+#undef REPRO_FWD_CASE
+}
+
+cudaError_t fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
+                int Sk, int Hq, int Hkv, int D, int causal, int window, float scale, int dtype,
+                void* stream) {
+  if (Sq <= 0 || B <= 0) return cudaSuccess;
+  if (Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0
+             ? dispatch_d<float>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, D, causal, window, scale, s)
+         : dtype == 1 ? dispatch_d<__nv_bfloat16>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, D, causal,
+                                                  window, scale, s)
+                      : cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaGetLastError().
+// Kernel K1: the output only.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                          int B, int Sq, int Sk, int Hq, int Hkv, int D,
                                          int causal, int window, float scale, int dtype,
                                          void* stream) {
-  if (Sq <= 0 || B <= 0) return cudaSuccess;
-  if (Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      dtype == 0
-          ? dispatch_d<float>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, causal, window, scale, s)
-      : dtype == 1
-          ? dispatch_d<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, causal, window, scale, s)
-          : cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return static_cast<int>(
+      fwd(q, k, v, o, nullptr, B, Sq, Sk, Hq, Hkv, D, causal, window, scale, dtype, stream));
+}
+
+// Kernel B2: the output and the lse rows (B, Hq, Sq) f32.
+extern "C" int repro_flash_attention_fwd_lse(const void* q, const void* k, const void* v,
+                                             void* o, void* lse, int B, int Sq, int Sk, int Hq,
+                                             int Hkv, int D, int causal, int window, float scale,
+                                             int dtype, void* stream) {
+  return static_cast<int>(fwd(q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, Hq, Hkv, D, causal,
+                              window, scale, dtype, stream));
 }

@@ -35,6 +35,17 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SIGNATURES = {
     # q, k, v, o, B, Sq, Sk, Hq, Hkv, D, causal, window, scale, dtype, stream
     "repro_flash_attention_fwd": [_VP] * 4 + [_INT] * 8 + [_FLOAT, _INT, _VP],
+    # q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, D, causal, window, scale, dtype,
+    # stream
+    "repro_flash_attention_fwd_lse": [_VP] * 5 + [_INT] * 8
+    + [_FLOAT, _INT, _VP],
+    # q, k, v, do, lse, delta, dq, B, Sq, Sk, Hq, Hkv, D, causal, window,
+    # scale, dtype, stream
+    "repro_flash_attention_dq": [_VP] * 7 + [_INT] * 8 + [_FLOAT, _INT, _VP],
+    # q, k, v, do, lse, delta, dk, dv, B, Sq, Sk, Hq, Hkv, D, causal,
+    # window, scale, dtype, stream
+    "repro_flash_attention_dkv": [_VP] * 8 + [_INT] * 8
+    + [_FLOAT, _INT, _VP],
     # q, k_pages, v_pages, block_tables, lengths, o,
     # B, P, ps, Hq, Hkv, D, npag, scale, dtype, stream
     "repro_paged_attention_fwd": [_VP] * 6 + [_INT] * 7 + [_FLOAT, _INT, _VP],

@@ -5,7 +5,15 @@ dispatches on where its tensors lie: on the CPU it runs the kernel's plain
 version (:mod:`repro_torch.kernels.ref`); on a CUDA device it launches the
 hand-written kernel or raises. There is no fallback from a failed launch.
 
-``LAUNCHES`` counts kernel launches per wrapper. A wrapper adds one where
+``flash_attention`` and ``rmsnorm`` are differentiable. Where autograd
+needs a gradient they go through a ``torch.autograd.Function``, never
+handing back a kernel's output without a ``grad_fn``: attention runs
+kernel B2 (the forward that also writes the logsumexp rows) and, in the
+backward, B3 (dq) and B4 (dk, dv); RMSNorm runs K3 forward and a plain
+PyTorch backward from the saved input, as the JAX package has no RMSNorm
+backward kernel. Without a gradient, attention runs K1.
+
+``LAUNCHES`` counts kernel launches per kernel. A wrapper adds one where
 it launches its kernel and nowhere else, so a run that resets the counts
 before and reads them after shows which kernels its path went through.
 """
@@ -15,7 +23,8 @@ import torch
 
 from repro_torch.kernels import ref
 
-KERNELS = ("flash_attention", "paged_attention", "rmsnorm")
+KERNELS = ("flash_attention", "flash_attention_lse", "flash_attention_dq",
+           "flash_attention_dkv", "paged_attention", "rmsnorm")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -47,10 +56,60 @@ def _require_contiguous(what: str, **tensors: torch.Tensor) -> None:
         _require(t.is_contiguous(), what, f"{name} must be contiguous")
 
 
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel B2 forward (saving q, k, v, o and lse), kernels B3 and B4
+    backward; the plain versions of all three on CPU tensors. The
+    counterpart of the JAX package's ``custom_vjp``
+    (``repro/kernels/ops.py::_flash_attention``). Under
+    ``torch.utils.checkpoint`` the forward runs again at the recompute."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        if q.is_cuda:
+            from repro_torch.kernels.flash_attention import (
+                flash_attention_lse_cuda)
+            o, lse = flash_attention_lse_cuda(q, k, v, causal=causal,
+                                              window=window)
+            if o.numel():
+                LAUNCHES["flash_attention_lse"] += 1
+        else:
+            o, lse = ref.flash_attention_lse_ref(q, k, v, causal=causal,
+                                                 window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        kw = dict(causal=ctx.causal, window=ctx.window)
+        do = do.to(q.dtype)
+        if not do.is_cuda:
+            return (*ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw),
+                    None, None)
+        from repro_torch.kernels.flash_attention import (
+            flash_attention_dkv_cuda, flash_attention_dq_cuda)
+        do = do.contiguous()
+        delta = ref.attention_delta(o, do)
+        dq = flash_attention_dq_cuda(q, k, v, do, lse, delta, **kw)
+        if dq.numel():
+            LAUNCHES["flash_attention_dq"] += 1
+        dk, dv = flash_attention_dkv_cuda(q, k, v, do, lse, delta, **kw)
+        if dk.numel():
+            LAUNCHES["flash_attention_dkv"] += 1
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Kernel K1. q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D), Hq a multiple of Hkv,
-    one dtype (f32 or bf16) -> (B,Sq,Hq,D). Any Sq/Sk."""
+    """Kernel K1, or B2 with B3 and B4 in the backward where autograd needs
+    a gradient of q, k or v. q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D), Hq a
+    multiple of Hkv, one dtype (f32 or bf16) -> (B,Sq,Hq,D). Any
+    Sq/Sk."""
     what = "flash_attention"
     cuda = _on_cuda(what, q, k, v)
     _require(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape, what,
@@ -63,12 +122,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _require(q.dtype in _DTYPES and k.dtype == q.dtype == v.dtype, what,
              f"dtypes {q.dtype}/{k.dtype}/{v.dtype}; need one of {_DTYPES}")
     _require(window >= 0, what, f"window must be >= 0, got {window}")
+    if cuda:
+        from repro_torch.kernels.flash_attention import HEAD_DIMS
+        _require(D in HEAD_DIMS, what, f"head dim {D} not in {HEAD_DIMS}")
+        _require_contiguous(what, q=q, k=k, v=v)
+    if _needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window)
     if not cuda:
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    from repro_torch.kernels.flash_attention import (HEAD_DIMS,
-                                                     flash_attention_cuda)
-    _require(D in HEAD_DIMS, what, f"head dim {D} not in {HEAD_DIMS}")
-    _require_contiguous(what, q=q, k=k, v=v)
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     out = flash_attention_cuda(q, k, v, causal=causal, window=window)
     if out.numel():     # the C entry launches nothing for an empty output
         LAUNCHES["flash_attention"] += 1
@@ -117,21 +179,45 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return out
 
 
+def _rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
+                 eps: float) -> torch.Tensor:
+    if not x.is_cuda:
+        return ref.rmsnorm_ref(x, scale, eps)
+    from repro_torch.kernels.rmsnorm import rmsnorm_triton
+    out = rmsnorm_triton(x.view(-1, x.shape[-1]), scale, eps)
+    if out.numel():
+        LAUNCHES["rmsnorm"] += 1
+    return out.view(x.shape)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """Kernel K3 forward (its plain version on CPU tensors); the backward
+    in plain PyTorch from the saved input (:func:`ref.rmsnorm_bwd_ref`)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rmsnorm_fwd(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        return (*ref.rmsnorm_bwd_ref(x, scale, dy, ctx.eps), None)
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
             eps: float = 1e-5) -> torch.Tensor:
-    """Kernel K3. x (..., d) f32 or bf16; scale (d,) f32 -> x's shape and
-    dtype."""
+    """Kernel K3, differentiable in x and scale. x (..., d) f32 or bf16;
+    scale (d,) f32 -> x's shape and dtype."""
     what = "rmsnorm"
     cuda = _on_cuda(what, x, scale)
     _require(x.dim() >= 1 and scale.shape == (x.shape[-1],), what,
              f"scale{tuple(scale.shape)} does not match x{tuple(x.shape)}")
     _require(x.dtype in _DTYPES and scale.dtype == torch.float32, what,
              f"dtypes x {x.dtype} / scale {scale.dtype}")
-    if not cuda:
-        return ref.rmsnorm_ref(x, scale, eps)
-    from repro_torch.kernels.rmsnorm import rmsnorm_triton
-    _require_contiguous(what, x=x, scale=scale)
-    out = rmsnorm_triton(x.view(-1, x.shape[-1]), scale, eps)
-    if out.numel():
-        LAUNCHES["rmsnorm"] += 1
-    return out.view(x.shape)
+    if cuda:
+        _require_contiguous(what, x=x, scale=scale)
+    if _needs_grad(x, scale):
+        return _RMSNorm.apply(x, scale, eps)
+    return _rmsnorm_fwd(x, scale, eps)

@@ -1,4 +1,6 @@
-"""Plain PyTorch versions of the three kernels of the serving path, and
+"""Plain PyTorch versions of the port's kernels (the serving path's
+forward kernels and the training path's attention forward-with-lse, dq
+and dkv kernels), and
 the plain attention functions that the model layer also calls directly
 (``dense_attention`` in chunked prefill, ``decode_attention_simple`` in
 continuous decode; ``repro_torch.models.attention`` re-exports them). The
@@ -85,3 +87,102 @@ def rmsnorm_ref(x, scale, eps: float = 1e-5):
     xf = x.float()
     ms = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * scale).to(x.dtype)
+
+
+# ------------------------------------------------------------ training
+def _scaled_scores(q, k, causal: bool, window: int):
+    """f32 scores of the pre-scaled q against k per q head, (B,Hq,Sq,Sk),
+    and the (Sq,Sk) mask; GQA by repeating each kv head over its group."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qf = q.float().transpose(1, 2) * (1.0 / math.sqrt(D))   # (B,Hq,Sq,D)
+    kf = k.float().transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= qpos - kpos < window
+    return qf @ kf.transpose(-1, -2), mask
+
+
+def flash_attention_lse_ref(q, k, v, *, causal: bool = True,
+                            window: int = 0):
+    """The forward-with-lse kernel's function: K1's output and the
+    logsumexp rows ``lse`` (B,Hq,Sq) f32 of the scaled, masked scores
+    (masked scores -1e30, as in the kernel)."""
+    s, mask = _scaled_scores(q, k, causal, window)
+    lse = torch.logsumexp(s.masked_fill(~mask, NEG_INF), dim=-1)
+    return flash_attention_ref(q, k, v, causal=causal, window=window), lse
+
+
+def _probs_and_ds(q, k, v, do, lse, delta, causal: bool, window: int):
+    """p = where(mask, exp(s - lse), 0) and ds = p * (dO V^T - delta),
+    each (B,Hq,Sq,Sk) f32, with the TPU kernels' formulas."""
+    s, mask = _scaled_scores(q, k, causal, window)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    g = q.shape[2] // k.shape[2]
+    vf = v.float().transpose(1, 2).repeat_interleave(g, dim=1)
+    dp = do.float().transpose(1, 2) @ vf.transpose(-1, -2)
+    return p, p * (dp - delta[..., None])
+
+
+def flash_attention_dq_ref(q, k, v, do, lse, delta, *, causal: bool = True,
+                           window: int = 0):
+    """Kernel B3's function (``_dq_kernel``): dq = ds K * scale, in q's
+    dtype. do like q; lse and delta (B,Hq,Sq) f32."""
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, window)
+    kf = k.float().transpose(1, 2).repeat_interleave(
+        q.shape[2] // k.shape[2], dim=1)
+    dq = (ds @ kf) * (1.0 / math.sqrt(q.shape[-1]))
+    return dq.transpose(1, 2).to(q.dtype)
+
+
+def flash_attention_dkv_ref(q, k, v, do, lse, delta, *, causal: bool = True,
+                            window: int = 0):
+    """Kernel B4's function (``_dkv_kernel`` and the group sum after it):
+    dk = ds^T (q * scale), dv = p^T dO per q head in f32, summed over each
+    GQA group, in k's and v's dtypes."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, window)
+    qs = q.float().transpose(1, 2) * (1.0 / math.sqrt(D))
+    dk = (ds.transpose(-1, -2) @ qs).reshape(B, Hkv, Hq // Hkv, Sk, D).sum(2)
+    dv = (p.transpose(-1, -2) @ do.float().transpose(1, 2)).reshape(
+        B, Hkv, Hq // Hkv, Sk, D).sum(2)
+    return dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
+
+
+def attention_delta(o, do):
+    """delta = rowsum(dO * O) in f32, (B,Sq,Hq,D) -> (B,Hq,Sq), the plain
+    reduction the backward kernels read (the TPU wrapper computes it
+    outside its kernels too)."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            window: int = 0):
+    """The backward of the flash attention, with the TPU kernels' formulas
+    (``repro/kernels/flash_attention.py`` ``flash_attention_bwd``), all
+    in f32: q scaled before QK^T, ``p = where(mask, exp(s - lse), 0)``,
+    ``delta = rowsum(do * o)``, ``ds = p * (dp - delta)``,
+    ``dq = ds K * scale``, ``dk = ds^T (q * scale)``, ``dv = p^T do``, dk
+    and dv summed over each GQA group. Returns (dq, dk, dv) in q's, k's
+    and v's dtypes."""
+    kw = dict(causal=causal, window=window)
+    delta = attention_delta(o, do)
+    return (flash_attention_dq_ref(q, k, v, do, lse, delta, **kw),
+            *flash_attention_dkv_ref(q, k, v, do, lse, delta, **kw))
+
+
+def rmsnorm_bwd_ref(x, scale, dy, eps: float = 1e-5):
+    """Gradient of :func:`rmsnorm_ref` from its saved input: (dx in x's
+    dtype, dscale f32). With r = rsqrt(mean(x^2) + eps) and g = dy*scale:
+    dx = r*g - x * r^3 * mean(g*x), dscale = sum over rows of dy*x*r."""
+    xf, dyf = x.float(), dy.float()
+    r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    g = dyf * scale
+    dx = r * g - xf * r.pow(3) * (g * xf).mean(-1, keepdim=True)
+    dscale = (dyf * xf * r).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dscale

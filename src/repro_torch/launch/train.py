@@ -1,0 +1,103 @@
+"""Training launcher of the port:
+``python -m repro_torch.launch.train --arch <id> [...]`` -- trains on the
+CUDA device through :func:`repro_torch.runtime.steps.build_train_step`
+and :func:`repro_torch.runtime.train_loop.run`, on synthetic batches.
+
+The flags are those of ``repro.launch.train`` (the reduced config by
+default, ``--full`` for the full-size architecture), plus
+``--num-layers`` (cut the depth of a ``--full`` run: one card holds the
+f32 params, gradients, master copy and AdamW moments of about 8 of
+granite-3-8b's 40 layers). Attention runs through the hand kernels.
+``--ckpt-dir`` raises: checkpointing comes with a later slice of the
+port.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+
+import torch
+
+from repro_torch.configs import RunConfig, ShapeConfig, get_arch, reduced
+from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.models import resolve_device
+from repro_torch.runtime import train_loop
+from repro_torch.runtime.steps import build_train_step
+
+
+def build_trainer(arch: str, *, steps: int, batch: int, seq: int,
+                  use_reduced: bool = True, reduce_kw=None,
+                  num_layers: int = 0, microbatches: int = 1,
+                  lr: float = 3e-4, device="cuda"):
+    """The launcher's plumbing, importable so tests and ``chip_smoke.py``
+    share it: f32 params from a seeded ``torch.Generator`` on ``device``,
+    their AdamW state, and the step and data of the reference launcher's
+    run config. Returns (train_step, params, opt_state, data, rcfg)."""
+    cfg = get_arch(arch)
+    if use_reduced:
+        cfg = reduced(cfg, **(reduce_kw or {}))
+    if num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    device = resolve_device(device)
+    rcfg = RunConfig(model=cfg, shape=ShapeConfig("custom", "train", seq,
+                                                  batch),
+                     microbatches=microbatches, attention_backend="kernel",
+                     learning_rate=lr, param_dtype="float32",
+                     warmup_steps=max(10, steps // 10))
+    step_fn, model, opt = build_train_step(rcfg, total_steps=steps,
+                                           device=device)
+    params = model.init_params(
+        torch.Generator(device=device).manual_seed(rcfg.seed))
+    opt_state = opt.init(params)
+    data = SyntheticLM(cfg, batch, seq, seed=rcfg.seed, device=str(device))
+    return step_fn, params, opt_state, data, rcfg
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--layers", type=int, default=4,
+                    help="layers of the reduced config")
+    ap.add_argument("--d-model", type=int, default=256,
+                    help="width of the reduced config")
+    ap.add_argument("--num-layers", type=int, default=0,
+                    help="cut the depth of the (full or reduced) config "
+                         "to this many layers (0 = keep it)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--log-every", type=int, default=10)
+    args = ap.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+
+    step_fn, params, opt_state, data, _ = build_trainer(
+        args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
+        use_reduced=args.reduced,
+        reduce_kw=dict(layers=args.layers, d_model=args.d_model),
+        num_layers=args.num_layers, microbatches=args.microbatches,
+        lr=args.lr)
+    result = train_loop.run(step_fn, params, opt_state, data.batch_at,
+                            total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                            ckpt_every=args.ckpt_every)
+    for i, m in enumerate(result.metrics):
+        if i % args.log_every == 0 or i == len(result.metrics) - 1:
+            print(f"  step {i}: loss={m['loss']:.4f} "
+                  f"grad_norm={m['grad_norm']:.4f} "
+                  f"step_s={m['step_s']:.3f}")
+    print(f"final_step={result.final_step} "
+          f"first_loss={result.losses[0]:.4f} "
+          f"last_loss={result.losses[-1]:.4f} "
+          f"resumed_from={result.resumed_from} retries={result.retries} "
+          f"stragglers={result.stragglers}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

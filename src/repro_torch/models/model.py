@@ -1,9 +1,9 @@
 """Top-level model API: ``build(cfg, rt, device=...) -> Model`` with
-init/prefill/decode and the paged serving triple.
+init/loss/prefill/decode and the paged serving triple.
 
 The PyTorch counterpart of ``repro/models/model.py`` for the dense family
-(``batch = {"tokens": (B,S) int}``). ``loss`` comes with the training
-slice; the other families are ported in later slices.
+(``batch = {"tokens": (B,S) int, "labels": (B,S) int}``); the other
+families are ported in later slices.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch._tree import layer_at
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (apply_norm, embed_tokens,
@@ -45,6 +46,7 @@ class Model:
     cfg: ModelConfig
     rt: Runtime
     init_params: Callable   # (generator) -> params
+    loss: Callable          # (params, batch) -> (loss, aux)
     prefill: Callable       # (params, batch, cache_span) -> (logits, caches)
     decode_step: Callable   # (params, caches, token, pos) -> (logits, caches)
     cache_init: Callable    # (batch, max_len) -> zeroed caches
@@ -83,6 +85,29 @@ def build(cfg: ModelConfig, rt: Runtime = Runtime(),
         logits = lm_logits(params["embed"], x_last, cfg.tie_embeddings,
                            true_vocab=cfg.vocab_size)
         return logits.float()[..., :cfg.vocab_size]
+
+    def loss(params, batch):
+        """Mean next-token NLL over ``batch["labels"]`` (B,S), from f32
+        logits over the padded vocab (padded entries masked to -1e30).
+        Returns (total, {"nll", "aux_loss"}), total = nll + aux_loss.
+        ``params["layers"]`` is the stacked tree or a list of per-layer
+        trees (the training step's leaves, see
+        :func:`repro_torch.runtime.steps.build_train_step`)."""
+        tokens = batch["tokens"]
+        x = embed_tokens(params["embed"], tokens).to(compute_dtype)
+        positions = torch.arange(tokens.shape[1], device=x.device)[None]
+        layers = params["layers"]
+        if not isinstance(layers, list):
+            layers = [layer_at(layers, i)
+                      for i in range(tfm.num_layers_of(layers))]
+        x, aux = tfm.stack_apply(layers, x, cfg, rt, positions)
+        x = apply_norm(params["final_norm"], x, cfg.norm)
+        logits = lm_logits(params["embed"], x, cfg.tie_embeddings,
+                           true_vocab=cfg.vocab_size).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+        nll = (logz - gold).mean()
+        return nll + aux["aux_loss"], {"nll": nll, **aux}
 
     def prefill(params, batch, cache_span: int):
         """batch["tokens"]: (B,S). Returns last-position logits (B,1,V)
@@ -131,7 +156,7 @@ def build(cfg: ModelConfig, rt: Runtime = Runtime(),
         return {"layers": tfm.cache_init(cfg, cfg.num_layers, batch,
                                          max_len, dtype, device)}
 
-    return Model(cfg=cfg, rt=rt, init_params=init_params,
+    return Model(cfg=cfg, rt=rt, init_params=init_params, loss=loss,
                  prefill=prefill, decode_step=decode_step,
                  cache_init=cache_init, prefill_chunk=prefill_chunk,
                  decode_step_paged=decode_step_paged,

@@ -1,5 +1,6 @@
-"""Decoder stack of the dense family: layer init, prefill, decode and the
-paged-KV serving triple.
+"""Decoder stack of the dense family: layer init, the training forward
+(``stack_apply``, with remat), prefill, decode and the paged-KV serving
+triple.
 
 The PyTorch counterpart of the dense, full-attention subset of
 ``repro/models/transformer.py``. Parameters keep the JAX layout: a
@@ -14,6 +15,7 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._tree import layer_at, tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
@@ -27,11 +29,20 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
 class Runtime:
     """Execution knobs threaded through the apply functions.
 
-    ``attention_backend="kernel"`` sends one-shot prefill through kernel
-    K1 and paged decode through kernel K2 (each takes its plain version on
-    CPU tensors); ``"dense"`` uses the plain PyTorch attention for both.
-    RMSNorm always goes through kernel K3 on CUDA tensors."""
+    ``attention_backend="kernel"`` sends full-sequence attention through
+    the flash kernels (K1 in one-shot prefill; B2 forward with B3 and B4
+    backward in training) and paged decode through kernel K2 (each takes
+    its plain version on CPU tensors); ``"dense"`` uses the plain PyTorch
+    attention for all of them. RMSNorm always goes through kernel K3 on
+    CUDA tensors.
+
+    ``remat`` recomputes each layer (or block of ``layers_per_block``
+    layers, when that divides the depth) in the backward of
+    :func:`stack_apply` instead of keeping its activations, as the JAX
+    package's ``jax.checkpoint`` over its layer scan."""
     attention_backend: str = "kernel"
+    remat: bool = True
+    layers_per_block: int = 1
 
 
 def _rope_q_k(cfg: ModelConfig, q, k, positions):
@@ -89,6 +100,38 @@ def layer_apply(p, x, cfg: ModelConfig, rt: Runtime, positions, *,
         pad = (0, 0, 0, 0, 0, cache_span - k.shape[1])
         cache_entry = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
     return _mlp_block(p, x, cfg), cache_entry
+
+
+def stack_apply(layers: list, x, cfg: ModelConfig, rt: Runtime, positions,
+                *, causal: bool = True):
+    """The layer stack's forward, for the loss, over ``layers``, a list of
+    per-layer trees (:func:`~repro_torch._tree.layer_at` of the stacked
+    tree, or the training step's per-layer leaves). Returns (x, aux), aux
+    holding the auxiliary loss summed over layers (0: the dense family
+    has none).
+
+    With ``rt.remat`` and autograd recording, each block of
+    ``rt.layers_per_block`` layers (one layer when that does not divide
+    the depth) runs under ``torch.utils.checkpoint``: only block inputs
+    are kept, and the block's forward runs again in the backward."""
+    L = len(layers)
+    k = max(1, rt.layers_per_block)
+    if L % k:
+        k = 1
+
+    def block(x, lo: int):
+        for p in layers[lo:lo + k]:
+            x, _ = layer_apply(p, x, cfg, rt, positions, causal=causal)
+        return x
+
+    remat = rt.remat and torch.is_grad_enabled()
+    for lo in range(0, L, k):
+        # no RNG runs inside a layer, and stashing the CUDA RNG state
+        # would synchronise the host with the device at every block
+        x = (checkpoint(block, x, lo, use_reentrant=False,
+                        preserve_rng_state=False) if remat else block(x, lo))
+    return x, {"aux_loss": torch.zeros((), dtype=torch.float32,
+                                       device=x.device)}
 
 
 def stack_prefill(stacked, x, cfg: ModelConfig, rt: Runtime, positions, *,

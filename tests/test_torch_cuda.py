@@ -2,7 +2,7 @@
 PyTorch version on a CUDA device, over the shapes the CPU cannot reach
 (ragged sequence edges, sliding windows, GQA groups, null-padded and
 all-null block tables), plus the reduced model and engines through the
-kernels.
+kernels, and one training backward through them.
 
 The CPU tests (``tests/test_torch_*.py``) hold the plain versions to the
 JAX package; these hold the kernels to the plain versions. They import
@@ -40,8 +40,8 @@ def _rand(rng, shape, dtype, dev):
 
 def _close(out, want, dtype):
     torch.cuda.synchronize()
-    np.testing.assert_allclose(out.float().cpu().numpy(),
-                               want.float().cpu().numpy(),
+    np.testing.assert_allclose(out.detach().float().cpu().numpy(),
+                               want.detach().float().cpu().numpy(),
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
@@ -144,3 +144,74 @@ def test_reduced_engines_agree_through_the_kernels(dev):
     toks_c = {m.rid: m.tokens.tolist() for m in rc.metrics}
     toks_p = {m.rid: m.tokens.tolist() for m in rp.metrics}
     assert toks_c == toks_p
+
+
+# ----------------------------------------------------------- training
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("sq,sk,hq,hkv,d,causal,window", [
+    (256, 256, 8, 2, 128, True, 0),      # tileable, GQA
+    (200, 200, 4, 1, 64, True, 96),      # ragged, MQA, sliding window
+    (130, 130, 4, 4, 32, False, 0),      # ragged, non-causal
+])
+def test_training_kernels_match_plain(dev, dtype, sq, sk, hq, hkv, d, causal,
+                                      window):
+    """B2 (forward with lse), B3 (dq) and B4 (dk, dv) against their plain
+    versions, through the autograd Function of ops.flash_attention."""
+    rng = np.random.default_rng(sq + hq + d + int(causal))
+    kw = dict(causal=causal, window=window)
+    q = _rand(rng, (2, sq, hq, d), dtype, dev).requires_grad_()
+    k = _rand(rng, (2, sk, hkv, d), dtype, dev).requires_grad_()
+    v = _rand(rng, (2, sk, hkv, d), dtype, dev).requires_grad_()
+    do = _rand(rng, (2, sq, hq, d), dtype, dev)
+    ops.reset_launches()
+    o = ops.flash_attention(q, k, v, **kw)
+    dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+    assert {n: ops.LAUNCHES[n] for n in ("flash_attention",
+            "flash_attention_lse", "flash_attention_dq",
+            "flash_attention_dkv")} == {"flash_attention": 0,
+                                        "flash_attention_lse": 1,
+                                        "flash_attention_dq": 1,
+                                        "flash_attention_dkv": 1}
+    with torch.no_grad():
+        o_want, lse_want = ref.flash_attention_lse_ref(q, k, v, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, o_want, lse_want, do, **kw)
+    _close(o, o_want, dtype)
+    for got, w in zip((dq, dk, dv), want):
+        assert got.dtype == dtype
+        _close(got, w, dtype)
+    from repro_torch.kernels.flash_attention import flash_attention_lse_cuda
+    _, lse = flash_attention_lse_cuda(q.detach(), k.detach(), v.detach(), **kw)
+    _close(lse, lse_want, F32)
+
+
+def test_reduced_loss_grads_through_the_kernels_match_dense(dev):
+    """One loss.backward() of reduced granite-3-8b through B2-B4 and K3
+    gives the gradients of the plain attention path."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import Runtime, build
+
+    dev = torch.device("cuda", 0)          # the generator's device, resolved
+    cfg = reduced(get_arch("granite-3-8b"), layers=2, d_model=256)
+    batch = SyntheticLM(cfg, 2, 96, mean_doc_len=32, device="cuda").batch_at(0)
+    grads = {}
+    for backend in ("kernel", "dense"):
+        model = build(cfg, Runtime(attention_backend=backend), device=dev)
+        params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_()
+        ops.reset_launches()
+        loss, _ = model.loss(params, batch)
+        loss.backward()
+        grads[backend] = (float(loss), [t.grad for t in leaves])
+        if backend == "kernel":
+            assert ops.LAUNCHES["flash_attention_lse"] == 4   # 2 layers, remat
+            assert ops.LAUNCHES["flash_attention_dq"] == 2
+            assert ops.LAUNCHES["flash_attention_dkv"] == 2
+            assert ops.LAUNCHES["rmsnorm"] == 9               # 5 + 4 recomputed
+    (lk, gk), (ld, gd) = grads["kernel"], grads["dense"]
+    np.testing.assert_allclose(lk, ld, rtol=1e-5)
+    for a, b in zip(gk, gd):
+        _close(a, b, F32)

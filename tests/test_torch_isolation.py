@@ -39,7 +39,8 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 
 def test_launcher_import_pulls_in_no_jax():
-    code = ("import sys, repro_torch.launch.serve, repro_torch.bridge, "
+    code = ("import sys, repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.bridge, "
             "repro_torch.kernels.rmsnorm, repro_torch.kernels.flash_attention, "
             "repro_torch.kernels.paged_attention; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
