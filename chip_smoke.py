@@ -10,7 +10,9 @@ and needs one card. Phases, one JSON line each:
 1. device: the card's name and power limit (``nvidia-smi``), the build
    time of the CUDA library and the Triton compile time;
 2. kernels against their plain PyTorch versions at the shapes of the
-   serving path, in f32 (tolerance 5e-4) and bf16 (2e-2): max abs error,
+   serving path (K1 and K3 at granite-3-8b's and at hymba-1.5b's, K1 with
+   hymba's 1024-token window at S128 and S1100), in f32 (tolerance 5e-4)
+   and bf16 (2e-2): max abs error,
    the device time of the kernel, of the plain version and of one library
    call where PyTorch has one (each from a CUDA graph of back-to-back
    calls), the kernel's eager call time (host included), and the bound
@@ -26,6 +28,17 @@ and needs one card. Phases, one JSON line each:
    5e-4 f32, 2e-2 bf16, on the relative error), times and bounds as in
    phase 2; PyTorch has no call that computes dq or dk/dv alone, so the
    line also gives SDPA's forward plus backward beside B2 + B3 + B4;
+2c. kernel B6 (chunked WKV6) against its plain version on the same
+   inputs: rwkv6 mode at rwkv6-3b's prefill shape (B1 T128 H40 K64 V64,
+   with u, mild decay: every chunk on the rescaled product), the same at
+   a ragged T125, SSD mode at hymba-1.5b's (B1 T128 H25 K16 V64, its
+   per-head decay a broadcast view, past the range bound: the per-pair
+   fallback), and B1 T4096 H40 K64 V64 in both decay regimes, in f32 and
+   bf16: error over the plain result's max magnitude (tolerance 5e-4
+   f32, 2e-2 bf16), times and the bound as in phase 2 (operations and
+   branch counted from this run's decays), and at T128 the error against
+   the exact per-token recurrence (``wkv6_ref``; 1e-3 f32, 5e-2 bf16);
+   SSD mode also at T1100, the long prompts of phase 3c, against both;
 3. serving at full width and full depth: granite-3-8b, 40 layers, f32,
    random weights from a seeded ``torch.Generator``, through the port's
    ``build_engine`` for the continuous and the paged scheduler on one
@@ -37,6 +50,27 @@ and needs one card. Phases, one JSON line each:
    ``torch.profiler`` (``repro_torch.core.profile``): launches per
    forward pass, the device's busy share, device time by kernel group,
    copies and synchronisations;
+3b/3c. serving at full width and full depth: rwkv6-3b (32 layers,
+   d_model 2560, 40 heads of 64, LayerNorm) and hymba-1.5b (32 layers,
+   d_model 1600, GQA 25:5, sliding window 1024, SSD heads with N=16),
+   f32, seeded random weights, through the static and the continuous
+   engine on phase 3's request mix (hymba's adds two prompts of 1100
+   tokens, past its window, so K1's window mask, the prefill ring and
+   decode's ring slot run). Timed in this process with cuBLAS's default
+   workspace: per engine each kernel's launches (B6 32 per prefill; K1 32
+   per prefill in hymba, none in rwkv6; K3 once per norm), latencies and
+   peak memory, then the continuous engine's first four requests under
+   the profiler. Then, in a child process without a cuBLAS workspace
+   (``_serve_ssm_in_child``), the same runs again with identical greedy
+   tokens per rid across the engines, and on the longest prompt every
+   layer through the kernels against the plain path (dense attention,
+   chunked linear attention) on the same input, within 1e-3 of the
+   layer's update (its output minus its input, max magnitude); the
+   prefill logits of the kernels, the plain path and the exact per-token
+   recurrence pairwise within ``LOGIT_CEILING`` of their max magnitude
+   (hymba 1e-3; rwkv6-3b's random init is chaotic over its depth in f32),
+   the kernels within 1e-3 of the plain path or, where larger, within
+   what the plain path and the recurrence differ by;
 6. train: granite-3-8b at full width cut to 8 layers (f32 params,
    gradients, master copy and AdamW moments of 40 layers do not fit one
    80 GB card). First (6a) the gradient of every parameter leaf at the
@@ -51,7 +85,7 @@ and needs one card. Phases, one JSON line each:
    One more kernel step, after the counts are read, runs under
    ``torch.profiler`` (device time by kernel group, busy share);
 7. the ``kernels`` summary line, with the launch counts of the serving
-   (phase 3) and training (phase 6) runs.
+   (phases 3, 3b, 3c) and training (phase 6) runs.
 
 Any failure raises and exits non-zero. Without a CUDA device, or outside a
 checkout, it exits non-zero before printing any result. The last line of
@@ -62,16 +96,28 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+T0 = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 ARCH = "granite-3-8b"
+SSM_ARCHS = {"rwkv6-3b": 0, "hymba-1.5b": 1100}   # arch -> long prompt
+SSM_CHILD_FLAG = "--serve-ssm"   # runs phase 3b or 3c alone, in a child
+EXACT_TOL = {"float32": 1e-3, "bfloat16": 5e-2}   # B6 vs the recurrence
+LOGIT_TOL = 1e-3    # kernels vs plain path, over the logits' max magnitude
+# Ceiling on the difference of the prefill logits, over their max magnitude,
+# between any two of the kernels, the plain path and the exact per-token
+# recurrence. rwkv6-3b at its random init amplifies last-bit differences over
+# its 32 layers in f32: on the H100 the two exact plain methods differ by
+# 4.5e-2 (PERF.md, Findings), hymba-1.5b's by 7.2e-5.
+LOGIT_CEILING = {"rwkv6-3b": 0.1, "hymba-1.5b": LOGIT_TOL}
 TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 3, 2, 4096
 TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-5}   # relative, kernel vs plain
 GRAD_TOL = 1e-4   # per leaf, |g_kernel - g_plain| / |g_plain| (L2 norms)
@@ -97,11 +143,15 @@ KERNELS = {
     "rmsnorm": dict(
         route="triton", source="src/repro_torch/kernels/rmsnorm.py",
         replaces="src/repro/kernels/rmsnorm.py:19"),
+    "wkv6": dict(
+        route="cuda", source="src/repro_torch/csrc/wkv6.cu",
+        replaces="src/repro/kernels/rwkv6.py:46"),
 }
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    print(json.dumps({**obj, "elapsed_s": time.perf_counter() - T0}),
+          flush=True)
 
 
 def bound(flops: float, nbytes: float, dtype: str):
@@ -122,6 +172,12 @@ def main() -> int:
               "smoke test needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    if sys.argv[1:2] == [SSM_CHILD_FLAG]:      # phase 3b or 3c, see below
+        dev = torch.device("cuda", 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _serve_ssm_parity(dev, sys.argv[2])
+        return 0
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build, ops, ref
@@ -155,9 +211,13 @@ def main() -> int:
 
     # ----------------------------------------------------------- 2 kernels
     gen = torch.Generator(device=dev).manual_seed(0)
+    gen_hymba = torch.Generator(device=dev).manual_seed(1)
 
-    def rand(shape, dtype):
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    def rand(shape, dtype, hymba=False):
+        # the lines at hymba-1.5b's shapes draw from their own stream, so
+        # the other lines keep the inputs they had before those were added
+        return torch.randn(shape, generator=gen_hymba if hymba else gen,
+                           device=dev).to(dtype)
 
     summary = {}   # kernel -> its f32 line at the serving path's shape
     failures = []
@@ -177,28 +237,43 @@ def main() -> int:
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
         isz = torch.finfo(dtype).bits // 8
-        # K1: one-shot prefill, granite's GQA 32:8 at head dim 128
-        for S in (128, 125, 2048):
-            B, Hq, Hkv, D = 1, 32, 8, 128
-            q, k, v = (rand((B, S, h, D), dtype) for h in (Hq, Hkv, Hkv))
-            out = ops.flash_attention(q, k, v, causal=True)
-            want = ref.flash_attention_ref(q, k, v, causal=True)
+        # K1: one-shot prefill, granite's GQA 32:8 at head dim 128, and
+        # hymba-1.5b's GQA 25:5 at head dim 64 with its 1024-token window
+        # (S1100: the long prompts of phase 3c, past the window)
+        for S, Hq, Hkv, D, W in ((128, 32, 8, 128, 0), (125, 32, 8, 128, 0),
+                                 (2048, 32, 8, 128, 0),
+                                 (128, 25, 5, 64, 1024),
+                                 (1100, 25, 5, 64, 1024)):
+            B = 1
+            kw = dict(causal=True, window=W)
+            q, k, v = (rand((B, S, h, D), dtype, hymba=bool(W))
+                       for h in (Hq, Hkv, Hkv))
+            out = ops.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            pairs = S * (S + 1) // 2
+            pos = torch.arange(S, device=dev)
+            keep = pos[:, None] >= pos[None, :]
+            if W:
+                keep &= pos[:, None] - pos[None, :] < W
+            pairs = int(keep.sum())
             b_ms, b_by = bound(4 * B * Hq * D * pairs,
                                isz * B * S * D * (2 * Hq + 2 * Hkv), dname)
             record({
                 "phase": "kernel", "kernel": "flash_attention",
-                "shape": f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} causal",
+                "shape": f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} causal"
+                         + (f" window{W}" if W else ""),
                 "dtype": dname, "max_abs_err": _err(out, want),
                 "tol": TOL[dname],
-                **_times(lambda: ops.flash_attention(q, k, v, causal=True),
-                         lambda: ref.flash_attention_ref(q, k, v, causal=True),
+                **_times(lambda: ops.flash_attention(q, k, v, **kw),
+                         lambda: ref.flash_attention_ref(q, k, v, **kw),
                          lambda: F.scaled_dot_product_attention(
-                             qt, kt, vt, is_causal=True, enable_gqa=True)),
-                "library": "scaled_dot_product_attention(enable_gqa=True)",
+                             qt, kt, vt, is_causal=not W,
+                             attn_mask=keep if W else None, enable_gqa=True)),
+                "library": "scaled_dot_product_attention("
+                           + ("attn_mask" if W else "is_causal")
+                           + ", enable_gqa=True)",
                 "bound_ms": b_ms, "bound_by": b_by},
-                main_path=(S == 128 and dname == "float32"))
+                main_path=(S == 128 and Hq == 32 and dname == "float32"))
         # K2: paged decode, 4 rows, 16-token pages in shuffled order
         for ctx in (160, 4096):
             B, Hq, Hkv, D, ps = 4, 32, 8, 128, 16
@@ -230,10 +305,10 @@ def main() -> int:
                 "bound_ms": b_ms, "bound_by": b_by},
                 main_path=(ctx == 160 and dname == "float32"))
         # K3: RMSNorm at granite's width (128 rows = one prompt's prefill)
-        for rows in (128, 512):
-            d = 4096
-            x = rand((rows, d), dtype)
-            scale = rand((d,), torch.float32)
+        # and at hymba-1.5b's (a 128-token and an 1100-token prefill)
+        for rows, d in ((128, 4096), (512, 4096), (128, 1600), (1100, 1600)):
+            x = rand((rows, d), dtype, hymba=d == 1600)
+            scale = rand((d,), torch.float32, hymba=d == 1600)
             scale_lib = scale.to(dtype)
             out = ops.rmsnorm(x, scale)
             want = ref.rmsnorm_ref(x, scale)
@@ -247,8 +322,9 @@ def main() -> int:
                          lambda: F.rms_norm(x, (d,), weight=scale_lib,
                                             eps=1e-5)),
                 "library": "rms_norm", "bound_ms": b_ms, "bound_by": b_by},
-                main_path=(rows == 128 and dname == "float32"))
+                main_path=(rows == 128 and d == 4096 and dname == "float32"))
     _train_kernels(rand, record)
+    _wkv6_kernels(rand, record)
     torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
@@ -257,6 +333,12 @@ def main() -> int:
     launches = _serve(dev)     # phases 3 to 5; frees the served model
     gc.collect()
     torch.cuda.empty_cache()
+    for arch in SSM_ARCHS:                       # phases 3b, 3c
+        launches.update(_serve_ssm(dev, arch))   # timed; frees its model
+        gc.collect()
+        torch.cuda.empty_cache()
+        _serve_ssm_in_child(arch)                # tokens and logits
+
     launches["train"] = _train(dev)   # phase 6
 
     # ----------------------------------------------------------- 7 kernels
@@ -266,7 +348,11 @@ def main() -> int:
             **{k: launches["train"][k] for k in (
                 "flash_attention_lse", "flash_attention_dq",
                 "flash_attention_dkv")},
-            "rmsnorm": min(launches[e]["rmsnorm"] for e in launches)}
+            "rmsnorm": min(launches[e]["rmsnorm"] for e in (
+                "continuous", "paged", "train", "hymba-1.5b:static",
+                "hymba-1.5b:continuous")),
+            "wkv6": min(launches[f"{a}:{e}"]["wkv6"] for a in SSM_ARCHS
+                        for e in ("static", "continuous"))}
     line = {"kernels": [
         {"name": name, **meta, "launches": total[name],
          "max_abs_err": summary[name]["max_abs_err"],
@@ -298,7 +384,6 @@ def _serve(dev) -> dict:
     # ------------------------------------------------------------- 3 serve
     from repro_torch._tree import tree_leaves
     from repro_torch.configs import get_arch
-    from repro_torch.data.pipeline import synth_requests
     from repro_torch.launch.serve import build_engine
     from repro_torch.models import Runtime, build
 
@@ -314,11 +399,7 @@ def _serve(dev) -> dict:
           "init_s": time.perf_counter() - t0})
 
     prompt_len, budget_max = 128, 32
-    reqs = synth_requests(cfg, 8, prompt_len, max_new_tokens=(2, budget_max))
-    short = synth_requests(cfg, 4, prompt_len - 3, max_new_tokens=5, seed=1)
-    for r in short:
-        r.rid += 100
-    reqs += short
+    reqs = _request_mix(cfg)
     common = dict(batch=4, prompt_len=prompt_len, max_new_tokens=budget_max,
                   use_reduced=False, params=params, device=dev)
     engines = {
@@ -389,6 +470,347 @@ def _serve(dev) -> dict:
     for name, eng in engines.items():
         emit({"phase": "profile", **profile_run(eng, reqs)})
     return launches
+
+
+def _request_mix(cfg, long_len: int = 0) -> list:
+    """The serving phases' burst: 8 prompts of 128 tokens with decode
+    budgets cycling (2, 32), 4 of 125 tokens with budget 5 and, with
+    ``long_len``, 2 of ``long_len`` tokens with budgets (8, 16). Sorted
+    by rid, each group fills whole lockstep batches of 4 (the static
+    engine needs one prompt length per batch) or ends the run."""
+    from repro_torch.data.pipeline import synth_requests
+    reqs = synth_requests(cfg, 8, 128, max_new_tokens=(2, 32))
+    groups = [(4, 125, 5)] + ([(2, long_len, (8, 16))] if long_len else [])
+    for g, (n, plen, budget) in enumerate(groups, start=1):
+        more = synth_requests(cfg, n, plen, max_new_tokens=budget, seed=g)
+        for r in more:
+            r.rid += 100 * g
+        reqs += more
+    return reqs
+
+
+def _serve_ssm_in_child(arch: str) -> None:
+    """Runs the parity half of phase 3b or 3c (``_serve_ssm_parity``) in a
+    child process without a cuBLAS workspace, so without split-K, which
+    cuBLAS chooses by row count: the static engine (prefills of 4 rows)
+    and the continuous one (of 1 row) then split their products alike.
+    rwkv6-3b at its random init is chaotic over its 32 layers in f32 (two
+    exact plain methods differ by a few percent in its logits, see the
+    parity line), enough to flip greedy tokens between the two (PERF.md,
+    Findings). The setting must precede cuBLAS's first use, hence the
+    child; the timed runs stay in this process, with the default setting
+    that the port's users run. Echoes the child's phase lines."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":0:0")
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          SSM_CHILD_FLAG, arch], env=env, cwd=ROOT,
+                         stdout=subprocess.PIPE, text=True, timeout=900)
+    for line in out.stdout.splitlines():
+        print(line, flush=True)
+    if out.returncode != 0:
+        raise AssertionError(f"phase {arch} failed (exit {out.returncode})")
+
+
+def _ssm_serving(dev, arch: str, workspace: str) -> dict:
+    """Serves ``arch`` at full width and depth through the static and the
+    continuous engine, with B6 in every prefill, on phase 3's request mix
+    (plus two prompts past hymba's window). Emits one ``serve`` line per
+    engine, with ``workspace`` naming the cuBLAS setting, and checks the
+    completions and each kernel's launches. Returns the model, its
+    params, the requests, engines, reports, launch counts and greedy
+    tokens per engine."""
+    import torch
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models import Runtime, build
+
+    cfg = get_arch(arch)
+    L, long_len = cfg.num_layers, SSM_ARCHS[arch]
+    model = build(cfg, Runtime(), device=dev)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    emit({"phase": "weights", "arch": arch, "layers": L,
+          "params": sum(t.numel() for t in leaves), "dtype": "float32",
+          "bytes": sum(t.numel() * t.element_size() for t in leaves),
+          "init_s": time.perf_counter() - t0})
+    reqs = _request_mix(cfg, long_len)
+    common = dict(batch=4, prompt_len=max(128, long_len), max_new_tokens=32,
+                  use_reduced=False, params=params, device=dev)
+    engines = {s: build_engine(arch, scheduler=s, **common)[0]
+               for s in ("static", "continuous")}
+    hybrid = cfg.family == "hybrid"
+    reports, launches = {}, {}
+    for name, eng in engines.items():
+        eng.warmup(128)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        reports[name] = rep = eng.run(reqs)
+        n = launches[f"{arch}:{name}"] = dict(ops.LAUNCHES)
+        s = rep.summary()
+        forwards = s["prefills"] + s["decode_steps"]
+        want = {"wkv6": L * s["prefills"],
+                "flash_attention": L * s["prefills"] if hybrid else 0,
+                "paged_attention": 0,
+                "rmsnorm": (2 * L + 1) * forwards if hybrid else 0}
+        emit({"phase": "serve", "arch": arch, "scheduler": name,
+              "cublas_workspace": workspace,
+              "requests": len(reqs), "lanes": eng.slots,
+              "cache_span": eng.cache_span,
+              **{k: s[k] for k in (
+                  "completed", "total_new_tokens", "makespan_s",
+                  "goodput_rps", "goodput_tps", "decode_steps", "prefills",
+                  "ttft_p50_s", "ttft_p95_s", "tok_p50_s", "tok_p95_s",
+                  "peak_concurrency")},
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+              "launches": n, "launches_expected": want})
+        if s["completed"] != len(reqs):
+            raise AssertionError(f"{arch} {name}: {s['completed']}/"
+                                 f"{len(reqs)} requests completed")
+        if any(n[k] != v for k, v in want.items()):
+            raise AssertionError(f"{arch} {name}: launches {n}, expected "
+                                 f"{want}")
+    toks = {name: {m.rid: [int(t) for t in m.tokens] for m in rep.metrics}
+            for name, rep in reports.items()}
+    budget = {r.rid: r.max_new_tokens for r in reqs}
+    for name, tk in toks.items():
+        for rid, seq in tk.items():
+            if len(seq) != budget[rid] or not all(
+                    0 <= t < cfg.vocab_size for t in seq):
+                raise AssertionError(f"{arch} {name} rid {rid}: bad tokens "
+                                     f"{seq}")
+    return dict(cfg=cfg, model=model, params=params, reqs=reqs,
+                engines=engines, launches=launches, toks=toks)
+
+
+def _serve_ssm(dev, arch: str) -> dict:
+    """Phases 3b (rwkv6-3b) and 3c (hymba-1.5b), the timed half, in this
+    process with cuBLAS's default workspace as users of the port run it:
+    serve through both engines (``_ssm_serving``), then the continuous
+    engine's first four requests again under the profiler. Whether the
+    engines' tokens agree here is reported, not gated (split-K, see
+    ``_serve_ssm_in_child``). Returns each engine's launch counts under
+    ``"<arch>:<scheduler>"``."""
+    from repro_torch.core.profile import profile_run
+
+    run = _ssm_serving(dev, arch, "default")
+    emit({"phase": "engines_agree", "arch": arch,
+          "cublas_workspace": "default", "gated": False,
+          "tokens_identical": _first_mismatch(
+              run["toks"]["continuous"], run["toks"]["static"]) is None})
+    # the first four requests only: tracing the whole mix takes longer
+    # than serving it (about a minute per arch on the H100)
+    emit({"phase": "profile", "arch": arch, "requests": 4,
+          "cublas_workspace": "default",
+          **profile_run(run["engines"]["continuous"], run["reqs"][:4])})
+    return run["launches"]
+
+
+def _serve_ssm_parity(dev, arch: str) -> None:
+    """Phases 3b and 3c, the parity half, run by the child without a
+    cuBLAS workspace: serve through both engines again; greedy tokens
+    identical per rid; on the longest prompt (hymba: past the window)
+    every layer through the kernels within LOGIT_TOL of the plain layer's
+    update, and the prefill logits of the kernels, the plain path
+    (dense attention, chunked linear attention) and the exact per-token
+    recurrence pairwise within LOGIT_CEILING[arch], the kernels within
+    LOGIT_TOL of the plain path or, where larger, within what the plain
+    path and the recurrence differ by."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import Runtime, build
+
+    run = _ssm_serving(dev, arch, "none (CUBLAS_WORKSPACE_CONFIG=:0:0)")
+    cfg, model, params, reqs, toks = (run[k] for k in (
+        "cfg", "model", "params", "reqs", "toks"))
+    mismatch = _first_mismatch(toks["continuous"], toks["static"])
+    plain, exact = (build(cfg, Runtime(attention_backend="dense",
+                                       ssm_backend=b), device=dev)
+                    for b in ("chunked", "recurrent"))
+    req = max(reqs, key=lambda r: r.prompt_len)   # hymba: past the window
+    prompt = torch.as_tensor(req.prompt[None], device=dev)
+    span = run["engines"]["continuous"].cache_span
+    layer_errs = _layer_errors(model, plain, params, prompt)
+    ops.reset_launches()
+    lk, _ = model.prefill(params, {"tokens": prompt}, span)
+    through = dict(ops.LAUNCHES)
+    lp, _ = plain.prefill(params, {"tokens": prompt}, span)
+    lx, _ = exact.prefill(params, {"tokens": prompt}, span)
+    top = float(lp.abs().max())
+    rel, rel_exact, floor = (_err(a, b) / top
+                             for a, b in ((lk, lp), (lk, lx), (lp, lx)))
+    ceiling = LOGIT_CEILING[arch]
+    tol = max(LOGIT_TOL, floor)
+    parity = {"phase": "parity", "arch": arch, "rids": len(toks["static"]),
+              "cublas_workspace": "none (CUBLAS_WORKSPACE_CONFIG=:0:0)",
+              "tokens_identical": mismatch is None,
+              "prefill_prompt_len": req.prompt_len,
+              "layer_update_rel_err_max": max(layer_errs),
+              "layer_update_rel_err": layer_errs,
+              "layer_tol": LOGIT_TOL,
+              "prefill_logits_shape": list(lk.shape),
+              "prefill_logits_finite": bool(torch.isfinite(lk).all()),
+              "prefill_launches": through,
+              "kernel_vs_plain_prefill_rel_err": rel,
+              "kernel_vs_recurrent_prefill_rel_err": rel_exact,
+              "plain_vs_recurrent_prefill_rel_err": floor,
+              "tol": tol, "ceiling": ceiling}
+    if mismatch is not None:
+        rid, step = mismatch
+        r = next(r for r in reqs if r.rid == rid)
+        seq = list(r.prompt) + toks["continuous"][rid][:step]
+        lg, _ = plain.prefill(params, {"tokens": torch.as_tensor(
+            [seq], dtype=torch.int32, device=dev)}, len(seq))
+        top2 = torch.topk(lg[0, -1], 2).values
+        parity.update(first_mismatch_rid=rid, first_mismatch_step=step,
+                      top2_margin=float(top2[0] - top2[1]))
+    emit(parity)
+    if mismatch is not None:
+        raise AssertionError(f"{arch}: greedy tokens differ between "
+                             f"engines: {parity}")
+    if (not parity["prefill_logits_finite"] or max(layer_errs) > LOGIT_TOL
+            or max(floor, rel_exact) > ceiling or rel > tol
+            or through["wkv6"] != cfg.num_layers):
+        raise AssertionError(f"{arch}: full-width prefill check failed: "
+                             f"{parity}")
+
+
+def _layer_errors(model, plain, params, prompt) -> list:
+    """Each layer of ``model`` (the kernels) against the same layer of
+    ``plain`` on the same input, the plain path's own activations: the
+    max difference of the outputs over the max magnitude of the plain
+    layer's update (output minus input). Comparing layer by layer keeps
+    the check at the kernels' own error where the model's depth would
+    amplify it."""
+    import torch
+
+    from repro_torch._tree import layer_at
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import embed_tokens
+
+    cfg = model.cfg
+    x = embed_tokens(params["embed"], prompt)
+    positions = torch.arange(prompt.shape[1], device=x.device)[None]
+    errs = []
+    for i in range(cfg.num_layers):
+        p = layer_at(params["layers"], i)
+        yk, _ = tfm.layer_apply(p, x, cfg, model.rt, positions)
+        yp, _ = tfm.layer_apply(p, x, cfg, plain.rt, positions)
+        errs.append(_err(yk, yp) / float((yp - x).abs().max()))
+        x = yp
+    return errs
+
+
+def _wkv6_bound(q, v, ld, u, dname: str) -> tuple:
+    """B6's bound on these inputs: each input read once (ld's broadcast
+    view counts its storage), o and the state written once; operations
+    as this run's decays need them, per (b, h, chunk): the kept score
+    pairs times K (a multiply-add on the rescaled branch plus two scaled
+    inputs per token and column; a subtraction, an exponential, a product
+    and a multiply-add per pair and column on the fallback), A v over the
+    kept pairs, (q e^w) S and the state update (c K V each), and rwkv6's
+    diagonal. Returns (bound ms, bound_by, share of chunks rescaled)."""
+    import torch
+    import torch.nn.functional as F
+    B, T, H, K = q.shape
+    V = v.shape[-1]
+    c = 64
+    nc = -(-T // c)
+    p = torch.cumsum(F.pad(ld.float(), (0, 0, 0, 0, 0, nc * c - T))
+                     .reshape(B, nc, c, H, K), dim=2)
+    safe = (-p.amin(dim=(2, 4)) < 30.0).float()              # (B, nc, H)
+    n = torch.full((nc, 1), float(c), device=q.device)  # tokens per chunk
+    n[-1] = T - (nc - 1) * c
+    pairs = n * (n - 1) / 2 if u is not None else n * (n + 1) / 2
+    per_chunk = 2 * pairs * V + 4 * n * K * V + (
+        2 * n * (K + V) if u is not None else 0)
+    scores_mm = 2 * pairs * K + 4 * n * K
+    scores_pw = 5 * pairs * K
+    flops = float((safe * (per_chunk + scores_mm)).sum()
+                  + ((1 - safe) * (per_chunk + scores_pw)).sum())
+    isz = q.element_size()
+    ld_elems = 1
+    for size, stride in zip(ld.shape, ld.stride()):
+        ld_elems *= size if stride else 1
+    nbytes = (isz * B * T * H * (2 * K + V) + ld.element_size() * ld_elems
+              + (4 * H * K if u is not None else 0)
+              + isz * B * T * H * V + 4 * B * H * K * V)
+    return (*bound(flops, nbytes, dname), float(safe.mean()))
+
+
+def _wkv6_kernels(rand, record) -> None:
+    """Phase 2c: B6 through ``ops.wkv6`` against ``wkv6_chunked_ref`` on
+    the same inputs, and at T128 and T1100 against the exact recurrence."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    # (mode, B, T, H, K, V, decay); the first is rwkv6-3b's prefill
+    cases = [("rwkv6", 1, 128, 40, 64, 64, "mild"),
+             ("rwkv6", 1, 125, 40, 64, 64, "mild"),
+             ("ssd", 1, 128, 25, 16, 64, "per_head"),
+             ("ssd", 1, 1100, 25, 16, 64, "per_head"),
+             ("rwkv6", 1, 4096, 40, 64, 64, "mild"),
+             ("rwkv6", 1, 4096, 40, 64, 64, "strong")]
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        for mode, B, T, H, K, V, decay in cases:
+            def draw(shape, dtype):
+                return rand(shape, dtype, hymba=T == 1100)
+
+            q, k = draw((B, T, H, K), dtype), draw((B, T, H, K), dtype)
+            v = draw((B, T, H, V), dtype)
+            if decay == "mild":      # rwkv6's init: w0 = -6, |ld| ~ 0.0025
+                ld = -torch.exp(-6.0 + 0.5 * draw((B, T, H, K),
+                                                  torch.float32))
+            elif decay == "strong":  # |ld| ~ e^N(0,1): every chunk > 30
+                ld = -torch.exp(draw((B, T, H, K), torch.float32))
+            else:                    # SSD: softplus(dt) per head, broadcast
+                ld = (-F.softplus(draw((B, T, H, 1), torch.float32))
+                      ).expand(B, T, H, K)
+            ld = ld.clamp(-12.0, -1e-4) if decay != "per_head" else ld
+            u = (0.1 * draw((H, K), torch.float32) if mode == "rwkv6"
+                 else None)
+            before = dict(ops.LAUNCHES)
+            o, s = ops.wkv6(q, k, v, ld, u)
+            launched = ops.LAUNCHES["wkv6"] - before["wkv6"]
+            want_o, want_s = ref.wkv6_chunked_ref(q, k, v, ld, u)
+            errs = [_err(g, w) for g, w in ((o, want_o), (s, want_s))]
+            rel = max(e / max(float(w.float().abs().max()), 1e-30)
+                      for e, w in zip(errs, (want_o, want_s)))
+            b_ms, b_by, share = _wkv6_bound(q, v, ld, u, dname)
+            line = {
+                "phase": "kernel", "kernel": "wkv6",
+                "shape": f"B{B} T{T} H{H} K{K} V{V} {mode}", "decay": decay,
+                "rescaled_share": share, "dtype": dname,
+                "launches_in_one_call": launched,
+                "max_abs_err": max(errs), "rel_err": rel,
+                "tol": TOL[dname],
+                **_times(lambda: ops.wkv6(q, k, v, ld, u),
+                         lambda: ref.wkv6_chunked_ref(q, k, v, ld, u), None),
+                "library": "none: no PyTorch call computes chunked WKV",
+                "bound_ms": b_ms, "bound_by": b_by}
+            exact_ok = True
+            if T in (128, 1100):
+                ex_o, ex_s = ref.wkv6_ref(q, k, v, ld, u)
+                ex = max(_err(g, w) / float(w.abs().max())
+                         for g, w in ((o, ex_o), (s, ex_s)))
+                exact_ok = ex <= EXACT_TOL[dname]
+                line.update(exact_rel_err=ex, exact_tol=EXACT_TOL[dname],
+                            matches_exact=exact_ok)
+            record(line, main_path=(mode == "rwkv6" and T == 128
+                                    and dname == "float32"))
+            if not exact_ok:
+                raise AssertionError(f"B6 disagrees with the exact "
+                                     f"recurrence: {line}")
+            del q, k, v, ld, o, s, want_o, want_s
+        torch.cuda.empty_cache()
 
 
 def _train_kernels(rand, record) -> None:

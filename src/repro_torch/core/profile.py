@@ -27,6 +27,7 @@ GROUPS = (("attn_fwd_kernel", "K1/B2 flash forward"),
           ("attn_dkv_kernel", "B4 flash dkv"),
           ("paged_attn_kernel", "K2 paged_attention"),
           ("_rmsnorm_rows", "K3 rmsnorm"),
+          ("wkv6_kernel", "B6 wkv6"),
           ("gemm", "matmul"), ("gemv", "matmul"), ("cutlass", "matmul"),
           ("xmma", "matmul"))
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",

@@ -49,6 +49,9 @@ SIGNATURES = {
     # q, k_pages, v_pages, block_tables, lengths, o,
     # B, P, ps, Hq, Hkv, D, npag, scale, dtype, stream
     "repro_paged_attention_fwd": [_VP] * 6 + [_INT] * 7 + [_FLOAT, _INT, _VP],
+    # q, k, v, ld, u, o, state, strides (16 int64), B, T, H, K, V, dtype,
+    # ld_dtype, stream
+    "repro_wkv6_fwd": [_VP] * 8 + [_INT] * 7 + [_VP],
 }
 
 _lock = threading.Lock()

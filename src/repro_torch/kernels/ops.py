@@ -13,6 +13,10 @@ backward, B3 (dq) and B4 (dk, dv); RMSNorm runs K3 forward and a plain
 PyTorch backward from the saved input, as the JAX package has no RMSNorm
 backward kernel. Without a gradient, attention runs K1.
 
+``wkv6`` (kernel B6) is forward only, as in the reference, which has no
+backward kernel for it: on CUDA tensors that require a gradient it
+raises rather than return an output without a ``grad_fn``.
+
 ``LAUNCHES`` counts kernel launches per kernel. A wrapper adds one where
 it launches its kernel and nowhere else, so a run that resets the counts
 before and reads them after shows which kernels its path went through.
@@ -24,7 +28,7 @@ import torch
 from repro_torch.kernels import ref
 
 KERNELS = ("flash_attention", "flash_attention_lse", "flash_attention_dq",
-           "flash_attention_dkv", "paged_attention", "rmsnorm")
+           "flash_attention_dkv", "paged_attention", "rmsnorm", "wkv6")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -221,3 +225,61 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     if _needs_grad(x, scale):
         return _RMSNorm.apply(x, scale, eps)
     return _rmsnorm_fwd(x, scale, eps)
+
+
+def wkv6(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor,
+         u=None, initial_state=None) -> tuple:
+    """Kernel B6, the chunked WKV6 (decayed linear attention with a carried
+    state), chunks of 64 tokens. q, k, ld (B,T,H,K), any strides; v
+    (B,T,H,V); q, k, v one dtype (f32 or bf16), ld f32 or bf16; u (H,K)
+    f32 (rwkv6 mode) or None (SSD mode); initial_state (B,H,K,V) f32 or
+    None. Any T; on CUDA, K and V at most 64. Returns (o (B,T,H,V) in q's
+    dtype, state (B,H,K,V) f32), the contract of the reference's
+    ``ops.wkv6``. A nonzero initial_state is folded in outside the kernel
+    (:func:`ref.wkv6_fold_initial_state`), as the reference does.
+
+    Forward only: on CUDA tensors that require a gradient it raises (the
+    reference has no backward kernel; train through the model's
+    ``chunked`` ssm backend). On CPU tensors it runs the plain version,
+    which autograd differentiates."""
+    what = "wkv6"
+    tensors = [t for t in (q, k, v, ld, u, initial_state) if t is not None]
+    cuda = _on_cuda(what, *tensors)
+    _require(q.dim() == 4 and k.shape == q.shape and ld.shape == q.shape
+             and v.dim() == 4 and v.shape[:3] == q.shape[:3], what,
+             f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+             f"v{tuple(v.shape)} ld{tuple(ld.shape)}")
+    B, T, H, K = q.shape
+    V = v.shape[-1]
+    _require(q.dtype in _DTYPES and k.dtype == q.dtype == v.dtype
+             and ld.dtype in _DTYPES, what,
+             f"dtypes q/k/v {q.dtype}/{k.dtype}/{v.dtype}, ld {ld.dtype}; "
+             f"need one of {_DTYPES}")
+    _require(u is None or (u.shape == (H, K) and u.dtype == torch.float32),
+             what, "u must be (H, K) float32 or None")
+    _require(initial_state is None
+             or (initial_state.shape == (B, H, K, V)
+                 and initial_state.dtype == torch.float32), what,
+             "initial_state must be (B, H, K, V) float32 or None")
+    if not cuda:
+        return ref.wkv6_chunked_ref(q, k, v, ld, u, initial_state)
+    _require(not _needs_grad(*tensors), what,
+             "no backward kernel: the reference has none, and an output "
+             "without a grad_fn would drop the gradient; use the chunked "
+             "ssm backend to train")
+    from repro_torch.kernels.wkv6 import MAX_DIM, wkv6_cuda
+    _require(0 < K <= MAX_DIM and 0 < V <= MAX_DIM, what,
+             f"K={K}, V={V}: the kernel takes 1..{MAX_DIM}")
+    if u is not None:
+        _require_contiguous(what, u=u)
+    if B * H * T == 0:
+        o = torch.zeros((B, T, H, V), dtype=q.dtype, device=q.device)
+        state = torch.zeros((B, H, K, V), dtype=torch.float32,
+                            device=q.device)
+    else:
+        o, state = wkv6_cuda(q, k, v, ld, u)
+        LAUNCHES["wkv6"] += 1
+    if initial_state is not None:
+        o, state = ref.wkv6_fold_initial_state(o, state, q, ld, u,
+                                               initial_state)
+    return o, state

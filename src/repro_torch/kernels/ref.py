@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the port's kernels (the serving path's
-forward kernels and the training path's attention forward-with-lse, dq
-and dkv kernels), and
-the plain attention functions that the model layer also calls directly
+forward kernels, the training path's attention forward-with-lse, dq
+and dkv kernels, and the chunked WKV6 kernel), and
+the plain functions that the model layer also calls directly
 (``dense_attention`` in chunked prefill, ``decode_attention_simple`` in
-continuous decode; ``repro_torch.models.attention`` re-exports them). The
+continuous decode, ``linear_attention_step`` in ssm and hybrid decode;
+``repro_torch.models.attention`` and ``repro_torch.models.ssm``
+re-export them). The
 CPU runs them in place of the kernels; the CPU tests hold them to the JAX
 package, and ``chip_smoke.py`` holds each kernel to its plain version on
 the card. This module imports nothing of the port."""
@@ -186,3 +188,130 @@ def rmsnorm_bwd_ref(x, scale, dy, eps: float = 1e-5):
     dx = r * g - xf * r.pow(3) * (g * xf).mean(-1, keepdim=True)
     dscale = (dyf * xf * r).reshape(-1, x.shape[-1]).sum(0)
     return dx.to(x.dtype), dscale
+
+
+# ------------------------------------------------------------------ wkv6
+# Largest in-chunk decay magnitude -min(cumsum(ld)) for which the WKV6
+# kernel takes the decay-rescaled product: its factors stay <= exp(30).
+# The reference's constant (``repro/kernels/rwkv6.py:43``).
+SAFE_DECAY_RANGE = 30.0
+
+
+def linear_attention_step(state, q, k, v, ld, u=None):
+    """One step of the decayed linear-attention recurrence. q, k, ld
+    (B,H,K); v (B,H,V); state (B,H,K,V). Returns (state, o (B,H,V)).
+    With u (rwkv6) the current token enters through the bonus u and the
+    state after o; without (SSD) it enters the state before o."""
+    kv = k[..., :, None] * v[..., None, :]
+    if u is None:
+        state = torch.exp(ld)[..., None] * state + kv
+        o = torch.einsum("bhk,bhkv->bhv", q, state)
+    else:
+        o = (torch.einsum("bhk,bhkv->bhv", q, state)
+             + torch.einsum("bhk,bhkv->bhv", q * u, kv))
+        state = torch.exp(ld)[..., None] * state + kv
+    return state, o
+
+
+def recurrent_linear_attention(q, k, v, ld, u=None, initial_state=None):
+    """The exact per-token recurrence over (B,T,H,*) inputs, in f32.
+    Returns (o (B,T,H,V) f32, state (B,H,K,V))."""
+    B, T, H, K = q.shape
+    state = (initial_state if initial_state is not None else torch.zeros(
+        (B, H, K, v.shape[-1]), dtype=torch.float32, device=q.device))
+    qf, kf, vf, ldf = (a.float() for a in (q, k, v, ld))
+    outs = []
+    for t in range(T):
+        state, o = linear_attention_step(state, qf[:, t], kf[:, t], vf[:, t],
+                                         ldf[:, t], u)
+        outs.append(o)
+    return torch.stack(outs, 1), state
+
+
+def wkv6_ref(q, k, v, ld, u=None):
+    """The exact per-token recurrence (the reference's oracle,
+    ``repro/kernels/ref.py::wkv6_ref``)."""
+    return recurrent_linear_attention(q, k, v, ld, u)
+
+
+def wkv6_fold_initial_state(o, state, q, ld, u, initial_state):
+    """Folds a carried-in state S0 into a zero-state result (o, state) as
+    the reference's wrapper does outside its kernel
+    (``repro/kernels/ops.py::_wkv6_jit``): o += (q e^{p_exc}) S0 in o's
+    dtype, state += e^{sum(ld)} S0, with p_exc the exclusive (rwkv6) or
+    inclusive (SSD) cumulative log decay over the whole sequence."""
+    f32 = torch.float32
+    ldf = ld.to(f32)
+    p = torch.cumsum(ldf, dim=1)
+    if u is not None:
+        p = p - ldf
+    extra = torch.einsum("bthk,bhkv->bthv", q.to(f32) * torch.exp(p),
+                         initial_state.to(f32))
+    o = o + extra.to(o.dtype)
+    total = torch.exp(ldf.sum(1))                                # (B,H,K)
+    return o, state + total[..., None] * initial_state
+
+
+def wkv6_chunked_ref(q, k, v, ld, u=None, initial_state=None, *,
+                     chunk: int = 64):
+    """Kernel B6's function, the chunked WKV6 of the reference's TPU
+    kernel (``repro/kernels/rwkv6.py::_wkv_kernel`` with its entry point
+    ``wkv6_fwd`` and wrapper ``ops.wkv6``).
+
+    q, k, ld (B,T,H,K); v (B,T,H,V); u (H,K) f32 (rwkv6 mode: bonus on
+    the current token, which does not see itself in the state) or None
+    (SSD mode: the current token sees itself). Per chunk of ``chunk``
+    tokens, in f32: p = cumsum(ld), w = p - ld (rwkv6) or p (SSD); the
+    intra-chunk scores A[t,s] = sum_k q_tk k_sk e^{w_tk - p_sk} over s < t
+    (rwkv6) or s <= t (SSD), as the rescaled product (q e^w)(k e^-p)^T
+    where the chunk's decay range -min(p) is below SAFE_DECAY_RANGE and
+    the exact per-pair exponent otherwise, chosen per (b, h, chunk) as
+    the kernel does; o = A v [+ (q.u.k) v] + (q e^w) S, written in q's
+    dtype; S <- e^{p_last} S + (k e^{p_last - p})^T v. Any T: the last
+    chunk is padded with ld = 0 and k = 0, which leave the state as it
+    is, and the padded rows of o are dropped. A nonzero initial_state is
+    folded in afterwards (:func:`wkv6_fold_initial_state`). Returns
+    (o (B,T,H,V) in q's dtype, state (B,H,K,V) f32)."""
+    B, T, H, K = q.shape
+    V = v.shape[-1]
+    f32 = torch.float32
+    c = max(1, min(chunk, T))
+    pad = (-T) % c
+    if pad:
+        z = (0, 0, 0, 0, 0, pad)
+        q, k, v, ld = (torch.nn.functional.pad(a, z) for a in (q, k, v, ld))
+    idx = torch.arange(c, device=q.device)
+    mask = (idx[:, None] > idx[None, :]) if u is not None else (
+        idx[:, None] >= idx[None, :])                             # (t, s)
+    S = torch.zeros((B, H, K, V), dtype=f32, device=q.device)
+    outs = []
+    for i in range(0, T + pad, c):
+        qi, ki, vi, ldi = (a[:, i:i + c].to(f32) for a in (q, k, v, ld))
+        p = torch.cumsum(ldi, dim=1)                              # (B,c,H,K)
+        w = p - ldi if u is not None else p
+        qe = qi * torch.exp(w)
+        # e^-p clamped at the range bound: equal on the heads that take the
+        # rescaled product, and finite (so its gradient too) on the others
+        ke = ki * torch.exp(torch.clamp(-p, max=SAFE_DECAY_RANGE))
+        a_mm = torch.einsum("bthk,bshk->bhts", qe, ke)
+        diff = (w[:, :, None] - p[:, None, :]).masked_fill(
+            ~mask[None, :, :, None, None], float("-inf"))     # (B,t,s,H,K)
+        a_pw = torch.einsum("bthk,bshk,btshk->bhts", qi, ki, torch.exp(diff))
+        safe = -p.amin(dim=(1, 3)) < SAFE_DECAY_RANGE             # (B,H)
+        a = torch.where(safe[..., None, None],
+                        a_mm.masked_fill(~mask, 0.0), a_pw)
+        o = torch.einsum("bhts,bshv->bthv", a, vi)
+        if u is not None:
+            diag = torch.einsum("bthk,hk,bthk->bth", qi, u.to(f32), ki)
+            o = o + diag[..., None] * vi
+        o = o + torch.einsum("bthk,bhkv->bthv", qe, S)
+        p_last = p[:, -1]                                         # (B,H,K)
+        S = torch.exp(p_last)[..., None] * S + torch.einsum(
+            "bthk,bthv->bhkv", ki * torch.exp(p_last[:, None] - p), vi)
+        outs.append(o.to(q.dtype))
+    o = torch.cat(outs, 1)[:, :T] if outs else torch.zeros(
+        (B, 0, H, V), dtype=q.dtype, device=q.device)
+    if initial_state is not None:
+        o, S = wkv6_fold_initial_state(o, S, q[:, :T], ld[:, :T], u,
+                                       initial_state)
+    return o, S

@@ -10,8 +10,9 @@ occupancy, plus page occupancy and fragmentation for the paged scheduler.
 The flags are those of ``repro.launch.serve`` for what this slice of the
 port supports, plus ``--full`` (full-size architecture instead of the
 reduced one the reference launcher always serves). Prefill attention runs
-through kernel K1, paged decode attention through kernel K2 and every
-RMSNorm through kernel K3.
+through kernel K1, the ssm and hybrid families' prefill linear attention
+through kernel B6, paged decode attention (dense family only, as in the
+reference) through kernel K2 and every RMSNorm through kernel K3.
 """
 from __future__ import annotations
 

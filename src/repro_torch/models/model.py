@@ -1,9 +1,9 @@
 """Top-level model API: ``build(cfg, rt, device=...) -> Model`` with
 init/loss/prefill/decode and the paged serving triple.
 
-The PyTorch counterpart of ``repro/models/model.py`` for the dense family
-(``batch = {"tokens": (B,S) int, "labels": (B,S) int}``); the other
-families are ported in later slices.
+The PyTorch counterpart of ``repro/models/model.py`` for the dense, ssm
+and hybrid families (``batch = {"tokens": (B,S) int, "labels": (B,S)
+int}``); moe, audio and vlm are ported in later slices.
 """
 from __future__ import annotations
 
@@ -59,14 +59,17 @@ class Model:
     paged_cache_init: Callable
 
 
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+
+
 def build(cfg: ModelConfig, rt: Runtime = Runtime(),
           param_dtype=torch.float32, device="cuda") -> Model:
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; this "
-            "slice of the port builds the dense family only (moe, ssm, "
-            "hybrid, audio and vlm come with the 'other families' slice, "
-            "ROADMAP.md queue A)")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
+            f"builds the {', '.join(PORTED_FAMILIES)} families (moe, audio "
+            "and vlm come with the 'other families' slice, ROADMAP.md queue "
+            "A)")
     device = resolve_device(device)
     compute_dtype = param_dtype
 
@@ -81,7 +84,10 @@ def build(cfg: ModelConfig, rt: Runtime = Runtime(),
                 "final_norm": norm_init(cfg.d_model, cfg.norm, device)}
 
     def _head(params, x_last):
-        x_last = apply_norm(params["final_norm"], x_last, cfg.norm)
+        # the last position of a (B>1, S, d) batch is a strided view; the
+        # RMSNorm kernel takes contiguous rows
+        x_last = apply_norm(params["final_norm"], x_last.contiguous(),
+                            cfg.norm)
         logits = lm_logits(params["embed"], x_last, cfg.tie_embeddings,
                            true_vocab=cfg.vocab_size)
         return logits.float()[..., :cfg.vocab_size]

@@ -1,8 +1,9 @@
-"""Decoder stack of the dense family: layer init, the training forward
+"""Decoder stack of the dense, ssm (rwkv6) and hybrid (attention + SSD
+heads, sliding window) families: layer init, the training forward
 (``stack_apply``, with remat), prefill, decode and the paged-KV serving
-triple.
+triple (dense only, as in the reference).
 
-The PyTorch counterpart of the dense, full-attention subset of
+The PyTorch counterpart of the dense, ssm and hybrid subset of
 ``repro/models/transformer.py``. Parameters keep the JAX layout: a
 leading stacked-layer axis on every leaf, and the JAX ``lax.scan`` over
 that axis becomes a Python loop. Caches and paged pools are updated IN
@@ -21,6 +22,7 @@ from repro_torch._tree import layer_at, tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
                                        mlp_init, norm_init)
 
@@ -36,11 +38,20 @@ class Runtime:
     attention for all of them. RMSNorm always goes through kernel K3 on
     CUDA tensors.
 
+    ``ssm_backend`` selects the linear attention of the ssm and hybrid
+    families' full-sequence forward (:func:`repro_torch.models.ssm.
+    linear_attention`): ``"kernel"`` runs kernel B6 (forward only),
+    ``"chunked"`` the plain chunk-parallel form (``ssm_factored``: its
+    two-level variant), ``"recurrent"`` the per-token recurrence. Decode
+    always runs the one-step recurrence, as in the reference.
+
     ``remat`` recomputes each layer (or block of ``layers_per_block``
     layers, when that divides the depth) in the backward of
     :func:`stack_apply` instead of keeping its activations, as the JAX
     package's ``jax.checkpoint`` over its layer scan."""
     attention_backend: str = "kernel"
+    ssm_backend: str = "kernel"
+    ssm_factored: bool = False
     remat: bool = True
     layers_per_block: int = 1
 
@@ -59,11 +70,18 @@ def _mlp_block(p, x, cfg: ModelConfig):
 
 # ===================================================================== init
 def layer_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
-    return {"norm1": norm_init(cfg.d_model, cfg.norm, gen.device),
-            "norm2": norm_init(cfg.d_model, cfg.norm, gen.device),
-            "attn": attn_mod.attn_init(gen, cfg, dtype),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.activation,
-                            dtype)}
+    dev = gen.device
+    p = {"norm1": norm_init(cfg.d_model, cfg.norm, dev),
+         "norm2": norm_init(cfg.d_model, cfg.norm, dev)}
+    if cfg.family == "ssm":                       # rwkv6 block
+        p["time_mix"] = ssm_mod.rwkv6_init(gen, cfg, dtype)
+        p["channel_mix"] = ssm_mod.rwkv6_channel_mix_init(gen, cfg, dtype)
+        return p
+    p["attn"] = attn_mod.attn_init(gen, cfg, dtype)
+    if cfg.family == "hybrid":
+        p["ssm"] = ssm_mod.ssd_init(gen, cfg, dtype)
+    p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.activation, dtype)
+    return p
 
 
 def stack_init(gen: torch.Generator, cfg: ModelConfig, num_layers: int,
@@ -83,23 +101,61 @@ def num_layers_of(stacked) -> int:
 
 
 # ================================================================= forward
+def _ring_from_prefill(k, span: int):
+    """The last ``span`` prefill K/V rows in ring-buffer slot order (the
+    token at position p lives at slot p % span), zero-padded to span."""
+    B, S = k.shape[:2]
+    take = min(S, span)
+    ring = k.new_zeros((B, span, *k.shape[2:]))
+    slots = (torch.arange(take, device=k.device) + (S - take)) % span
+    ring[:, slots] = k[:, S - take:]
+    return ring
+
+
 def layer_apply(p, x, cfg: ModelConfig, rt: Runtime, positions, *,
                 causal: bool = True, return_cache: bool = False,
                 cache_span: int = 0):
     """Full-sequence layer forward. Returns (x, cache_entry); cache_entry
-    is None unless return_cache, in which case it holds this layer's K/V
-    zero-padded to cache_span (the per-layer structure of cache_init)."""
+    is None unless return_cache, in which case it holds this layer's part
+    of the decode cache (the per-layer structure of cache_init): K/V
+    zero-padded to cache_span, or for sliding attention the last
+    min(cache_span, window) rows in ring order; the SSD state (hybrid);
+    the WKV state and both token shifts (ssm)."""
+    if cfg.family == "ssm":
+        h, (state, last1) = ssm_mod.rwkv6_time_mix(
+            p["time_mix"], apply_norm(p["norm1"], x, cfg.norm), cfg,
+            backend=rt.ssm_backend, factored=rt.ssm_factored)
+        x = x + h
+        h, last2 = ssm_mod.rwkv6_channel_mix(
+            p["channel_mix"], apply_norm(p["norm2"], x, cfg.norm))
+        entry = ({"wkv_state": state, "shift1": last1, "shift2": last2}
+                 if return_cache else None)
+        return x + h, entry
+
     h_in = apply_norm(p["norm1"], x, cfg.norm)
     q, k, v = attn_mod.project_qkv(p["attn"], h_in, h_in, cfg)
     q, k = _rope_q_k(cfg, q, k, positions)
+    window = cfg.window if cfg.attention_kind == "sliding" else 0
     o = attn_mod.attention(q, k, v, backend=rt.attention_backend,
-                           causal=causal)
-    x = x + o.reshape(*x.shape[:-1], -1) @ p["attn"]["wo"]
-    cache_entry = None
+                           causal=causal, window=window)
+    h = o.reshape(*x.shape[:-1], -1) @ p["attn"]["wo"]
+    entry = None
     if return_cache:
-        pad = (0, 0, 0, 0, 0, cache_span - k.shape[1])
-        cache_entry = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
-    return _mlp_block(p, x, cfg), cache_entry
+        if cfg.attention_kind == "sliding":
+            span = min(cache_span, window) if window else cache_span
+            entry = {"k": _ring_from_prefill(k, span),
+                     "v": _ring_from_prefill(v, span)}
+        else:
+            pad = (0, 0, 0, 0, 0, cache_span - k.shape[1])
+            entry = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+    if cfg.family == "hybrid":
+        h_ssm, ssd_state = ssm_mod.ssd_mix(p["ssm"], h_in, cfg,
+                                           backend=rt.ssm_backend,
+                                           factored=rt.ssm_factored)
+        h = (h + h_ssm) * 0.5
+        if return_cache:
+            entry["ssd_state"] = ssd_state
+    return _mlp_block(p, x + h, cfg), entry
 
 
 def stack_apply(layers: list, x, cfg: ModelConfig, rt: Runtime, positions,
@@ -136,8 +192,9 @@ def stack_apply(layers: list, x, cfg: ModelConfig, rt: Runtime, positions,
 
 def stack_prefill(stacked, x, cfg: ModelConfig, rt: Runtime, positions, *,
                   cache_span: int):
-    """Forward that also collects the stacked (L, B, span, Hkv, D) decode
-    cache (prefill)."""
+    """Forward that also collects the stacked (L, ...) decode cache
+    (prefill): each entry of :func:`layer_apply`'s cache stacked over the
+    layers."""
     L = num_layers_of(stacked)
     caches = None
     for i in range(L):
@@ -153,11 +210,31 @@ def stack_prefill(stacked, x, cfg: ModelConfig, rt: Runtime, positions, *,
 # ================================================================= caches
 def cache_init(cfg: ModelConfig, num_layers: int, batch: int, max_len: int,
                dtype, device) -> dict:
-    """Stacked (L, B, max_len, Hkv, D) decode cache."""
-    shape = (num_layers, batch, max_len, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    """Stacked (L, ...) decode cache: K/V (L, B, span, Hkv, D) with span =
+    max_len, or min(max_len, window) for sliding attention (a ring); the
+    SSD state (L, B, H, N, hs) f32 (hybrid); the WKV state (L, B, H, hs,
+    hs) f32 and the two token shifts (L, B, d) (ssm)."""
+    L = num_layers
+    kw = dict(dtype=dtype, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    c: dict = {}
+    if cfg.attention_kind != "none":
+        span = (min(max_len, cfg.window) if cfg.attention_kind == "sliding"
+                else max_len)
+        shape = (L, batch, span, cfg.num_kv_heads, cfg.resolved_head_dim)
+        c["k"] = torch.zeros(shape, **kw)
+        c["v"] = torch.zeros(shape, **kw)
+    if cfg.family in ("ssm", "hybrid"):
+        hs = cfg.ssm.head_size
+        H = cfg.d_model // hs
+    if cfg.family == "hybrid":
+        c["ssd_state"] = torch.zeros((L, batch, H, cfg.ssm.state_size, hs),
+                                     **f32)
+    if cfg.family == "ssm":
+        c["wkv_state"] = torch.zeros((L, batch, H, hs, hs), **f32)
+        c["shift1"] = torch.zeros((L, batch, cfg.d_model), **kw)
+        c["shift2"] = torch.zeros((L, batch, cfg.d_model), **kw)
+    return c
 
 
 def paged_cache_init(cfg: ModelConfig, num_layers: int, num_pages: int,
@@ -180,33 +257,97 @@ def paged_cache_init(cfg: ModelConfig, num_layers: int, num_pages: int,
 
 
 # ================================================================== decode
+def _rwkv6_decode(p, x, cache, cfg: ModelConfig):
+    """One token through an rwkv6 block. x: (B,1,d); cache: this layer's
+    {"wkv_state", "shift1", "shift2"}, written IN PLACE."""
+    B, _, d = x.shape
+    hs = cfg.ssm.head_size
+    H = d // hs
+    tm, cm = p["time_mix"], p["channel_mix"]
+    h_in = apply_norm(p["norm1"], x, cfg.norm)
+    prev = cache["shift1"][:, None]
+    mix = tm["mix"].to(x.dtype)
+    xr, xk, xv, xg, xw = (h_in + (prev - h_in) * mix[i] for i in range(5))
+    r = (xr @ tm["wr"]).reshape(B, H, hs)
+    k = (xk @ tm["wk"]).reshape(B, H, hs)
+    v = (xv @ tm["wv"]).reshape(B, H, hs)
+    g = F.silu(xg @ tm["wg"])[:, 0]
+    ld = -torch.exp(tm["w0"] + torch.tanh(xw @ tm["wa"]) @ tm["wb"])
+    ld = torch.clamp(ld, -12.0, -1e-4).reshape(B, H, hs)
+    state, o = ssm_mod.linear_attention_step(
+        cache["wkv_state"], r.float(), k.float(), v.float(), ld.float(),
+        tm["u"])
+    h = (ssm_mod.group_norm(o, tm).reshape(B, d).to(x.dtype) * g) @ tm["wo"]
+    x = x + h[:, None]
+    cache["wkv_state"].copy_(state)
+    cache["shift1"].copy_(h_in[:, 0])
+    h_in = apply_norm(p["norm2"], x, cfg.norm)
+    prev = cache["shift2"][:, None]
+    cmix = cm["mix"].to(x.dtype)
+    xk = h_in + (prev - h_in) * cmix[0]
+    xr = h_in + (prev - h_in) * cmix[1]
+    kk = torch.square(torch.relu(xk @ cm["wk"]))
+    x = x + torch.sigmoid(xr @ cm["wr"]) * (kk @ cm["wv"])
+    cache["shift2"].copy_(h_in[:, 0])
+    return x
+
+
+def _ssd_decode(sp, h_in, state, cfg: ModelConfig):
+    """One token through the SSD heads. h_in: (B,1,dm) normed input;
+    ``state`` (B,H,N,hs) f32, written IN PLACE. Returns h_ssm (B, dm)."""
+    B = h_in.shape[0]
+    hs, N = cfg.ssm.head_size, cfg.ssm.state_size
+    H = sp["wx"].shape[1] // hs
+    xin = (h_in @ sp["wx"]).reshape(B, H, hs)
+    z = F.silu(h_in @ sp["wz"])[:, 0]
+    Bm = (h_in @ sp["wB"]).reshape(B, H, N)
+    Cm = (h_in @ sp["wC"]).reshape(B, H, N)
+    dt, ld = ssm_mod.ssd_decay(sp, h_in[:, 0])
+    new, o = ssm_mod.linear_attention_step(
+        state, Cm.float(), (Bm * dt[..., None].to(Bm.dtype)).float(),
+        xin.float(), ld.expand(B, H, N))
+    state.copy_(new)
+    o = o + sp["D"][:, None] * xin.float()
+    return (o.reshape(B, H * hs).to(h_in.dtype) * z) @ sp["wo"]
+
+
 def layer_decode(p, x, cache, pos, cfg: ModelConfig, rt: Runtime):
-    """Single-token step. x: (B,1,d); cache: this layer's {"k","v"}
-    (B, span, Hkv, D) views, written IN PLACE at ``pos``. Returns
-    (x, cache).
+    """Single-token step. x: (B,1,d); cache: this layer's entries (views of
+    the stacked cache), written IN PLACE: K/V at ``pos`` (at ``pos % span``
+    in a sliding ring), the SSD state, or the WKV state and token shifts.
+    Returns (x, cache).
 
     pos is a Python int (lockstep batch: every row writes the same slot)
     or a (B,) int tensor (continuous batching: each row carries its own
-    position, writes its own slot, and masks its own valid length)."""
+    position, writes its own slot, and masks its own valid length). The
+    ssm family reads no position."""
+    if cfg.family == "ssm":
+        return _rwkv6_decode(p, x, cache, cfg), cache
     B = x.shape[0]
     span = cache["k"].shape[1]
+    sliding = cfg.attention_kind == "sliding"
     h_in = apply_norm(p["norm1"], x, cfg.norm)
     q, k, v = attn_mod.project_qkv(p["attn"], h_in, h_in, cfg)
     if isinstance(pos, torch.Tensor):
         q, k = _rope_q_k(cfg, q, k, pos.reshape(-1, 1))
         bidx = torch.arange(B, device=x.device)
-        cache["k"][bidx, pos.long()] = k[:, 0]
-        cache["v"][bidx, pos.long()] = v[:, 0]
+        slot = (pos % span if sliding else pos).long()
+        cache["k"][bidx, slot] = k[:, 0]
+        cache["v"][bidx, slot] = v[:, 0]
         cache_len = torch.clamp(pos + 1, max=span)
     else:
         q, k = _rope_q_k(cfg, q, k,
                          torch.full((B, 1), pos, device=x.device))
-        cache["k"][:, pos] = k[:, 0]
-        cache["v"][:, pos] = v[:, 0]
+        slot = pos % span if sliding else pos
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
         cache_len = min(pos + 1, span)
     o = attn_mod.decode_attention_simple(q, cache["k"], cache["v"], cache_len)
-    x = x + o.reshape(*x.shape[:-1], -1) @ p["attn"]["wo"]
-    return _mlp_block(p, x, cfg), cache
+    h = o.reshape(*x.shape[:-1], -1) @ p["attn"]["wo"]
+    if cfg.family == "hybrid":
+        h_ssm = _ssd_decode(p["ssm"], h_in, cache["ssd_state"], cfg)
+        h = (h + h_ssm[:, None]) * 0.5
+    return _mlp_block(p, x + h, cfg), cache
 
 
 def stack_decode(stacked, x, caches, pos, cfg: ModelConfig, rt: Runtime):

@@ -16,8 +16,11 @@ from repro_torch.runtime.train_loop import UpdateFailed
 
 def make_runtime(rcfg: RunConfig) -> Runtime:
     """The knobs of ``rcfg`` the port has: the attention backend
-    ('kernel' or 'dense'), remat and its block size."""
+    ('kernel' or 'dense'), remat and its block size, and ``ssm_factored``.
+    The ssm backend is pinned to the plain ``chunked`` form, as the
+    reference's training step pins it: kernel B6 has no backward."""
     return Runtime(attention_backend=rcfg.attention_backend,
+                   ssm_backend="chunked", ssm_factored=rcfg.ssm_factored,
                    remat=rcfg.remat,
                    layers_per_block=rcfg.layers_per_block)
 

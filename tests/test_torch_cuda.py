@@ -54,6 +54,7 @@ def _close(out, want, dtype):
     (130, 130, 8, 1, 16, False, 0),      # non-causal, MQA
     (100, 100, 4, 2, 64, False, 96),     # one-sided window, non-causal
     (50, 77, 8, 2, 160, True, 0),        # Sq < Sk
+    (1100, 1100, 25, 5, 64, True, 1024),  # hymba-1.5b's long prefill
 ])
 def test_flash_kernel_matches_plain(dev, dtype, sq, sk, hq, hkv, d, causal,
                                     window):
@@ -94,7 +95,8 @@ def test_paged_kernel_matches_plain(dev, dtype, hq, hkv, d, ps):
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("rows,d", [(1, 64), (7, 100), (512, 4096)])
+@pytest.mark.parametrize("rows,d", [(1, 64), (7, 100), (512, 4096),
+                                    (1100, 1600)])
 def test_rmsnorm_kernel_matches_plain(dev, dtype, rows, d):
     rng = np.random.default_rng(rows + d)
     x = _rand(rng, (rows, d), dtype, dev)
@@ -215,3 +217,101 @@ def test_reduced_loss_grads_through_the_kernels_match_dense(dev):
     np.testing.assert_allclose(lk, ld, rtol=1e-5)
     for a, b in zip(gk, gd):
         _close(a, b, F32)
+
+
+# -------------------------------------------------------------- wkv6 (B6)
+def _wkv6_inputs(rng, B, T, H, K, V, dtype, dev, lo, hi, use_u):
+    q, k = (_rand(rng, (B, T, H, K), dtype, dev) for _ in range(2))
+    v = _rand(rng, (B, T, H, V), dtype, dev)
+    ld = torch.from_numpy(-rng.uniform(lo, hi, (B, T, H, K))
+                          .astype(np.float32)).to(dev)
+    u = (_rand(rng, (H, K), F32, dev) * 0.5) if use_u else None
+    return q, k, v, ld, u
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("T", [128, 125, 300])
+@pytest.mark.parametrize("regime", [(0.001, 0.2), (0.5, 1.0), (2.0, 12.0)])
+@pytest.mark.parametrize("mode,K,V", [("rwkv6", 64, 64), ("ssd", 16, 64),
+                                      ("rwkv6", 32, 40), ("ssd", 64, 16)])
+def test_wkv6_kernel_matches_plain(dev, dtype, T, regime, mode, K, V):
+    """B6 against its plain version: both modes, both intra-chunk branches
+    (mild decay: the rescaled product in every chunk; strong: the
+    per-pair fallback), ragged last chunks, K != V and V not a multiple
+    of the kernel's 16-column slices. Error over the plain result's max
+    magnitude."""
+    rng = np.random.default_rng(T + K + V + int(regime[1]))
+    q, k, v, ld, u = _wkv6_inputs(rng, 2, T, 3, K, V, dtype, dev, *regime,
+                                  mode == "rwkv6")
+    before = ops.LAUNCHES["wkv6"]
+    o, s = ops.wkv6(q, k, v, ld, u)
+    assert ops.LAUNCHES["wkv6"] == before + 1
+    assert o.dtype == dtype and s.dtype == F32
+    want_o, want_s = ref.wkv6_chunked_ref(q, k, v, ld, u)
+    torch.cuda.synchronize()
+    for got, want in ((o, want_o), (s, want_s)):
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= TOL[dtype] * float(want.float().abs().max())
+
+
+def test_wkv6_kernel_reads_strided_inputs(dev):
+    """SSD's per-head decay as a broadcast view (stride 0 along K), q from
+    a transposed tensor, an initial state folded in, bf16 q with f32
+    ld."""
+    rng = np.random.default_rng(0)
+    B, T, H, K, V = 2, 100, 5, 16, 64
+    q = _rand(rng, (B, H, T, K), BF16, dev).transpose(1, 2)
+    k = _rand(rng, (B, T, H, K), BF16, dev)
+    v = _rand(rng, (B, T, H, V), BF16, dev)
+    ld = torch.from_numpy(-rng.uniform(0.3, 0.9, (B, T, H, 1))
+                          .astype(np.float32)).to(dev).expand(B, T, H, K)
+    s0 = _rand(rng, (B, H, K, V), F32, dev)
+    o, s = ops.wkv6(q, k, v, ld, None, s0)
+    want_o, want_s = ref.wkv6_chunked_ref(q.contiguous(), k, v,
+                                          ld.contiguous(), None, s0)
+    torch.cuda.synchronize()
+    for got, want in ((o, want_o), (s, want_s)):
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= TOL[BF16] * float(want.float().abs().max())
+
+
+def test_wkv6_refuses_a_gradient_on_the_card(dev):
+    """B6 has no backward (nor has the reference): a CUDA input that
+    requires grad raises instead of returning an output without a
+    grad_fn; without grad recording it runs."""
+    rng = np.random.default_rng(1)
+    q, k, v, ld, u = _wkv6_inputs(rng, 1, 64, 2, 16, 16, F32, dev, 0.01,
+                                  0.1, True)
+    for leaf in (q, ld, u):
+        leaf.requires_grad_()
+        with pytest.raises(ValueError, match="no backward kernel"):
+            ops.wkv6(q, k, v, ld, u)
+        with torch.no_grad():
+            ops.wkv6(q, k, v, ld, u)
+        leaf.requires_grad_(False)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "hymba-1.5b"])
+def test_reduced_ssm_engines_agree_through_the_kernels(dev, arch):
+    """Static and continuous engines give the same greedy tokens on the
+    card through B6 (32-token and 70-token prompts: hymba's reduced
+    window of 64 wraps), and B6 launched once per layer and prefill."""
+    from repro_torch.data.pipeline import synth_requests
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serving import SimClock
+
+    kw = dict(layers=2, d_model=128, vocab=512, d_ff=256)
+    toks = {}
+    for sched in ("static", "continuous"):
+        eng, cfg = build_engine(arch, batch=2, prompt_len=70,
+                                max_new_tokens=24, scheduler=sched,
+                                reduce_kw=kw, clock=SimClock(), device=dev)
+        reqs = (synth_requests(cfg, 2, 70, max_new_tokens=(3, 24))
+                + synth_requests(cfg, 2, 32, max_new_tokens=6, seed=1))
+        for r in reqs[2:]:
+            r.rid += 100
+        ops.reset_launches()
+        rep = eng.run(reqs)
+        assert ops.LAUNCHES["wkv6"] == 2 * rep.prefills
+        toks[sched] = {m.rid: m.tokens.tolist() for m in rep.metrics}
+    assert toks["static"] == toks["continuous"]

@@ -42,7 +42,8 @@ def test_launcher_import_pulls_in_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.launch.train, "
             "repro_torch.bridge, "
             "repro_torch.kernels.rmsnorm, repro_torch.kernels.flash_attention, "
-            "repro_torch.kernels.paged_attention; "
+            "repro_torch.kernels.paged_attention, repro_torch.kernels.wkv6, "
+            "repro_torch.models.ssm; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
