@@ -8,12 +8,17 @@ builds the CUDA kernels and the Triton kernel from the checkout's sources,
 and needs one card. Phases, one JSON line each:
 
 1. device: the card's name and power limit (``nvidia-smi``), the build
-   time of the CUDA library and the Triton compile time;
+   time of the CUDA library and the Triton compile time, and per B3/B4
+   instance the HMMA (tensor-core) instructions in the library's SASS
+   (``cuobjdump -sass``) and its registers and spills (``-Xptxas -v``):
+   fails unless every instance at D=128 has HMMA and no spills;
 2. kernels against their plain PyTorch versions at the shapes of the
    serving path (K1 and K3 at granite-3-8b's and at hymba-1.5b's, K1 with
-   hymba's 1024-token window at S128 and S1100), in f32 (tolerance 5e-4)
-   and bf16 (2e-2): max abs error,
-   the device time of the kernel, of the plain version and of one library
+   hymba's 1024-token window at S128 and S1100): in f32 the max abs error
+   (tolerance 5e-4); in bf16 the error against the plain version computed
+   in f32 from the same bf16 inputs, in units of bf16 rounding at each
+   element's magnitude (at most 1, ``_held``; a line first shows that an
+   output 2 units off fails); the device time of the kernel, of the plain version and of one library
    call where PyTorch has one (each from a CUDA graph of back-to-back
    calls), the kernel's eager call time (host included), and the bound
    (the larger of operations over the card's peak rate for the input type
@@ -26,8 +31,12 @@ and needs one card. Phases, one JSON line each:
    D128 causal) and a ragged length (S4000), in f32 and bf16: max abs
    error and that error over the plain result's max magnitude (tolerance
    5e-4 f32, 2e-2 bf16, on the relative error), times and bounds as in
-   phase 2; PyTorch has no call that computes dq or dk/dv alone, so the
-   line also gives SDPA's forward plus backward beside B2 + B3 + B4;
+   phase 2, in f32 also the 3xTF32 bound (three TF32 passes at 495
+   TFLOP/s); library: ATen's attention forward with logsumexp beside B2
+   and its backward (dq, dk and dv in one call) beside B3 and B4
+   (efficient attention in f32, flash attention in bf16, K and V
+   expanded to the q heads outside the timed call), and SDPA's forward
+   plus backward beside B2 + B3 + B4;
 2c. kernel B6 (chunked WKV6) against its plain version on the same
    inputs: rwkv6 mode at rwkv6-3b's prefill shape (B1 T128 H40 K64 V64,
    with u, mild decay: every chunk on the rescaled product), the same at
@@ -81,7 +90,8 @@ and needs one card. Phases, one JSON line each:
    per step loss, grad_norm, seconds, tokens/s and each kernel's
    launches, and the peak memory. Then the same 3 steps from the same
    seeded params and batches on the plain attention path: per-step loss
-   and grad_norm within 1e-5 (relative) of the kernel run.
+   and grad_norm within 1e-5 (relative) of the kernel run; B3 and B4 at
+   one launch per layer and microbatch (16 per step).
    One more kernel step, after the counts are read, runs under
    ``torch.profiler`` (device time by kernel group, busy share);
 7. the ``kernels`` summary line, with the launch counts of the serving
@@ -122,6 +132,7 @@ TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 3, 2, 4096
 TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-5}   # relative, kernel vs plain
 GRAD_TOL = 1e-4   # per leaf, |g_kernel - g_plain| / |g_plain| (L2 norms)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
+TF32_FLOPS = 495e12   # dense TF32 on the tensor cores, for 3xTF32 bounds
 HBM_BYTES_PER_S = 3.35e12
 TOL = {"float32": 5e-4, "bfloat16": 2e-2}
 KERNELS = {
@@ -199,6 +210,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     _build.library()
     ptxas = _ptxas_summary(lib_path.parent / "build.log")
+    bwd = _bwd_build_report(lib_path)
     x = torch.ones(4, 4096, device=dev)
     ops.rmsnorm(x, torch.ones(4096, device=dev))
     emit({"phase": "device", "nvidia_smi": smi,
@@ -207,7 +219,16 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "triton": _triton_version(),
           "cuda_library_build_s": build_s,
-          "triton_compile_s": k3.compile_seconds, "ptxas": ptxas})
+          "triton_compile_s": k3.compile_seconds, "ptxas": ptxas,
+          "b3_b4_sass": bwd})
+    # B3 and B4 run on the tensor cores without spilling at the training
+    # path's head dim, in both dtypes
+    short = [f"{b} {dt} D128" for b in ("B3", "B4")
+             for dt in ("float32", "bfloat16")
+             if bwd.get(f"{b} {dt} D128", {}).get("hmma", 0) <= 0
+             or bwd[f"{b} {dt} D128"].get("spill_bytes", 1) != 0]
+    if short:
+        raise AssertionError(f"no HMMA or spills in {short}: {bwd}")
 
     # ----------------------------------------------------------- 2 kernels
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -223,11 +244,15 @@ def main() -> int:
     failures = []
 
     def record(line, main_path):
-        # the training kernels are held to an error relative to the plain
-        # result's largest magnitude, and to one launch each through their
-        # wrapper; the others to an absolute error
-        line["ok"] = (line.get("rel_err", line["max_abs_err"]) <= line["tol"]
-                      and line.get("launches_in_one_call", 1) == 1)
+        # phase 2's bf16 lines are held in units of bf16 rounding
+        # (``_held``); the training kernels and B6 to an error relative to
+        # the plain result's largest magnitude, and to one launch each
+        # through their wrapper; the rest to an absolute error
+        if "max_ulp_err" in line:
+            close = line["max_ulp_err"] <= line["ulp_tol"]
+        else:
+            close = line.get("rel_err", line["max_abs_err"]) <= line["tol"]
+        line["ok"] = close and line.get("launches_in_one_call", 1) == 1
         emit(line)
         if not line["ok"]:
             failures.append(line)
@@ -249,7 +274,8 @@ def main() -> int:
             q, k, v = (rand((B, S, h, D), dtype, hymba=bool(W))
                        for h in (Hq, Hkv, Hkv))
             out = ops.flash_attention(q, k, v, **kw)
-            want = ref.flash_attention_ref(q, k, v, **kw)
+            want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                           **kw)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             pos = torch.arange(S, device=dev)
             keep = pos[:, None] >= pos[None, :]
@@ -262,8 +288,7 @@ def main() -> int:
                 "phase": "kernel", "kernel": "flash_attention",
                 "shape": f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} causal"
                          + (f" window{W}" if W else ""),
-                "dtype": dname, "max_abs_err": _err(out, want),
-                "tol": TOL[dname],
+                "dtype": dname, **_held(out, want, dname),
                 **_times(lambda: ops.flash_attention(q, k, v, **kw),
                          lambda: ref.flash_attention_ref(q, k, v, **kw),
                          lambda: F.scaled_dot_product_attention(
@@ -286,7 +311,8 @@ def main() -> int:
             lens = torch.tensor([ctx, ctx - 1, ctx - 5, ctx - 15],
                                 dtype=torch.int32, device=dev)
             out = ops.paged_attention(q, kp, vp, bt, lens)
-            want = ref.paged_decode_attention_ref(q, kp, vp, bt, lens)
+            want = ref.paged_decode_attention_ref(q.float(), kp.float(),
+                                                  vp.float(), bt, lens)
             ntok = int(lens.sum())
             b_ms, b_by = bound(
                 4 * Hq * D * ntok,
@@ -295,8 +321,7 @@ def main() -> int:
             record({
                 "phase": "kernel", "kernel": "paged_attention",
                 "shape": f"B{B} ctx{ctx} ps{ps} Hq{Hq} Hkv{Hkv} D{D}",
-                "dtype": dname, "max_abs_err": _err(out, want),
-                "tol": TOL[dname],
+                "dtype": dname, **_held(out, want, dname),
                 **_times(lambda: ops.paged_attention(q, kp, vp, bt, lens),
                          lambda: ref.paged_decode_attention_ref(
                              q, kp, vp, bt, lens),
@@ -311,12 +336,14 @@ def main() -> int:
             scale = rand((d,), torch.float32, hymba=d == 1600)
             scale_lib = scale.to(dtype)
             out = ops.rmsnorm(x, scale)
-            want = ref.rmsnorm_ref(x, scale)
+            want = ref.rmsnorm_ref(x.float(), scale)
+            if dname == "bfloat16" and rows == 512:
+                _check_ulp_gate(out, want)
             b_ms, b_by = bound(4 * rows * d, 2 * isz * rows * d + 4 * d, dname)
             record({
                 "phase": "kernel", "kernel": "rmsnorm",
                 "shape": f"rows{rows} d{d}", "dtype": dname,
-                "max_abs_err": _err(out, want), "tol": TOL[dname],
+                **_held(out, want, dname),
                 **_times(lambda: ops.rmsnorm(x, scale),
                          lambda: ref.rmsnorm_ref(x, scale),
                          lambda: F.rms_norm(x, (d,), weight=scale_lib,
@@ -884,6 +911,10 @@ def _train_kernels(rand, record) -> None:
                     + 2 * rows),
             }
             shape = f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} causal"
+            lib_fwd, lib_bwd, lib_name = _attention_library(q, k, v, do)
+            library = {"flash_attention_lse": (lib_fwd, lib_name[0]),
+                       "flash_attention_dq": (lib_bwd, lib_name[1]),
+                       "flash_attention_dkv": (lib_bwd, lib_name[1])}
             group_ms = 0.0
             for name, (kernel, plain, flops, nbytes) in cases.items():
                 got, want = held[name]
@@ -891,7 +922,7 @@ def _train_kernels(rand, record) -> None:
                 rel = max(e / max(float(w.float().abs().max()), 1e-30)
                           for e, w in zip(errs, want))
                 b_ms, b_by = bound(flops, nbytes, dname)
-                times = _times(kernel, plain, None)
+                times = _times(kernel, plain, library[name][0])
                 group_ms += times["kernel_ms"]
                 line = {
                     "phase": "train_kernel", "kernel": name, "shape": shape,
@@ -900,8 +931,11 @@ def _train_kernels(rand, record) -> None:
                     "launches_in_one_call": rose[name],
                     "max_abs_err": max(errs),
                     "rel_err": rel, "tol": TOL[dname], **times,
-                    "library": "none: no single PyTorch call",
+                    "library": library[name][1],
                     "bound_ms": b_ms, "bound_by": b_by}
+                if dname == "float32":   # three TF32 passes at 495 TFLOP/s
+                    line["bound_3xtf32_ms"] = max(
+                        3 * flops / TF32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
                 record(line, main_path=(S == TRAIN_SEQ
                                         and dname == "float32"))
             if rose["flash_attention"]:
@@ -924,7 +958,53 @@ def _train_kernels(rand, record) -> None:
                   "library": "scaled_dot_product_attention(enable_gqa=True) "
                              "forward + backward, eager"})
             del q, k, v, do, o_ref, lse_ref, delta, args, cases, qt, kt, vt
+            del library, lib_fwd, lib_bwd
             torch.cuda.empty_cache()
+
+
+def _attention_library(q, k, v, do) -> tuple:
+    """PyTorch's own calls for B2's function and for B3 + B4's together
+    on the same inputs, K and V expanded to the q heads and all four
+    moved to (B, H, S, D) outside the timed calls: (forward fn, backward
+    fn, their names). f32: the memory-efficient attention forward with its
+    logsumexp rows and its backward; bf16: the flash-attention forward and
+    backward. Timed by ``chip_smoke.py`` as yardsticks only; the port
+    never calls them."""
+    import torch
+    aten = torch.ops.aten
+    g = q.shape[2] // k.shape[2]
+    qt, dot = (t.transpose(1, 2).contiguous() for t in (q, do))
+    kt, vt = (t.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+              for t in (k, v))
+    if q.dtype == torch.float32:
+        def fwd():
+            return aten._scaled_dot_product_efficient_attention(
+                qt, kt, vt, None, True, 0.0, True)
+        o, lse, seed, offset = fwd()
+
+        def bwd():
+            return aten._scaled_dot_product_efficient_attention_backward(
+                dot, qt, kt, vt, None, o, lse, seed, offset, 0.0,
+                [True, True, True, False], True)
+        names = ("aten._scaled_dot_product_efficient_attention("
+                 "compute_log_sumexp=True), K/V expanded to Hq",
+                 "aten._scaled_dot_product_efficient_attention_backward: "
+                 "dq, dk and dv together (B3 + B4), K/V expanded to Hq")
+    else:
+        def fwd():
+            return aten._scaled_dot_product_flash_attention(
+                qt, kt, vt, 0.0, True)
+        r = fwd()
+
+        def bwd():
+            return aten._scaled_dot_product_flash_attention_backward(
+                dot, qt, kt, vt, r[0], r[1], r[2], r[3], r[4], r[5], 0.0,
+                True, r[6], r[7])
+        names = ("aten._scaled_dot_product_flash_attention, K/V expanded "
+                 "to Hq",
+                 "aten._scaled_dot_product_flash_attention_backward: dq, dk "
+                 "and dv together (B3 + B4), K/V expanded to Hq")
+    return fwd, bwd, names
 
 
 def _train_config(backend: str):
@@ -1029,6 +1109,14 @@ def _train(dev) -> dict:
     short = [(i, k) for i, c in enumerate(per_step) for k in need if c[k] < 1]
     if short:
         raise AssertionError(f"training steps launched no {short}")
+    # B3 and B4: one launch each per layer and microbatch
+    per_layer = TRAIN_LAYERS * _train_config("kernel").microbatches
+    off = [(i, k, c[k]) for i, c in enumerate(per_step)
+           for k in ("flash_attention_dq", "flash_attention_dkv")
+           if c[k] != per_layer]
+    if off:
+        raise AssertionError(f"B3/B4 launches per step differ from "
+                             f"{per_layer}: {off}")
     return launches
 
 
@@ -1110,8 +1198,53 @@ def _eager_ms(fn, iters: int = 5) -> float:
 
 def _err(out, want) -> float:
     import torch
-    torch.cuda.synchronize()
+    if out.is_cuda:
+        torch.cuda.synchronize()
     return float((out.float() - want.float()).abs().max())
+
+
+# Phase 2's bf16 gate: each bf16 output element against the plain version
+# computed in f32 from the same bf16 inputs, in units of bf16's spacing at
+# that element's own magnitude (2^(e-8) for |x| in [2^(e-1), 2^e)), at least
+# ULP_FLOOR for outputs near zero. A kernel that computes in f32 and rounds
+# once is within half a unit plus its f32 error; one unit is the gate.
+ULP_TOL = 1.0
+ULP_FLOOR = 2.0 ** -16
+
+
+def _ulp_err(out, want) -> float:
+    """max |out - want| in units of bf16 rounding at want's magnitude."""
+    import torch
+    w = want.float()
+    _, e = torch.frexp(w)
+    ulp = torch.ldexp(torch.ones_like(w), e - 8).clamp(min=ULP_FLOOR)
+    ulp = torch.where(w == 0, ULP_FLOOR, ulp)   # frexp(0) gives e = 0
+    return float(((out.float() - w).abs() / ulp).max())
+
+
+def _held(out, want, dname: str) -> dict:
+    """Phase 2's error fields: f32 outputs by the absolute error against
+    the plain version (TOL), bf16 outputs in units of bf16 rounding against
+    the plain version in f32 (``_ulp_err``)."""
+    line = {"max_abs_err": _err(out, want)}
+    if dname == "bfloat16":
+        return {**line, "max_ulp_err": _ulp_err(out, want),
+                "ulp_tol": ULP_TOL, "ulp_floor": ULP_FLOOR,
+                "plain_in": "float32"}
+    return {**line, "tol": TOL[dname]}
+
+
+def _check_ulp_gate(out, want) -> None:
+    """The bf16 gate catches an output two units off: each element of a
+    kernel's bf16 output moved two representable values away from zero."""
+    import torch
+    off = (out.view(torch.int16) + 2).view(torch.bfloat16)
+    err = _ulp_err(off, want)
+    emit({"phase": "ulp_gate_check", "shifted_by_ulps": 2,
+          "max_ulp_err": err, "ulp_tol": ULP_TOL, "caught": err > ULP_TOL})
+    if not err > ULP_TOL:
+        raise AssertionError(f"the bf16 gate missed an output 2 ulps off "
+                             f"({err} <= {ULP_TOL})")
 
 
 def _times(kernel, plain, library) -> dict:
@@ -1189,6 +1322,71 @@ def _ptxas_summary(log: Path) -> list:
         elif fn and ("Used" in line or "spill" in line):
             out.append(f"{fn}: {line.split('info    :')[-1].strip()}")
     return out
+
+
+BWD_INSTANCE = re.compile(r"attn_(dq|dkv)_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+
+
+def _bwd_instance(mangled: str):
+    """'B3 float32 D128' for a B3/B4 kernel instance's mangled name, else
+    None."""
+    m = BWD_INSTANCE.search(mangled)
+    if not m:
+        return None
+    kernel, dtype, d = m.groups()
+    return (f"{'B3' if kernel == 'dq' else 'B4'} "
+            f"{'float32' if dtype == 'f' else 'bfloat16'} D{d}")
+
+
+def _cuobjdump() -> str:
+    """The CUDA toolkit's cuobjdump (beside nvcc), else Triton's copy."""
+    from repro_torch.kernels import _build
+    cands = [Path(_build.nvcc_path()).parent / "cuobjdump"]
+    try:
+        import triton
+        cands.append(Path(triton.__file__).parent / "backends" / "nvidia"
+                     / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    for c in cands:
+        if c.is_file():
+            return str(c)
+    raise AssertionError(f"no cuobjdump found (looked at {cands})")
+
+
+def _bwd_build_report(lib: Path) -> dict:
+    """Per B3/B4 instance: HMMA instructions in the library's SASS
+    (``cuobjdump -sass``), and registers and spilled bytes from the build's
+    ``-Xptxas -v`` report."""
+    sass = subprocess.run([_cuobjdump(), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    report, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = _bwd_instance(m.group(1))
+            if name:
+                report[name] = {"hmma": 0}
+        elif name and "HMMA" in line:
+            report[name]["hmma"] += 1
+    log = lib.parent / "build.log"
+    name = None
+    for line in log.read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?([^' ]+)", line)
+        if m:
+            name = _bwd_instance(m.group(1))
+            continue
+        if name is None or name not in report:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[name]["registers"] = int(m.group(1))
+    return dict(sorted(report.items()))
 
 
 def _triton_version() -> str:

@@ -1,7 +1,7 @@
-// Tile sizes, dtype conversions and the mask shared by the flash-attention
-// kernels (flash_attention.cu: K1 and B2; flash_attention_bwd.cu: B3, B4).
-// Each kernel computes in f32 whatever its input type; T is float or
-// __nv_bfloat16.
+// Tile sizes and dtype conversions of the FMA flash-attention kernels
+// (flash_attention.cu: K1 and B2), which compute in f32 whatever their input
+// type (T is float or __nv_bfloat16), and the mask they share with the
+// tensor-core backward (flash_attention_bwd.cu: B3, B4).
 
 #pragma once
 

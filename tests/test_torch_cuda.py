@@ -112,6 +112,18 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     q = torch.zeros(1, 8, 4, 48, device=dev)            # head dim 48
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head dim"):   # B2-B4's path
+        ops.flash_attention(q.requires_grad_(), q, q)
+    # B3 and B4 copy 16 bytes at a time: a tensor that does not start on a
+    # 16-byte boundary is refused at launch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_dkv_cuda, flash_attention_dq_cuda)
+    flat = torch.zeros(8 * 4 * 64 + 1, device=dev)
+    qm = flat[1:].view(1, 8, 4, 64)
+    rows = torch.zeros(1, 4, 8, device=dev)
+    for launch in (flash_attention_dq_cuda, flash_attention_dkv_cuda):
+        with pytest.raises(RuntimeError, match="misaligned"):
+            launch(qm, qm, qm, qm, rows, rows, causal=True, window=0)
     qp = torch.zeros(1, 1, 4, 30, device=dev)           # head dim 30
     pool = torch.zeros(3, 4, 4, 30, device=dev)
     bt = torch.ones(1, 2, dtype=torch.int32, device=dev)
@@ -184,6 +196,62 @@ def test_training_kernels_match_plain(dev, dtype, sq, sk, hq, hkv, d, causal,
     from repro_torch.kernels.flash_attention import flash_attention_lse_cuda
     _, lse = flash_attention_lse_cuda(q.detach(), k.detach(), v.detach(), **kw)
     _close(lse, lse_want, F32)
+
+
+def _bwd_inputs(dtype, dev, sq, sk, hq, hkv, d, causal, window, seed=0):
+    """q, k, v, do and the plain forward's lse and delta for B3 and B4."""
+    rng = np.random.default_rng(seed + sq + 3 * sk + hq + d + int(causal))
+    q, do = (_rand(rng, (2, sq, hq, d), dtype, dev) for _ in range(2))
+    k, v = (_rand(rng, (2, sk, hkv, d), dtype, dev) for _ in range(2))
+    o, lse = ref.flash_attention_lse_ref(q, k, v, causal=causal, window=window)
+    return q, k, v, do, lse, ref.attention_delta(o, do)
+
+
+# every head dim of the dispatch, GQA, MQA, ragged edges, sliding windows,
+# non-causal and Sq != Sk
+BWD_CASES = [
+    (256, 256, 8, 2, True, 0),       # tileable, GQA
+    (200, 200, 4, 1, True, 96),      # ragged, MQA, sliding window
+    (130, 130, 4, 4, False, 0),      # ragged, non-causal
+    (100, 77, 6, 2, False, 40),      # Sq > Sk, one-sided window, non-causal
+]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 160])
+@pytest.mark.parametrize("sq,sk,hq,hkv,causal,window", BWD_CASES)
+def test_backward_kernels_match_plain(dev, dtype, d, sq, sk, hq, hkv, causal,
+                                      window):
+    """B3 (dq) and B4 (dk, dv) against their plain versions on the same
+    q, k, v, do, lse and delta."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_dkv_cuda, flash_attention_dq_cuda)
+    kw = dict(causal=causal, window=window)
+    args = _bwd_inputs(dtype, dev, sq, sk, hq, hkv, d, causal, window)
+    dq = flash_attention_dq_cuda(*args, **kw)
+    dk, dv = flash_attention_dkv_cuda(*args, **kw)
+    want = (ref.flash_attention_dq_ref(*args, **kw),
+            *ref.flash_attention_dkv_ref(*args, **kw))
+    for got, w in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == w.shape
+        _close(got, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_backward_kernels_are_deterministic(dev, dtype):
+    """B3 and B4 use no atomics and B4 sums its GQA group in a fixed order:
+    two runs on the same inputs give the same bits."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_dkv_cuda, flash_attention_dq_cuda)
+    kw = dict(causal=True, window=0)
+    args = _bwd_inputs(dtype, dev, 1000, 1000, 16, 2, 128, True, 0)
+    first = (flash_attention_dq_cuda(*args, **kw),
+             *flash_attention_dkv_cuda(*args, **kw))
+    second = (flash_attention_dq_cuda(*args, **kw),
+              *flash_attention_dkv_cuda(*args, **kw))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_reduced_loss_grads_through_the_kernels_match_dense(dev):
