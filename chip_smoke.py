@@ -8,10 +8,11 @@ builds the CUDA kernels and the Triton kernel from the checkout's sources,
 and needs one card. Phases, one JSON line each:
 
 1. device: the card's name and power limit (``nvidia-smi``), the build
-   time of the CUDA library and the Triton compile time, and per B3/B4
-   instance the HMMA (tensor-core) instructions in the library's SASS
-   (``cuobjdump -sass``) and its registers and spills (``-Xptxas -v``):
-   fails unless every instance at D=128 has HMMA and no spills;
+   time of the CUDA library and the Triton compile time, and per
+   instance of the flash-attention kernels (K1/B2, B3, B4) the HMMA
+   (tensor-core) instructions in the library's SASS (``cuobjdump -sass``)
+   and its registers and spills (``-Xptxas -v``): fails unless every
+   instance at D=128 has HMMA and no spills;
 2. kernels against their plain PyTorch versions at the shapes of the
    serving path (K1 and K3 at granite-3-8b's and at hymba-1.5b's, K1 with
    hymba's 1024-token window at S128 and S1100): in f32 the max abs error
@@ -22,7 +23,8 @@ and needs one card. Phases, one JSON line each:
    call where PyTorch has one (each from a CUDA graph of back-to-back
    calls), the kernel's eager call time (host included), and the bound
    (the larger of operations over the card's peak rate for the input type
-   and bytes over 3.35 TB/s);
+   and bytes over 3.35 TB/s), for K1 in f32 also the 3xTF32 bound (three
+   TF32 passes at 495 TFLOP/s: K1 runs on the tensor cores);
 2b. the training path's attention kernels (B2 forward with lse, B3 dq,
    B4 dk/dv) through their wrapper as training calls it (q, k, v that
    require grad through ``ops.flash_attention``, then
@@ -172,6 +174,12 @@ def bound(flops: float, nbytes: float, dtype: str):
                                        else "bytes")
 
 
+def bound_3xtf32(flops: float, nbytes: float) -> float:
+    """The bound of f32 work done on the tensor cores as three TF32 passes
+    at 495 TFLOP/s (K1-B4 in f32), in ms."""
+    return max(3 * flops / TF32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -210,7 +218,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     _build.library()
     ptxas = _ptxas_summary(lib_path.parent / "build.log")
-    bwd = _bwd_build_report(lib_path)
+    attn = _attn_build_report(lib_path)
     x = torch.ones(4, 4096, device=dev)
     ops.rmsnorm(x, torch.ones(4096, device=dev))
     emit({"phase": "device", "nvidia_smi": smi,
@@ -220,15 +228,15 @@ def main() -> int:
           "triton": _triton_version(),
           "cuda_library_build_s": build_s,
           "triton_compile_s": k3.compile_seconds, "ptxas": ptxas,
-          "b3_b4_sass": bwd})
-    # B3 and B4 run on the tensor cores without spilling at the training
-    # path's head dim, in both dtypes
-    short = [f"{b} {dt} D128" for b in ("B3", "B4")
+          "attention_sass": attn})
+    # the flash-attention kernels run on the tensor cores without spilling
+    # at the serving and training paths' head dim, in both dtypes
+    short = [f"{b} {dt} D128" for b in ("K1/B2", "B3", "B4")
              for dt in ("float32", "bfloat16")
-             if bwd.get(f"{b} {dt} D128", {}).get("hmma", 0) <= 0
-             or bwd[f"{b} {dt} D128"].get("spill_bytes", 1) != 0]
+             if attn.get(f"{b} {dt} D128", {}).get("hmma", 0) <= 0
+             or attn[f"{b} {dt} D128"].get("spill_bytes", 1) != 0]
     if short:
-        raise AssertionError(f"no HMMA or spills in {short}: {bwd}")
+        raise AssertionError(f"no HMMA or spills in {short}: {attn}")
 
     # ----------------------------------------------------------- 2 kernels
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -282,8 +290,13 @@ def main() -> int:
             if W:
                 keep &= pos[:, None] - pos[None, :] < W
             pairs = int(keep.sum())
-            b_ms, b_by = bound(4 * B * Hq * D * pairs,
-                               isz * B * S * D * (2 * Hq + 2 * Hkv), dname)
+            flops = 4 * B * Hq * D * pairs
+            nbytes = isz * B * S * D * (2 * Hq + 2 * Hkv)
+            b_ms, b_by = bound(flops, nbytes, dname)
+            if dname == "float32":
+                b_ms3 = {"bound_3xtf32_ms": bound_3xtf32(flops, nbytes)}
+            else:
+                b_ms3 = {}
             record({
                 "phase": "kernel", "kernel": "flash_attention",
                 "shape": f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} causal"
@@ -297,7 +310,7 @@ def main() -> int:
                 "library": "scaled_dot_product_attention("
                            + ("attn_mask" if W else "is_causal")
                            + ", enable_gqa=True)",
-                "bound_ms": b_ms, "bound_by": b_by},
+                "bound_ms": b_ms, "bound_by": b_by, **b_ms3},
                 main_path=(S == 128 and Hq == 32 and dname == "float32"))
         # K2: paged decode, 4 rows, 16-token pages in shuffled order
         for ctx in (160, 4096):
@@ -933,9 +946,8 @@ def _train_kernels(rand, record) -> None:
                     "rel_err": rel, "tol": TOL[dname], **times,
                     "library": library[name][1],
                     "bound_ms": b_ms, "bound_by": b_by}
-                if dname == "float32":   # three TF32 passes at 495 TFLOP/s
-                    line["bound_3xtf32_ms"] = max(
-                        3 * flops / TF32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+                if dname == "float32":
+                    line["bound_3xtf32_ms"] = bound_3xtf32(flops, nbytes)
                 record(line, main_path=(S == TRAIN_SEQ
                                         and dname == "float32"))
             if rose["flash_attention"]:
@@ -1324,17 +1336,19 @@ def _ptxas_summary(log: Path) -> list:
     return out
 
 
-BWD_INSTANCE = re.compile(r"attn_(dq|dkv)_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+ATTN_INSTANCE = re.compile(
+    r"attn_(fwd|dq|dkv)_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+ATTN_KERNEL = {"fwd": "K1/B2", "dq": "B3", "dkv": "B4"}
 
 
-def _bwd_instance(mangled: str):
-    """'B3 float32 D128' for a B3/B4 kernel instance's mangled name, else
-    None."""
-    m = BWD_INSTANCE.search(mangled)
+def _attn_instance(mangled: str):
+    """'B3 float32 D128' (or 'K1/B2 ...', 'B4 ...') for an instance of a
+    flash-attention kernel from its mangled name, else None."""
+    m = ATTN_INSTANCE.search(mangled)
     if not m:
         return None
     kernel, dtype, d = m.groups()
-    return (f"{'B3' if kernel == 'dq' else 'B4'} "
+    return (f"{ATTN_KERNEL[kernel]} "
             f"{'float32' if dtype == 'f' else 'bfloat16'} D{d}")
 
 
@@ -1354,8 +1368,8 @@ def _cuobjdump() -> str:
     raise AssertionError(f"no cuobjdump found (looked at {cands})")
 
 
-def _bwd_build_report(lib: Path) -> dict:
-    """Per B3/B4 instance: HMMA instructions in the library's SASS
+def _attn_build_report(lib: Path) -> dict:
+    """Per K1/B2, B3 and B4 instance: HMMA instructions in the library's SASS
     (``cuobjdump -sass``), and registers and spilled bytes from the build's
     ``-Xptxas -v`` report."""
     sass = subprocess.run([_cuobjdump(), "-sass", str(lib)],
@@ -1364,7 +1378,7 @@ def _bwd_build_report(lib: Path) -> dict:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = _bwd_instance(m.group(1))
+            name = _attn_instance(m.group(1))
             if name:
                 report[name] = {"hmma": 0}
         elif name and "HMMA" in line:
@@ -1375,7 +1389,7 @@ def _bwd_build_report(lib: Path) -> dict:
         m = re.search(r"(?:Compiling entry function|Function properties for) "
                       r"'?([^' ]+)", line)
         if m:
-            name = _bwd_instance(m.group(1))
+            name = _attn_instance(m.group(1))
             continue
         if name is None or name not in report:
             continue

@@ -1,27 +1,17 @@
-// Tile sizes and dtype conversions of the FMA flash-attention kernels
-// (flash_attention.cu: K1 and B2), which compute in f32 whatever their input
-// type (T is float or __nv_bfloat16), and the mask they share with the
-// tensor-core backward (flash_attention_bwd.cu: B3, B4).
+// What the tensor-core flash-attention kernels share: the forward
+// (flash_attention.cu: K1, B2) and the backward (flash_attention_bwd.cu: B3,
+// B4). The mask, the masked-score value, log2(e) for exp2, and the
+// alignment their 16-byte copies need.
 
 #pragma once
 
-#include <cuda_bf16.h>
+#include <stddef.h>
+#include <stdint.h>
 
 namespace attn {
 
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // key rows per tile
-constexpr int THREADS = 256;  // 16 row groups of 4 rows x 16 column lanes
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr float NEG_INF = -1e30f;                 // the TPU kernels' masked score
+constexpr float kLog2e = 1.4426950408889634f;     // exp(x) = exp2(x log2(e))
 
 // Whether query position qp sees key position kp: inside the key length,
 // causal (qp >= kp) if asked, and inside a nonzero window (qp - kp <
@@ -32,5 +22,7 @@ __device__ __forceinline__ bool visible(int qp, int kp, int Sk, int causal, int 
   if (window > 0) ok = ok && qp - kp < window;
   return ok;
 }
+
+inline bool aligned(const void* p, size_t n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
 
 }  // namespace attn

@@ -80,12 +80,17 @@
 
 namespace {
 
+using attn::aligned;
+using attn::kLog2e;
 using attn::visible;
 using bf16 = __nv_bfloat16;
+using mma::add_into;
+using mma::split4;
+using mma::store_pair;
+using mma::warp_abt;
 
 constexpr int THREADS = 256;  // 8 warps: 4 groups of 16 resident rows x 2 halves
 constexpr int ROWS = 64;      // resident rows per block
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Row padding, and the rows of B3's (NS_DQ) and B4's (NS_DKV) streamed
 // tiles: 64, or 32 where two ring stages of 64 would not fit beside the
@@ -106,7 +111,6 @@ struct Tile<bf16> {
   static constexpr int NS_DQ = 64;
   static constexpr int NS_DKV = 64;
 };
-constexpr size_t kMaxSmem = 232448;  // per block on the H100, opted in
 
 // Shared-memory layout, in elements of T: tiles of rows of D + PAD, and the
 // p / ds tiles ROWS x (NS + 8).
@@ -125,98 +129,9 @@ struct Layout {
       (2 * resident + 2 * stage + 2 * pds) * sizeof(T) + 2 * 2 * NS * sizeof(float);
 };
 
-// ---------------------------------------------------------------- copies
-
-// Rows [row0, row0 + N) of one head of a (B, S, H, D) tensor (src points at
-// its row 0) into a tile of row stride LD, asynchronously; rows >= S are
-// zero-filled.
-template <typename T, int D, int LD, int N>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int row0, int S, int H,
-                                          int tid) {
-  constexpr int PER = 16 / sizeof(T);  // elements per 16-byte copy
-  constexpr int CH = D / PER;
-  for (int idx = tid; idx < N * CH; idx += THREADS) {
-    const int r = idx / CH, c = (idx - r * CH) * PER;
-    const bool ok = row0 + r < S;
-    mma::cp_async16(dst + r * LD + c, ok ? src + size_t(row0 + r) * H * D + c : src, ok);
-  }
-}
-
-__device__ __forceinline__ void store_pair(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = mma::pack_bf16(a, b);
-}
-
 // -------------------------------------------------------- warp products
-// A warp's 16 rows: g = lane / 4 and g + 8; its C fragment for 8-column
-// tile i holds columns 8i + 2t and 8i + 2t + 1 (t = lane % 4).
-
-template <int N>
-__device__ __forceinline__ void add_into(float (&acc)[N][4], const float (&part)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
-}
-
-// A tf32 A fragment split into hi and lo.
-__device__ __forceinline__ void split4(uint32_t (&hi)[4], uint32_t (&lo)[4],
-                                       const float (&av)[4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const mma::Tf32Pair s = mma::split_tf32(av[j]);
-    hi[j] = s.hi;
-    lo[j] = s.lo;
-  }
-}
-
-// acc (16 x 8NT) = A B^T over D: A a 16-row tile, B an 8NT-row tile, both
-// row-major with stride LD.
-template <int D, int LD, int NT>
-__device__ __forceinline__ void warp_abt(float (&acc)[NT][4], const float* A, const float* B,
-                                         int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  float small[NT][4] = {};  // the lo*hi + hi*lo terms, added at the end
-#pragma unroll
-  for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < D; k += 8) {
-    const float* a = A + g * LD + k + t;
-    const float av[4] = {a[0], a[8 * LD], a[4], a[8 * LD + 4]};
-    uint32_t ahi[4], alo[4];
-    split4(ahi, alo, av);
-    mma::Tf32Pair b0[NT], b1[NT];
-#pragma unroll
-    for (int i = 0; i < NT; ++i) {
-      const float* b = B + (8 * i + g) * LD + k + t;
-      b0[i] = mma::split_tf32(b[0]);
-      b1[i] = mma::split_tf32(b[4]);
-    }
-    mma::mma_3xtf32(acc, small, ahi, alo, b0, b1);
-  }
-  add_into(acc, small);
-}
-
-template <int D, int LD, int NT>
-__device__ __forceinline__ void warp_abt(float (&acc)[NT][4], const bf16* A, const bf16* B,
-                                         int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < D; k += 16) {
-    const bf16* a = A + g * LD + k + 2 * t;
-    const uint32_t af[4] = {mma::ld_u32(a), mma::ld_u32(a + 8 * LD), mma::ld_u32(a + 8),
-                            mma::ld_u32(a + 8 * LD + 8)};
-#pragma unroll
-    for (int i = 0; i < NT; ++i) {
-      const bf16* b = B + (8 * i + g) * LD + k + 2 * t;
-      mma::mma_bf16(acc[i], af, mma::ld_u32(b), mma::ld_u32(b + 8));
-    }
-  }
-}
+// (mma.cuh: a warp's 16 rows are g = lane / 4 and g + 8; its C fragment
+// for 8-column tile i holds columns 8i + 2t and 8i + 2t + 1, t = lane % 4)
 
 // acc (16 x 8ND) += P B over NS: P the warp's 16 rows of a p / ds tile
 // (stride LDP), B an NS-row tile (stride LD) from its first column. The
@@ -335,13 +250,15 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   auto issue = [&](int step) {
     T* st = ring + (step & 1) * L::stage;
     const int k0 = (t_begin + step) * NS;
-    load_rows<T, D, LD, NS>(st, kh, k0, Sk, Hkv, tid);
-    load_rows<T, D, LD, NS>(st + NS * LD, vh, k0, Sk, Hkv, tid);
+    mma::load_rows<T, D, LD, NS, THREADS>(st, kh, k0, Sk, Hkv, tid);
+    mma::load_rows<T, D, LD, NS, THREADS>(st + NS * LD, vh, k0, Sk, Hkv, tid);
     mma::cp_async_commit();
   };
   if (steps > 0) {
-    load_rows<T, D, LD, ROWS>(Qs, q + (size_t(b) * Sq * Hq + h) * D, q0, Sq, Hq, tid);
-    load_rows<T, D, LD, ROWS>(dOs, dout + (size_t(b) * Sq * Hq + h) * D, q0, Sq, Hq, tid);
+    mma::load_rows<T, D, LD, ROWS, THREADS>(Qs, q + (size_t(b) * Sq * Hq + h) * D, q0, Sq, Hq,
+                                            tid);
+    mma::load_rows<T, D, LD, ROWS, THREADS>(dOs, dout + (size_t(b) * Sq * Hq + h) * D, q0, Sq,
+                                            Hq, tid);
     issue(0);  // one group with the resident tiles
   }
 
@@ -435,8 +352,10 @@ attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     const int h = hk * group + step / per_head;
     const int q0 = (t_begin + step % per_head) * NS;
     T* st = ring + (step & 1) * L::stage;
-    load_rows<T, D, LD, NS>(st, q + (size_t(b) * Sq * Hq + h) * D, q0, Sq, Hq, tid);
-    load_rows<T, D, LD, NS>(st + NS * LD, dout + (size_t(b) * Sq * Hq + h) * D, q0, Sq, Hq, tid);
+    mma::load_rows<T, D, LD, NS, THREADS>(st, q + (size_t(b) * Sq * Hq + h) * D, q0, Sq, Hq,
+                                          tid);
+    mma::load_rows<T, D, LD, NS, THREADS>(st + NS * LD, dout + (size_t(b) * Sq * Hq + h) * D, q0,
+                                          Sq, Hq, tid);
     if (tid < 2 * NS) {
       const float* src = tid < NS ? lse : delta;
       const int qp = q0 + tid % NS;
@@ -447,8 +366,10 @@ attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     mma::cp_async_commit();
   };
   if (steps > 0) {
-    load_rows<T, D, LD, ROWS>(Ks, k + (size_t(b) * Sk * Hkv + hk) * D, k0, Sk, Hkv, tid);
-    load_rows<T, D, LD, ROWS>(Vs, v + (size_t(b) * Sk * Hkv + hk) * D, k0, Sk, Hkv, tid);
+    mma::load_rows<T, D, LD, ROWS, THREADS>(Ks, k + (size_t(b) * Sk * Hkv + hk) * D, k0, Sk, Hkv,
+                                            tid);
+    mma::load_rows<T, D, LD, ROWS, THREADS>(Vs, v + (size_t(b) * Sk * Hkv + hk) * D, k0, Sk, Hkv,
+                                            tid);
     issue(0);  // one group with the resident tiles
   }
 
@@ -555,8 +476,6 @@ cudaError_t dispatch(const Args& a, int D, bool dkv) {
   }
 #undef REPRO_BWD_CASE
 }
-
-bool aligned(const void* p, size_t n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
 
 int run(const Args& a, int D, int dtype, bool dkv) {
   if (a.B <= 0 || (dkv ? a.Sk : a.Sq) <= 0) return cudaSuccess;

@@ -1,8 +1,10 @@
 // Tensor-core and asynchronous-copy helpers for Hopper (sm_90a), inline PTX:
 // warp-level mma.sync products in bf16 (m16n8k16) and in TF32 (m16n8k8,
 // with the three-pass split that keeps f32 accuracy), ldmatrix for the
-// transposed bf16 operand, and 16- and 4-byte cp.async with zero fill.
-// Used by the flash-attention backward (flash_attention_bwd.cu: B3, B4).
+// transposed bf16 operand, 16- and 4-byte cp.async with zero fill, and the
+// tile copy and score product the attention kernels share. Used by the
+// flash-attention forward (flash_attention.cu: K1, B2) and backward
+// (flash_attention_bwd.cu: B3, B4).
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k*"), with
 // g = lane / 4 and t = lane % 4:
@@ -13,22 +15,29 @@
 //   both           C c0 (g, 2t)   c1 (g, 2t+1)   c2 (g+8, 2t)   c3 (g+8, 2t+1)
 // A sum over k does not depend on the order of k, so a product may read
 // its k positions in any order that A and B share: the tf32 products of
-// the backward read logical k t and t+4 at physical 2t and 2t+1, the
-// columns a C fragment holds.
+// the attention kernels read logical k t and t+4 at physical 2t and 2t+1,
+// the columns a C fragment holds.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace mma {
 
 // f32 rounded to TF32 (10-bit mantissa), to nearest, ties away from zero;
-// the low 13 bits of the result are zero.
+// the low 13 bits of the result are zero. The bits of cvt.rna.tf32.f32 for
+// finite x, in two integer operations: adding half of the dropped bits to
+// the sign-magnitude pattern rounds the magnitude up from the halfway
+// point. ptxas lowers cvt.rna to these plus a NaN test and a select, and
+// the split of every loaded operand is what the f32 products spend most
+// of their instructions on (B2 4.16 -> 3.57 ms, B3 5.47 -> 4.55 ms in f32
+// on an H100 80GB HBM3 at 700 W, same bits; PERF.md). A NaN can come out
+// as a zero hi, but then lo = x - hi is NaN, so a NaN still reaches the
+// product.
 __device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 // x = hi + lo + O(2^-22 |x|): hi = tf32(x), lo = tf32(x - hi).
@@ -123,6 +132,98 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------------- tiles of the attention kernels
+
+// Rows [row0, row0 + N) of one head of a (B, S, H, D) tensor (src points at
+// its row 0) into a tile of row stride LD, asynchronously, by a block of
+// THREADS threads; rows >= S are zero-filled.
+template <typename T, int D, int LD, int N, int THREADS>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int row0, int S, int H,
+                                          int tid) {
+  constexpr int PER = 16 / sizeof(T);  // elements per 16-byte copy
+  constexpr int CH = D / PER;
+  for (int idx = tid; idx < N * CH; idx += THREADS) {
+    const int r = idx / CH, c = (idx - r * CH) * PER;
+    const bool ok = row0 + r < S;
+    cp_async16(dst + r * LD + c, ok ? src + size_t(row0 + r) * H * D + c : src, ok);
+  }
+}
+
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+
+// A warp's 16 rows: g = lane / 4 and g + 8; its C fragment for 8-column
+// tile i holds columns 8i + 2t and 8i + 2t + 1 (t = lane % 4).
+
+template <int N>
+__device__ __forceinline__ void add_into(float (&acc)[N][4], const float (&part)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
+}
+
+// A tf32 A fragment split into hi and lo.
+__device__ __forceinline__ void split4(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                       const float (&av)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const Tf32Pair s = split_tf32(av[j]);
+    hi[j] = s.hi;
+    lo[j] = s.lo;
+  }
+}
+
+// acc (16 x 8NT) = A B^T over D: A a 16-row tile, B an 8NT-row tile, both
+// row-major with stride LD. In f32 the small terms of 3xTF32 sum in their
+// own accumulators, added at the end.
+template <int D, int LD, int NT>
+__device__ __forceinline__ void warp_abt(float (&acc)[NT][4], const float* A, const float* B,
+                                         int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float small[NT][4] = {};  // the lo*hi + hi*lo terms, added at the end
+#pragma unroll
+  for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < D; k += 8) {
+    const float* a = A + g * LD + k + t;
+    const float av[4] = {a[0], a[8 * LD], a[4], a[8 * LD + 4]};
+    uint32_t ahi[4], alo[4];
+    split4(ahi, alo, av);
+    Tf32Pair b0[NT], b1[NT];
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const float* b = B + (8 * i + g) * LD + k + t;
+      b0[i] = split_tf32(b[0]);
+      b1[i] = split_tf32(b[4]);
+    }
+    mma_3xtf32(acc, small, ahi, alo, b0, b1);
+  }
+  add_into(acc, small);
+}
+
+template <int D, int LD, int NT>
+__device__ __forceinline__ void warp_abt(float (&acc)[NT][4], const __nv_bfloat16* A,
+                                         const __nv_bfloat16* B, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < D; k += 16) {
+    const __nv_bfloat16* a = A + g * LD + k + 2 * t;
+    const uint32_t af[4] = {ld_u32(a), ld_u32(a + 8 * LD), ld_u32(a + 8), ld_u32(a + 8 * LD + 8)};
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const __nv_bfloat16* b = B + (8 * i + g) * LD + k + 2 * t;
+      mma_bf16(acc[i], af, ld_u32(b), ld_u32(b + 8));
+    }
+  }
 }
 
 }  // namespace mma

@@ -14,6 +14,8 @@
 
 #include <mutex>
 
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory per block on the H100, opted in
+
 struct SmemOptIn {
   static constexpr int kDevices = 64;  // devices whose opt-in is cached
   std::mutex mu;

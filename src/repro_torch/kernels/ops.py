@@ -60,6 +60,15 @@ def _require_contiguous(what: str, **tensors: torch.Tensor) -> None:
         _require(t.is_contiguous(), what, f"{name} must be contiguous")
 
 
+def _require_aligned16(what: str, **tensors: torch.Tensor) -> None:
+    """The attention kernels copy rows 16 bytes at a time (``cp.async``):
+    a contiguous view at an odd storage offset would fault, so it is
+    refused here, with no fallback."""
+    for name, t in tensors.items():
+        _require(t.data_ptr() % 16 == 0, what,
+                 f"{name} must start on a 16-byte boundary")
+
+
 def _needs_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
@@ -98,6 +107,7 @@ class _FlashAttention(torch.autograd.Function):
         from repro_torch.kernels.flash_attention import (
             flash_attention_dkv_cuda, flash_attention_dq_cuda)
         do = do.contiguous()
+        _require_aligned16("flash_attention backward", do=do)
         delta = ref.attention_delta(o, do)
         dq = flash_attention_dq_cuda(q, k, v, do, lse, delta, **kw)
         if dq.numel():
@@ -130,6 +140,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         from repro_torch.kernels.flash_attention import HEAD_DIMS
         _require(D in HEAD_DIMS, what, f"head dim {D} not in {HEAD_DIMS}")
         _require_contiguous(what, q=q, k=k, v=v)
+        _require_aligned16(what, q=q, k=k, v=v)
     if _needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, causal, window)
     if not cuda:

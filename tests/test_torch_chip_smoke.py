@@ -1,6 +1,6 @@
 """The checks of ``chip_smoke.py`` that need no card: phase 2's bf16 gate in
-units of bf16 rounding, and phase 1's reading of B3/B4 kernel instances
-from their mangled names."""
+units of bf16 rounding, and phase 1's reading of the flash-attention kernel
+instances (K1/B2, B3, B4) from their mangled names."""
 import importlib.util
 from pathlib import Path
 
@@ -67,7 +67,8 @@ def test_held_fields_by_dtype(smoke):
      "iiiiiif", "B3 float32 D128"),
     ("_ZN12_GLOBAL__N_115attn_dkv_kernelI13__nv_bfloat16Li160EEEvPKT_",
      "B4 bfloat16 D160"),
-    ("_ZN12_GLOBAL__N_116attn_fwd_kernelIfLi8EEEvPKT_", None),
+    ("_ZN12_GLOBAL__N_115attn_fwd_kernelIfLi128EEEvPKT_S3_S3_PS1_Pfiiiiiif",
+     "K1/B2 float32 D128"),
 ])
-def test_bwd_instance_names(smoke, mangled, name):
-    assert smoke._bwd_instance(mangled) == name
+def test_attn_instance_names(smoke, mangled, name):
+    assert smoke._attn_instance(mangled) == name

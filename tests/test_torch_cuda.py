@@ -69,6 +69,85 @@ def test_flash_kernel_matches_plain(dev, dtype, sq, sk, hq, hkv, d, causal,
     _close(out, want, dtype)
 
 
+def test_forward_lse_at_the_training_shape(dev):
+    """B2 in f32 at S4096 D128 causal (the training shape, fewer heads):
+    lse within 1e-5 absolute of the plain forward's, the output within
+    TOL."""
+    from repro_torch.kernels.flash_attention import flash_attention_lse_cuda
+    rng = np.random.default_rng(4096)
+    q = _rand(rng, (1, 4096, 8, 128), F32, dev)
+    k, v = (_rand(rng, (1, 4096, 2, 128), F32, dev) for _ in range(2))
+    o, lse = flash_attention_lse_cuda(q, k, v, causal=True, window=0)
+    o_want, lse_want = ref.flash_attention_lse_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert float((lse - lse_want).abs().max()) <= 1e-5
+    _close(o, o_want, F32)
+
+
+def _ulp_err():
+    """Phase 2's bf16 measure, ``chip_smoke._ulp_err``, and its gate."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod._ulp_err, mod.ULP_TOL
+
+
+@pytest.mark.parametrize("s,hq,hkv,d,window", [
+    (128, 32, 8, 128, 0),        # granite-3-8b's serving prefill
+    (2048, 32, 8, 128, 0),
+    (1100, 25, 5, 64, 1024),     # hymba-1.5b's long prefill, past its window
+])
+def test_forward_bf16_within_a_unit_of_rounding(dev, s, hq, hkv, d, window):
+    """K1 in bf16 within one unit of bf16 rounding of the plain version
+    computed in f32 from the same bf16 inputs (phase 2's gate)."""
+    ulp_err, tol = _ulp_err()
+    rng = np.random.default_rng(s + d)
+    q = _rand(rng, (1, s, hq, d), BF16, dev)
+    k, v = (_rand(rng, (1, s, hkv, d), BF16, dev) for _ in range(2))
+    kw = dict(causal=True, window=window)
+    out = ops.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    assert ulp_err(out, want) <= tol
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_forward_is_deterministic(dev, dtype):
+    """K1 and B2 use no atomics: two launches on the same inputs give the
+    same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention_lse_cuda
+    rng = np.random.default_rng(7)
+    q = _rand(rng, (2, 1000, 16, 128), dtype, dev)
+    k, v = (_rand(rng, (2, 1000, 2, 128), dtype, dev) for _ in range(2))
+    first = flash_attention_lse_cuda(q, k, v, causal=True, window=0)
+    second = flash_attention_lse_cuda(q, k, v, causal=True, window=0)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_refuses_unaligned_rows(dev):
+    """K1-B4 copy rows 16 bytes at a time: ops.flash_attention refuses q,
+    k, v (and the backward its dO) that do not start on a 16-byte
+    boundary, with no fallback and no launch."""
+    flat = torch.zeros(8 * 4 * 64 + 1, device=dev)
+    bad = flat[1:].view(1, 8, 4, 64)              # contiguous, offset 4 bytes
+    good = torch.zeros(1, 8, 4, 64, device=dev)
+    ops.reset_launches()
+    for args in ((bad, good, good), (good, bad, good), (good, good, bad)):
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            ops.flash_attention(*args)
+    leaves = [t.clone().requires_grad_() for t in (good, good, good)]
+    o = ops.flash_attention(*leaves)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        torch.autograd.grad(o, leaves, bad)
+    assert ops.LAUNCHES["flash_attention"] == 0
+    assert ops.LAUNCHES["flash_attention_dq"] == 0
+
+
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("hq,hkv,d,ps", [(32, 8, 128, 16), (4, 4, 32, 4),
                                          (8, 2, 64, 16), (8, 1, 128, 32)])

@@ -1,6 +1,7 @@
-"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
-nothing of JAX or of the JAX package, and the port's entry points run on
-the card by default, never falling back to the CPU.
+"""The port stands alone: ``src/repro_torch``, ``chip_smoke.py`` and
+``ab_attention.py`` import nothing of JAX or of the JAX package, and the
+port's entry points run on the card by default, never falling back to the
+CPU.
 """
 import ast
 import os
@@ -17,7 +18,7 @@ from repro_torch.launch.serve import build_engine
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "ab_attention.py"]
 
 
 def _imported_modules(path: Path) -> set:
@@ -71,3 +72,14 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
         out = subprocess.run([sys.executable, str(script)], cwd=cwd,
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_ab_attention_refuses_to_run_without_a_card():
+    """The kernel A/B script times nothing on the CPU: without a card it
+    exits non-zero and prints no timing."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    out = subprocess.run([sys.executable, str(REPO / "ab_attention.py"),
+                          str(REPO)], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0 and '"ms_' not in out.stdout

@@ -1,21 +1,31 @@
-"""The f32 arithmetic of kernels B3 and B4 on the tensor cores, emulated on
-the CPU: 3xTF32 products keep f32 accuracy where single TF32 does not.
+"""The arithmetic of the flash-attention kernels on the tensor cores,
+emulated on the CPU: 3xTF32 products keep f32 accuracy where single TF32
+does not (the backward, B3 and B4, and the forward, K1 and B2), and the
+forward's bf16 P V keeps the output within a unit of bf16 rounding of the
+reference only with P in two bf16 terms.
 
-The kernels (``src/repro_torch/csrc/flash_attention_bwd.cu``) split each
-f32 operand x of an m16n8k8 TF32 product into hi = tf32(x) and lo =
-tf32(x - hi), both rounded to nearest with ties away from zero
-(``cvt.rna.tf32.f32``), and sum lo*hi + hi*lo, then hi*hi, dropping lo*lo.
-Here ``cvt.rna`` is emulated with bit operations on the f32 pattern, and a
-product of TF32 values is exact in f32 (11-bit by 11-bit significands), so
-an f32 matmul of TF32 values stands in for one pass of the tensor cores.
+The kernels (``src/repro_torch/csrc/flash_attention_bwd.cu`` and
+``flash_attention.cu``) split each f32 operand x of an m16n8k8 TF32
+product into hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest
+with ties away from zero (``cvt.rna.tf32.f32``), and sum lo*hi + hi*lo,
+then hi*hi, dropping lo*lo. The kernels compute ``cvt.rna`` with integer
+operations on the f32 pattern, as ``tf32_rna`` does here (``mma.cuh``
+``to_tf32``), and a product of TF32 values is exact in
+f32 (11-bit by 11-bit significands), so an f32 matmul of TF32 values
+stands in for one pass of the tensor cores; so does an f32 matmul of bf16
+values for a bf16 pass.
 """
+import importlib.util
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ref
+
+REPO = Path(__file__).resolve().parents[1]
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -119,3 +129,107 @@ def test_backward_on_3xtf32_meets_the_training_tolerance(causal):
     assert rel(_bwd(*args, torch.matmul, causal)) <= 1e-6   # same function
     assert rel(_bwd(*args, mm_3xtf32, causal)) <= 1e-5
     assert rel(_bwd(*args, mm_tf32, causal)) > 1e-5
+
+
+# ------------------------------------------------------------ the forward
+LOG2E = 1.4426950408889634
+MASKED = -1e30 * LOG2E    # the reference's masked score, in log2 units
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def pv_bf16_two_terms(p, v):
+    """p_hi = bf16(p), p_lo = bf16(p - p_hi), two products on bf16 v; the
+    kernel sums p_lo v first, then p_hi v, in one fresh accumulator."""
+    hi = _bf16(p)
+    return _bf16(p - hi) @ v + hi @ v
+
+
+def pv_bf16_one_term(p, v):
+    """P rounded once to bf16, as FlashAttention-2 (and B3/B4 for their
+    second products) feed the tensor cores."""
+    return _bf16(p) @ v
+
+
+def _fwd(q, k, v, *, mm_s, pv, bk):
+    """K1/B2's arithmetic on one head, causal: q (S, D), k and v (S, D) f32
+    (bf16 values in f32 for bf16 inputs). Key tiles of ``bk`` rows in
+    order, every row through every tile (a tile a row cannot see gives p =
+    0 and corr = 1, so the result is the kernel's, which skips it): s =
+    ``mm_s``(q, k_tile^T) from unscaled q, x = s * scale * log2(e) or the
+    masked value, the running max m, corr = exp2(m_old - m), p = exp2(x -
+    m), l = l corr + rowsum(p), and acc = acc corr + ``pv``(p, v_tile)
+    from a fresh sum per tile. Returns acc / max(l, 1e-30) and lse = m ln 2
+    + log(max(l, 1e-30))."""
+    S, D = q.shape
+    scale2 = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32) \
+        * torch.tensor(LOG2E, dtype=torch.float32)
+    qpos = torch.arange(S)[:, None]
+    m = torch.full((S, 1), MASKED)
+    l = torch.zeros(S, 1)
+    acc = torch.zeros(S, D)
+    for k0 in range(0, S, bk):
+        kt, vt = k[k0:k0 + bk], v[k0:k0 + bk]
+        x = torch.where(qpos >= torch.arange(k0, k0 + len(kt))[None, :],
+                        mm_s(q, kt.T) * scale2, MASKED)
+        m_new = torch.maximum(m, x.max(-1, keepdim=True).values)
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + pv(p, vt)
+        m = m_new
+    denom = l.clamp_min(1e-30)
+    return acc / denom, (m * math.log(2) + torch.log(denom))[:, 0]
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def one_head():
+    """q, k, v of one head at the training shape (S4096 D128), seeded."""
+    rng = np.random.default_rng(4)
+    q, k, v = (_rand(rng, (1, 4096, 1, 128)) for _ in range(3))
+    return q, k, v
+
+
+def _want(q, k, v):
+    o, lse = ref.flash_attention_lse_ref(q, k, v, causal=True)
+    return o[0, :, 0], lse[0, 0]
+
+
+def test_forward_on_3xtf32_meets_the_f32_budget(one_head):
+    """The forward's f32 arithmetic (3xTF32 for Q K^T and P V, 32-key
+    tiles) keeps the output and lse within 1e-6 of the plain f32 forward,
+    relative to their largest magnitudes."""
+    q, k, v = one_head
+    o_want, lse_want = _want(q, k, v)
+    o, lse = _fwd(q[0, :, 0], k[0, :, 0], v[0, :, 0], mm_s=mm_3xtf32,
+                  pv=mm_3xtf32, bk=32)
+    assert float((o - o_want).abs().max() / o_want.abs().max()) <= 1e-6
+    assert float((lse - lse_want).abs().max()
+                 / lse_want.abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("pv,held", [(pv_bf16_two_terms, True),
+                                     (pv_bf16_one_term, False)])
+def test_forward_bf16_needs_p_in_two_terms(one_head, pv, held):
+    """In bf16 (64-key tiles, exact bf16 products for Q K^T), the output
+    rounded to bf16 stays within one unit of bf16 rounding of the plain
+    forward computed in f32 from the same bf16 inputs (phase 2's gate,
+    ``chip_smoke._ulp_err``) with P as two bf16 terms, and not with P
+    rounded once to bf16: that case is why the kernel keeps two."""
+    smoke = _smoke()
+    q, k, v = (_bf16(t) for t in one_head)
+    o_want, _ = _want(q, k, v)
+    o, _ = _fwd(q[0, :, 0], k[0, :, 0], v[0, :, 0], mm_s=torch.matmul,
+                pv=pv, bk=64)
+    err = smoke._ulp_err(o.to(torch.bfloat16), o_want)
+    assert (err <= smoke.ULP_TOL) == held, err
