@@ -1,25 +1,26 @@
 #!/usr/bin/env python3
-"""Times the flash-attention kernels of other checkouts against this one's
-on one NVIDIA GPU, in turns.
+"""Times the hand-written kernels of other checkouts against this one's on
+one NVIDIA GPU, in turns.
 
-    python3 ab_attention.py OTHER [OTHER ...]
+    python3 ab_attention.py [--kernels K1,B2,B3,B4,B6,K2] OTHER [OTHER ...]
 
 Each OTHER is the root of a checkout (for the parent commit: ``git archive``
 unpacked under ``build/``, which ``.gitignore`` lists). The kernel library is
 built from each OTHER's ``src/repro_torch/csrc`` and from this checkout's
 (tags A, B, ... for the OTHERs in order, the last tag for this checkout) and
-called through this checkout's launchers, so the C entry points must match.
-For K1 and B2 at the shapes of ``chip_smoke.py`` phases 2 and 2b, and B3 and
-B4 at the training shape, in f32 and bf16, one JSON line each: the device ms
-of every library (a CUDA graph of back-to-back calls,
-``chip_smoke._time_ms``) in the turns A B .. B A, twice each, and each
-output's error against the plain version (relative to its max magnitude; K1
-in bf16 also in units of bf16 rounding, ``chip_smoke._ulp_err``). The first
-line is the card's name and power limit. Exits non-zero without a card.
+called through this checkout's launchers, so the C entry points must match
+(their signatures are in ``kernels/_build.py``). Cases, in f32 and bf16, one
+JSON line each: K1 and B2 at the shapes of ``chip_smoke.py`` phases 2 and
+2b, B3 and B4 at the training shape, B6 at phase 2c's shapes and K2 at
+phase 2's; ``--kernels`` keeps a subset. Each line has the device ms of
+every library (a CUDA graph of back-to-back calls, ``chip_smoke._time_ms``)
+in the turns A B .. B A, twice each, and each output's error against the
+plain version (relative to its max magnitude; K1 in bf16 also in units of
+bf16 rounding, ``chip_smoke._ulp_err``). The first line is the card's name
+and power limit. Exits non-zero without a card.
 """
 from __future__ import annotations
 
-import ctypes
 import json
 import string
 import subprocess
@@ -29,17 +30,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 
-def main(others: list[str]) -> int:
+def main(argv: list[str]) -> int:
     import torch
-    if not others or not torch.cuda.is_available():
+    kernels = ALL
+    if argv[:1] == ["--kernels"] and len(argv) > 1:
+        kernels, argv = argv[1].split(","), argv[2:]
+    others = argv
+    if not others or not torch.cuda.is_available() or set(kernels) - set(ALL):
         print(__doc__, file=sys.stderr)
         return 2
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import chip_smoke as c
-    from repro_torch.kernels import _build, ref
-    from repro_torch.kernels.flash_attention import (
-        flash_attention_cuda, flash_attention_dkv_cuda,
-        flash_attention_dq_cuda, flash_attention_lse_cuda)
+    from repro_torch.kernels import _build
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -58,37 +60,10 @@ def main(others: list[str]) -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
-    cases = [("B2", 4096, 32, 8, 128, 0), ("B2", 4000, 32, 8, 128, 0),
-             ("K1", 128, 32, 8, 128, 0), ("K1", 125, 32, 8, 128, 0),
-             ("K1", 2048, 32, 8, 128, 0), ("K1", 128, 25, 5, 64, 1024),
-             ("K1", 1100, 25, 5, 64, 1024), ("B3", 4096, 32, 8, 128, 0),
-             ("B4", 4096, 32, 8, 128, 0)]
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
-        for fn, S, Hq, Hkv, D, W in cases:
-            q, do = (torch.randn((1, S, Hq, D), generator=gen, device=dev)
-                     .to(dtype) for _ in range(2))
-            k, v = (torch.randn((1, S, Hkv, D), generator=gen, device=dev)
-                    .to(dtype) for _ in range(2))
-            kw = dict(causal=True, window=W)
-            o_ref, lse_ref = ref.flash_attention_lse_ref(q, k, v, **kw)
-            delta = ref.attention_delta(o_ref, do)
-            args = (q, k, v, do, lse_ref, delta)
-            call, want = {
-                "K1": (lambda: (flash_attention_cuda(q, k, v, **kw),),
-                       lambda: (ref.flash_attention_ref(
-                           q.float(), k.float(), v.float(), **kw),)),
-                "B2": (lambda: flash_attention_lse_cuda(q, k, v, **kw),
-                       lambda: (o_ref, lse_ref)),
-                "B3": (lambda: (flash_attention_dq_cuda(*args, **kw),),
-                       lambda: (ref.flash_attention_dq_ref(*args, **kw),)),
-                "B4": (lambda: flash_attention_dkv_cuda(*args, **kw),
-                       lambda: ref.flash_attention_dkv_ref(*args, **kw)),
-            }[fn]
-            want = want()
-            line = {"kernel": fn, "dtype": dname,
-                    "shape": f"B1 S{S} Hq{Hq} Hkv{Hkv} D{D} causal"
-                             + (f" window{W}" if W else "")}
+        for fn, shape, call, want in _cases(kernels, dtype, dev, gen):
+            line = {"kernel": fn, "dtype": dname, "shape": shape}
             for tag in turns:
                 _build._lib = libs[tag]
                 got = call()
@@ -100,9 +75,97 @@ def main(others: list[str]) -> int:
                 line.setdefault(f"ms_{tag}", []).append(c._time_ms(call)[0])
             _build._lib = libs[tags[-1]]
             print(json.dumps(line), flush=True)
-            del q, k, v, do, o_ref, lse_ref, delta, args, want
+            del call, want, got
             torch.cuda.empty_cache()
     return 0
+
+
+ALL = ["K1", "B2", "B3", "B4", "B6", "K2"]
+
+
+def _cases(kernels, dtype, dev, gen):
+    """(kernel, shape, call, plain outputs) per case, lazily: the flash
+    kernels, then B6 and K2."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_dkv_cuda,
+        flash_attention_dq_cuda, flash_attention_lse_cuda)
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+
+    def rand(*shape, f32=False):
+        x = torch.randn(shape, generator=gen, device=dev)
+        return x if f32 else x.to(dtype)
+
+    flash = [("B2", 4096, 32, 8, 128, 0), ("B2", 4000, 32, 8, 128, 0),
+             ("K1", 128, 32, 8, 128, 0), ("K1", 125, 32, 8, 128, 0),
+             ("K1", 2048, 32, 8, 128, 0), ("K1", 128, 25, 5, 64, 1024),
+             ("K1", 1100, 25, 5, 64, 1024), ("B3", 4096, 32, 8, 128, 0),
+             ("B4", 4096, 32, 8, 128, 0)]
+    for fn, S, Hq, Hkv, D, W in flash:
+        if fn not in kernels:
+            continue
+        q, do = rand(1, S, Hq, D), rand(1, S, Hq, D)
+        k, v = rand(1, S, Hkv, D), rand(1, S, Hkv, D)
+        kw = dict(causal=True, window=W)
+        o_ref, lse_ref = ref.flash_attention_lse_ref(q, k, v, **kw)
+        delta = ref.attention_delta(o_ref, do)
+        args = (q, k, v, do, lse_ref, delta)
+        call, want = {
+            "K1": (lambda: (flash_attention_cuda(q, k, v, **kw),),
+                   lambda: (ref.flash_attention_ref(
+                       q.float(), k.float(), v.float(), **kw),)),
+            "B2": (lambda: flash_attention_lse_cuda(q, k, v, **kw),
+                   lambda: (o_ref, lse_ref)),
+            "B3": (lambda: (flash_attention_dq_cuda(*args, **kw),),
+                   lambda: (ref.flash_attention_dq_ref(*args, **kw),)),
+            "B4": (lambda: flash_attention_dkv_cuda(*args, **kw),
+                   lambda: ref.flash_attention_dkv_ref(*args, **kw)),
+        }[fn]
+        yield (fn, f"B1 S{S} Hq{Hq} Hkv{Hkv} D{D} causal"
+               + (f" window{W}" if W else ""), call, want())
+    if "B6" in kernels:
+        # phase 2c's cases: (mode, T, H, K, decay)
+        for mode, T, H, K, decay in (
+                ("rwkv6", 128, 40, 64, "mild"), ("rwkv6", 125, 40, 64, "mild"),
+                ("ssd", 128, 25, 16, "per_head"),
+                ("ssd", 1100, 25, 16, "per_head"),
+                ("rwkv6", 4096, 40, 64, "mild"),
+                ("rwkv6", 4096, 40, 64, "strong")):
+            V = 64
+            q, k, v = rand(1, T, H, K), rand(1, T, H, K), rand(1, T, H, V)
+            if decay == "mild":
+                ld = -torch.exp(-6.0 + 0.5 * rand(1, T, H, K, f32=True))
+            elif decay == "strong":
+                ld = -torch.exp(rand(1, T, H, K, f32=True))
+            else:
+                ld = (-F.softplus(rand(1, T, H, 1, f32=True))).expand(
+                    1, T, H, K)
+            ld = ld.clamp(-12.0, -1e-4) if decay != "per_head" else ld
+            u = 0.1 * rand(H, K, f32=True) if mode == "rwkv6" else None
+            yield ("B6", f"B1 T{T} H{H} K{K} V{V} {mode} {decay}",
+                   lambda: wkv6_cuda(q, k, v, ld, u),
+                   ref.wkv6_chunked_ref(q, k, v, ld, u))
+    if "K2" in kernels:
+        # phase 2's cases: (B, ctx, table width)
+        for B, ctx, npag in ((4, 160, 10), (4, 4096, 256), (1, 160, 256),
+                             (4, 160, 256)):
+            Hq, Hkv, D, ps = 32, 8, 128, 16
+            P = B * npag + 1
+            q = rand(B, 1, Hq, D)
+            kp, vp = rand(P, ps, Hkv, D), rand(P, ps, Hkv, D)
+            bt = (torch.randperm(P - 1, generator=gen, device=dev) + 1
+                  ).reshape(B, npag).to(torch.int32).contiguous()
+            lens = torch.tensor([ctx, ctx - 1, ctx - 5, ctx - 15][:B],
+                                dtype=torch.int32, device=dev)
+            yield ("K2", f"B{B} ctx{ctx} table{npag} ps{ps} Hq{Hq} Hkv{Hkv} "
+                   f"D{D}",
+                   lambda: (paged_attention_cuda(q, kp, vp, bt, lens),),
+                   (ref.paged_decode_attention_ref(q.float(), kp.float(),
+                                                   vp.float(), bt, lens),))
 
 
 if __name__ == "__main__":

@@ -9,13 +9,16 @@ and needs one card. Phases, one JSON line each:
 
 1. device: the card's name and power limit (``nvidia-smi``), the build
    time of the CUDA library and the Triton compile time, and per
-   instance of the flash-attention kernels (K1/B2, B3, B4) the HMMA
-   (tensor-core) instructions in the library's SASS (``cuobjdump -sass``)
-   and its registers and spills (``-Xptxas -v``): fails unless every
-   instance at D=128 has HMMA and no spills;
+   instance of the flash-attention kernels (K1/B2, B3, B4), of B6 and of
+   K2 the HMMA (tensor-core) instructions in the library's SASS
+   (``cuobjdump -sass``) and its registers and spills (``-Xptxas -v``):
+   fails unless every flash-attention instance at D=128 and every B6
+   instance has HMMA, and none of those and no K2 instance spills;
 2. kernels against their plain PyTorch versions at the shapes of the
    serving path (K1 and K3 at granite-3-8b's and at hymba-1.5b's, K1 with
-   hymba's 1024-token window at S128 and S1100): in f32 the max abs error
+   hymba's 1024-token window at S128 and S1100; K2 at the paged engine's
+   decode batch of 4 and at batch 1, with 160 tokens in a 256-page table
+   as the engine's tables are, and at 4096 tokens): in f32 the max abs error
    (tolerance 5e-4); in bf16 the error against the plain version computed
    in f32 from the same bf16 inputs, in units of bf16 rounding at each
    element's magnitude (at most 1, ``_held``; a line first shows that an
@@ -237,16 +240,28 @@ def main() -> int:
              or attn[f"{b} {dt} D128"].get("spill_bytes", 1) != 0]
     if short:
         raise AssertionError(f"no HMMA or spills in {short}: {attn}")
+    # B6 runs on the tensor cores, and neither B6 nor K2 spills, in every
+    # instance the launchers can pick
+    b6 = [n for n in attn if n.startswith("B6 ")]
+    k2 = [n for n in attn if n.startswith("K2 ")]
+    short = [n for n in b6 if attn[n].get("hmma", 0) <= 0] + [
+        n for n in b6 + k2 if attn[n].get("spill_bytes", 1) != 0]
+    if not b6 or not k2 or short:
+        raise AssertionError(f"B6/K2 instances missing, without HMMA or "
+                             f"spilling ({short}): {attn}")
 
     # ----------------------------------------------------------- 2 kernels
     gen = torch.Generator(device=dev).manual_seed(0)
     gen_hymba = torch.Generator(device=dev).manual_seed(1)
+    gen_k2 = torch.Generator(device=dev).manual_seed(2)
 
-    def rand(shape, dtype, hymba=False):
-        # the lines at hymba-1.5b's shapes draw from their own stream, so
-        # the other lines keep the inputs they had before those were added
-        return torch.randn(shape, generator=gen_hymba if hymba else gen,
-                           device=dev).to(dtype)
+    def rand(shape, dtype, hymba=False, stream=0):
+        # the lines at hymba-1.5b's shapes (stream 1) and K2's wide-table
+        # lines (stream 2) draw from their own streams, so the other lines
+        # keep the inputs they had before those were added
+        g = gen_hymba if hymba or stream == 1 else gen_k2 if stream == 2 \
+            else gen
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     summary = {}   # kernel -> its f32 line at the serving path's shape
     failures = []
@@ -312,28 +327,36 @@ def main() -> int:
                            + ", enable_gqa=True)",
                 "bound_ms": b_ms, "bound_by": b_by, **b_ms3},
                 main_path=(S == 128 and Hq == 32 and dname == "float32"))
-        # K2: paged decode, 4 rows, 16-token pages in shuffled order
-        for ctx in (160, 4096):
-            B, Hq, Hkv, D, ps = 4, 32, 8, 128, 16
-            npag = -(-ctx // ps)
+        # K2: paged decode, 16-token pages in shuffled order: 4 rows in a
+        # table as wide as their pages (ctx160, ctx4096), then (their own
+        # stream) 1 and 4 rows of 160 tokens in a 256-page table
+        for B, ctx, npag in ((4, 160, 10), (4, 4096, 256), (1, 160, 256),
+                             (4, 160, 256)):
+            Hq, Hkv, D, ps = 32, 8, 128, 16
+            wide = npag * ps > ctx
             P = B * npag + 1
-            q = rand((B, 1, Hq, D), dtype)
-            kp, vp = rand((P, ps, Hkv, D), dtype), rand((P, ps, Hkv, D), dtype)
-            perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
+            draw = (lambda shape: rand(shape, dtype, stream=2)) if wide \
+                else (lambda shape: rand(shape, dtype))
+            q = draw((B, 1, Hq, D))
+            kp, vp = draw((P, ps, Hkv, D)), draw((P, ps, Hkv, D))
+            perm = torch.randperm(P - 1, generator=gen_k2 if wide else gen,
+                                  device=dev) + 1
             bt = perm.reshape(B, npag).to(torch.int32).contiguous()
-            lens = torch.tensor([ctx, ctx - 1, ctx - 5, ctx - 15],
+            lens = torch.tensor([ctx, ctx - 1, ctx - 5, ctx - 15][:B],
                                 dtype=torch.int32, device=dev)
             out = ops.paged_attention(q, kp, vp, bt, lens)
             want = ref.paged_decode_attention_ref(q.float(), kp.float(),
                                                   vp.float(), bt, lens)
             ntok = int(lens.sum())
+            live = int(((lens + ps - 1) // ps).sum())   # table entries read
             b_ms, b_by = bound(
                 4 * Hq * D * ntok,
-                isz * (2 * ntok * Hkv * D + 2 * B * Hq * D) + 4 * (B * npag + B),
+                isz * (2 * ntok * Hkv * D + 2 * B * Hq * D) + 4 * (live + B),
                 dname)
             record({
                 "phase": "kernel", "kernel": "paged_attention",
-                "shape": f"B{B} ctx{ctx} ps{ps} Hq{Hq} Hkv{Hkv} D{D}",
+                "shape": f"B{B} ctx{ctx} ps{ps} Hq{Hq} Hkv{Hkv} D{D}"
+                         + (f" table{npag}" if wide else ""),
                 "dtype": dname, **_held(out, want, dname),
                 **_times(lambda: ops.paged_attention(q, kp, vp, bt, lens),
                          lambda: ref.paged_decode_attention_ref(
@@ -341,7 +364,8 @@ def main() -> int:
                          None),
                 "library": "none: no single PyTorch call",
                 "bound_ms": b_ms, "bound_by": b_by},
-                main_path=(ctx == 160 and dname == "float32"))
+                main_path=(B == 4 and ctx == 160 and not wide
+                           and dname == "float32"))
         # K3: RMSNorm at granite's width (128 rows = one prompt's prefill)
         # and at hymba-1.5b's (a 128-token and an 1100-token prefill)
         for rows, d in ((128, 4096), (512, 4096), (128, 1600), (1100, 1600)):
@@ -1339,17 +1363,37 @@ def _ptxas_summary(log: Path) -> list:
 ATTN_INSTANCE = re.compile(
     r"attn_(fwd|dq|dkv)_kernelI(f|13__nv_bfloat16)Li(\d+)E")
 ATTN_KERNEL = {"fwd": "K1/B2", "dq": "B3", "dkv": "B4"}
+# the decay type mangles as a substitution (S<n>_) when it repeats the input's
+WKV6_INSTANCE = re.compile(
+    r"wkv6_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)Li(\d+)E")
+PAGED_INSTANCE = re.compile(r"paged_decode_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+
+
+def _dtype_name(mangled_type: str) -> str:
+    return "float32" if mangled_type == "f" else "bfloat16"
 
 
 def _attn_instance(mangled: str):
-    """'B3 float32 D128' (or 'K1/B2 ...', 'B4 ...') for an instance of a
-    flash-attention kernel from its mangled name, else None."""
+    """The kernel instance a mangled name stands for, else None: 'B3
+    float32 D128' (or 'K1/B2 ...', 'B4 ...') for the flash-attention
+    kernels, 'B6 float32 ld float32 VS32' for B6 (input and decay types,
+    V columns per block), 'K2 bfloat16 D<=128' for K2 (the head dims the
+    instance takes)."""
     m = ATTN_INSTANCE.search(mangled)
-    if not m:
-        return None
-    kernel, dtype, d = m.groups()
-    return (f"{ATTN_KERNEL[kernel]} "
-            f"{'float32' if dtype == 'f' else 'bfloat16'} D{d}")
+    if m:
+        kernel, dtype, d = m.groups()
+        return f"{ATTN_KERNEL[kernel]} {_dtype_name(dtype)} D{d}"
+    m = WKV6_INSTANCE.search(mangled)
+    if m:
+        dtype, ld_dtype, nv = m.groups()
+        ld_dtype = dtype if ld_dtype.startswith("S") else ld_dtype
+        return (f"B6 {_dtype_name(dtype)} ld {_dtype_name(ld_dtype)} "
+                f"VS{8 * int(nv)}")
+    m = PAGED_INSTANCE.search(mangled)
+    if m:
+        dtype, nc = m.groups()
+        return f"K2 {_dtype_name(dtype)} D<={128 * int(nc)}"
+    return None
 
 
 def _cuobjdump() -> str:
@@ -1369,9 +1413,9 @@ def _cuobjdump() -> str:
 
 
 def _attn_build_report(lib: Path) -> dict:
-    """Per K1/B2, B3 and B4 instance: HMMA instructions in the library's SASS
-    (``cuobjdump -sass``), and registers and spilled bytes from the build's
-    ``-Xptxas -v`` report."""
+    """Per instance of K1/B2, B3, B4, B6 and K2 (``_attn_instance``): HMMA
+    instructions in the library's SASS (``cuobjdump -sass``), and
+    registers and spilled bytes from the build's ``-Xptxas -v`` report."""
     sass = subprocess.run([_cuobjdump(), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
     report, name = {}, None

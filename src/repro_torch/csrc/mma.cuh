@@ -1,10 +1,12 @@
 // Tensor-core and asynchronous-copy helpers for Hopper (sm_90a), inline PTX:
 // warp-level mma.sync products in bf16 (m16n8k16) and in TF32 (m16n8k8,
 // with the three-pass split that keeps f32 accuracy), ldmatrix for the
-// transposed bf16 operand, 16- and 4-byte cp.async with zero fill, and the
-// tile copy and score product the attention kernels share. Used by the
+// transposed bf16 operand, 16-, 8- and 4-byte cp.async with zero fill, bulk
+// copies by the copy engine completing on an mbarrier, and the tile copy
+// and score product the attention kernels share. Used by the
 // flash-attention forward (flash_attention.cu: K1, B2) and backward
-// (flash_attention_bwd.cu: B3, B4).
+// (flash_attention_bwd.cu: B3, B4), and by B6 (wkv6.cu) and K2
+// (paged_attention.cu) for their bulk copies and cp.async.
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k*"), with
 // g = lane / 4 and t = lane % 4:
@@ -112,21 +114,89 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// 16 bytes global -> shared, asynchronously; zeros where !valid (src-size
-// 0: nothing is read, src only has to be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+// 16, 8 or 4 bytes global -> shared, asynchronously, of which the first
+// `bytes` (0 up to the copy's size) are read and the rest zero-filled: a
+// row's ragged tail, or nothing for a row past the end (src then only has
+// to be a valid address).
+__device__ __forceinline__ void cp_async16_n(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
+               "r"(bytes)
                : "memory");
+}
+
+__device__ __forceinline__ void cp_async8_n(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4_n(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// 16 or 4 bytes, zeros where !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  cp_async16_n(dst, src, valid ? 16 : 0);
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
+  cp_async4_n(dst, src, valid ? 4 : 0);
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// ------------------------------------------------- bulk copies (the copy engine)
+
+// An mbarrier in shared memory that counts `count` arrivals.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// Makes initialised mbarriers visible to the copy engine and the cluster;
+// a block barrier must follow before any thread uses them.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival on `bar` that also expects `bytes` more bytes of bulk copies
+// in the current phase.
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of `bar` with the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Orders this thread's earlier shared-memory accesses before later bulk
+// copies into the same memory (the copy engine is another proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) global ->
+// shared by the copy engine, completing as transactions on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
 
 // Waits until at most N of this thread's committed groups are pending.
 template <int N>

@@ -1,7 +1,9 @@
 """The checks of ``chip_smoke.py`` that need no card: phase 2's bf16 gate in
-units of bf16 rounding, and phase 1's reading of the flash-attention kernel
-instances (K1/B2, B3, B4) from their mangled names."""
+units of bf16 rounding, and phase 1's reading of the kernel instances
+(K1/B2, B3, B4, B6, K2) from their mangled names, and the profiler's kernel
+groups against the kernels the port defines."""
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -69,6 +71,32 @@ def test_held_fields_by_dtype(smoke):
      "B4 bfloat16 D160"),
     ("_ZN12_GLOBAL__N_115attn_fwd_kernelIfLi128EEEvPKT_S3_S3_PS1_Pfiiiiiif",
      "K1/B2 float32 D128"),
+    ("_ZN39_GLOBAL__N__351eb0a2_7_wkv6_cu_efce1d8411wkv6_kernelIffLi4EEEvPKT_"
+     "S3_S3_PKT", "B6 float32 ld float32 VS32"),
+    ("_ZN39_GLOBAL__N__351eb0a2_7_wkv6_cu_efce1d8411wkv6_kernelI13__nv_bfloat"
+     "16S1_Li8EEEvPKT_", "B6 bfloat16 ld bfloat16 VS64"),
+    ("_ZN39_GLOBAL__N__351eb0a2_7_wkv6_cu_efce1d8411wkv6_kernelIf13__nv_bfloa"
+     "t16Li2EEEvPKT_", "B6 float32 ld bfloat16 VS16"),
+    ("_ZN51_GLOBAL__N__2952c828_18_paged_attention_cu_837bee6819paged_decode_"
+     "kernelI13__nv_bfloat16Li1EEEvPKT_", "K2 bfloat16 D<=128"),
+    ("_ZN51_GLOBAL__N__2952c828_18_paged_attention_cu_837bee6819paged_decode_"
+     "kernelIfLi8EEEvPKT_", "K2 float32 D<=1024"),
+    ("_ZN12_GLOBAL__N_117rmsnorm_kernelIfEEvPKT_", None),
 ])
 def test_attn_instance_names(smoke, mangled, name):
     assert smoke._attn_instance(mangled) == name
+
+
+def test_profile_groups_name_the_kernels():
+    """Every kernel group of ``core/profile.py`` (the device time by kernel
+    that phases 3b, 3c, 5 and 6 report) names a kernel that the port
+    defines: a renamed kernel would fall into "other" unnoticed."""
+    from repro_torch.core.profile import GROUPS
+    src = REPO / "src" / "repro_torch"
+    code = "".join(p.read_text() for p in sorted((src / "csrc").glob("*.cu"))
+                   ) + (src / "kernels" / "rmsnorm.py").read_text()
+    kernels = [frag for frag, group in GROUPS if group[:2] in
+               ("K1", "K2", "K3", "B3", "B4", "B6")]
+    assert len(kernels) == 6
+    for frag in kernels:
+        assert re.search(rf"\b{frag}\s*[(<]", code), frag

@@ -148,29 +148,63 @@ def test_flash_attention_refuses_unaligned_rows(dev):
     assert ops.LAUNCHES["flash_attention_dq"] == 0
 
 
-@pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("hq,hkv,d,ps", [(32, 8, 128, 16), (4, 4, 32, 4),
-                                         (8, 2, 64, 16), (8, 1, 128, 32)])
-def test_paged_kernel_matches_plain(dev, dtype, hq, hkv, d, ps):
-    rng = np.random.default_rng(hq + d + ps)
-    B, npag = 5, 12
+def _paged_inputs(rng, dtype, dev, hq, hkv, d, ps, layout):
+    """q, pools, block table and lengths of one K2 case. ``mixed``: 5 rows
+    of a 12-page table, null-padded past each length, the last row all
+    null pages (a retired lane). ``b1_wide``: one row of 160 tokens in a
+    256-page table (the engine's table is cache_span / page_size wide).
+    ``b4_ctx4096``: 4 rows near 4096 tokens. ``sparse``: 4 rows of 1, 16,
+    17 and 33 tokens in a 64-page table, so most of each row's splits
+    hold no page."""
+    B, npag, lengths = {
+        "mixed": (5, 12, [1, ps + 3, 5 * ps, 12 * ps, 7]),
+        "b1_wide": (1, 256, [160]),
+        "b4_ctx4096": (4, 4096 // ps, [4096, 4095, 4091, 4081]),
+        "sparse": (4, 64, [1, 16, 17, 33]),
+    }[layout]
     P = B * npag + 1
     q = _rand(rng, (B, 1, hq, d), dtype, dev)
     kp = _rand(rng, (P, ps, hkv, d), dtype, dev)
     vp = _rand(rng, (P, ps, hkv, d), dtype, dev)
     perm = rng.permutation(np.arange(1, P)).reshape(B, npag)
-    lengths = np.array([1, ps + 3, 5 * ps, npag * ps, 7], np.int32)
+    lengths = np.array(lengths, np.int32)
     btab = np.zeros((B, npag), np.int32)
-    for b in range(B - 1):                  # null-padded past the length
+    live_rows = B - 1 if layout == "mixed" else B
+    for b in range(live_rows):              # null-padded past the length
         live = -(-int(lengths[b]) // ps)
         btab[b, :live] = perm[b, :live]
-    # the last row is all null pages, as a retired lane's table is
-    bt = torch.from_numpy(btab).to(dev)
-    ln = torch.from_numpy(lengths).to(dev)
+    return (q, kp, vp, torch.from_numpy(btab).to(dev),
+            torch.from_numpy(lengths).to(dev))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("hq,hkv,d,ps,layout", [
+    (32, 8, 128, 16, "mixed"), (4, 4, 32, 4, "mixed"),
+    (8, 2, 64, 16, "mixed"), (8, 1, 128, 32, "mixed"),
+    (32, 8, 128, 16, "b1_wide"), (32, 8, 128, 16, "b4_ctx4096"),
+    (32, 8, 128, 16, "sparse")])
+def test_paged_kernel_matches_plain(dev, dtype, hq, hkv, d, ps, layout):
+    """K2 against its plain version: ragged lengths, null-padded tables and
+    a retired all-null row (``mixed``), a table far wider than its live
+    pages, a long context, and rows whose splits are mostly empty."""
+    rng = np.random.default_rng(hq + d + ps)
+    q, kp, vp, bt, ln = _paged_inputs(rng, dtype, dev, hq, hkv, d, ps, layout)
     before = ops.LAUNCHES["paged_attention"]
     out = ops.paged_attention(q, kp, vp, bt, ln)
     assert ops.LAUNCHES["paged_attention"] == before + 1
     _close(out, ref.paged_decode_attention_ref(q, kp, vp, bt, ln), dtype)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("layout", ["b1_wide", "b4_ctx4096"])
+def test_paged_kernel_is_deterministic(dev, dtype, layout):
+    """The splits combine in a fixed order: two calls give the same bits."""
+    rng = np.random.default_rng(3)
+    args = _paged_inputs(rng, dtype, dev, 32, 8, 128, 16, layout)
+    a = ops.paged_attention(*args)
+    b = ops.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
@@ -378,14 +412,17 @@ def _wkv6_inputs(rng, B, T, H, K, V, dtype, dev, lo, hi, use_u):
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("T", [128, 125, 300])
-@pytest.mark.parametrize("regime", [(0.001, 0.2), (0.5, 1.0), (2.0, 12.0)])
+@pytest.mark.parametrize("regime", [(0.001, 0.2), (0.5, 1.0), (2.0, 12.0),
+                                    (6.0, 12.0)])
 @pytest.mark.parametrize("mode,K,V", [("rwkv6", 64, 64), ("ssd", 16, 64),
                                       ("rwkv6", 32, 40), ("ssd", 64, 16)])
 def test_wkv6_kernel_matches_plain(dev, dtype, T, regime, mode, K, V):
-    """B6 against its plain version: both modes, both intra-chunk branches
-    (mild decay: the rescaled product in every chunk; strong: the
-    per-pair fallback), ragged last chunks, K != V and V not a multiple
-    of the kernel's 16-column slices. Error over the plain result's max
+    """B6 against its plain version: both modes, decays from mild (every
+    sub-block rescaled on the tensor cores) to 6-12 a token (every 16-row
+    sub-block spans more than 88, where a factor e^-p would overflow f32;
+    the plain version takes its per-pair fallback in every chunk past
+    0.5 a token), ragged last chunks, K != V and V not a multiple of the
+    kernel's 16-column slices. Error over the plain result's max
     magnitude."""
     rng = np.random.default_rng(T + K + V + int(regime[1]))
     q, k, v, ld, u = _wkv6_inputs(rng, 2, T, 3, K, V, dtype, dev, *regime,

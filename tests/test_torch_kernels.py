@@ -119,3 +119,92 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                             torch.ones(1, dtype=torch.int32))
     with pytest.raises(ValueError, match="scale"):
         ops.rmsnorm(q, torch.ones(8))
+
+
+# --------------------------------------------------- K2's algorithm on the card
+# An emulation in PyTorch of what csrc/paged_attention.cu computes: each row's
+# live pages split over nsplit blocks (the table's width plays no part), a
+# block's tokens dealt to 8 warps a stage of TK tokens at a time, each warp's
+# online softmax, then the warps combined in warp order and the splits in
+# split order. It lives here, not in the package.
+WARPS = 8
+
+
+def _combine(parts):
+    """(m, l, acc) partials combined in order: m = max m_i, l = sum l_i
+    e^{m_i - m}, acc likewise."""
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    scale = [torch.exp(p[0] - m) for p in parts]
+    l = sum(p[1] * s for p, s in zip(parts, scale))
+    acc = sum(p[2] * s[:, None] for p, s in zip(parts, scale))
+    return m, l, acc
+
+
+def _split_paged(q, kp, vp, btab, lengths, nsplit, tk):
+    B, _, Hq, D = q.shape
+    P, ps, Hkv, _ = kp.shape
+    g, npag = Hq // Hkv, btab.shape[1]
+    out = torch.zeros_like(q)
+    for b in range(B):
+        n = int(lengths[b])
+        n_live = min(-(-n // ps), npag) if n > 0 else 0
+        pps = -(-n_live // nsplit)
+        for hk in range(Hkv):
+            qh = q[b, 0, hk * g:(hk + 1) * g] / np.sqrt(D)
+            splits = []
+            for s in range(nsplit):
+                pb = min(n_live, s * pps)
+                tb, te = pb * ps, min(min(n_live, pb + pps) * ps, n)
+                warps = []
+                for w in range(WARPS):
+                    m = torch.full((g,), -1e30)
+                    l, acc = torch.zeros(g), torch.zeros(g, D)
+                    for t0 in range(tb, te, tk):
+                        toks = [t for t in range(t0 + w, t0 + tk, WARPS)
+                                if t < te]
+                        if not toks:
+                            continue
+                        phys = [int(btab[b, t // ps]) for t in toks]
+                        phys = [p if 0 <= p < P else 0 for p in phys]
+                        kk = torch.stack([kp[p, t % ps, hk]
+                                          for p, t in zip(phys, toks)])
+                        vv = torch.stack([vp[p, t % ps, hk]
+                                          for p, t in zip(phys, toks)])
+                        sc = qh @ kk.T
+                        mx = torch.maximum(m, sc.amax(1))
+                        corr, pr = torch.exp(m - mx), torch.exp(sc - mx[:, None])
+                        l, acc, m = l * corr + pr.sum(1), acc * corr[:, None] + pr @ vv, mx
+                    warps.append((m, l, acc))
+                splits.append(_combine(warps))
+            _, l, acc = _combine(splits)
+            out[b, 0, hk * g:(hk + 1) * g] = acc / l.clamp(min=1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("tk", [32, 4])
+@pytest.mark.parametrize("nsplit", range(1, 9))
+def test_paged_split_combine_matches_pallas(nsplit, tk):
+    """K2's split over live pages and in-launch combine, for 1-8 splits and
+    the kernel's 32-token stages (head dims up to 128) or 4-token ones
+    (up to 1024), against the Pallas kernel in interpret mode: a row of
+    length 1, one ending on a page boundary, one filling the table, a
+    retired row (all-null table), all in a table wider than most rows'
+    live pages, so many splits are empty. Tolerance 1e-5 (TOL)."""
+    rng = np.random.default_rng(nsplit)
+    B, hq, hkv, D, ps, npag = 5, 8, 2, 32, 4, 12
+    P = B * npag + 1
+    qj, qt = _pair(rng, (B, 1, hq, D))
+    kj, kt = _pair(rng, (P, ps, hkv, D))
+    vj, vt = _pair(rng, (P, ps, hkv, D))
+    lengths = np.array([1, 2 * ps, 29, npag * ps, 5], np.int32)
+    perm = rng.permutation(np.arange(1, P)).reshape(B, npag)
+    btab = np.zeros((B, npag), np.int32)
+    for b in range(B - 1):        # the last row retired: all null pages
+        live = -(-int(lengths[b]) // ps)
+        btab[b, :live] = perm[b, :live]
+    want = paged_attention_fwd(qj, kj, vj, jnp.asarray(btab),
+                               jnp.asarray(lengths), pages_per_block=1,
+                               interpret=True)
+    got = _split_paged(qt, kt, vt, torch.from_numpy(btab),
+                       torch.from_numpy(lengths), nsplit, tk)
+    _close(got, want)
