@@ -2,7 +2,7 @@
 """Times the hand-written kernels of other checkouts against this one's on
 one NVIDIA GPU, in turns.
 
-    python3 ab_attention.py [--kernels K1,B2,B3,B4,B6,K2] OTHER [OTHER ...]
+    python3 ab_attention.py [--kernels K1,B2,B3,B4,B6,K2,K3] OTHER [OTHER ...]
 
 Each OTHER is the root of a checkout (for the parent commit: ``git archive``
 unpacked under ``build/``, which ``.gitignore`` lists). The kernel library is
@@ -11,16 +11,21 @@ built from each OTHER's ``src/repro_torch/csrc`` and from this checkout's
 called through this checkout's launchers, so the C entry points must match
 (their signatures are in ``kernels/_build.py``). Cases, in f32 and bf16, one
 JSON line each: K1 and B2 at the shapes of ``chip_smoke.py`` phases 2 and
-2b, B3 and B4 at the training shape, B6 at phase 2c's shapes and K2 at
+2b, B3 and B4 at the training shape, B6 at phase 2c's shapes, K2 and K3 at
 phase 2's; ``--kernels`` keeps a subset. Each line has the device ms of
 every library (a CUDA graph of back-to-back calls, ``chip_smoke._time_ms``)
 in the turns A B .. B A, twice each, and each output's error against the
-plain version (relative to its max magnitude; K1 in bf16 also in units of
-bf16 rounding, ``chip_smoke._ulp_err``). The first line is the card's name
-and power limit. Exits non-zero without a card.
+plain version (relative to its max magnitude; K1 and K3 in bf16 also in
+units of bf16 rounding, ``chip_smoke._ulp_err``). Where an OTHER's K3 is
+its Triton kernel (``kernels/rmsnorm.py::rmsnorm_triton``, before it was
+rewritten in CUDA C++), that kernel runs in its turns; K3's lines also
+time ``F.rms_norm`` and a one-element in-place add (the floor under any
+one-kernel call), twice each, after the turns. The first line is the
+card's name and power limit. Exits non-zero without a card.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import string
 import subprocess
@@ -28,10 +33,15 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# K3 per tag: the launcher that runs in that tag's turns, and the tag whose
+# turn it is (set by main before each call)
+K3_IMPL: dict = {}
+TURN = [""]
 
 
 def main(argv: list[str]) -> int:
     import torch
+    import torch.nn.functional as F
     kernels = ALL
     if argv[:1] == ["--kernels"] and len(argv) > 1:
         kernels, argv = argv[1].split(","), argv[2:]
@@ -54,6 +64,7 @@ def main(argv: list[str]) -> int:
     for tag, d in zip(tags, dirs):
         _build.CSRC, _build._lib = d, None
         libs[tag] = _build.library()
+        K3_IMPL[tag] = _k3_launcher(d.parent / "kernels" / "rmsnorm.py", tag)
     _build.CSRC = tree
     turns = tags + tags[::-1]
 
@@ -65,27 +76,60 @@ def main(argv: list[str]) -> int:
         for fn, shape, call, want in _cases(kernels, dtype, dev, gen):
             line = {"kernel": fn, "dtype": dname, "shape": shape}
             for tag in turns:
-                _build._lib = libs[tag]
+                _build._lib, TURN[0] = libs[tag], tag
                 got = call()
                 line[f"rel_err_{tag}"] = max(
                     c._err(g, w) / max(float(w.float().abs().max()), 1e-30)
                     for g, w in zip(got, want))
-                if fn == "K1" and dname == "bfloat16":
+                if fn in ("K1", "K3") and dname == "bfloat16":
                     line[f"max_ulp_err_{tag}"] = c._ulp_err(got[0], want[0])
                 line.setdefault(f"ms_{tag}", []).append(c._time_ms(call)[0])
-            _build._lib = libs[tags[-1]]
+            _build._lib, TURN[0] = libs[tags[-1]], tags[-1]
+            if fn == "K3":
+                x, scale = call.inputs
+                lib_scale = scale.to(dtype)
+                one = torch.zeros(1, device=dev)
+                line["ms_rms_norm"] = [c._time_ms(lambda: F.rms_norm(
+                    x, (x.shape[-1],), weight=lib_scale, eps=1e-5))[0]
+                    for _ in range(2)]
+                line["ms_floor"] = [c._time_ms(lambda: one.add_(1.0))[0]
+                                    for _ in range(2)]
             print(json.dumps(line), flush=True)
             del call, want, got
             torch.cuda.empty_cache()
     return 0
 
 
-ALL = ["K1", "B2", "B3", "B4", "B6", "K2"]
+ALL = ["K1", "B2", "B3", "B4", "B6", "K2", "K3"]
+
+
+def _k3_launcher(module: Path, tag: str):
+    """The K3 launcher of a checkout: its Triton kernel where its
+    ``kernels/rmsnorm.py`` still defines one (loaded from that file), else
+    this checkout's CUDA launcher, which calls whatever library is swapped
+    in for the turn."""
+    if "def rmsnorm_triton" in module.read_text():
+        spec = importlib.util.spec_from_file_location(f"ab_k3_{tag}", module)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod.rmsnorm_triton
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    return rmsnorm_cuda
+
+
+class _Call:
+    """A case's call, with the inputs the K3 lines time the library on."""
+
+    def __init__(self, fn, *inputs):
+        self.fn, self.inputs = fn, inputs
+
+    def __call__(self):
+        return self.fn()
 
 
 def _cases(kernels, dtype, dev, gen):
     """(kernel, shape, call, plain outputs) per case, lazily: the flash
-    kernels, then B6 and K2."""
+    kernels, then B6, K2 and K3."""
     import torch
     import torch.nn.functional as F
 
@@ -166,6 +210,15 @@ def _cases(kernels, dtype, dev, gen):
                    lambda: (paged_attention_cuda(q, kp, vp, bt, lens),),
                    (ref.paged_decode_attention_ref(q.float(), kp.float(),
                                                    vp.float(), bt, lens),))
+    if "K3" in kernels:
+        # phase 2's shapes: decode, prefill and a training microbatch
+        for rows, d in ((4, 4096), (4, 1600), (128, 4096), (512, 4096),
+                        (128, 1600), (1100, 1600), (4096, 4096)):
+            x, scale = rand(rows, d), rand(d, f32=True)
+            yield ("K3", f"rows{rows} d{d}",
+                   _Call(lambda: (K3_IMPL[TURN[0]](x, scale, 1e-5),),
+                         x, scale),
+                   (ref.rmsnorm_ref(x.float(), scale),))
 
 
 if __name__ == "__main__":

@@ -4,21 +4,23 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout; it puts ``src`` on ``sys.path`` itself,
-builds the CUDA kernels and the Triton kernel from the checkout's sources,
-and needs one card. Phases, one JSON line each:
+builds the CUDA kernels from the checkout's sources, and needs one card.
+Phases, one JSON line each:
 
 1. device: the card's name and power limit (``nvidia-smi``), the build
-   time of the CUDA library and the Triton compile time, and per
-   instance of the flash-attention kernels (K1/B2, B3, B4), of B6 and of
-   K2 the HMMA (tensor-core) instructions in the library's SASS
-   (``cuobjdump -sass``) and its registers and spills (``-Xptxas -v``):
-   fails unless every flash-attention instance at D=128 and every B6
-   instance has HMMA, and none of those and no K2 instance spills;
+   time of the CUDA library, and per instance of the flash-attention
+   kernels (K1/B2, B3, B4), of B6, K2 and K3 the HMMA (tensor-core)
+   instructions in the library's SASS (``cuobjdump -sass``) and its
+   registers and spills (``-Xptxas -v``): fails unless every
+   flash-attention instance at D=128 and every B6 instance has HMMA, and
+   none of those and no K2 or K3 instance spills;
 2. kernels against their plain PyTorch versions at the shapes of the
    serving path (K1 and K3 at granite-3-8b's and at hymba-1.5b's, K1 with
    hymba's 1024-token window at S128 and S1100; K2 at the paged engine's
    decode batch of 4 and at batch 1, with 160 tokens in a 256-page table
-   as the engine's tables are, and at 4096 tokens): in f32 the max abs error
+   as the engine's tables are, and at 4096 tokens; K3 also at a decode
+   step's 4 rows and a training microbatch's 4096): in f32 the max abs
+   error
    (tolerance 5e-4); in bf16 the error against the plain version computed
    in f32 from the same bf16 inputs, in units of bf16 rounding at each
    element's magnitude (at most 1, ``_held``; a line first shows that an
@@ -27,7 +29,9 @@ and needs one card. Phases, one JSON line each:
    calls), the kernel's eager call time (host included), and the bound
    (the larger of operations over the card's peak rate for the input type
    and bytes over 3.35 TB/s), for K1 in f32 also the 3xTF32 bound (three
-   TF32 passes at 495 TFLOP/s: K1 runs on the tensor cores);
+   TF32 passes at 495 TFLOP/s: K1 runs on the tensor cores); before them
+   the floor, a one-element in-place add timed the same way, which K3's
+   lines also give as ``max(floor, bound)``;
 2b. the training path's attention kernels (B2 forward with lse, B3 dq,
    B4 dk/dv) through their wrapper as training calls it (q, k, v that
    require grad through ``ops.flash_attention``, then
@@ -93,14 +97,35 @@ and needs one card. Phases, one JSON line each:
    norm. Then 3 steps of 2 x 4096 tokens in 2 microbatches with remat,
    through ``build_train_step`` and ``train_loop.run``, on the kernels;
    per step loss, grad_norm, seconds, tokens/s and each kernel's
-   launches, and the peak memory. Then the same 3 steps from the same
-   seeded params and batches on the plain attention path: per-step loss
-   and grad_norm within 1e-5 (relative) of the kernel run; B3 and B4 at
-   one launch per layer and microbatch (16 per step).
+   launches, the peak memory and the reckoning of the training state's
+   bytes. Then the same 3 steps from the same seeded params and batches
+   on the plain attention path: per-step loss and grad_norm within 1e-5
+   (relative) of the kernel run; B3 and B4 at one launch per layer and
+   microbatch (16 per step), B2 and K3 in every step, B6 in none.
    One more kernel step, after the counts are read, runs under
    ``torch.profiler`` (device time by kernel group, busy share);
+6b. hymba-1.5b at full width and full depth (32 layers, its 1024-token
+   window inside the 4096-token sequence): 6a's per-leaf gradients,
+   reported (over 32 layers the plain path against itself, q moved by one
+   ulp, differs by as much); each layer's gradients through the kernels
+   and the plain path, from the plain path's own input to the layer and
+   gradient at its output, within 1e-4; 3 steps through the kernels, each
+   held to the plain path's step from the same params and batch (loss and
+   grad_norm within 1e-5); B3 and B4 at 64 launches a step;
+6c. rwkv6-3b at full width cut to 8 of its 32 layers: 3 clean steps with
+   finite loss and grad_norm, every kernel's launch count 0 (LayerNorm,
+   and the plain chunked ssm form that training pins: no port kernel on
+   its path, so no kernel-vs-plain gate), step seconds, tokens/s and
+   peak memory;
+6d. both families reduced (the reference's reduced configs: 2 layers,
+   window 64, chunks of 16) at 2 x 128 tokens: 3 steps on the card
+   through the kernels, each held to the same step on this machine's CPU
+   through their plain versions, from the same params and batch: every
+   leaf's gradient within 1e-4, the loss within 1e-5, and hymba's
+   grad_norm within 1e-5 (rwkv6's carries its largest leaves' f32 error,
+   2-3e-5 at step 2, and is reported);
 7. the ``kernels`` summary line, with the launch counts of the serving
-   (phases 3, 3b, 3c) and training (phase 6) runs.
+   (phases 3, 3b, 3c) and training (phases 6, 6b, 6c, 6d) runs.
 
 Any failure raises and exits non-zero. Without a CUDA device, or outside a
 checkout, it exits non-zero before printing any result. The last line of
@@ -111,6 +136,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -133,7 +159,42 @@ LOGIT_TOL = 1e-3    # kernels vs plain path, over the logits' max magnitude
 # its 32 layers in f32: on the H100 the two exact plain methods differ by
 # 4.5e-2 (PERF.md, Findings), hymba-1.5b's by 7.2e-5.
 LOGIT_CEILING = {"rwkv6-3b": 0.1, "hymba-1.5b": LOGIT_TOL}
-TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 3, 2, 4096
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 3, 2, 4096
+REDUCED_TRAIN_SEQ = 128   # phase 6d: past the reduced window of 64
+# Training phases: the arch; a cut of its depth (0: all of it; 6d: the
+# reduced config's); why the depth was cut; how the run is held:
+# "free" - two free-running trajectories, the kernels' and the plain
+#   path's, per-step loss and grad_norm within TRAIN_TOL, and every leaf's
+#   step-0 gradient within GRAD_TOL (6a);
+# "forced" - each step of the kernels' run against a reference step from
+#   the same params and batch (the plain path on the card, or 6d's CPU),
+#   the reference's update not taken, within TRAIN_TOL; each layer's
+#   step-0 gradients within GRAD_TOL on the plain path's own input and
+#   output gradient (6b). For models whose depth and random init amplify
+#   last-bit differences past the tolerances in a whole model or a free
+#   trajectory (PERF.md, Findings);
+# "none" - no port kernel on the path: clean steps, finite metrics, every
+#   launch count 0.
+# "held": the per-step metrics a trajectory holds within TRAIN_TOL. rwkv6's
+# grad_norm after a few steps carries its largest leaves' f32 error (card
+# against CPU from the same params: 2-3e-5 in embed.tok, wr, wk, PERF.md,
+# Findings), so 6d holds its loss and, like 6a, each leaf within GRAD_TOL.
+TRAIN = {
+    "6": dict(arch="granite-3-8b", layers=8, gate="free",
+              held=("loss", "grad_norm"),
+              cut="f32 params, grads, master and two AdamW moments of 40 "
+                  "layers (~164 GB) exceed one 80 GB card"),
+    "6b": dict(arch="hymba-1.5b", layers=0, gate="forced",
+               held=("loss", "grad_norm"), cut=None),
+    "6c": dict(arch="rwkv6-3b", layers=8, gate="none", held=(),
+               cut="f32 params, grads, master and two AdamW moments of 32 "
+                   "layers (3.08 B params, ~62 GB) and the plain chunked "
+                   "form's per-chunk decay tensors exceed one 80 GB card"),
+    "6d-rwkv6": dict(arch="rwkv6-3b", layers=2, gate="forced",
+                     held=("loss",), cut=None),
+    "6d-hymba": dict(arch="hymba-1.5b", layers=2, gate="forced",
+                     held=("loss", "grad_norm"), cut=None),
+}
 TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-5}   # relative, kernel vs plain
 GRAD_TOL = 1e-4   # per leaf, |g_kernel - g_plain| / |g_plain| (L2 norms)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
@@ -157,7 +218,7 @@ KERNELS = {
         route="cuda", source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:46"),
     "rmsnorm": dict(
-        route="triton", source="src/repro_torch/kernels/rmsnorm.py",
+        route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
         replaces="src/repro/kernels/rmsnorm.py:19"),
     "wkv6": dict(
         route="cuda", source="src/repro_torch/csrc/wkv6.cu",
@@ -203,7 +264,6 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build, ops, ref
-    from repro_torch.kernels import rmsnorm as k3
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -222,15 +282,11 @@ def main() -> int:
     _build.library()
     ptxas = _ptxas_summary(lib_path.parent / "build.log")
     attn = _attn_build_report(lib_path)
-    x = torch.ones(4, 4096, device=dev)
-    ops.rmsnorm(x, torch.ones(4096, device=dev))
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "triton": _triton_version(),
-          "cuda_library_build_s": build_s,
-          "triton_compile_s": k3.compile_seconds, "ptxas": ptxas,
+          "cuda_library_build_s": build_s, "ptxas": ptxas,
           "attention_sass": attn})
     # the flash-attention kernels run on the tensor cores without spilling
     # at the serving and training paths' head dim, in both dtypes
@@ -249,19 +305,34 @@ def main() -> int:
     if not b6 or not k2 or short:
         raise AssertionError(f"B6/K2 instances missing, without HMMA or "
                              f"spilling ({short}): {attn}")
+    # K3 (no products, so no HMMA): every instance, none spilling
+    k3 = [n for n in attn if n.startswith("K3 ")]
+    short = [n for n in k3 if attn[n].get("spill_bytes", 1) != 0]
+    if not k3 or short:
+        raise AssertionError(f"K3 instances missing or spilling ({short}): "
+                             f"{attn}")
 
     # ----------------------------------------------------------- 2 kernels
     gen = torch.Generator(device=dev).manual_seed(0)
     gen_hymba = torch.Generator(device=dev).manual_seed(1)
     gen_k2 = torch.Generator(device=dev).manual_seed(2)
+    gen_k3 = torch.Generator(device=dev).manual_seed(3)
 
     def rand(shape, dtype, hymba=False, stream=0):
-        # the lines at hymba-1.5b's shapes (stream 1) and K2's wide-table
-        # lines (stream 2) draw from their own streams, so the other lines
-        # keep the inputs they had before those were added
-        g = gen_hymba if hymba or stream == 1 else gen_k2 if stream == 2 \
-            else gen
+        # the lines at hymba-1.5b's shapes (stream 1), K2's wide-table lines
+        # (stream 2) and K3's decode and training lines (stream 3) draw from
+        # their own streams, so the other lines keep the inputs they had
+        # before those were added
+        g = (gen_hymba if hymba or stream == 1 else gen_k2 if stream == 2
+             else gen_k3 if stream == 3 else gen)
         return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    # the floor under any one-kernel call: a one-element in-place add,
+    # timed as the kernels are
+    one = torch.zeros(1, device=dev)
+    floor_ms, floor_call_ms = _time_ms(lambda: one.add_(1.0))
+    emit({"phase": "floor", "op": "one-element in-place add_",
+          "ms": floor_ms, "call_ms": floor_call_ms})
 
     summary = {}   # kernel -> its f32 line at the serving path's shape
     failures = []
@@ -367,10 +438,14 @@ def main() -> int:
                 main_path=(B == 4 and ctx == 160 and not wide
                            and dname == "float32"))
         # K3: RMSNorm at granite's width (128 rows = one prompt's prefill)
-        # and at hymba-1.5b's (a 128-token and an 1100-token prefill)
-        for rows, d in ((128, 4096), (512, 4096), (128, 1600), (1100, 1600)):
-            x = rand((rows, d), dtype, hymba=d == 1600)
-            scale = rand((d,), torch.float32, hymba=d == 1600)
+        # and at hymba-1.5b's (a 128-token and an 1100-token prefill); then,
+        # from their own stream, a decode step's 4 rows at both widths and
+        # a training microbatch's 4096 rows
+        for rows, d in ((128, 4096), (512, 4096), (128, 1600), (1100, 1600),
+                        (4, 4096), (4, 1600), (4096, 4096)):
+            stream = 3 if rows in (4, 4096) else 1 if d == 1600 else 0
+            x = rand((rows, d), dtype, stream=stream)
+            scale = rand((d,), torch.float32, stream=stream)
             scale_lib = scale.to(dtype)
             out = ops.rmsnorm(x, scale)
             want = ref.rmsnorm_ref(x.float(), scale)
@@ -385,7 +460,9 @@ def main() -> int:
                          lambda: ref.rmsnorm_ref(x, scale),
                          lambda: F.rms_norm(x, (d,), weight=scale_lib,
                                             eps=1e-5)),
-                "library": "rms_norm", "bound_ms": b_ms, "bound_by": b_by},
+                "library": "rms_norm", "bound_ms": b_ms, "bound_by": b_by,
+                "floor_ms": floor_ms,
+                "floor_or_bound_ms": max(floor_ms, b_ms)},
                 main_path=(rows == 128 and d == 4096 and dname == "float32"))
     _train_kernels(rand, record)
     _wkv6_kernels(rand, record)
@@ -403,18 +480,23 @@ def main() -> int:
         torch.cuda.empty_cache()
         _serve_ssm_in_child(arch)                # tokens and logits
 
-    launches["train"] = _train(dev)   # phase 6
+    for phase in ("6", "6b", "6c"):     # training at full width
+        launches[f"train:{phase}"] = _train(dev, phase)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for phase in ("6d-rwkv6", "6d-hymba"):   # reduced, card against CPU
+        launches[f"train:{phase}"] = _train_on_cpu_too(dev, phase)
 
     # ----------------------------------------------------------- 7 kernels
     total = {k: sum(launches[e][k] for e in launches) for k in KERNELS}
     need = {"flash_attention": launches["continuous"]["flash_attention"],
             "paged_attention": launches["paged"]["paged_attention"],
-            **{k: launches["train"][k] for k in (
-                "flash_attention_lse", "flash_attention_dq",
-                "flash_attention_dkv")},
+            **{k: min(launches[e][k] for e in ("train:6", "train:6b"))
+               for k in ("flash_attention_lse", "flash_attention_dq",
+                         "flash_attention_dkv")},
             "rmsnorm": min(launches[e]["rmsnorm"] for e in (
-                "continuous", "paged", "train", "hymba-1.5b:static",
-                "hymba-1.5b:continuous")),
+                "continuous", "paged", "train:6", "train:6b",
+                "hymba-1.5b:static", "hymba-1.5b:continuous")),
             "wkv6": min(launches[f"{a}:{e}"]["wkv6"] for a in SSM_ARCHS
                         for e in ("static", "continuous"))}
     line = {"kernels": [
@@ -1043,141 +1125,335 @@ def _attention_library(q, k, v, do) -> tuple:
     return fwd, bwd, names
 
 
-def _train_config(backend: str):
-    """The training phase's RunConfig: full-width granite-3-8b cut to
-    TRAIN_LAYERS layers, f32, on the attention ``backend``."""
-    from repro_torch.configs import RunConfig, ShapeConfig, get_arch
-    cfg = dataclasses.replace(get_arch(ARCH), num_layers=TRAIN_LAYERS)
+def _train_config(phase: str, backend: str):
+    """The RunConfig of training phase ``phase`` (``TRAIN``): its arch at
+    full width, cut to its depth, f32, on the attention ``backend``;
+    2 x 4096 tokens in 2 microbatches with remat, lr 1e-3, 2 warmup steps.
+    Phase 6d's reduced configs keep the reference's reduced widths, its
+    64-token window and chunks of 16, at 2 x 128 tokens."""
+    from repro_torch.configs import RunConfig, ShapeConfig, get_arch, reduced
+    spec = TRAIN[phase]
+    cfg = get_arch(spec["arch"])
+    seq = TRAIN_SEQ
+    if phase.startswith("6d"):
+        cfg, seq = reduced(cfg, layers=spec["layers"]), REDUCED_TRAIN_SEQ
+    elif spec["layers"]:
+        cfg = dataclasses.replace(cfg, num_layers=spec["layers"])
     return RunConfig(
-        model=cfg, shape=ShapeConfig("train_4k", "train", TRAIN_SEQ,
-                                     TRAIN_BATCH),
+        model=cfg, shape=ShapeConfig("train", "train", seq, TRAIN_BATCH),
         microbatches=2, remat=True, attention_backend=backend,
         learning_rate=1e-3, warmup_steps=2, opt_state_dtype="float32",
         opt_master=True, param_dtype="float32")
 
 
-def _train(dev) -> dict:
-    """Phase 6: train full-width granite-3-8b cut to TRAIN_LAYERS layers
-    through the kernels, then again on the plain attention path from the
-    same seeded params and batches; the per-step losses and grad norms
-    must agree. Returns the kernel run's launch counts."""
+def _reference_metrics(rcfg, device, keep_grads: bool = False):
+    """(params, batch) -> {"loss", "grad_norm"} of one training step of
+    ``rcfg`` on ``device`` (params and batch copied there when they lie
+    elsewhere), without its update: the reference a "forced" trajectory
+    holds each step to; with ``keep_grads`` also "grads", the named
+    leaves' gradients on the CPU."""
     import torch
 
-    from repro_torch._tree import tree_leaves
-    from repro_torch.core.profile import profile_device
+    from repro_torch._tree import tree_map
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.runtime.steps import accumulate_grads, make_model
+
+    model = make_model(rcfg, device=device)
+    acc_dt = getattr(torch, rcfg.grad_accum_dtype)
+
+    def metrics(params, batch):
+        p = tree_map(lambda t: t.detach().to(device), params)
+        b = {k: v.to(device) for k, v in batch.items()}
+        grads, loss = accumulate_grads(model, p, b, rcfg.microbatches, acc_dt)
+        out = {"loss": float(loss), "grad_norm": float(global_norm(grads))}
+        if keep_grads:
+            out["grads"] = {n: t.cpu() for n, t in _named_leaves(grads)}
+        return out
+    return metrics
+
+
+def _train_steps(rcfg, dev, params=None, reference=None) -> dict:
+    """TRAIN_STEPS steps of ``rcfg`` on ``dev`` through
+    ``build_train_step`` and ``train_loop.run``, from the seeded params
+    (or a copy of ``params``) and SyntheticLM(seed=0) batches; before each
+    step, ``reference`` (``_reference_metrics``) of the same params and
+    batch. Returns the loop's metrics, the references', the run's and
+    each step's kernel launches, the peak memory and the step, params and
+    state for one more step."""
+    import torch
+
+    from repro_torch._tree import tree_leaves, tree_map
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels import ops
     from repro_torch.runtime import train_loop
     from repro_torch.runtime.steps import build_train_step
 
-    _train_grads(dev)    # phase 6a
-    cfg = _train_config("kernel").model
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    runs = {}
-    for backend in ("kernel", "dense"):
-        rcfg = _train_config(backend)
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)     # the context exists before the reset
         torch.cuda.reset_peak_memory_stats(dev)
-        held = torch.cuda.memory_allocated(dev)    # left by earlier phases
-        t0 = time.perf_counter()
-        step, model, opt = build_train_step(rcfg, total_steps=TRAIN_STEPS,
-                                            device=dev)
+    held = torch.cuda.memory_allocated(dev) if cuda else 0
+    t0 = time.perf_counter()
+    step, model, opt = build_train_step(rcfg, total_steps=TRAIN_STEPS,
+                                        device=dev)
+    if params is None:
         params = model.init_params(torch.Generator(device=dev).manual_seed(0))
-        opt_state = opt.init(params)
+    else:
+        params = tree_map(lambda t: t.to(dev, copy=True), params)
+    opt_state = opt.init(params)
+    if cuda:
         torch.cuda.synchronize(dev)
-        setup_s = time.perf_counter() - t0
-        n_params = sum(t.numel() for t in tree_leaves(params))
-        data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0,
-                           device=str(dev))
-        per_step = []
+    setup_s = time.perf_counter() - t0
+    data = SyntheticLM(rcfg.model, TRAIN_BATCH, rcfg.shape.seq_len, seed=0,
+                       device=str(dev))
+    per_step, refs = [], []
 
-        def counted(p, o, batch):
-            before = dict(ops.LAUNCHES)
-            out = step(p, o, batch)
-            per_step.append({k: ops.LAUNCHES[k] - before[k]
-                             for k in ops.KERNELS})
-            return out
+    def batch_at(i):
+        # the reference of step i, from the params the step will update in
+        # place, before the loop starts the step's clock
+        batch = data.batch_at(i)
+        if reference is not None:
+            refs.append(reference(params, batch))
+        return batch
 
+    def counted(p, o, batch):
         ops.reset_launches()
-        res = train_loop.run(counted, params, opt_state, data.batch_at,
-                             total_steps=TRAIN_STEPS)
-        launches = dict(ops.LAUNCHES)
+        out = step(p, o, batch)
+        per_step.append(dict(ops.LAUNCHES))
+        return out
+
+    res = train_loop.run(counted, params, opt_state, batch_at,
+                         total_steps=TRAIN_STEPS)
+    # the steps' own launches (a reference may launch kernels between them)
+    launches = {k: sum(c[k] for c in per_step) for k in ops.KERNELS}
+    tokens = TRAIN_BATCH * rcfg.shape.seq_len
+    return dict(
+        res=res, refs=refs, launches=launches, per_step=per_step,
+        setup_s=setup_s, held=held,
+        peak=torch.cuda.max_memory_allocated(dev) if cuda else 0,
+        n_params=sum(t.numel() for t in tree_leaves(params)),
+        steps=[{**m, "tokens_per_s": tokens / m["step_s"],
+                "launches": per_step[i]} for i, m in enumerate(res.metrics)],
+        step=step, params=params, opt_state=opt_state, data=data)
+
+
+def _memory_reckoning(n_params: int, rcfg) -> dict:
+    """The bytes the training state needs before activations: f32 params,
+    the gradient accumulator, the master copy and two AdamW moments (20
+    bytes a parameter), plus one microbatch's gradients."""
+    per = 4 * (5 if rcfg.opt_master else 4)
+    return {"params": n_params, "state_bytes_per_param": per,
+            "state_bytes": per * n_params,
+            "microbatch_grad_bytes": 4 * n_params}
+
+
+def _train(dev, phase: str) -> dict:
+    """Training phases at full width (``TRAIN``): 6 (granite-3-8b, 8
+    layers, "free": 6a's per-leaf gradients, then TRAIN_STEPS steps on the
+    kernels and on the plain attention path from the same seeded params
+    and batches), 6b (hymba-1.5b, all 32 layers, "forced": 6a's per-leaf
+    gradients reported, each layer's gradients gated, TRAIN_STEPS steps
+    on the kernels each held to the plain path's step from the same
+    params) and 6c (rwkv6-3b, 8 layers, "none": no port kernel runs on its
+    path, LayerNorm and the plain chunked ssm form that training pins, so
+    TRAIN_STEPS clean steps with finite metrics and every kernel's count
+    at 0). Where kernels run: B3 and B4 at one launch per layer and
+    microbatch, B2 and K3 in every step, B6 in none; one more kernel step
+    under the profiler. Returns the kernel run's launch counts."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.profile import profile_device
+
+    spec = TRAIN[phase]
+    arch, gate = spec["arch"], spec["gate"]
+    if gate != "none":
+        _train_grads(dev, phase, gated=gate == "free")    # 6a
+    if gate == "forced":
+        _layer_grads(dev, phase)
+    reference = (_reference_metrics(_train_config(phase, "dense"), dev)
+                 if gate == "forced" else None)
+    runs = {}
+    for backend in ("kernel", "dense") if gate == "free" else ("kernel",):
+        rcfg = _train_config(phase, backend)
+        run = _train_steps(rcfg, dev, reference=reference)
         if backend == "kernel":    # one more step, traced, after the count
             # [1]: keep only the summary, not the step's (params, state)
-            prof = profile_device(lambda: step(params, opt_state,
-                                               data.batch_at(TRAIN_STEPS)))[1]
-            emit({"phase": "train_profile", "backend": backend,
-                  "step": TRAIN_STEPS, **prof})
-        steps = [{**m, "tokens_per_s": tokens / m["step_s"],
-                  "launches": per_step[i]} for i, m in enumerate(res.metrics)]
-        emit({"phase": "train", "backend": backend, "arch": ARCH,
-              "layers": TRAIN_LAYERS,
-              "reduced": f"depth {cfg.num_layers} of 40 layers: f32 params, "
-                         "grads, master and two AdamW moments of 40 layers "
-                         "(~164 GB) exceed one 80 GB card",
-              "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-              "microbatches": 2, "remat": True, "setup_s": setup_s,
-              "allocated_before_bytes": held,
-              "retries": res.retries, "steps": steps,
-              "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
-              "launches": launches})
-        runs[backend] = (res.metrics, launches, per_step, res.retries)
-        del step, model, opt, params, opt_state, res, counted
+            prof = profile_device(lambda: run["step"](
+                run["params"], run["opt_state"],
+                run["data"].batch_at(TRAIN_STEPS)))[1]
+            emit({"phase": "train_profile", "train_phase": phase,
+                  "arch": arch, "backend": backend, "step": TRAIN_STEPS,
+                  **prof})
+        res = run["res"]
+        emit({"phase": "train", "train_phase": phase, "backend": backend,
+              "arch": arch, "layers": rcfg.model.num_layers,
+              "reduced": (f"depth {rcfg.model.num_layers} of "
+                          f"{get_arch(arch).num_layers} layers: "
+                          f"{spec['cut']}"
+                          if spec["cut"] else
+                          "none: full width and full depth"),
+              "memory_reckoning": _memory_reckoning(run["n_params"], rcfg),
+              "params": run["n_params"], "batch": TRAIN_BATCH,
+              "seq": rcfg.shape.seq_len, "microbatches": rcfg.microbatches,
+              "remat": rcfg.remat, "setup_s": run["setup_s"],
+              "allocated_before_bytes": run["held"],
+              "retries": res.retries, "steps": run["steps"],
+              "peak_memory_bytes": run["peak"],
+              "launches": run["launches"]})
+        runs[backend] = (res.metrics, run["refs"], run["launches"],
+                         run["per_step"], res.retries)
+        del run, res
         gc.collect()
         torch.cuda.empty_cache()
 
-    (km, launches, per_step, k_retries), (dm, _, _, d_retries) = \
-        runs["kernel"], runs["dense"]
-    rel = {key: [abs(a[key] - b[key]) / abs(b[key]) for a, b in zip(km, dm)]
-           for key in TRAIN_TOL}
-    parity = {"phase": "train_parity", "steps": len(km),
-              "losses_kernel": [m["loss"] for m in km],
-              "losses_dense": [m["loss"] for m in dm],
-              "rel_diff": rel, "tol": TRAIN_TOL}
-    emit(parity)
+    km, refs, launches, per_step, k_retries = runs["kernel"]
+    if len(km) != TRAIN_STEPS or k_retries:
+        raise AssertionError(f"{arch} did not take {TRAIN_STEPS} clean "
+                             f"steps: {km}, retries {k_retries}")
+    if gate == "none":
+        bad = [m for m in km if not (math.isfinite(m["loss"])
+                                     and math.isfinite(m["grad_norm"]))]
+        nonzero = {k: n for k, n in launches.items() if n}
+        emit({"phase": "train_check", "train_phase": phase, "arch": arch,
+              "steps": len(km), "finite": not bad,
+              "launches": launches, "launches_expected": "0 for every "
+              "kernel: LayerNorm, and the plain chunked ssm form"})
+        if bad or nonzero:
+            raise AssertionError(f"{arch}: non-finite steps {bad} or kernel "
+                                 f"launches {nonzero}")
+        return launches
+    if gate == "free":
+        dm, _, _, _, d_retries = runs["dense"]
+        if len(dm) != TRAIN_STEPS or d_retries:
+            raise AssertionError(f"{arch} on the plain path did not take "
+                                 f"{TRAIN_STEPS} clean steps")
+        _check_trajectories(phase, km, dm, "free: the plain path's own run")
+    else:
+        _check_trajectories(phase, km, refs, "forced: the plain path's step "
+                            "from the kernel run's params, no update")
     need = ("flash_attention_lse", "flash_attention_dq", "flash_attention_dkv",
             "rmsnorm")
-    if (len(km) != TRAIN_STEPS or len(dm) != TRAIN_STEPS or k_retries
-            or d_retries):
-        raise AssertionError(f"training did not take {TRAIN_STEPS} clean "
-                             f"steps: {parity}")
-    if any(max(rel[key]) > TRAIN_TOL[key] for key in TRAIN_TOL):
-        raise AssertionError(f"kernel and plain training disagree: {parity}")
     short = [(i, k) for i, c in enumerate(per_step) for k in need if c[k] < 1]
     if short:
-        raise AssertionError(f"training steps launched no {short}")
-    # B3 and B4: one launch each per layer and microbatch
-    per_layer = TRAIN_LAYERS * _train_config("kernel").microbatches
+        raise AssertionError(f"{arch} training steps launched no {short}")
+    # B3 and B4: one launch each per layer and microbatch; no B6
+    rcfg = _train_config(phase, "kernel")
+    per_layer = rcfg.model.num_layers * rcfg.microbatches
     off = [(i, k, c[k]) for i, c in enumerate(per_step)
            for k in ("flash_attention_dq", "flash_attention_dkv")
-           if c[k] != per_layer]
+           if c[k] != per_layer] + [
+        (i, "wkv6", c["wkv6"]) for i, c in enumerate(per_step) if c["wkv6"]]
     if off:
-        raise AssertionError(f"B3/B4 launches per step differ from "
-                             f"{per_layer}: {off}")
+        raise AssertionError(f"{arch}: B3/B4 launches per step differ from "
+                             f"{per_layer}, or B6 launched: {off}")
     return launches
 
 
-def _train_grads(dev) -> None:
-    """Phase 6a: the gradient of every parameter leaf (each layer's slice
-    its own leaf, as in the training step) at the seeded initial params on
-    the first microbatch of step 0, through the kernels and through the
-    plain attention path. Every leaf's gradient must agree within
-    GRAD_TOL, relative in L2 norm: a global loss or grad norm cannot see a
-    gradient that is wrong in one leaf or only in direction."""
+def _check_trajectories(phase: str, km: list, dm: list, against: str) -> None:
+    """Per-step loss and grad_norm of a run (``km``) and its reference
+    (``dm``), relative to the reference; those of ``TRAIN[phase]["held"]``
+    within TRAIN_TOL."""
+    held = TRAIN[phase]["held"]
+    rel = {key: [abs(a[key] - b[key]) / abs(b[key]) for a, b in zip(km, dm)]
+           for key in TRAIN_TOL}
+    parity = {"phase": "train_parity", "train_phase": phase,
+              "arch": TRAIN[phase]["arch"], "against": against,
+              "steps": len(km), "losses": [m["loss"] for m in km],
+              "losses_reference": [m["loss"] for m in dm],
+              "grad_norms": [m["grad_norm"] for m in km],
+              "grad_norms_reference": [m["grad_norm"] for m in dm],
+              "rel_diff": rel, "held": held, "tol": TRAIN_TOL}
+    emit(parity)
+    if len(dm) != len(km) or any(max(rel[key]) > TRAIN_TOL[key]
+                                 for key in held):
+        raise AssertionError(f"phase {phase}: trajectories disagree: {parity}")
+
+
+def _train_on_cpu_too(dev, phase: str) -> dict:
+    """Phase 6d: the reduced arch of ``phase`` trained TRAIN_STEPS steps on
+    the card through the kernels from params initialised on the CPU from a
+    seeded generator, each step held ("forced") to the same step on this
+    machine's CPU through the kernels' plain versions, from the same
+    params and batch: each leaf's gradient within GRAD_TOL, the metrics of
+    ``TRAIN[phase]["held"]`` within TRAIN_TOL. The CPU side is what the
+    tier-1 tests hold to the JAX package. Returns the card run's launch
+    counts."""
+    import torch
+
+    from repro_torch.runtime.steps import make_model
+
+    rcfg = _train_config(phase, "kernel")
+    params = make_model(rcfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    on_card = _reference_metrics(rcfg, dev, keep_grads=True)
+    on_cpu = _reference_metrics(rcfg, "cpu", keep_grads=True)
+    leaves = []
+
+    def reference(p, batch):
+        # each leaf's gradient, card against CPU, at this step's params
+        a, b = on_card(p, batch), on_cpu(p, batch)
+        rel = {n: float((a["grads"][n] - w).norm() / w.norm())
+               for n, w in b["grads"].items()}
+        worst = max(rel, key=rel.get)
+        leaves.append({"max_rel_diff": rel[worst], "worst_leaf": worst})
+        return {"loss": b["loss"], "grad_norm": b["grad_norm"]}
+
+    card = _train_steps(rcfg, dev, params, reference=reference)
+    arch = TRAIN[phase]["arch"]
+    emit({"phase": "train", "train_phase": phase, "backend": "kernel",
+          "arch": arch,
+          "reduced": f"the reference's reduced {arch}: "
+                     f"{rcfg.model.num_layers} layers, d_model "
+                     f"{rcfg.model.d_model}, window {rcfg.model.window}, "
+                     f"chunks of {rcfg.model.ssm.chunk_size}",
+          "params": card["n_params"], "batch": TRAIN_BATCH,
+          "seq": rcfg.shape.seq_len, "retries": card["res"].retries,
+          "steps": card["steps"], "launches": card["launches"]})
+    if card["res"].retries or len(card["res"].metrics) != TRAIN_STEPS:
+        raise AssertionError(f"phase {phase}: not {TRAIN_STEPS} clean steps")
+    emit({"phase": "train_leaf_grads", "train_phase": phase, "arch": arch,
+          "against": "the CPU's gradients at each step's params",
+          "steps": leaves, "tol": GRAD_TOL})
+    _check_trajectories(phase, card["res"].metrics, card["refs"],
+                        "forced: the CPU's step from the card run's params, "
+                        "no update")
+    off = [(i, s) for i, s in enumerate(leaves)
+           if not s["max_rel_diff"] <= GRAD_TOL]
+    if off:
+        raise AssertionError(f"phase {phase}: card and CPU gradients "
+                             f"disagree at steps {off}")
+    return card["launches"]
+
+
+def _first_microbatch(cfg, n_mb: int, dev) -> dict:
+    """Step 0's first microbatch of the training phases' batches."""
+    from repro_torch.data.pipeline import SyntheticLM
+    return {k: v[:TRAIN_BATCH // n_mb] for k, v in SyntheticLM(
+        cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=str(dev)).batch_at(0)
+        .items()}
+
+
+def _train_grads(dev, phase: str, gated: bool = True) -> None:
+    """Phase 6a (and 6b's gradients): the gradient of every parameter leaf
+    (each layer's slice its own leaf, as in the training step) at the
+    seeded initial params on the first microbatch of step 0, through the
+    kernels and through the plain attention path. Where ``gated``, every
+    leaf's gradient must agree within GRAD_TOL, relative in L2 norm: a
+    global loss or grad norm cannot see a gradient that is wrong in one
+    leaf or only in direction."""
     import torch
 
     from repro_torch._tree import tree_map
-    from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.runtime.steps import make_model
 
-    rcfg = _train_config("kernel")
+    rcfg = _train_config(phase, "kernel")
     cfg, n_mb = rcfg.model, rcfg.microbatches
-    models = {b: make_model(_train_config(b), device=dev)
+    models = {b: make_model(_train_config(phase, b), device=dev)
               for b in ("kernel", "dense")}
     params = models["kernel"].init_params(
         torch.Generator(device=dev).manual_seed(0))
-    batch = {k: v[:TRAIN_BATCH // n_mb] for k, v in SyntheticLM(
-        cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=str(dev)).batch_at(0)
-        .items()}
+    batch = _first_microbatch(cfg, n_mb, dev)
     grads, losses = {}, {}
     for backend, model in models.items():
         tree = {k: tree_map(lambda a: a.detach().requires_grad_(), v)
@@ -1198,18 +1474,93 @@ def _train_grads(dev) -> None:
     def norm(g):
         return float(torch.stack([t.norm() for t in g.values()]).norm())
 
-    line = {"phase": "train_grads", "tokens": TRAIN_SEQ * TRAIN_BATCH // n_mb,
+    line = {"phase": "train_grads", "train_phase": phase,
+            "arch": TRAIN[phase]["arch"], "layers": cfg.num_layers,
+            "tokens": TRAIN_SEQ * TRAIN_BATCH // n_mb,
             "leaves": len(rel), "losses": losses,
             "grad_norm": {"kernel": norm(kg), "dense": norm(dg)},
             "max_rel_diff": rel[worst], "worst_leaf": worst,
-            "tol": GRAD_TOL, "rel_diff_by_leaf": rel}
+            "median_rel_diff": sorted(rel.values())[len(rel) // 2],
+            "tol": GRAD_TOL, "gated": gated, "rel_diff_by_leaf": rel}
     emit(line)
     del grads, kg, dg, params, models
     gc.collect()
     torch.cuda.empty_cache()
-    if not rel[worst] <= GRAD_TOL:
+    if gated and not rel[worst] <= GRAD_TOL:
         raise AssertionError(f"kernel and plain gradients disagree: leaf "
                              f"{worst} at {rel[worst]} > {GRAD_TOL}")
+
+
+def _layer_grads(dev, phase: str) -> None:
+    """Phase 6b's gradient gate, a layer at a time: on step 0's first
+    microbatch, each layer's gradients (its parameters and its input)
+    through the kernels against the plain path's, both from the plain
+    path's own input to the layer and its own gradient at the layer's
+    output (the head's, then each layer's input gradient going down), each
+    within GRAD_TOL relative in L2 norm. Held this way a layer's kernels
+    are held at their own error, where the model's depth amplifies last-bit
+    differences (6a's whole-model numbers, reported beside)."""
+    import torch
+
+    from repro_torch._tree import layer_at, tree_map
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import apply_norm, embed_tokens, lm_logits
+    from repro_torch.runtime.steps import make_model
+
+    rcfg = _train_config(phase, "kernel")
+    cfg = rcfg.model
+    models = {b: make_model(_train_config(phase, b), device=dev)
+              for b in ("kernel", "dense")}
+    plain = models["dense"]
+    params = plain.init_params(torch.Generator(device=dev).manual_seed(0))
+    batch = _first_microbatch(cfg, rcfg.microbatches, dev)
+    tokens = batch["tokens"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    with torch.no_grad():
+        xs = [embed_tokens(params["embed"], tokens)]
+        for i in range(cfg.num_layers):
+            xs.append(tfm.layer_apply(layer_at(params["layers"], i), xs[-1],
+                                      cfg, plain.rt, positions)[0])
+    # the plain path's gradient at the last layer's output: Model.loss's head
+    x = xs[-1].requires_grad_()
+    logits = lm_logits(params["embed"], apply_norm(params["final_norm"], x,
+                                                   cfg.norm),
+                       cfg.tie_embeddings, true_vocab=cfg.vocab_size).float()
+    nll = (torch.logsumexp(logits, dim=-1) - logits.gather(
+        -1, batch["labels"].long()[..., None])[..., 0]).mean()
+    (g,) = torch.autograd.grad(nll, [x])
+    del logits, nll, x
+    per_layer = {}
+    for i in reversed(range(cfg.num_layers)):
+        got = {}
+        for backend, model in models.items():
+            p = tree_map(lambda a: a[i].detach().requires_grad_(),
+                         params["layers"])
+            xi = xs[i].detach().requires_grad_()
+            y, _ = tfm.layer_apply(p, xi, cfg, model.rt, positions)
+            named = _named_leaves({"input": xi, **p})
+            got[backend] = dict(zip((n for n, _ in named), torch.autograd.grad(
+                y, [t for _, t in named], g)))
+        rel = {n: float((got["kernel"][n] - w).norm() / w.norm())
+               for n, w in got["dense"].items()}
+        worst = max(rel, key=rel.get)
+        per_layer[i] = (worst, rel[worst])
+        g = got["dense"]["input"]
+        xs[i + 1] = None
+        del got
+    worst = max(per_layer, key=lambda i: per_layer[i][1])
+    line = {"phase": "train_layer_grads", "train_phase": phase,
+            "arch": TRAIN[phase]["arch"], "layers": cfg.num_layers,
+            "max_rel_diff": per_layer[worst][1],
+            "worst": f"layer {worst} {per_layer[worst][0]}", "tol": GRAD_TOL,
+            "rel_diff_by_layer": {i: per_layer[i][1] for i in sorted(per_layer)}}
+    emit(line)
+    del xs, g, params, models
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not per_layer[worst][1] <= GRAD_TOL:
+        raise AssertionError(f"kernel and plain layer gradients disagree: "
+                             f"{line}")
 
 
 def _named_leaves(tree, prefix: str = "") -> list:
@@ -1367,6 +1718,7 @@ ATTN_KERNEL = {"fwd": "K1/B2", "dq": "B3", "dkv": "B4"}
 WKV6_INSTANCE = re.compile(
     r"wkv6_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)Li(\d+)E")
 PAGED_INSTANCE = re.compile(r"paged_decode_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+RMSNORM_INSTANCE = re.compile(r"rmsnorm_kernelI(f|13__nv_bfloat16)Li(\d+)EE")
 
 
 def _dtype_name(mangled_type: str) -> str:
@@ -1378,7 +1730,8 @@ def _attn_instance(mangled: str):
     float32 D128' (or 'K1/B2 ...', 'B4 ...') for the flash-attention
     kernels, 'B6 float32 ld float32 VS32' for B6 (input and decay types,
     V columns per block), 'K2 bfloat16 D<=128' for K2 (the head dims the
-    instance takes)."""
+    instance takes), 'K3 bfloat16 vec8' for K3 (elements a load: 16
+    bytes' worth, or 1 for rows not on a 16-byte boundary)."""
     m = ATTN_INSTANCE.search(mangled)
     if m:
         kernel, dtype, d = m.groups()
@@ -1393,27 +1746,24 @@ def _attn_instance(mangled: str):
     if m:
         dtype, nc = m.groups()
         return f"K2 {_dtype_name(dtype)} D<={128 * int(nc)}"
+    m = RMSNORM_INSTANCE.search(mangled)
+    if m:
+        dtype, vec = m.groups()
+        return f"K3 {_dtype_name(dtype)} vec{vec}"
     return None
 
 
 def _cuobjdump() -> str:
-    """The CUDA toolkit's cuobjdump (beside nvcc), else Triton's copy."""
+    """The CUDA toolkit's cuobjdump, beside nvcc."""
     from repro_torch.kernels import _build
-    cands = [Path(_build.nvcc_path()).parent / "cuobjdump"]
-    try:
-        import triton
-        cands.append(Path(triton.__file__).parent / "backends" / "nvidia"
-                     / "bin" / "cuobjdump")
-    except ImportError:
-        pass
-    for c in cands:
-        if c.is_file():
-            return str(c)
-    raise AssertionError(f"no cuobjdump found (looked at {cands})")
+    path = Path(_build.nvcc_path()).parent / "cuobjdump"
+    if not path.is_file():
+        raise AssertionError(f"no cuobjdump beside nvcc ({path})")
+    return str(path)
 
 
 def _attn_build_report(lib: Path) -> dict:
-    """Per instance of K1/B2, B3, B4, B6 and K2 (``_attn_instance``): HMMA
+    """Per instance of K1/B2, B3, B4, B6, K2 and K3 (``_attn_instance``): HMMA
     instructions in the library's SASS (``cuobjdump -sass``), and
     registers and spilled bytes from the build's ``-Xptxas -v`` report."""
     sass = subprocess.run([_cuobjdump(), "-sass", str(lib)],
@@ -1445,11 +1795,6 @@ def _attn_build_report(lib: Path) -> dict:
         if m:
             report[name]["registers"] = int(m.group(1))
     return dict(sorted(report.items()))
-
-
-def _triton_version() -> str:
-    import triton
-    return triton.__version__
 
 
 if __name__ == "__main__":

@@ -26,7 +26,7 @@ GROUPS = (("attn_fwd_kernel", "K1/B2 flash forward"),
           ("attn_dq_kernel", "B3 flash dq"),
           ("attn_dkv_kernel", "B4 flash dkv"),
           ("paged_decode_kernel", "K2 paged_attention"),
-          ("_rmsnorm_rows", "K3 rmsnorm"),
+          ("rmsnorm_kernel", "K3 rmsnorm"),
           ("wkv6_kernel", "B6 wkv6"),
           ("gemm", "matmul"), ("gemv", "matmul"), ("cutlass", "matmul"),
           ("xmma", "matmul"))

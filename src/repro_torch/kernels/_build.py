@@ -52,6 +52,8 @@ SIGNATURES = {
     # q, k, v, ld, u, o, state, strides (16 int64), B, T, H, K, V, dtype,
     # ld_dtype, stream
     "repro_wkv6_fwd": [_VP] * 8 + [_INT] * 7 + [_VP],
+    # x, scale, out, rows, d, eps, dtype, stream
+    "repro_rmsnorm_fwd": [_VP] * 3 + [_INT] * 2 + [_FLOAT, _INT, _VP],
 }
 
 _lock = threading.Lock()
@@ -136,7 +138,11 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build_library()))
             for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
+                # a library built from an older checkout (ab_attention.py)
+                # lacks the newer entry points: calling one raises
+                fn = getattr(lib, name, None)
+                if fn is None:
+                    continue
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]

@@ -51,6 +51,12 @@ def chunked_linear_attention(q, k, v, ld, u=None, initial_state=None,
     carried state's contribution and the state recurrence; o in q's dtype.
     Any T (the last chunk is padded with ld = 0 and k = 0).
 
+    Every chunk's intra-chunk terms and its own key-value sum are computed
+    at once (the chunks are a batch dimension); only the state entering
+    each chunk, S_{i+1} = e^{p_last_i} S_i + kv_i, is a loop over chunks,
+    of two small operations each. A loop over chunks of the whole chunk
+    body made training host-bound on the card (PERF.md, Findings).
+
     factored=True: two-level intra-chunk scheme. Cross-sub-chunk terms
     factor around the sub-chunk boundary b (s < b <= t),
     A[t,s] = (q_t exp(w_t - p_b)) . (k_s exp(p_b - p_s)), both factors
@@ -79,16 +85,18 @@ def chunked_linear_attention(q, k, v, ld, u=None, initial_state=None,
     smask = (sg[:, None] >= sg[None, :]) if u is None else (
         sg[:, None] > sg[None, :])
 
+    # chunks as a batch: (B * n, c, H, *)
     def intra_pairwise(qi, ki, vi, w, p):
         diff = (w[:, :, None] - p[:, None, :]).masked_fill(
-            ~mask[None, :, :, None, None], float("-inf"))     # (B,c,c,H,K)
+            ~mask[None, :, :, None, None], float("-inf"))     # (N,c,c,H,K)
         a = torch.einsum("bthk,bshk,btshk->bhts", qi, ki, torch.exp(diff))
         return torch.einsum("bhts,bshv->bthv", a, vi)
 
     def intra_factored(qi, ki, vi, w, p):
-        qs, ks, we, pi = (a.reshape(B, nsub, r, H, K)
+        N = qi.shape[0]
+        qs, ks, we, pi = (a.reshape(N, nsub, r, H, K)
                           for a in (qi, ki, w, p))
-        vs = vi.reshape(B, nsub, r, H, V)
+        vs = vi.reshape(N, nsub, r, H, V)
         # diagonal blocks: pairwise over r only
         dd = (we[:, :, :, None] - pi[:, :, None, :]).masked_fill(
             ~smask[None, None, :, :, None, None], float("-inf"))
@@ -96,37 +104,42 @@ def chunked_linear_attention(q, k, v, ld, u=None, initial_state=None,
         o = torch.einsum("bnhts,bnshv->bnthv", ad, vs)
         # cross-sub-chunk terms through a sub-chunk state recurrence, the
         # state referenced to the end of the previous sub-chunk
-        p_end = pi[:, :, -1]                                  # (B,n,H,K)
+        p_end = pi[:, :, -1]                                  # (N,n,H,K)
         p_end_prev = torch.cat([torch.zeros_like(p_end[:, :1]),
                                 p_end[:, :-1]], 1)
         k_dec = ks * torch.exp(p_end[:, :, None] - pi)
         kv_sub = torch.einsum("bnrhk,bnrhv->bnhkv", k_dec, vs)
         q_dec = qs * torch.exp(we - p_end_prev[:, :, None])
-        ssub = torch.zeros((B, H, K, V), dtype=f32, device=dev)
+        ssub = torch.zeros((N, H, K, V), dtype=f32, device=dev)
         cross = []
         for j in range(nsub):
             cross.append(torch.einsum("brhk,bhkv->brhv", q_dec[:, j], ssub))
             ssub = (torch.exp(p_end[:, j] - p_end_prev[:, j])[..., None]
                     * ssub + kv_sub[:, j])
-        return (o + torch.stack(cross, 1)).reshape(B, c, H, V)
+        return (o + torch.stack(cross, 1)).reshape(N, c, H, V)
 
     intra = intra_factored if (factored and nsub) else intra_pairwise
-    outs = []
+    qc, kc, vc, ldc = (a.to(f32).reshape(B * n, c, H, -1)
+                       for a in (q, k, v, ld))
+    p = torch.cumsum(ldc, dim=1)                            # (B n,c,H,K)
+    w = p if u is None else p - ldc
+    o = intra(qc, kc, vc, w, p)
+    if u is not None:                                       # bonus diagonal
+        diag = torch.einsum("bthk,hk,bthk->bth", qc, u.to(f32), kc)
+        o = o + diag[..., None] * vc
+    # the state entering each chunk, then its contribution
+    p_last = p[:, -1]                                       # (B n,H,K)
+    kv = torch.einsum("bthk,bthv->bhkv", kc * torch.exp(p_last[:, None] - p),
+                      vc).reshape(B, n, H, K, V)
+    decay = torch.exp(p_last).reshape(B, n, H, K, 1)
+    entering = []
     for i in range(n):
-        sl = slice(i * c, (i + 1) * c)
-        qi, ki, vi, ldi = (a[:, sl].to(f32) for a in (q, k, v, ld))
-        p = torch.cumsum(ldi, dim=1)
-        w = p if u is None else p - ldi
-        o = intra(qi, ki, vi, w, p)
-        if u is not None:                                   # bonus diagonal
-            diag = torch.einsum("bthk,hk,bthk->bth", qi, u.to(f32), ki)
-            o = o + diag[..., None] * vi
-        o = o + torch.einsum("bthk,bhkv->bthv", qi * torch.exp(w), S)
-        p_last = p[:, -1]                                   # (B,H,K)
-        S = torch.exp(p_last)[..., None] * S + torch.einsum(
-            "bthk,bthv->bhkv", ki * torch.exp(p_last[:, None] - p), vi)
-        outs.append(o.to(dtype))
-    return torch.cat(outs, 1)[:, :T], S
+        entering.append(S)
+        S = decay[:, i] * S + kv[:, i]
+    s_in = torch.stack(entering, 1).reshape(B * n, H, K, V)
+    o = o + torch.einsum("bthk,bhkv->bthv", qc * torch.exp(w), s_in)
+    o = o.to(dtype).reshape(B, n * c, H, V)
+    return o[:, :T], S
 
 
 def linear_attention(q, k, v, ld, u=None, initial_state=None, *,

@@ -64,6 +64,35 @@ def _grad_leaves(params, gsum):
     return tree, pairs
 
 
+def accumulate_grads(model, params, batch, microbatches: int,
+                     acc_dtype=torch.float32):
+    """The gradients of ``model.loss`` over ``batch`` split into
+    ``microbatches`` consecutive microbatches, summed in ``acc_dtype`` and
+    divided by their number, and the mean loss: (grads, a tree like
+    ``params``; loss, a device scalar). Touches neither ``params`` nor
+    anything else."""
+    gb = batch["tokens"].shape[0]
+    if gb % microbatches:
+        raise ValueError(f"global batch {gb} does not split into "
+                         f"{microbatches} microbatches")
+    mb = gb // microbatches
+    gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype,
+                                          device=p.device), params)
+    losses = []
+    for i in range(microbatches):
+        mbatch = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+        tree, pairs = _grad_leaves(params, gsum)
+        loss, _ = model.loss(tree, mbatch)
+        grads = torch.autograd.grad(loss, [t for t, _ in pairs])
+        for (_, acc), g in zip(pairs, grads):
+            acc.add_(g.to(acc_dtype))
+        del tree, pairs, grads
+        losses.append(loss.detach())
+    for g in tree_leaves(gsum):
+        g.div_(microbatches)
+    return gsum, torch.stack(losses).mean()
+
+
 def build_train_step(rcfg: RunConfig, total_steps: int = 10000, *,
                      device="cuda"):
     """Returns (train_step, model, optimizer). train_step signature:
@@ -89,26 +118,7 @@ def build_train_step(rcfg: RunConfig, total_steps: int = 10000, *,
     acc_dt = getattr(torch, rcfg.grad_accum_dtype)
 
     def train_step(params, opt_state, batch):
-        gb = batch["tokens"].shape[0]
-        if gb % n_mb:
-            raise ValueError(f"global batch {gb} does not split into "
-                             f"{n_mb} microbatches")
-        mb = gb // n_mb
-        gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt,
-                                              device=p.device), params)
-        losses = []
-        for i in range(n_mb):
-            mbatch = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            tree, pairs = _grad_leaves(params, gsum)
-            loss, _ = model.loss(tree, mbatch)
-            grads = torch.autograd.grad(loss, [t for t, _ in pairs])
-            for (_, acc), g in zip(pairs, grads):
-                acc.add_(g.to(acc_dt))
-            del tree, pairs, grads
-            losses.append(loss.detach())
-        for g in tree_leaves(gsum):
-            g.div_(n_mb)
-        loss = torch.stack(losses).mean()
+        gsum, loss = accumulate_grads(model, params, batch, n_mb, acc_dt)
         metrics = {"loss": loss}
         if not torch.isfinite(loss):       # the loop skips this step
             return params, opt_state, metrics

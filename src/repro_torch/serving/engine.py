@@ -144,8 +144,7 @@ class _EngineBase:
 
     def warmup(self, prompt_len: int) -> None:
         """Run one full slot pool of dummy requests outside the measured
-        run (first-call costs: kernel build, Triton compile, allocator
-        warm-up)."""
+        run (first-call costs: kernel build, allocator warm-up)."""
         budget = max(1, min(2, self.cache_span - prompt_len))
         self.run([Request(rid=-1 - i, prompt=np.ones(prompt_len, np.int32),
                           max_new_tokens=budget)

@@ -1,6 +1,6 @@
 """The checks of ``chip_smoke.py`` that need no card: phase 2's bf16 gate in
 units of bf16 rounding, and phase 1's reading of the kernel instances
-(K1/B2, B3, B4, B6, K2) from their mangled names, and the profiler's kernel
+(K1/B2, B3, B4, B6, K2, K3) from their mangled names, and the profiler's kernel
 groups against the kernels the port defines."""
 import importlib.util
 import re
@@ -81,7 +81,13 @@ def test_held_fields_by_dtype(smoke):
      "kernelI13__nv_bfloat16Li1EEEvPKT_", "K2 bfloat16 D<=128"),
     ("_ZN51_GLOBAL__N__2952c828_18_paged_attention_cu_837bee6819paged_decode_"
      "kernelIfLi8EEEvPKT_", "K2 float32 D<=1024"),
-    ("_ZN12_GLOBAL__N_117rmsnorm_kernelIfEEvPKT_", None),
+    ("_ZN43_GLOBAL__N__a6db163e_10_rmsnorm_cu_7175708d14rmsnorm_kernelIfLi4E"
+     "EEvNS_4ArgsE", "K3 float32 vec4"),
+    ("_ZN43_GLOBAL__N__a6db163e_10_rmsnorm_cu_7175708d14rmsnorm_kernelI13__nv"
+     "_bfloat16Li1EEEvNS_4ArgsE", "K3 bfloat16 vec1"),
+    ("_ZN43_GLOBAL__N__a6db163e_10_rmsnorm_cu_7175708d14rmsnorm_kernelI13__nv"
+     "_bfloat16Li8EEEvNS_4ArgsE", "K3 bfloat16 vec8"),
+    ("_ZN12_GLOBAL__N_117layer_norm_kernelIfEEvPKT_", None),
 ])
 def test_attn_instance_names(smoke, mangled, name):
     assert smoke._attn_instance(mangled) == name
@@ -93,8 +99,7 @@ def test_profile_groups_name_the_kernels():
     defines: a renamed kernel would fall into "other" unnoticed."""
     from repro_torch.core.profile import GROUPS
     src = REPO / "src" / "repro_torch"
-    code = "".join(p.read_text() for p in sorted((src / "csrc").glob("*.cu"))
-                   ) + (src / "kernels" / "rmsnorm.py").read_text()
+    code = "".join(p.read_text() for p in sorted((src / "csrc").glob("*.cu")))
     kernels = [frag for frag, group in GROUPS if group[:2] in
                ("K1", "K2", "K3", "B3", "B4", "B6")]
     assert len(kernels) == 6

@@ -208,17 +208,44 @@ def test_paged_kernel_is_deterministic(dev, dtype, layout):
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("rows,d", [(1, 64), (7, 100), (512, 4096),
-                                    (1100, 1600)])
-def test_rmsnorm_kernel_matches_plain(dev, dtype, rows, d):
-    rng = np.random.default_rng(rows + d)
-    x = _rand(rng, (rows, d), dtype, dev)
+@pytest.mark.parametrize("rows,d,offset", [
+    (1, 64, 0), (7, 100, 0), (512, 4096, 0), (1100, 1600, 0),
+    # decode: one row per lane
+    (1, 4096, 0), (4, 4096, 0), (8, 4096, 0),
+    (1, 1600, 0), (4, 1600, 0), (8, 1600, 0),
+    # one row for each of the H100's 132 SMs, and one more
+    (132, 4096, 0), (133, 1600, 0),
+    # a training microbatch; rows longer than a block holds in registers
+    (4096, 4096, 0), (3, 40000, 0),
+    # rows not on 16-byte boundaries: d not a multiple of the vector, or x
+    # starting one element past one
+    (4, 100, 0), (300, 100, 0), (4, 4097, 0), (300, 4097, 0),
+    (4, 4096, 1), (300, 4096, 1)])
+def test_rmsnorm_kernel_matches_plain(dev, dtype, rows, d, offset):
+    rng = np.random.default_rng(rows + d + offset)
+    flat = _rand(rng, (rows * d + offset,), dtype, dev)
+    x = flat[offset:].view(rows, d)
     scale = _rand(rng, (d,), F32, dev)
     before = ops.LAUNCHES["rmsnorm"]
     out = ops.rmsnorm(x, scale)
     assert ops.LAUNCHES["rmsnorm"] == before + 1
     assert out.dtype == dtype and out.shape == x.shape
     _close(out, ref.rmsnorm_ref(x, scale), dtype)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("rows,d", [(4, 4096), (4, 1600), (4096, 4096),
+                                    (300, 4097)])
+def test_rmsnorm_kernel_is_deterministic(dev, dtype, rows, d):
+    """A block sums its row in a fixed order (thread chains, xor shuffles,
+    warps in order): two calls give the same bits."""
+    rng = np.random.default_rng(rows * d)
+    x = _rand(rng, (rows, d), dtype, dev)
+    scale = _rand(rng, (d,), F32, dev)
+    a = ops.rmsnorm(x, scale)
+    b = ops.rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):

@@ -208,3 +208,60 @@ def test_paged_split_combine_matches_pallas(nsplit, tk):
     got = _split_paged(qt, kt, vt, torch.from_numpy(btab),
                        torch.from_numpy(lengths), nsplit, tk)
     _close(got, want)
+
+
+# --------------------------------------------------- K3's algorithm on the card
+# An emulation in PyTorch of the order in which csrc/rmsnorm.cu sums a row's
+# squares: one block per row, the row's vectors (V elements each) dealt to
+# the block's threads (vector t + j * threads to thread t), each thread's
+# fused multiply-adds in one chain, the lanes of a warp combined by xor
+# shuffles and the warps in warp order; r = rsqrt(total / d + eps), y = x *
+# r * scale.
+def _xor_shuffle_sum(s):
+    """(..., threads) per-thread sums -> (..., warps), each lane after
+    ``s += shfl_xor(s, off)`` for off = 16..1 (lane 0's value)."""
+    w = s.reshape(*s.shape[:-1], -1, 32)
+    lane = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        w = w + w[..., lane ^ off]
+    return w[..., 0]
+
+
+def _fma_f32(acc, v):
+    return (acc.double() + v.double() * v.double()).float()
+
+
+def _k3_emulated(x, scale, threads, vec, eps=1e-5):
+    rows, d = x.shape
+    nvec = d // vec
+    xv = x.reshape(rows, nvec, vec)
+    acc = torch.zeros(rows, threads)
+    for j in range(-(-nvec // threads)):
+        idx = j * threads + torch.arange(threads)
+        live = idx < nvec
+        for e in range(vec):
+            v = torch.where(live, xv[:, idx.clamp(max=nvec - 1), e], 0.0)
+            acc = _fma_f32(acc, v)
+    warps = _xor_shuffle_sum(acc)
+    total = warps[:, 0]
+    for w in range(1, warps.shape[-1]):
+        total = total + warps[:, w]
+    r = torch.rsqrt(total / d + eps)
+    return x * r[:, None] * scale
+
+
+# (threads, vec, d): the launches of granite's and hymba's widths in f32
+# (16-byte vectors of 4) and bf16 (of 8), 16 elements a thread; a row
+# held past a block's registers; ragged rows one element at a time
+@pytest.mark.parametrize("threads,vec,d", [
+    (256, 4, 4096), (128, 4, 1600), (256, 8, 4096), (128, 8, 1600),
+    (32, 4, 4096), (288, 1, 4097), (32, 1, 100), (128, 1, 1600)])
+def test_rmsnorm_block_sum_matches_pallas(threads, vec, d):
+    """K3's sum of squares in the kernel's order (thread chains, xor
+    shuffle, warps in order) against the Pallas kernel in interpret mode.
+    Tolerance 1e-5 (TOL)."""
+    rng = np.random.default_rng(d + threads)
+    xj, xt = _pair(rng, (3, d))
+    sj, st = _pair(rng, (d,))
+    want = rmsnorm_fwd(xj, sj, interpret=True)
+    _close(_k3_emulated(xt, st, threads, vec), want)

@@ -232,6 +232,30 @@ def test_loss_matches_jax(arch, ssm_backend):
     _close(taux["nll"].detach(), jaux["nll"], TOL)
 
 
+def _aten_ops(fn) -> int:
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith("aten::"))
+
+
+@pytest.mark.parametrize("mode", ["rwkv6", "ssd"])
+@pytest.mark.parametrize("factored", [False, True])
+def test_chunked_form_adds_few_ops_per_chunk(mode, factored):
+    """The chunked form computes every chunk's terms at once and loops only
+    over the state entering each chunk: doubling the chunks adds a handful
+    of operations per chunk, where a loop over the whole chunk body added
+    dozens and made full-width training host-bound on the card (hundreds
+    of thousands of launches a hymba-1.5b step)."""
+    counts = []
+    for n in (8, 16):
+        q, k, v, ld, u, _ = (_t(a) for a in _la_inputs(mode, T=4 * n))
+        counts.append(_aten_ops(lambda: ssm.chunked_linear_attention(
+            q, k, v, ld, u, chunk=4, factored=factored, sub=2)))
+    assert (counts[1] - counts[0]) / 8 <= 8, counts
+
+
 def test_training_runtime_pins_the_chunked_ssm_backend():
     from repro_torch.configs import RunConfig, ShapeConfig
     from repro_torch.runtime.steps import make_runtime

@@ -1,7 +1,10 @@
 """The port's training slice against the JAX package's, on the CPU: the
 synthetic batches, ``Model.loss`` and its gradients, and the trajectory
 of ``build_train_step`` as ``examples/quickstart.py`` runs it (reduced
-granite-3-8b, f32, lr 1e-3, 5 warmup steps), from the same parameters
+granite-3-8b, rwkv6-3b and hymba-1.5b, f32, lr 1e-3, 5 warmup steps;
+hymba's sequences longer than its reduced window of 64, so the windowed
+attention trains through it; the ssm mixes in the plain ``chunked``
+form that training pins), from the same parameters
 (JAX's init, through :func:`repro_torch.bridge.params_from_jax`) and the
 same batches. Then the loop's retry, the launcher, and the refusal to run
 without a card.
@@ -9,7 +12,12 @@ without a card.
 Tolerances: loss and gradients 1e-4 (atol and rtol), as
 ``test_torch_model.py``, since the error accumulates over layers; over 10
 steps the loss and grad_norm 1e-5 relative (they agree to about 4e-7: the
-frameworks round the same f32 arithmetic in other orders).
+frameworks round the same f32 arithmetic in other orders). rwkv6-3b's
+trajectory is held by its loss alone (within 4e-7 of JAX's): its
+grad_norm after a few AdamW steps moves with the order of f32 rounding,
+by up to 3.4e-5 between two runs of the port itself on two threads, so
+no f32 implementation can hold it to 1e-5; its step-0 gradients are held
+leaf by leaf in ``test_loss_and_grads_match_jax``.
 """
 import functools
 
@@ -41,12 +49,19 @@ from repro_torch.runtime.steps import build_train_step
 torch.set_num_threads(2)
 TOL = 1e-4
 ARCH = "granite-3-8b"
+ARCHS = [ARCH, "rwkv6-3b", "hymba-1.5b"]
 BATCH, SEQ, STEPS = 4, 64, 10
+# per arch: the loss test's and the trajectory's sequence lengths; hymba's
+# pass its reduced window of 64
+SEQS = {ARCH: (48, SEQ), "rwkv6-3b": (48, SEQ), "hymba-1.5b": (80, 96)}
+# the trajectory's quantities held per arch (see the module docstring)
+HELD = {ARCH: ("loss", "grad_norm"), "rwkv6-3b": ("loss",),
+        "hymba-1.5b": ("loss", "grad_norm")}
 
 
-def _cfgs(layers=2):
-    return (reduced(get_arch(ARCH), layers=layers),
-            torch_reduced(torch_get_arch(ARCH), layers=layers))
+def _cfgs(layers=2, arch=ARCH):
+    return (reduced(get_arch(arch), layers=layers),
+            torch_reduced(torch_get_arch(arch), layers=layers))
 
 
 def _close(got, want, tol=TOL):
@@ -66,18 +81,20 @@ def test_synthetic_batches_are_identical():
                                           np.asarray(jb[name]))
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("backend,remat", [("dense", False),
                                            ("kernel", True)])
-def test_loss_and_grads_match_jax(backend, remat):
-    jcfg, tcfg = _cfgs()
+def test_loss_and_grads_match_jax(backend, remat, arch):
+    jcfg, tcfg = _cfgs(arch=arch)
     jm = jax_build(jcfg, JaxRuntime(attention_backend="dense"),
                    param_dtype=jnp.float32)
     jp = jm.init_params(jax.random.PRNGKey(0))
-    batch = JaxSyntheticLM(jcfg, 2, 48, mean_doc_len=16).batch_at(0)
+    batch = JaxSyntheticLM(jcfg, 2, SEQS[arch][0],
+                           mean_doc_len=16).batch_at(0)
     (jloss, jaux), jg = jax.value_and_grad(jm.loss, has_aux=True)(jp, batch)
 
-    tm = build(tcfg, Runtime(attention_backend=backend, remat=remat),
-               device="cpu")
+    tm = build(tcfg, Runtime(attention_backend=backend, remat=remat,
+                             ssm_backend="chunked"), device="cpu")
     tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
     leaves = jax.tree.leaves(tp)
     for t in leaves:
@@ -93,10 +110,11 @@ def test_loss_and_grads_match_jax(backend, remat):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_trajectory(microbatches: int):
+def _jax_trajectory(microbatches: int, arch: str = ARCH):
     """examples/quickstart.py's training loop, on SyntheticLM batches."""
-    jcfg, _ = _cfgs()
-    rcfg = RunConfig(model=jcfg, shape=ShapeConfig("t", "train", SEQ, BATCH),
+    jcfg, _ = _cfgs(arch=arch)
+    seq = SEQS[arch][1]
+    rcfg = RunConfig(model=jcfg, shape=ShapeConfig("t", "train", seq, BATCH),
                      mesh=MeshConfig(shape=(1, 1), axes=("data", "model")),
                      param_dtype="float32", attention_backend="dense",
                      learning_rate=1e-3, warmup_steps=5,
@@ -106,7 +124,7 @@ def _jax_trajectory(microbatches: int):
     p0 = jax.tree.map(np.array, p)      # a copy: the step donates p
     o = opt.init(p)
     jit_step = jax.jit(step, donate_argnums=(0, 1))
-    data = JaxSyntheticLM(jcfg, BATCH, SEQ, mean_doc_len=32)
+    data = JaxSyntheticLM(jcfg, BATCH, seq, mean_doc_len=32)
     out = []
     for i in range(STEPS):
         p, o, m = jit_step(p, o, data.batch_at(i))
@@ -114,15 +132,17 @@ def _jax_trajectory(microbatches: int):
     return p0, out
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("microbatches,remat,lpb,backend", [
     (1, False, 1, "dense"), (1, True, 1, "kernel"), (2, True, 1, "dense"),
     (2, True, 2, "kernel")])
 def test_train_step_trajectory_matches_jax(microbatches, remat, lpb,
-                                           backend):
-    p0, want = _jax_trajectory(microbatches)
-    _, tcfg = _cfgs()
+                                           backend, arch):
+    p0, want = _jax_trajectory(microbatches, arch)
+    _, tcfg = _cfgs(arch=arch)
+    seq = SEQS[arch][1]
     rcfg = TorchRunConfig(
-        model=tcfg, shape=TorchShapeConfig("t", "train", SEQ, BATCH),
+        model=tcfg, shape=TorchShapeConfig("t", "train", seq, BATCH),
         param_dtype="float32", attention_backend=backend,
         learning_rate=1e-3, warmup_steps=5, microbatches=microbatches,
         remat=remat, layers_per_block=lpb)
@@ -130,16 +150,17 @@ def test_train_step_trajectory_matches_jax(microbatches, remat, lpb,
     assert model.rt.remat == remat and model.rt.layers_per_block == lpb
     p = params_from_jax(p0, "cpu")
     o = opt.init(p)
-    data = SyntheticLM(tcfg, BATCH, SEQ, mean_doc_len=32, device="cpu")
+    data = SyntheticLM(tcfg, BATCH, seq, mean_doc_len=32, device="cpu")
     got = []
     for i in range(STEPS):
         p2, o2, m = step(p, o, data.batch_at(i))
         assert p2 is p and o2 is o                    # updated in place
         got.append((float(m["loss"]), float(m["grad_norm"])))
-    np.testing.assert_allclose([g[0] for g in got], [w[0] for w in want],
-                               rtol=1e-5, atol=0)
-    np.testing.assert_allclose([g[1] for g in got], [w[1] for w in want],
-                               rtol=1e-5, atol=0)
+    for i, name in enumerate(("loss", "grad_norm")):
+        if name in HELD[arch]:
+            np.testing.assert_allclose([g[i] for g in got],
+                                       [w[i] for w in want], rtol=1e-5,
+                                       atol=0, err_msg=name)
     assert got[-1][0] < got[0][0]
 
 
