@@ -27,9 +27,11 @@ Phases, one JSON line each:
    output 2 units off fails); the device time of the kernel, of the plain version and of one library
    call where PyTorch has one (each from a CUDA graph of back-to-back
    calls), the kernel's eager call time (host included), and the bound
-   (the larger of operations over the card's peak rate for the input type
-   and bytes over 3.35 TB/s), for K1 in f32 also the 3xTF32 bound (three
-   TF32 passes at 495 TFLOP/s: K1 runs on the tensor cores); before them
+   (the larger of the kernel's operations over the card's peak rate for
+   the input type and its bytes over the card's memory rate: the
+   kernel's function in ``kernels/work.py``, the peaks of
+   ``core/roofline.py``'s H100), for K1 in f32 also the 3xTF32 bound
+   (three passes at the TF32 peak: K1 runs on the tensor cores); before them
    the floor, a one-element in-place add timed the same way, which K3's
    lines also give as ``max(floor, bound)``;
 2b. the training path's attention kernels (B2 forward with lse, B3 dq,
@@ -40,8 +42,7 @@ Phases, one JSON line each:
    D128 causal) and a ragged length (S4000), in f32 and bf16: max abs
    error and that error over the plain result's max magnitude (tolerance
    5e-4 f32, 2e-2 bf16, on the relative error), times and bounds as in
-   phase 2, in f32 also the 3xTF32 bound (three TF32 passes at 495
-   TFLOP/s); library: ATen's attention forward with logsumexp beside B2
+   phase 2, in f32 also the 3xTF32 bound; library: ATen's attention forward with logsumexp beside B2
    and its backward (dq, dk and dv in one call) beside B3 and B4
    (efficient attention in f32, flash attention in bf16, K and V
    expanded to the q heads outside the timed call), and SDPA's forward
@@ -124,8 +125,24 @@ Phases, one JSON line each:
    leaf's gradient within 1e-4, the loss within 1e-5, and hymba's
    grad_norm within 1e-5 (rwkv6's carries its largest leaves' f32 error,
    2-3e-5 at step 2, and is reported);
+   phases 6, 6b and 6c each count one more kernel step under
+   ``core/cost.py``'s counter for their Tier-1 report (phase 8);
+8. bench: the port's harness (``repro_torch.bench``) through its own API
+   on the card, every launch count set to 0 before it: the structural
+   suites (``allocation/*``, ``load_balance/{layers,hidden}``) with the
+   H100's constants, ``efficiency/measured`` (granite-3-8b at full width,
+   1, 2, 4 and 8 layers, 1 x 4096 tokens, f32, loss forward and backward
+   through B2, B3, B4 and K3) and ``roofline/measured`` (the 8-layer step
+   counted, its B2-B4 and K3 work held to their launches times the
+   per-call work), one line of their records; then the Tier-1 report
+   (``Tier1Report.to_dict()``) of each training phase (6, 6b, 6c): its
+   sections, the roofline of its counted step and its measured step
+   seconds. Fails when a scenario raises or gives no record, when any
+   ``mfu`` or ``mfu_measured`` exceeds 1.05, or when a training step's
+   ``useful_flops_ratio`` exceeds 1.05 (granite's also at or below 0.5);
 7. the ``kernels`` summary line, with the launch counts of the serving
-   (phases 3, 3b, 3c) and training (phases 6, 6b, 6c, 6d) runs.
+   (phases 3, 3b, 3c), training (phases 6, 6b, 6c, 6d) and bench (phase
+   8) runs; fails unless phase 8's steps launched B2, B3, B4 and K3.
 
 Any failure raises and exits non-zero. Without a CUDA device, or outside a
 checkout, it exits non-zero before printing any result. The last line of
@@ -197,10 +214,20 @@ TRAIN = {
 }
 TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-5}   # relative, kernel vs plain
 GRAD_TOL = 1e-4   # per leaf, |g_kernel - g_plain| / |g_plain| (L2 norms)
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
-TF32_FLOPS = 495e12   # dense TF32 on the tensor cores, for 3xTF32 bounds
-HBM_BYTES_PER_S = 3.35e12
 TOL = {"float32": 5e-4, "bfloat16": 2e-2}
+# phase 8: the harness's scenarios it runs, efficiency/measured's depths,
+# the kernels its training steps must launch, and its gates
+BENCH_SCENARIOS = ("allocation/layers", "allocation/hidden",
+                   "allocation/archs", "load_balance/layers",
+                   "load_balance/hidden", "efficiency/measured",
+                   "roofline/measured")
+BENCH_LAYERS = (1, 2, 4, 8)
+BENCH_KERNELS = ("flash_attention_lse", "flash_attention_dq",
+                 "flash_attention_dkv", "rmsnorm")
+MFU_CEILING = 1.05      # no card gives more than its peak
+USEFUL_CEILING = 1.05   # above it, the counter missed work the model does
+GRANITE_USEFUL_FLOOR = 0.5
+TIER1_ARCHS = ("granite-3-8b", "hymba-1.5b", "rwkv6-3b")
 KERNELS = {
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
@@ -232,16 +259,21 @@ def emit(obj) -> None:
 
 
 def bound(flops: float, nbytes: float, dtype: str):
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_bytes = nbytes / HBM_BYTES_PER_S
+    """(ms, what bounds it) of the larger of ``flops`` over the H100's peak
+    for ``dtype`` and ``nbytes`` over its memory rate
+    (``repro_torch.core.roofline.H100``)."""
+    from repro_torch.core.roofline import H100
+    t_ops = flops / H100.peak(dtype)
+    t_bytes = nbytes / H100.hbm_bw
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
 
 
 def bound_3xtf32(flops: float, nbytes: float) -> float:
     """The bound of f32 work done on the tensor cores as three TF32 passes
-    at 495 TFLOP/s (K1-B4 in f32), in ms."""
-    return max(3 * flops / TF32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    (K1-B4 in f32), in ms."""
+    from repro_torch.core.roofline import H100
+    return max(3 * flops / H100.peak("tf32"), nbytes / H100.hbm_bw) * 1e3
 
 
 def main() -> int:
@@ -263,7 +295,7 @@ def main() -> int:
         return 0
     import torch.nn.functional as F
 
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import _build, ops, ref, work
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -375,9 +407,7 @@ def main() -> int:
             keep = pos[:, None] >= pos[None, :]
             if W:
                 keep &= pos[:, None] - pos[None, :] < W
-            pairs = int(keep.sum())
-            flops = 4 * B * Hq * D * pairs
-            nbytes = isz * B * S * D * (2 * Hq + 2 * Hkv)
+            flops, nbytes = work.flash_forward(q, k, **kw)
             b_ms, b_by = bound(flops, nbytes, dname)
             if dname == "float32":
                 b_ms3 = {"bound_3xtf32_ms": bound_3xtf32(flops, nbytes)}
@@ -418,12 +448,7 @@ def main() -> int:
             out = ops.paged_attention(q, kp, vp, bt, lens)
             want = ref.paged_decode_attention_ref(q.float(), kp.float(),
                                                   vp.float(), bt, lens)
-            ntok = int(lens.sum())
-            live = int(((lens + ps - 1) // ps).sum())   # table entries read
-            b_ms, b_by = bound(
-                4 * Hq * D * ntok,
-                isz * (2 * ntok * Hkv * D + 2 * B * Hq * D) + 4 * (live + B),
-                dname)
+            b_ms, b_by = bound(*work.paged_decode(q, kp, lens, ps), dname)
             record({
                 "phase": "kernel", "kernel": "paged_attention",
                 "shape": f"B{B} ctx{ctx} ps{ps} Hq{Hq} Hkv{Hkv} D{D}"
@@ -451,7 +476,7 @@ def main() -> int:
             want = ref.rmsnorm_ref(x.float(), scale)
             if dname == "bfloat16" and rows == 512:
                 _check_ulp_gate(out, want)
-            b_ms, b_by = bound(4 * rows * d, 2 * isz * rows * d + 4 * d, dname)
+            b_ms, b_by = bound(*work.rmsnorm(rows, d, isz), dname)
             record({
                 "phase": "kernel", "kernel": "rmsnorm",
                 "shape": f"rows{rows} d{d}", "dtype": dname,
@@ -480,12 +505,20 @@ def main() -> int:
         torch.cuda.empty_cache()
         _serve_ssm_in_child(arch)                # tokens and logits
 
+    tier1 = {}
     for phase in ("6", "6b", "6c"):     # training at full width
-        launches[f"train:{phase}"] = _train(dev, phase)
+        launches[f"train:{phase}"], tier1[phase] = _train(dev, phase)
         gc.collect()
         torch.cuda.empty_cache()
     for phase in ("6d-rwkv6", "6d-hymba"):   # reduced, card against CPU
         launches[f"train:{phase}"] = _train_on_cpu_too(dev, phase)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------- 8 bench
+    ops.reset_launches()
+    _bench(dev, tier1)
+    launches["bench"] = dict(ops.LAUNCHES)
 
     # ----------------------------------------------------------- 7 kernels
     total = {k: sum(launches[e][k] for e in launches) for k in KERNELS}
@@ -509,10 +542,11 @@ def main() -> int:
          "library_ms": summary[name]["library_ms"]}
         for name, meta in KERNELS.items()]}
     print(json.dumps(line), flush=True)
-    missing = [k for k, n in need.items() if n <= 0]
+    missing = [k for k, n in need.items() if n <= 0] + [
+        f"{k} in phase 8" for k in BENCH_KERNELS if launches["bench"][k] <= 0]
     if missing:
-        raise AssertionError(f"the serving or training path never launched "
-                             f"{missing}")
+        raise AssertionError(f"the serving, training or bench path never "
+                             f"launched {missing}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -852,50 +886,13 @@ def _layer_errors(model, plain, params, prompt) -> list:
     return errs
 
 
-def _wkv6_bound(q, v, ld, u, dname: str) -> tuple:
-    """B6's bound on these inputs: each input read once (ld's broadcast
-    view counts its storage), o and the state written once; operations
-    as this run's decays need them, per (b, h, chunk): the kept score
-    pairs times K (a multiply-add on the rescaled branch plus two scaled
-    inputs per token and column; a subtraction, an exponential, a product
-    and a multiply-add per pair and column on the fallback), A v over the
-    kept pairs, (q e^w) S and the state update (c K V each), and rwkv6's
-    diagonal. Returns (bound ms, bound_by, share of chunks rescaled)."""
-    import torch
-    import torch.nn.functional as F
-    B, T, H, K = q.shape
-    V = v.shape[-1]
-    c = 64
-    nc = -(-T // c)
-    p = torch.cumsum(F.pad(ld.float(), (0, 0, 0, 0, 0, nc * c - T))
-                     .reshape(B, nc, c, H, K), dim=2)
-    safe = (-p.amin(dim=(2, 4)) < 30.0).float()              # (B, nc, H)
-    n = torch.full((nc, 1), float(c), device=q.device)  # tokens per chunk
-    n[-1] = T - (nc - 1) * c
-    pairs = n * (n - 1) / 2 if u is not None else n * (n + 1) / 2
-    per_chunk = 2 * pairs * V + 4 * n * K * V + (
-        2 * n * (K + V) if u is not None else 0)
-    scores_mm = 2 * pairs * K + 4 * n * K
-    scores_pw = 5 * pairs * K
-    flops = float((safe * (per_chunk + scores_mm)).sum()
-                  + ((1 - safe) * (per_chunk + scores_pw)).sum())
-    isz = q.element_size()
-    ld_elems = 1
-    for size, stride in zip(ld.shape, ld.stride()):
-        ld_elems *= size if stride else 1
-    nbytes = (isz * B * T * H * (2 * K + V) + ld.element_size() * ld_elems
-              + (4 * H * K if u is not None else 0)
-              + isz * B * T * H * V + 4 * B * H * K * V)
-    return (*bound(flops, nbytes, dname), float(safe.mean()))
-
-
 def _wkv6_kernels(rand, record) -> None:
     """Phase 2c: B6 through ``ops.wkv6`` against ``wkv6_chunked_ref`` on
     the same inputs, and at T128 and T1100 against the exact recurrence."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
 
     # (mode, B, T, H, K, V, decay); the first is rwkv6-3b's prefill
     cases = [("rwkv6", 1, 128, 40, 64, 64, "mild"),
@@ -930,7 +927,9 @@ def _wkv6_kernels(rand, record) -> None:
             errs = [_err(g, w) for g, w in ((o, want_o), (s, want_s))]
             rel = max(e / max(float(w.float().abs().max()), 1e-30)
                       for e, w in zip(errs, (want_o, want_s)))
-            b_ms, b_by, share = _wkv6_bound(q, v, ld, u, dname)
+            # operations as this run's decays need them (work.wkv6)
+            b_ms, b_by = bound(*work.wkv6(q, v, ld, u), dname)
+            share = float(work.wkv6_rescaled(ld, T).mean())
             line = {
                 "phase": "kernel", "kernel": "wkv6",
                 "shape": f"B{B} T{T} H{H} K{K} V{V} {mode}", "decay": decay,
@@ -971,11 +970,11 @@ def _train_kernels(rand, record) -> None:
     causal (q, k) pairs these inputs need, S (S + 1) / 2 per head: 2, 3
     and 4 products of D multiply-adds each (QK^T and PV; + dO V^T and
     ds K; + p^T dO and ds^T q), and every input read and output written
-    once."""
+    once (``kernels/work.py``)."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
     from repro_torch.kernels.flash_attention import (
         flash_attention_dkv_cuda, flash_attention_dq_cuda,
         flash_attention_lse_cuda)
@@ -984,7 +983,6 @@ def _train_kernels(rand, record) -> None:
     kw = dict(causal=True, window=0)
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
-        isz = torch.finfo(dtype).bits // 8
         for S in (TRAIN_SEQ, 4000):
             q, do = rand((B, S, Hq, D), dtype), rand((B, S, Hq, D), dtype)
             k, v = rand((B, S, Hkv, D), dtype), rand((B, S, Hkv, D), dtype)
@@ -1008,26 +1006,19 @@ def _train_kernels(rand, record) -> None:
                     q, k, v, do, lse_ref, delta, **kw)),
             }
             args = (q, k, v, do, lse_ref, delta)
-            pairs = B * Hq * S * (S + 1) // 2
-            rows = 4 * B * Hq * S                      # lse or delta, f32
-            qkv_bytes = isz * B * S * D * (Hq + 2 * Hkv)
             cases = {
                 "flash_attention_lse": (
                     lambda: flash_attention_lse_cuda(q, k, v, **kw),
                     lambda: ref.flash_attention_lse_ref(q, k, v, **kw),
-                    4 * D * pairs,
-                    qkv_bytes + isz * B * S * Hq * D + rows),
+                    *work.flash_forward(q, k, lse=True, **kw)),
                 "flash_attention_dq": (
                     lambda: flash_attention_dq_cuda(*args, **kw),
                     lambda: ref.flash_attention_dq_ref(*args, **kw),
-                    6 * D * pairs,
-                    qkv_bytes + 2 * isz * B * S * Hq * D + 2 * rows),
+                    *work.flash_dq(q, k, **kw)),
                 "flash_attention_dkv": (
                     lambda: flash_attention_dkv_cuda(*args, **kw),
                     lambda: ref.flash_attention_dkv_ref(*args, **kw),
-                    8 * D * pairs,
-                    qkv_bytes + isz * B * S * (Hq * D + 2 * Hkv * D)
-                    + 2 * rows),
+                    *work.flash_dkv(q, k, **kw)),
             }
             shape = f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} causal"
             lib_fwd, lib_bwd, lib_name = _attention_library(q, k, v, do)
@@ -1259,10 +1250,13 @@ def _train(dev, phase: str) -> dict:
     TRAIN_STEPS clean steps with finite metrics and every kernel's count
     at 0). Where kernels run: B3 and B4 at one launch per layer and
     microbatch, B2 and K3 in every step, B6 in none; one more kernel step
-    under the profiler. Returns the kernel run's launch counts."""
+    under the profiler, and one more under the cost counter for the
+    phase's Tier-1 report (``_tier1_report``). Returns the kernel run's
+    launch counts and that report."""
     import torch
 
     from repro_torch.configs import get_arch
+    from repro_torch.core.cost import count_cost
     from repro_torch.core.profile import profile_device
 
     spec = TRAIN[phase]
@@ -1285,6 +1279,12 @@ def _train(dev, phase: str) -> dict:
             emit({"phase": "train_profile", "train_phase": phase,
                   "arch": arch, "backend": backend, "step": TRAIN_STEPS,
                   **prof})
+            # and one more, counted: the roofline of phase 8's report
+            cost = count_cost(lambda: run["step"](
+                run["params"], run["opt_state"],
+                run["data"].batch_at(TRAIN_STEPS + 1)))[1]
+            tier1 = _tier1_report(phase, rcfg, run["res"].metrics, prof,
+                                  cost)
         res = run["res"]
         emit({"phase": "train", "train_phase": phase, "backend": backend,
               "arch": arch, "layers": rcfg.model.num_layers,
@@ -1322,7 +1322,7 @@ def _train(dev, phase: str) -> dict:
         if bad or nonzero:
             raise AssertionError(f"{arch}: non-finite steps {bad} or kernel "
                                  f"launches {nonzero}")
-        return launches
+        return launches, tier1
     if gate == "free":
         dm, _, _, _, d_retries = runs["dense"]
         if len(dm) != TRAIN_STEPS or d_retries:
@@ -1347,7 +1347,108 @@ def _train(dev, phase: str) -> dict:
     if off:
         raise AssertionError(f"{arch}: B3/B4 launches per step differ from "
                              f"{per_layer}, or B6 launched: {off}")
-    return launches
+    return launches, tier1
+
+
+def _tier1_report(phase: str, rcfg, metrics: list, prof: dict,
+                  cost) -> dict:
+    """The Tier-1 report (``core/profiler.py``) of training phase
+    ``phase`` on one H100 in f32: sections of its config at the phase's
+    2 x seq tokens, the roofline of one counted step (``cost``), and the
+    measured part from the phase's own run: its median step seconds and
+    the profiled step's device summary (``prof``)."""
+    import statistics
+
+    from repro_torch.configs import MeshConfig, ShapeConfig
+    from repro_torch.core.profiler import profile
+    shape = ShapeConfig("train", "train", rcfg.shape.seq_len, TRAIN_BATCH)
+    step_s = statistics.median(m["step_s"] for m in metrics)
+    rep = profile(rcfg.model, shape, MeshConfig((1, 1)), cost=cost,
+                  measured={"step_s": step_s, **prof}, dtype="float32")
+    return {"train_phase": phase, **rep.to_dict(), "counted": cost.to_dict()}
+
+
+def _mfu_problems(where: str, mfu, mfu_measured, useful, arch: str) -> list:
+    """Phase 8's gates on one training step: no MFU above MFU_CEILING (no
+    card beats its peak); the useful share of the counted FLOPs at most
+    USEFUL_CEILING (above it the counter missed work the model must do)
+    and, for granite, above GRANITE_USEFUL_FLOOR."""
+    out = [f"{where}: {name} {v} > {MFU_CEILING}"
+           for name, v in (("mfu", mfu), ("mfu_measured", mfu_measured))
+           if v is not None and v > MFU_CEILING]
+    if useful is None or useful > USEFUL_CEILING:
+        out.append(f"{where}: useful_flops_ratio {useful} > "
+                   f"{USEFUL_CEILING} or missing")
+    elif arch == ARCH and useful <= GRANITE_USEFUL_FLOOR:
+        out.append(f"{where}: useful_flops_ratio {useful} <= "
+                   f"{GRANITE_USEFUL_FLOOR}")
+    return out
+
+
+def _tier1_problems(report: dict) -> list:
+    """``_mfu_problems`` of one training phase's Tier-1 report."""
+    rl = report.get("roofline") or {}
+    return _mfu_problems(f"tier1 {report.get('train_phase')}",
+                         rl.get("mfu"),
+                         report.get("measured", {}).get("mfu_measured"),
+                         rl.get("useful_flops_ratio"), report["arch"])
+
+
+def _bench_problems(records: list, failures: list) -> list:
+    """Phase 8's gates on the harness's run: no scenario failed; every
+    scenario of BENCH_SCENARIOS gave records, efficiency/measured one per
+    depth of BENCH_LAYERS; ``_mfu_problems`` of roofline/measured."""
+    out = [f"{name}: {err}" for name, err in failures]
+    ok = [r for r in records if r.status == "ok"]
+    for scen in BENCH_SCENARIOS:
+        if not any(r.scenario == scen for r in ok):
+            out.append(f"{scen}: no record")
+    got = {r.name for r in ok}
+    out += [f"efficiency/layers{L}/measured: no record" for L in BENCH_LAYERS
+            if f"efficiency/layers{L}/measured" not in got]
+    for r in ok:
+        if r.scenario == "roofline/measured":
+            d = r.derived
+            out += _mfu_problems(r.name, d.get("mfu"), d.get("mfu_measured"),
+                                 d.get("useful_flops_ratio"), r.arch)
+    return out
+
+
+def _bench(dev, tier1: dict) -> None:
+    """Phase 8: the port's harness through its own API on the card (the
+    structural suites, efficiency/measured and roofline/measured), one
+    line of its records, one of the sections of the training phases'
+    archs at train_4k on one H100 in f32, one per Tier-1 report of the
+    training phases; fails on any of ``_bench_problems`` and
+    ``_tier1_problems``."""
+    import repro_torch.bench.suites  # noqa: F401  (registers the scenarios)
+    from repro_torch.bench import (BenchRunner, ListSink, env_fingerprint,
+                                   select)
+    from repro_torch.configs import SHAPES, MeshConfig, get_arch
+    from repro_torch.core import sections
+    from repro_torch.core.roofline import H100
+
+    t0 = time.perf_counter()
+    sink = ListSink()
+    summary = BenchRunner(sinks=[sink], env=env_fingerprint(str(dev))).run(
+        select(only=",".join(BENCH_SCENARIOS)))
+    emit({"phase": "bench", "seconds": time.perf_counter() - t0,
+          "failures": summary.failures,
+          "records": [{"name": r.name, "status": r.status,
+                       "us_per_call": r.us_per_call, "derived": r.derived}
+                      for r in sink.records]})
+    problems = _bench_problems(sink.records, summary.failures)
+    emit({"phase": "sections", "shape": "train_4k", "mesh": "1x1",
+          "dtype": "float32", "chip": H100.name,
+          "by_arch": {arch: {m: sections.analyze(
+              get_arch(arch), SHAPES["train_4k"], MeshConfig((1, 1)), m,
+              H100, "float32").to_dict() for m in ("O0", "O1", "O3")}
+              for arch in TIER1_ARCHS}})
+    for phase, report in tier1.items():
+        emit({"phase": "tier1", **report})
+        problems += _tier1_problems(report)
+    if problems:
+        raise AssertionError(f"phase 8 failed: {problems}")
 
 
 def _check_trajectories(phase: str, km: list, dm: list, against: str) -> None:

@@ -20,12 +20,17 @@ raises rather than return an output without a ``grad_fn``.
 ``LAUNCHES`` counts kernel launches per kernel. A wrapper adds one where
 it launches its kernel and nowhere else, so a run that resets the counts
 before and reads them after shows which kernels its path went through.
+
+Each wrapper also runs its kernel, or its plain version, inside
+:func:`repro_torch.kernels.work.kernel`, which reports the kernel's own
+operations and bytes to an active cost counter in place of the aten
+operations issued inside it, on the CPU and the card alike.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, work
 
 KERNELS = ("flash_attention", "flash_attention_lse", "flash_attention_dq",
            "flash_attention_dkv", "paged_attention", "rmsnorm", "wkv6")
@@ -82,16 +87,17 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        if q.is_cuda:
-            from repro_torch.kernels.flash_attention import (
-                flash_attention_lse_cuda)
-            o, lse = flash_attention_lse_cuda(q, k, v, causal=causal,
-                                              window=window)
-            if o.numel():
-                LAUNCHES["flash_attention_lse"] += 1
-        else:
-            o, lse = ref.flash_attention_lse_ref(q, k, v, causal=causal,
-                                                 window=window)
+        kw = dict(causal=causal, window=window)
+        with work.kernel("flash_attention_lse",
+                         lambda: work.flash_forward(q, k, lse=True, **kw)):
+            if q.is_cuda:
+                from repro_torch.kernels.flash_attention import (
+                    flash_attention_lse_cuda)
+                o, lse = flash_attention_lse_cuda(q, k, v, **kw)
+                if o.numel():
+                    LAUNCHES["flash_attention_lse"] += 1
+            else:
+                o, lse = ref.flash_attention_lse_ref(q, k, v, **kw)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
         return o
@@ -100,21 +106,33 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         kw = dict(causal=ctx.causal, window=ctx.window)
-        do = do.to(q.dtype)
-        if not do.is_cuda:
-            return (*ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw),
-                    None, None)
-        from repro_torch.kernels.flash_attention import (
-            flash_attention_dkv_cuda, flash_attention_dq_cuda)
-        do = do.contiguous()
-        _require_aligned16("flash_attention backward", do=do)
+        do = do.to(q.dtype).contiguous()
+        # delta = rowsum(dO * O) is plain PyTorch on both paths, outside
+        # the kernels (the TPU wrapper computes it outside its kernels too)
         delta = ref.attention_delta(o, do)
-        dq = flash_attention_dq_cuda(q, k, v, do, lse, delta, **kw)
-        if dq.numel():
-            LAUNCHES["flash_attention_dq"] += 1
-        dk, dv = flash_attention_dkv_cuda(q, k, v, do, lse, delta, **kw)
-        if dk.numel():
-            LAUNCHES["flash_attention_dkv"] += 1
+        cuda = do.is_cuda
+        if cuda:
+            from repro_torch.kernels.flash_attention import (
+                flash_attention_dkv_cuda, flash_attention_dq_cuda)
+            _require_aligned16("flash_attention backward", do=do)
+        with work.kernel("flash_attention_dq",
+                         lambda: work.flash_dq(q, k, **kw)):
+            if cuda:
+                dq = flash_attention_dq_cuda(q, k, v, do, lse, delta, **kw)
+                if dq.numel():
+                    LAUNCHES["flash_attention_dq"] += 1
+            else:
+                dq = ref.flash_attention_dq_ref(q, k, v, do, lse, delta, **kw)
+        with work.kernel("flash_attention_dkv",
+                         lambda: work.flash_dkv(q, k, **kw)):
+            if cuda:
+                dk, dv = flash_attention_dkv_cuda(q, k, v, do, lse, delta,
+                                                  **kw)
+                if dk.numel():
+                    LAUNCHES["flash_attention_dkv"] += 1
+            else:
+                dk, dv = ref.flash_attention_dkv_ref(q, k, v, do, lse, delta,
+                                                     **kw)
         return dq, dk, dv, None, None
 
 
@@ -143,13 +161,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _require_aligned16(what, q=q, k=k, v=v)
     if _needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, causal, window)
-    if not cuda:
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    out = flash_attention_cuda(q, k, v, causal=causal, window=window)
-    if out.numel():     # the C entry launches nothing for an empty output
-        LAUNCHES["flash_attention"] += 1
-    return out
+    kw = dict(causal=causal, window=window)
+    with work.kernel("flash_attention",
+                     lambda: work.flash_forward(q, k, **kw)):
+        if not cuda:
+            return ref.flash_attention_ref(q, k, v, **kw)
+        from repro_torch.kernels.flash_attention import flash_attention_cuda
+        out = flash_attention_cuda(q, k, v, **kw)
+        if out.numel():     # the C entry launches nothing for an empty output
+            LAUNCHES["flash_attention"] += 1
+        return out
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -176,9 +197,12 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
              what, f"dtypes {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
     _require(block_tables.dtype == torch.int32 and lengths.dtype == torch.int32,
              what, "block_tables and lengths must be int32")
+    counted = work.kernel("paged_attention", lambda: work.paged_decode(
+        q, k_pages, lengths, k_pages.shape[1]))
     if not cuda:
-        return ref.paged_decode_attention_ref(q, k_pages, v_pages,
-                                              block_tables, lengths)
+        with counted:
+            return ref.paged_decode_attention_ref(q, k_pages, v_pages,
+                                                  block_tables, lengths)
     from repro_torch.kernels.paged_attention import (VEC,
                                                      paged_attention_cuda)
     _require(D % VEC == 0 and D <= 1024, what,
@@ -188,21 +212,25 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     _require(all(t.data_ptr() % (VEC * t.element_size()) == 0
                  for t in (k_pages, v_pages)), what,
              f"pools must start on a {VEC}-element boundary")
-    out = paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths)
-    if out.numel():
-        LAUNCHES["paged_attention"] += 1
+    with counted:
+        out = paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths)
+        if out.numel():
+            LAUNCHES["paged_attention"] += 1
     return out
 
 
 def _rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
                  eps: float) -> torch.Tensor:
-    if not x.is_cuda:
-        return ref.rmsnorm_ref(x, scale, eps)
-    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
-    out = rmsnorm_cuda(x.view(-1, x.shape[-1]), scale, eps)
-    if out.numel():
-        LAUNCHES["rmsnorm"] += 1
-    return out.view(x.shape)
+    d = x.shape[-1]
+    with work.kernel("rmsnorm", lambda: work.rmsnorm(
+            x.numel() // max(d, 1), d, x.element_size())):
+        if not x.is_cuda:
+            return ref.rmsnorm_ref(x, scale, eps)
+        from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+        out = rmsnorm_cuda(x.view(-1, d), scale, eps)
+        if out.numel():
+            LAUNCHES["rmsnorm"] += 1
+        return out.view(x.shape)
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -272,8 +300,10 @@ def wkv6(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor,
              or (initial_state.shape == (B, H, K, V)
                  and initial_state.dtype == torch.float32), what,
              "initial_state must be (B, H, K, V) float32 or None")
+    counted = work.kernel("wkv6", lambda: work.wkv6(q, v, ld, u))
     if not cuda:
-        return ref.wkv6_chunked_ref(q, k, v, ld, u, initial_state)
+        with counted:
+            return ref.wkv6_chunked_ref(q, k, v, ld, u, initial_state)
     _require(not _needs_grad(*tensors), what,
              "no backward kernel: the reference has none, and an output "
              "without a grad_fn would drop the gradient; use the chunked "
@@ -283,14 +313,15 @@ def wkv6(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor,
              f"K={K}, V={V}: the kernel takes 1..{MAX_DIM}")
     if u is not None:
         _require_contiguous(what, u=u)
-    if B * H * T == 0:
-        o = torch.zeros((B, T, H, V), dtype=q.dtype, device=q.device)
-        state = torch.zeros((B, H, K, V), dtype=torch.float32,
-                            device=q.device)
-    else:
-        o, state = wkv6_cuda(q, k, v, ld, u)
-        LAUNCHES["wkv6"] += 1
-    if initial_state is not None:
-        o, state = ref.wkv6_fold_initial_state(o, state, q, ld, u,
-                                               initial_state)
+    with counted:
+        if B * H * T == 0:
+            o = torch.zeros((B, T, H, V), dtype=q.dtype, device=q.device)
+            state = torch.zeros((B, H, K, V), dtype=torch.float32,
+                                device=q.device)
+        else:
+            o, state = wkv6_cuda(q, k, v, ld, u)
+            LAUNCHES["wkv6"] += 1
+        if initial_state is not None:
+            o, state = ref.wkv6_fold_initial_state(o, state, q, ld, u,
+                                                   initial_state)
     return o, state

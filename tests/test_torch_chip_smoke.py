@@ -3,6 +3,7 @@ units of bf16 rounding, and phase 1's reading of the kernel instances
 (K1/B2, B3, B4, B6, K2, K3) from their mangled names, and the profiler's kernel
 groups against the kernels the port defines."""
 import importlib.util
+import json
 import re
 from pathlib import Path
 
@@ -105,3 +106,209 @@ def test_profile_groups_name_the_kernels():
     assert len(kernels) == 6
     for frag in kernels:
         assert re.search(rf"\b{frag}\s*[(<]", code), frag
+
+
+# ------------------------------------------- one copy of the card's numbers
+def _old_bound(flops, nbytes, dtype):
+    """Phase 2's bound as the script computed it before its constants and
+    per-kernel counts moved into the package."""
+    t_ops = flops / {"float32": 67e12, "bfloat16": 989e12}[dtype]
+    t_bytes = nbytes / 3.35e12
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_phase2_bounds_unchanged(smoke, dtype):
+    """Every bound of phases 2, 2b and 2c from kernels/work.py and the
+    H100 of core/roofline.py equals the script's former inline formula."""
+    from repro_torch.kernels import work
+    dname = str(dtype).split(".")[1]
+    isz = torch.finfo(dtype).bits // 8
+
+    def t(*shape):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    # K1 at phase 2's shapes: pairs from the mask, as the script counted
+    for S, Hq, Hkv, D, W in ((128, 32, 8, 128, 0), (125, 32, 8, 128, 0),
+                             (2048, 32, 8, 128, 0), (128, 25, 5, 64, 1024),
+                             (1100, 25, 5, 64, 1024)):
+        pos = torch.arange(S)
+        keep = pos[:, None] >= pos[None, :]
+        if W:
+            keep &= pos[:, None] - pos[None, :] < W
+        old = _old_bound(4 * Hq * D * int(keep.sum()),
+                         isz * S * D * (2 * Hq + 2 * Hkv), dname)
+        got = smoke.bound(*work.flash_forward(t(1, S, Hq, D), t(1, S, Hkv, D),
+                                              causal=True, window=W), dname)
+        assert got == old
+        assert smoke.bound_3xtf32(4 * Hq * D * int(keep.sum()), 1.0) == \
+            3 * 4 * Hq * D * int(keep.sum()) / 495e12 * 1e3
+    # K2
+    for B, ctx, npag in ((4, 160, 10), (4, 4096, 256), (1, 160, 256),
+                         (4, 160, 256)):
+        Hq, Hkv, D, ps = 32, 8, 128, 16
+        lens = torch.tensor([ctx, ctx - 1, ctx - 5, ctx - 15][:B],
+                            dtype=torch.int32)
+        ntok, live = int(lens.sum()), int(((lens + ps - 1) // ps).sum())
+        old = _old_bound(4 * Hq * D * ntok, isz * (2 * ntok * Hkv * D
+                                                   + 2 * B * Hq * D)
+                         + 4 * (live + B), dname)
+        assert smoke.bound(*work.paged_decode(
+            t(B, 1, Hq, D), t(B * npag + 1, ps, Hkv, D), lens, ps),
+            dname) == old
+    # K3
+    for rows, d in ((128, 4096), (512, 4096), (128, 1600), (1100, 1600),
+                    (4, 4096), (4, 1600), (4096, 4096)):
+        assert smoke.bound(*work.rmsnorm(rows, d, isz), dname) == \
+            _old_bound(4 * rows * d, 2 * isz * rows * d + 4 * d, dname)
+    # B2, B3, B4 at the training shape and the ragged length
+    B, Hq, Hkv, D = 1, 32, 8, 128
+    for S in (4096, 4000):
+        q, k = t(B, S, Hq, D), t(B, S, Hkv, D)
+        pairs = B * Hq * S * (S + 1) // 2
+        rows = 4 * B * Hq * S
+        qkv = isz * B * S * D * (Hq + 2 * Hkv)
+        kw = dict(causal=True, window=0)
+        assert work.flash_forward(q, k, lse=True, **kw) == \
+            (4 * D * pairs, qkv + isz * B * S * Hq * D + rows)
+        assert work.flash_dq(q, k, **kw) == \
+            (6 * D * pairs, qkv + 2 * isz * B * S * Hq * D + 2 * rows)
+        assert work.flash_dkv(q, k, **kw) == \
+            (8 * D * pairs, qkv + isz * B * S * (Hq * D + 2 * Hkv * D)
+             + 2 * rows)
+
+
+def _old_wkv6_bound(q, v, ld, u, dname):
+    """B6's bound as phase 2c computed it before its count moved to
+    ``kernels/work.py``."""
+    import torch.nn.functional as F
+    B, T, H, K = q.shape
+    V = v.shape[-1]
+    c = 64
+    nc = -(-T // c)
+    p = torch.cumsum(F.pad(ld.float(), (0, 0, 0, 0, 0, nc * c - T))
+                     .reshape(B, nc, c, H, K), dim=2)
+    safe = (-p.amin(dim=(2, 4)) < 30.0).float()
+    n = torch.full((nc, 1), float(c))
+    n[-1] = T - (nc - 1) * c
+    pairs = n * (n - 1) / 2 if u is not None else n * (n + 1) / 2
+    per_chunk = 2 * pairs * V + 4 * n * K * V + (
+        2 * n * (K + V) if u is not None else 0)
+    flops = float((safe * (per_chunk + 2 * pairs * K + 4 * n * K)).sum()
+                  + ((1 - safe) * (per_chunk + 5 * pairs * K)).sum())
+    isz = q.element_size()
+    ld_elems = 1
+    for size, stride in zip(ld.shape, ld.stride()):
+        ld_elems *= size if stride else 1
+    nbytes = (isz * B * T * H * (2 * K + V) + ld.element_size() * ld_elems
+              + (4 * H * K if u is not None else 0)
+              + isz * B * T * H * V + 4 * B * H * K * V)
+    return (*_old_bound(flops, nbytes, dname), float(safe.mean()))
+
+
+@pytest.mark.parametrize("mode,T,H,K,decay", [
+    ("rwkv6", 128, 40, 64, "mild"), ("rwkv6", 125, 40, 64, "mild"),
+    ("ssd", 128, 25, 16, "per_head"), ("ssd", 1100, 25, 16, "per_head"),
+    ("rwkv6", 4096, 40, 64, "strong")])
+def test_phase2c_bounds_unchanged(smoke, mode, T, H, K, decay):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import work
+    g = torch.Generator().manual_seed(T)
+    q = torch.empty((1, T, H, K), device="meta")
+    v = torch.empty((1, T, H, 64), device="meta")
+    if decay == "mild":
+        ld = -torch.exp(-6.0 + 0.5 * torch.randn(1, T, H, K, generator=g))
+    elif decay == "strong":
+        ld = -torch.exp(torch.randn(1, T, H, K, generator=g))
+    else:
+        ld = (-F.softplus(torch.randn(1, T, H, 1, generator=g))
+              ).expand(1, T, H, K)
+    u = torch.randn(H, K, generator=g) if mode == "rwkv6" else None
+    want = _old_wkv6_bound(q, v, ld, u, "float32")
+    assert smoke.bound(*work.wkv6(q, v, ld, u), "float32") == want[:2]
+    assert float(work.wkv6_rescaled(ld, T).mean()) == want[2]
+
+
+# ------------------------------------------------------ phase 8's gates
+def _tier1(arch="granite-3-8b", mfu=0.7, mfu_measured=0.5, useful=0.72):
+    return {"train_phase": "6", "arch": arch,
+            "roofline": {"mfu": mfu, "useful_flops_ratio": useful},
+            "measured": {"mfu_measured": mfu_measured}}
+
+
+def test_tier1_gates(smoke):
+    assert smoke._tier1_problems(_tier1()) == []
+    assert len(smoke._tier1_problems(_tier1(mfu=1.2))) == 1
+    assert len(smoke._tier1_problems(_tier1(mfu_measured=1.06))) == 1
+    assert len(smoke._tier1_problems(_tier1(useful=1.1))) == 1
+    assert len(smoke._tier1_problems(_tier1(useful=None))) == 1
+    # granite's counted work must be more than half model flops' worth ...
+    assert len(smoke._tier1_problems(_tier1(useful=0.5))) == 1
+    # ... the other models' need not
+    assert smoke._tier1_problems(_tier1("hymba-1.5b", useful=0.4)) == []
+
+
+def _bench_records(**roofline_derived):
+    from repro_torch.bench import BenchRecord
+    recs = [BenchRecord(name=f"{s}/x", scenario=s)
+            for s in smoke_scenarios()[:5]]
+    recs += [BenchRecord(name=f"efficiency/layers{L}/measured",
+                         scenario="efficiency/measured")
+             for L in (1, 2, 4, 8)]
+    d = {"mfu": 0.7, "mfu_measured": 0.5, "useful_flops_ratio": 0.72,
+         **roofline_derived}
+    recs.append(BenchRecord(name="roofline/granite-3-8b/layers8/measured",
+                            scenario="roofline/measured",
+                            arch="granite-3-8b", derived=d))
+    return recs
+
+
+def smoke_scenarios():
+    return ("allocation/layers", "allocation/hidden", "allocation/archs",
+            "load_balance/layers", "load_balance/hidden",
+            "efficiency/measured", "roofline/measured")
+
+
+def test_bench_gates(smoke):
+    assert smoke.BENCH_SCENARIOS == smoke_scenarios()
+    assert smoke._bench_problems(_bench_records(), []) == []
+    assert smoke._bench_problems(_bench_records(), [("x/w", "boom")]) == \
+        ["x/w: boom"]
+    assert len(smoke._bench_problems(_bench_records(mfu=1.1), [])) == 1
+    assert len(smoke._bench_problems(
+        _bench_records(useful_flops_ratio=0.4), [])) == 1
+    recs = [r for r in _bench_records()
+            if r.name != "efficiency/layers4/measured"]
+    assert smoke._bench_problems(recs, []) == [
+        "efficiency/layers4/measured: no record"]
+    recs = [r for r in _bench_records() if r.scenario != "allocation/archs"]
+    assert smoke._bench_problems(recs, []) == ["allocation/archs: no record"]
+
+
+def test_tier1_report_of_a_reduced_step_on_the_cpu(smoke):
+    """Phase 6's Tier-1 report path on the CPU: a reduced rwkv6-3b step,
+    counted, then the report and its gates."""
+    from repro_torch.core.cost import count_cost
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.runtime.steps import build_train_step
+    rcfg = smoke._train_config("6d-rwkv6", "kernel")
+    step, model, opt = build_train_step(rcfg, total_steps=3, device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    state = opt.init(params)
+    data = SyntheticLM(rcfg.model, smoke.TRAIN_BATCH, rcfg.shape.seq_len,
+                       device="cpu")
+    cost = count_cost(step, params, state, data.batch_at(0))[1]
+    rep = smoke._tier1_report("6d-rwkv6", rcfg, [{"step_s": 0.5}],
+                              {"device_busy_share": 0.0}, cost)
+    assert rep["arch"] == rcfg.model.name and rep["mesh"] == "1x1"
+    assert rep["shape"] == "train" and set(rep["sections"]) == \
+        {"O0", "O1", "O3"}
+    assert rep["roofline"]["dtype"] == "float32"
+    assert rep["roofline"]["model_flops"] == \
+        6 * rcfg.model.param_count() * smoke.TRAIN_BATCH * rcfg.shape.seq_len
+    assert rep["measured"]["step_s"] == 0.5
+    assert rep["counted"]["kernels"] == {}      # layernorm, chunked form
+    assert smoke._tier1_problems(rep) == []
+    json.dumps(rep)
