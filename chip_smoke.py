@@ -18,8 +18,15 @@ Phases, one JSON line each:
    serving path (K1 and K3 at granite-3-8b's and at hymba-1.5b's, K1 with
    hymba's 1024-token window at S128 and S1100; K2 at the paged engine's
    decode batch of 4 and at batch 1, with 160 tokens in a 256-page table
-   as the engine's tables are, and at 4096 tokens; K3 also at a decode
-   step's 4 rows and a training microbatch's 4096): in f32 the max abs
+   as the engine's tables are, and at 4096 tokens; K2 also through the
+   prefix cache's tables, 4 rows sharing the pages of a 16-token system
+   prompt at page size 8 and 16, and at 8 with one row's last prefix page
+   a copy-on-write duplicate; K1 and K2 also at every shape phase 9's
+   engines give them, ``SERVING_K1`` and ``SERVING_K2``: 8-token prefills
+   of 1 and 4 prompts, and 8, 2 and 1 decode lanes at page sizes 4, 8
+   and 16 over the engines' pools and tables, up to 88 tokens, with
+   shared, never-admitted and retired rows; K3 also at a decode step's 4
+   rows and a training microbatch's 4096): in f32 the max abs
    error
    (tolerance 5e-4); in bf16 the error against the plain version computed
    in f32 from the same bf16 inputs, in units of bf16 rounding at each
@@ -140,9 +147,27 @@ Phases, one JSON line each:
    seconds. Fails when a scenario raises or gives no record, when any
    ``mfu`` or ``mfu_measured`` exceeds 1.05, or when a training step's
    ``useful_flops_ratio`` exceeds 1.05 (granite's also at or below 0.5);
+9. serving suite: the port's nine Tier-2 serving scenarios
+   (``repro_torch.bench``'s ``serving/*``, the reference's shapes) through
+   the harness's runner, every engine on one parameter set of
+   granite-3-8b at full width and depth (40 layers, f32, seeded random
+   weights), every launch count set to 0 before each scenario: one line
+   per record (TTFT, per-token latency p50/p95, the derived fields) and
+   one per scenario (seconds, launches); then the gates: greedy tokens
+   equal per rid with the prefix cache on and off (shared burst,
+   multi-turn replay, and the burst with rid 0's prompt sent again, which
+   copies a page on write), higher peak concurrency and prefill tokens
+   saved with the cache; no shared page's bytes changed while shared
+   (``SharedPageWatch``); under the default fault plan every fault
+   injected and recovered, no page leaked, completed requests
+   token-identical to the fault-free run; the disaggregated engine
+   token-identical to the interleaved one, one handoff per request that
+   reached decode, a lower decode-step p95 stall;
 7. the ``kernels`` summary line, with the launch counts of the serving
-   (phases 3, 3b, 3c), training (phases 6, 6b, 6c, 6d) and bench (phase
-   8) runs; fails unless phase 8's steps launched B2, B3, B4 and K3.
+   (phases 3, 3b, 3c, 9), training (phases 6, 6b, 6c, 6d) and bench
+   (phase 8) runs; fails unless phase 8's steps launched B2, B3, B4 and
+   K3 and each scenario of phase 9 launched K3, K2 if it decodes from
+   pages and K1 if it prefills in one shot (``SERVING_SCENARIOS``).
 
 Any failure raises and exits non-zero. Without a CUDA device, or outside a
 checkout, it exits non-zero before printing any result. The last line of
@@ -228,6 +253,43 @@ MFU_CEILING = 1.05      # no card gives more than its peak
 USEFUL_CEILING = 1.05   # above it, the counter missed work the model does
 GRANITE_USEFUL_FLOOR = 0.5
 TIER1_ARCHS = ("granite-3-8b", "hymba-1.5b", "rwkv6-3b")
+SYSTEM_LEN = 16   # the prefix cache's shared system prompt (phases 2, 9)
+# phase 9: the serving suite's scenarios, in the suite's order, and the
+# kernels each must launch: K1 in every continuous or static prefill, K2 in
+# every paged and disaggregated decode step, K3 in every norm
+SERVING_SCENARIOS = {
+    "serving/goodput_vs_load": ("flash_attention", "rmsnorm"),
+    "serving/static_vs_continuous": ("flash_attention", "rmsnorm"),
+    "serving/paged_vs_monolithic": ("flash_attention", "paged_attention",
+                                    "rmsnorm"),
+    "serving/paged_page_size": ("paged_attention", "rmsnorm"),
+    "serving/prefix_shared_burst": ("paged_attention", "rmsnorm"),
+    "serving/multi_turn_replay": ("paged_attention", "rmsnorm"),
+    "serving/chaos_soak": ("paged_attention", "rmsnorm"),
+    "serving/pd_disaggregation": ("paged_attention", "rmsnorm"),
+    "serving/slot_balance": ("flash_attention", "rmsnorm"),
+}
+# phase 2 holds K1 and K2 at the shapes phase 9's engines give them. K1:
+# (batch, prompt) of the continuous engine's one-prompt and the static
+# engine's four-prompt 8-token prefills, causal at Hq32 Hkv8 D128. K2:
+# (lanes, page size, table width, pool pages) of each paged or
+# disaggregated engine, with lengths at the longest contexts its
+# scenarios reach (a length of 1 is a lane never admitted), the first
+# ``shared`` table entries common to every live row (a shared system
+# prompt) and the rows in ``retired`` stale lanes whose table is null
+SERVING_K1 = ((1, 8), (4, 8))
+SERVING_K2 = (
+    # B, ps, npag, P, lens, shared, retired      scenarios
+    (8, 8, 4, 16, (32, 32, 32, 32, 30, 30, 1, 1), 2, ()),  # paged_vs_mono,
+    #                                                        prefix burst
+    (8, 8, 11, 45, (88, 56, 40, 33, 1, 1, 1, 1), 0, (3,)),  # replay
+    (8, 4, 8, 32, (17, 20, 12, 20, 12, 20, 12, 1), 0, ()),  # paged_ps4
+    (8, 16, 2, 8, (20, 13, 12, 20, 12, 1, 1, 1), 0, ()),    # paged_ps16
+    (2, 4, 6, 13, (15, 11), 0, (1,)),                       # chaos_soak
+    (2, 4, 7, 15, (28, 26), 0, ()),                         # pd interleaved
+    (2, 4, 7, 15, (28, 17), 0, (1,)),                       # pd interleaved
+    (1, 4, 7, 15, (27,), 0, ()),                            # pd disagg
+)
 KERNELS = {
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
@@ -349,14 +411,18 @@ def main() -> int:
     gen_hymba = torch.Generator(device=dev).manual_seed(1)
     gen_k2 = torch.Generator(device=dev).manual_seed(2)
     gen_k3 = torch.Generator(device=dev).manual_seed(3)
+    gen_share = torch.Generator(device=dev).manual_seed(4)
+    gen_serve = torch.Generator(device=dev).manual_seed(5)
 
     def rand(shape, dtype, hymba=False, stream=0):
         # the lines at hymba-1.5b's shapes (stream 1), K2's wide-table lines
         # (stream 2) and K3's decode and training lines (stream 3) draw from
-        # their own streams, so the other lines keep the inputs they had
-        # before those were added
+        # their own streams, as do K2's shared-table lines (stream 4) and
+        # the K1 and K2 lines at phase 9's shapes (stream 5), so the other
+        # lines keep the inputs they had before those were added
         g = (gen_hymba if hymba or stream == 1 else gen_k2 if stream == 2
-             else gen_k3 if stream == 3 else gen)
+             else gen_k3 if stream == 3 else gen_share if stream == 4
+             else gen_serve if stream == 5 else gen)
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     # the floor under any one-kernel call: a one-element in-place add,
@@ -390,14 +456,17 @@ def main() -> int:
         isz = torch.finfo(dtype).bits // 8
         # K1: one-shot prefill, granite's GQA 32:8 at head dim 128, and
         # hymba-1.5b's GQA 25:5 at head dim 64 with its 1024-token window
-        # (S1100: the long prompts of phase 3c, past the window)
-        for S, Hq, Hkv, D, W in ((128, 32, 8, 128, 0), (125, 32, 8, 128, 0),
-                                 (2048, 32, 8, 128, 0),
-                                 (128, 25, 5, 64, 1024),
-                                 (1100, 25, 5, 64, 1024)):
-            B = 1
+        # (S1100: the long prompts of phase 3c, past the window); then
+        # (their own stream) phase 9's 8-token prefills
+        for B, S, Hq, Hkv, D, W in (
+                (1, 128, 32, 8, 128, 0), (1, 125, 32, 8, 128, 0),
+                (1, 2048, 32, 8, 128, 0), (1, 128, 25, 5, 64, 1024),
+                (1, 1100, 25, 5, 64, 1024),
+                *((b, s, 32, 8, 128, 0) for b, s in SERVING_K1)):
+            serve = (B, S) in SERVING_K1
             kw = dict(causal=True, window=W)
-            q, k, v = (rand((B, S, h, D), dtype, hymba=bool(W))
+            q, k, v = (rand((B, S, h, D), dtype, hymba=bool(W),
+                            stream=5 if serve else 0)
                        for h in (Hq, Hkv, Hkv))
             out = ops.flash_attention(q, k, v, **kw)
             want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
@@ -462,6 +531,51 @@ def main() -> int:
                 "bound_ms": b_ms, "bound_by": b_by},
                 main_path=(B == 4 and ctx == 160 and not wide
                            and dname == "float32"))
+        # K2 through the prefix cache's block tables (their own stream):
+        # four rows share the physical pages of a 16-token system prompt
+        # (page size 8: two pages, 16: one), then each has its own; and,
+        # at page size 8, row 0's last prefix page a copy-on-write
+        # duplicate of row 1's
+        for ps, cow in ((8, False), (16, False), (8, True)):
+            q, kp, vp, bt, lens = _shared_tables(
+                lambda shape: rand(shape, dtype, stream=4), ps, cow, dev)
+            out = ops.paged_attention(q, kp, vp, bt, lens)
+            want = ref.paged_decode_attention_ref(q.float(), kp.float(),
+                                                  vp.float(), bt, lens)
+            b_ms, b_by = bound(*work.paged_decode(q, kp, lens, ps), dname)
+            record({
+                "phase": "kernel", "kernel": "paged_attention",
+                "shape": f"B4 ctx{int(lens.max())} ps{ps} Hq32 Hkv8 D128 "
+                         f"shared{SYSTEM_LEN // ps}" + (" cow" if cow else ""),
+                "dtype": dname, **_held(out, want, dname),
+                **_times(lambda: ops.paged_attention(q, kp, vp, bt, lens),
+                         lambda: ref.paged_decode_attention_ref(
+                             q, kp, vp, bt, lens),
+                         None),
+                "library": "none: no single PyTorch call",
+                "bound_ms": b_ms, "bound_by": b_by}, main_path=False)
+        # K2 at each of phase 9's engines' tables (their own stream)
+        for B, ps, npag, P, lens, shared, retired in SERVING_K2:
+            q, kp, vp, bt, lens_t = _serving_tables(
+                lambda shape: rand(shape, dtype, stream=5), gen_serve,
+                B, ps, npag, P, lens, shared, retired, dev)
+            out = ops.paged_attention(q, kp, vp, bt, lens_t)
+            want = ref.paged_decode_attention_ref(q.float(), kp.float(),
+                                                  vp.float(), bt, lens_t)
+            b_ms, b_by = bound(*work.paged_decode(q, kp, lens_t, ps), dname)
+            record({
+                "phase": "kernel", "kernel": "paged_attention",
+                "shape": f"B{B} ctx{max(lens)} ps{ps} Hq32 Hkv8 D128 "
+                         f"table{npag} pool{P} serving"
+                         + (f" shared{shared}" if shared else "")
+                         + (f" retired{len(retired)}" if retired else ""),
+                "dtype": dname, **_held(out, want, dname),
+                **_times(lambda: ops.paged_attention(q, kp, vp, bt, lens_t),
+                         lambda: ref.paged_decode_attention_ref(
+                             q, kp, vp, bt, lens_t),
+                         None),
+                "library": "none: no single PyTorch call",
+                "bound_ms": b_ms, "bound_by": b_by}, main_path=False)
         # K3: RMSNorm at granite's width (128 rows = one prompt's prefill)
         # and at hymba-1.5b's (a 128-token and an 1100-token prefill); then,
         # from their own stream, a decode step's 4 rows at both widths and
@@ -519,19 +633,14 @@ def main() -> int:
     ops.reset_launches()
     _bench(dev, tier1)
     launches["bench"] = dict(ops.LAUNCHES)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- 9 serving
+    launches.update(_serve_suite(dev))
 
     # ----------------------------------------------------------- 7 kernels
     total = {k: sum(launches[e][k] for e in launches) for k in KERNELS}
-    need = {"flash_attention": launches["continuous"]["flash_attention"],
-            "paged_attention": launches["paged"]["paged_attention"],
-            **{k: min(launches[e][k] for e in ("train:6", "train:6b"))
-               for k in ("flash_attention_lse", "flash_attention_dq",
-                         "flash_attention_dkv")},
-            "rmsnorm": min(launches[e]["rmsnorm"] for e in (
-                "continuous", "paged", "train:6", "train:6b",
-                "hymba-1.5b:static", "hymba-1.5b:continuous")),
-            "wkv6": min(launches[f"{a}:{e}"]["wkv6"] for a in SSM_ARCHS
-                        for e in ("static", "continuous"))}
     line = {"kernels": [
         {"name": name, **meta, "launches": total[name],
          "max_abs_err": summary[name]["max_abs_err"],
@@ -542,8 +651,7 @@ def main() -> int:
          "library_ms": summary[name]["library_ms"]}
         for name, meta in KERNELS.items()]}
     print(json.dumps(line), flush=True)
-    missing = [k for k, n in need.items() if n <= 0] + [
-        f"{k} in phase 8" for k in BENCH_KERNELS if launches["bench"][k] <= 0]
+    missing = _missing(launches)
     if missing:
         raise AssertionError(f"the serving, training or bench path never "
                              f"launched {missing}")
@@ -551,6 +659,28 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _missing(launches: dict) -> list:
+    """The kernels a path of the run never launched, from each path's
+    counts (``launches``: path -> kernel -> launches): the serving phases'
+    (3, 3b, 3c), the training phases' (6, 6b), phase 8's (BENCH_KERNELS)
+    and every scenario of phase 9's (SERVING_SCENARIOS)."""
+    need = {"flash_attention": launches["continuous"]["flash_attention"],
+            "paged_attention": launches["paged"]["paged_attention"],
+            **{k: min(launches[e][k] for e in ("train:6", "train:6b"))
+               for k in ("flash_attention_lse", "flash_attention_dq",
+                         "flash_attention_dkv")},
+            "rmsnorm": min(launches[e]["rmsnorm"] for e in (
+                "continuous", "paged", "train:6", "train:6b",
+                "hymba-1.5b:static", "hymba-1.5b:continuous")),
+            "wkv6": min(launches[f"{a}:{e}"]["wkv6"] for a in SSM_ARCHS
+                        for e in ("static", "continuous"))}
+    return [k for k, n in need.items() if n <= 0] + [
+        f"{k} in phase 8" for k in BENCH_KERNELS
+        if launches["bench"][k] <= 0] + [
+        f"{k} in {scen}" for scen, kernels in SERVING_SCENARIOS.items()
+        for k in kernels if launches[f"serving:{scen}"][k] <= 0]
 
 
 def _serve(dev) -> dict:
@@ -667,6 +797,63 @@ def _request_mix(cfg, long_len: int = 0) -> list:
             r.rid += 100 * g
         reqs += more
     return reqs
+
+
+def _shared_tables(draw, ps: int, cow: bool, dev) -> tuple:
+    """K2's inputs as the prefix cache lays them out: 4 rows of a
+    SYSTEM_LEN-token shared prompt plus 8 tokens each and a few decoded
+    (lengths 32, 31, 28, 25), the system prompt's pages shared by all
+    four block tables, the rest each row's own, in pool order. With
+    ``cow``, row 0's first page past the shared ones is a copy-on-write
+    duplicate of row 1's (equal bytes, another physical page). Returns
+    (q, k pages, v pages, block tables, lengths)."""
+    import torch
+    B, Hq, Hkv, D = 4, 32, 8, 128
+    lens = torch.tensor([32, 31, 28, 25], dtype=torch.int32, device=dev)
+    n_sys, npag = SYSTEM_LEN // ps, -(-32 // ps)
+    P = 1 + n_sys + B * (npag - n_sys) + int(cow)
+    q = draw((B, 1, Hq, D))
+    kp, vp = draw((P, ps, Hkv, D)), draw((P, ps, Hkv, D))
+    own = torch.arange(1 + n_sys, 1 + n_sys + B * (npag - n_sys),
+                       device=dev).reshape(B, npag - n_sys)
+    shared = torch.arange(1, 1 + n_sys, device=dev).expand(B, n_sys)
+    bt = torch.cat([shared, own], 1).to(torch.int32).contiguous()
+    if cow:
+        src, dst = int(bt[1, n_sys]), P - 1
+        kp[dst].copy_(kp[src])
+        vp[dst].copy_(vp[src])
+        bt[0, n_sys] = dst
+    return q, kp, vp, bt, lens
+
+
+def _serving_tables(draw, gen, B: int, ps: int, npag: int, P: int,
+                    lens: tuple, shared: int, retired: tuple, dev) -> tuple:
+    """K2's inputs as one of phase 9's engines lays them out (a line of
+    ``SERVING_K2``): ``B`` lanes at Hq32 Hkv8 D128 over a pool of ``P``
+    pages of ``ps`` tokens and tables ``npag`` wide. Each live row holds
+    the pages its length needs, in shuffled pool order: the first
+    ``shared`` of them common to every live row, the rest its own, and
+    the null page 0 past them. A lane never admitted (length 1) or
+    ``retired`` has an all-null table, as the engine leaves it. Returns
+    (q, k pages, v pages, block tables, lengths)."""
+    import torch
+    Hq, Hkv, D = 32, 8, 128
+    q = draw((B, 1, Hq, D))
+    kp, vp = draw((P, ps, Hkv, D)), draw((P, ps, Hkv, D))
+    perm = (torch.randperm(P - 1, generator=gen, device=dev) + 1).tolist()
+    bt = torch.zeros((B, npag), dtype=torch.int32)
+    nxt = shared
+    for b, n in enumerate(lens):
+        if n == 1 or b in retired:
+            continue
+        own = -(-n // ps) - shared
+        bt[b, :shared + own] = torch.tensor(perm[:shared]
+                                            + perm[nxt:nxt + own])
+        nxt += own
+    if nxt > P - 1:
+        raise ValueError(f"{nxt} pages do not fit a pool of {P}")
+    return (q, kp, vp, bt.to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
 
 
 def _serve_ssm_in_child(arch: str) -> None:
@@ -1449,6 +1636,245 @@ def _bench(dev, tier1: dict) -> None:
         problems += _tier1_problems(report)
     if problems:
         raise AssertionError(f"phase 8 failed: {problems}")
+
+
+def _serve_suite(dev, use_reduced: bool = False) -> dict:
+    """Phase 9: the port's serving suite (``repro_torch.bench``'s
+    ``serving/*``, the nine Tier-2 scenarios) through the harness's runner
+    on ``dev``, on the suite's one parameter set (granite-3-8b at full
+    width and depth, f32; ``use_reduced``: the reference's reduced cell,
+    for tests on the CPU). Every launch count is set to 0 before each
+    scenario and read after it. One line per record; then the prefix
+    cache's copy-on-write run (``_cow_run``) and the gates
+    (``_serving_problems``), with the prefix-cached engines' shared pages
+    held to their bytes by ``SharedPageWatch``. Returns the counts per
+    scenario, keyed ``serving:<scenario>``."""
+    import repro_torch.bench.suites  # noqa: F401  (registers the scenarios)
+    from repro_torch._tree import tree_leaves
+    from repro_torch.bench import BenchRunner, ListSink, env_fingerprint, select
+    from repro_torch.bench.__main__ import with_device
+    from repro_torch.bench.suites import serving
+    from repro_torch.kernels import ops
+    from repro_torch.serving.roles import sync
+
+    device = dev.type
+    t0 = time.perf_counter()
+    leaves = tree_leaves(serving._params(device, use_reduced))
+    sync(dev)
+    emit({"phase": "serving_weights", "arch": serving.ARCH,
+          "reduced": use_reduced,
+          "params": sum(t.numel() for t in leaves), "dtype": "float32",
+          "bytes": sum(t.numel() * t.element_size() for t in leaves),
+          "init_s": time.perf_counter() - t0})
+    watch = SharedPageWatch()
+    for span, pages in ((serving.BURST_SPAN, serving.BURST_PAGES),
+                        (serving.REPLAY_SPAN, serving.REPLAY_PAGES)):
+        watch.attach(serving._prefix_engine(True, span, pages, device,
+                                            use_reduced)[0])
+    env = env_fingerprint(device)
+    launches, failures = {}, []
+    for scen in select(only=",".join(SERVING_SCENARIOS)):
+        sink = ListSink()
+        t_s = time.perf_counter()
+        ops.reset_launches()
+        scen = with_device(scen, device)
+        if use_reduced:
+            scen = dataclasses.replace(scen, workloads=tuple(
+                dataclasses.replace(wl, knobs={**wl.knobs, "reduced": True})
+                for wl in scen.workloads))
+        failures += BenchRunner(sinks=[sink], env=env).run([scen]).failures
+        launches[f"serving:{scen.name}"] = dict(ops.LAUNCHES)
+        for r in sink.records:
+            emit({"phase": "serving", "scenario": scen.name,
+                  "name": r.name, "status": r.status, "ttft_us": r.ttft_us,
+                  "p50_us": r.p50_us, "p95_us": r.p95_us,
+                  "derived": r.derived})
+        emit({"phase": "serving_scenario", "scenario": scen.name,
+              "seconds": time.perf_counter() - t_s,
+              "launches": launches[f"serving:{scen.name}"]})
+    cow = _cow_run(serving, device, use_reduced)
+    problems = _serving_problems(serving.REPORTS, failures, cow, watch)
+    emit({"phase": "serving_gates", "seconds": time.perf_counter() - t0,
+          "shared_page_checks": watch.checks,
+          "shared_pages_watched": watch.watched,
+          "cow_cached_prompt_tokens": cow["cached"],
+          "problems": problems})
+    if problems:
+        raise AssertionError(f"phase 9 failed: {problems}")
+    return launches
+
+
+class SharedPageWatch:
+    """Holds the KV pages a prefix-cached paged engine shares to their
+    bytes (phase 9's gate 2: the port writes its pools in place). Wraps
+    the engine's chunked prefill and pool step: a warm prefill from
+    ``start`` attaches its block table's first ``start // page_size``
+    pages read-only; a page's checksum (over both pools, on the device) is
+    taken when it is first attached, and after every prefill chunk and
+    every decode step each watched page that a live block table (a decode
+    lane's or the prefill's) still holds must give the same checksum. A
+    page that no table holds may be evicted and reissued: it leaves the
+    watch until it is attached again."""
+
+    def __init__(self) -> None:
+        self.sums = {}           # (engine id, page) -> checksum
+        self.checks = 0          # page comparisons made
+        self.watched = 0         # pages ever recorded
+        self.violations = []     # (page, when)
+
+    def attach(self, eng) -> None:
+        prefill, step = eng._chunked_prefill, eng._pool_step
+        lanes = {}
+
+        def live(extra=()):
+            held = set(extra)
+            state = lanes.get("state")
+            if state is not None:
+                held.update(int(p) for p in state["btab"].unique().tolist())
+            held.discard(0)
+            return held
+
+        def chunked_prefill(prompt, btab_dev, clock, *, start=0):
+            shared = [int(p) for p in
+                      btab_dev[0, :start // eng.page_size].tolist()]
+            new = [p for p in shared if (id(eng), p) not in self.sums]
+            for p, c in zip(new, self._sums(eng, new)):
+                self.sums[id(eng), p] = c
+            self.watched += len(new)
+            self._check(eng, live(shared), "before a warm prefill")
+            out = prefill(prompt, btab_dev, clock, start=start)
+            self._check(eng, live(shared), "after a prefill")
+            return out
+
+        def pool_step(params, caches, state, gen):
+            lanes["state"] = state
+            held = live()        # the tables this step reads and writes
+            out = step(params, caches, state, gen)
+            self._check(eng, held, "after a decode step")
+            return out
+
+        eng._chunked_prefill = chunked_prefill
+        eng._pool_step = pool_step
+
+    @staticmethod
+    def _sums(eng, pages) -> list:
+        """A position-weighted sum of each page's bits over both pools."""
+        import torch
+        if not pages:
+            return []
+        out = []
+        for pool in eng._caches["layers"].values():
+            idx = torch.as_tensor(pages, device=pool.device)
+            bits = pool[:, idx].transpose(0, 1).reshape(len(pages), -1)
+            bits = bits.contiguous().view(torch.int32).to(torch.int64)
+            w = torch.arange(1, bits.shape[1] + 1, device=pool.device)
+            out.append((bits * w).sum(1))
+        return [tuple(x) for x in torch.stack(out, 1).tolist()]
+
+    def _check(self, eng, held: set, when: str) -> None:
+        mine = [p for (e, p) in self.sums if e == id(eng)]
+        for p in mine:
+            if p not in held:
+                del self.sums[id(eng), p]
+        kept = [p for p in mine if p in held]
+        for p, c in zip(kept, self._sums(eng, kept)):
+            self.checks += 1
+            if c != self.sums[id(eng), p]:
+                self.violations.append((p, when))
+
+
+def _cow_run(serving, device: str, use_reduced: bool) -> dict:
+    """The prefix cache's copy-on-write path: the shared burst plus rid 8
+    re-sending rid 0's prompt at t=1 (the whole prompt cached, so its last
+    matched page is copied before the one-token prefill), through the
+    suite's burst engines with the cache off and on. Returns each side's
+    greedy tokens per rid and the cached prompt tokens per rid."""
+    from repro_torch.serving import Request
+
+    toks, cached = {}, {}
+    for pc in (False, True):
+        eng, cfg = serving._prefix_engine(pc, serving.BURST_SPAN,
+                                          serving.BURST_PAGES, device,
+                                          use_reduced)
+        reqs = serving._shared_burst(cfg)
+        reqs.append(Request(rid=8, prompt=reqs[0].prompt.copy(),
+                            max_new_tokens=8, arrival_s=1.0))
+        rep = eng.run(reqs)
+        toks[pc] = _tokens_of(rep)
+        cached = {m.rid: m.cached_prompt_tokens for m in rep.metrics}
+    return {"tokens": toks, "cached": cached,
+            "prompt_len": len(reqs[0].prompt)}
+
+
+def _tokens_of(report) -> dict:
+    return {m.rid: [int(t) for t in m.tokens] for m in report.metrics
+            if m.tokens is not None}
+
+
+def _serving_problems(reports: dict, failures: list, cow: dict,
+                      watch: "SharedPageWatch") -> list:
+    """Phase 9's gates on the suite's reports (record name -> ServeReport):
+    no scenario failed; (1) prefix parity: greedy tokens equal per rid
+    with the cache on and off on the shared burst, the multi-turn replay
+    and the copy-on-write run (whose rid 8 must have taken the
+    copy-on-write path), higher peak concurrency with the cache and
+    prefill tokens saved; (2) no shared page changed while shared, with
+    pages checked; (3) chaos parity: every scheduled fault injected and
+    recovered, no page leaked on either record, and every request that
+    completes under chaos token-identical to the fault-free run; (4) P/D
+    parity: tokens equal per rid across the interleaved and the
+    disaggregated engine, one handoff per request that reached decode,
+    and a strictly lower decode-step p95 stall disaggregated."""
+    from repro_torch.serving import FaultPlan
+
+    out = [f"{name}: {err}" for name, err in failures]
+    need = ("prefix_burst_off", "prefix_burst_on", "replay_off", "replay_on",
+            "chaos_off", "chaos_on", "pd_interleaved", "pd_disaggregated")
+    missing = [n for n in need if f"serving/{n}" not in reports]
+    if missing:
+        return out + [f"no report of serving/{n}" for n in missing]
+    rep = {n: reports[f"serving/{n}"] for n in need}
+    tok = {n: _tokens_of(r) for n, r in rep.items()}
+    for a, b in (("prefix_burst_off", "prefix_burst_on"),
+                 ("replay_off", "replay_on"),
+                 ("pd_interleaved", "pd_disaggregated")):
+        if tok[a] != tok[b]:
+            out.append(f"greedy tokens differ between {a} and {b}")
+    if cow["tokens"][False] != cow["tokens"][True]:
+        out.append("greedy tokens differ with the cache on the "
+                   "copy-on-write run")
+    if cow["cached"].get(8) != cow["prompt_len"] - 1:
+        out.append(f"rid 8 took no copy-on-write path: {cow['cached']}")
+    if not (rep["prefix_burst_on"].peak_concurrency
+            > rep["prefix_burst_off"].peak_concurrency):
+        out.append("peak_concurrency not higher with the prefix cache")
+    if not rep["prefix_burst_on"].prefill_tokens_saved > 0:
+        out.append("prefix cache on, no prefill tokens saved")
+    if watch.violations or not watch.checks:
+        out.append(f"shared pages changed {watch.violations} "
+                   f"({watch.checks} checks)")
+    planned = len(FaultPlan.default(0).faults)
+    on = rep["chaos_on"]
+    if not on.faults_injected == on.fault_recoveries == planned:
+        out.append(f"faults injected/recovered {on.faults_injected}/"
+                   f"{on.fault_recoveries} of {planned}")
+    for n in ("chaos_off", "chaos_on"):
+        if rep[n].pages_leaked:
+            out.append(f"{n}: {rep[n].pages_leaked} pages leaked")
+    for m in on.metrics:
+        if m.outcome == "completed" and (
+                tok["chaos_on"][m.rid] != tok["chaos_off"].get(m.rid)):
+            out.append(f"chaos rid {m.rid}: tokens differ from fault-free")
+    dis = rep["pd_disaggregated"]
+    decoded = sum(1 for m in dis.metrics if m.decode_worker >= 0)
+    if not dis.handoffs == decoded == len(dis.handoff_latencies_s) > 0:
+        out.append(f"{dis.handoffs} handoffs for {decoded} requests that "
+                   "reached decode")
+    p95 = {n: rep[n].summary().get("decode_stall_p95_s", 0.0)
+           for n in ("pd_interleaved", "pd_disaggregated")}
+    if not p95["pd_disaggregated"] < p95["pd_interleaved"]:
+        out.append(f"decode-step p95 stall not lower disaggregated: {p95}")
+    return out
 
 
 def _check_trajectories(phase: str, km: list, dm: list, against: str) -> None:

@@ -34,6 +34,7 @@ samples, :mod:`repro_torch.bench.compare`), appends a point to
 | suites.load_balance   | load_balance    | Fig. 8 (LI, Eq. 3/4)      |
 | suites.efficiency     | efficiency      | Fig. 9 (measured)         |
 | suites.roofline       | roofline        | Fig. 10 (measured step)   |
+| suites.serving        | serving         | Tier-2 (serving, 9 scen.) |
 """
 from __future__ import annotations
 

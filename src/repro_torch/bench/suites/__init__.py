@@ -4,3 +4,4 @@ from repro_torch.bench.suites import allocation  # noqa: F401
 from repro_torch.bench.suites import load_balance  # noqa: F401
 from repro_torch.bench.suites import efficiency  # noqa: F401
 from repro_torch.bench.suites import roofline  # noqa: F401
+from repro_torch.bench.suites import serving  # noqa: F401

@@ -1,6 +1,6 @@
 """Deterministic synthetic workloads, copied from ``repro/data/pipeline.py``
-(numpy only): the same seed gives the same training batches, prompts and
-arrival times, byte for byte, in both packages."""
+(numpy only): the same seed gives the same training batches, prompts,
+sessions and arrival times, byte for byte, in both packages."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -51,6 +51,50 @@ def synth_requests(cfg: ModelConfig, n: int, prompt_len: int, *,
         out.append(Request(rid=i, prompt=prompt,
                            max_new_tokens=budgets[i % len(budgets)],
                            arrival_s=float(arrivals[i])))
+    return out
+
+
+def synth_sessions(cfg: ModelConfig, num_sessions: int, turns: int, *,
+                   system_len: int = 32, turn_len: int = 16,
+                   max_new_tokens: int = 16, rate_per_s: float = 0.0,
+                   think_s: float = 0.0, stagger_s: float = 0.0,
+                   seed: int = 0) -> list:
+    """Deterministic multi-turn chat sessions for the prefix-cache story.
+
+    Every session shares one ``system_len``-token system prompt; turn
+    ``t`` of a session arrives with the *accumulated history* — system
+    prompt plus user turns ``0..t`` (``turn_len`` fresh tokens each) —
+    exactly the replay pattern a stateless chat API produces. Turn
+    ``t``'s prompt therefore extends turn ``t-1``'s prompt, so a
+    prefix-sharing engine re-prefills only the newest turn while a cold
+    engine re-pays the whole history every time.
+
+    Session starts are Poisson at ``rate_per_s`` (<=0: all at t=0),
+    shifted by a deterministic ``stagger_s`` gap between consecutive
+    sessions (the SimClock scenarios use the stagger instead of random
+    arrivals so latency orderings stay schedule-determined); within a
+    session, turn ``t`` arrives ``think_s`` seconds after turn ``t-1``
+    (user think time). Request ids encode ``session * 100 + turn`` so
+    reports can split warm/cold by turn. The returned list is sorted by
+    arrival time, as the engines expect.
+    """
+    rng = np.random.default_rng(seed * 48_271 + 11)
+    system = _doc_tokens(rng, cfg.vocab_size, system_len).astype(np.int32)
+    starts = poisson_arrivals(num_sessions, rate_per_s,
+                              seed=seed * 9176 + 7)
+    starts = starts + np.arange(num_sessions) * stagger_s
+    out = []
+    for s in range(num_sessions):
+        srng = np.random.default_rng(seed * 1_000_003 + 31 * s + 17)
+        history = system
+        for t in range(turns):
+            user = _doc_tokens(srng, cfg.vocab_size, turn_len
+                               ).astype(np.int32)
+            history = np.concatenate([history, user])
+            out.append(Request(rid=s * 100 + t, prompt=history.copy(),
+                               max_new_tokens=max_new_tokens,
+                               arrival_s=float(starts[s]) + t * think_s))
+    out.sort(key=lambda r: (r.arrival_s, r.rid))
     return out
 
 

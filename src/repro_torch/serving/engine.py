@@ -23,7 +23,7 @@ seeded from ``seed`` at the start of each run.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -86,8 +86,13 @@ class _EngineBase:
     def __init__(self, prefill_fn: Callable, decode_fn: Callable, params,
                  cache_init: Callable, *, slots: int, cache_span: int,
                  eos_id: Optional[int] = None, greedy: bool = True,
-                 seed: int = 0, clock=None, device="cuda"):
+                 seed: int = 0, clock=None, reject_invalid: bool = False,
+                 device="cuda"):
         self.params = params
+        # reject_invalid=True turns impossible requests into outcome
+        # "rejected" metrics instead of a ValueError (the serving-facing
+        # mode); tests keep the strict raise as their default
+        self.reject_invalid = reject_invalid
         self.cache_init = cache_init
         self.slots = slots
         self.cache_span = cache_span
@@ -117,20 +122,33 @@ class _EngineBase:
                     f"cache_span {self.cache_span}")
         return None
 
-    def _validate(self, requests: Sequence[Request]) -> List[Request]:
-        """Sort by arrival; raise ValueError on an impossible request."""
+    def _validate(self, requests: Sequence[Request]
+                  ) -> Tuple[List[Request], List[Request]]:
+        """Sort by arrival and split servable from impossible requests.
+        With ``reject_invalid`` the impossible ones come back in the
+        second list (outcome "rejected"); otherwise they raise."""
         reqs = sorted(requests, key=lambda r: (r.arrival_s, r.rid))
+        ok: List[Request] = []
+        rejected: List[Request] = []
         for r in reqs:
             err = self.admission_error(r)
-            if err:
+            if err and not self.reject_invalid:
                 raise ValueError(f"request {r.rid}: {err}")
-        return reqs
+            (rejected if err else ok).append(r)
+        return ok, rejected
 
     @staticmethod
-    def _make_metrics(reqs: Sequence[Request]) -> Dict[int, RequestMetrics]:
-        return {r.rid: RequestMetrics(rid=r.rid, prompt_len=r.prompt_len,
-                                      arrival_s=r.arrival_s)
-                for r in reqs}
+    def _make_metrics(reqs: Sequence[Request], rejected: Sequence[Request]
+                      ) -> Dict[int, RequestMetrics]:
+        """Per-request metrics for a run; rejected requests are terminal
+        immediately (never admitted, never scheduled)."""
+        metrics = {
+            r.rid: RequestMetrics(rid=r.rid, prompt_len=r.prompt_len,
+                                  arrival_s=r.arrival_s)
+            for r in (*reqs, *rejected)}
+        for r in rejected:
+            metrics[r.rid].outcome = "rejected"
+        return metrics
 
     def _prefill_one_batch(self, prompts: np.ndarray, gen):
         """Prefill (b, L) prompts; returns (tok0 (b,1), caches)."""
@@ -167,12 +185,12 @@ class StaticEngine(_EngineBase):
 
     def run(self, requests: Sequence[Request]) -> ServeReport:
         sched = Scheduler(self)
-        reqs = sched.validate(requests)
+        reqs, rejected = sched.validate(requests)
         B = self.slots
         clock = self.clock
         t0 = clock.now()
         gen = _generator(self.device, self.seed)
-        metrics = self._make_metrics(reqs)
+        metrics = self._make_metrics(reqs, rejected)
         slot_tokens = np.zeros(B, np.int64)
         decode_steps = prefills = peak_conc = 0
 
@@ -223,7 +241,8 @@ class StaticEngine(_EngineBase):
                     m.finished = True
                     m.outcome = "completed"
                 slot_tokens[i] += n
-        return ServeReport(metrics=[metrics[r.rid] for r in reqs],
+        return ServeReport(metrics=[metrics[r.rid] for r in (*reqs,
+                                                             *rejected)],
                            scheduler=self.scheduler, slots=B,
                            makespan_s=clock.now() - t0,
                            decode_steps=decode_steps, prefills=prefills,
@@ -295,7 +314,7 @@ class ContinuousEngine(_EngineBase):
 
     def run(self, requests: Sequence[Request]) -> ServeReport:
         sched = Scheduler(self)
-        reqs = sched.validate(requests)
+        reqs, rejected = sched.validate(requests)
         pw = PrefillWorker(self)
         B = self.slots
         clock = self.clock
@@ -303,7 +322,7 @@ class ContinuousEngine(_EngineBase):
         gen = _generator(self.device, self.seed)
         caches = self.cache_init(B, self.cache_span)
         state = lane_state(B, self.cache_span, self.device)
-        metrics = self._make_metrics(reqs)
+        metrics = self._make_metrics(reqs, rejected)
         slot_rid: List[Optional[int]] = [None] * B
         active_host = np.zeros(B, bool)
         slot_tokens = np.zeros(B, np.int64)
@@ -386,7 +405,8 @@ class ContinuousEngine(_EngineBase):
                     m.tokens = host(state["tokbuf"][s, :m.new_tokens])
                     slot_rid[s] = None
             active_host = new_active.copy()
-        return ServeReport(metrics=[metrics[r.rid] for r in reqs],
+        return ServeReport(metrics=[metrics[r.rid] for r in (*reqs,
+                                                             *rejected)],
                            scheduler=self.scheduler, slots=B,
                            makespan_s=clock.now() - t0,
                            decode_steps=decode_steps, prefills=prefills,
@@ -400,8 +420,9 @@ SCHEDULERS = {"static": StaticEngine, "continuous": ContinuousEngine}
 def make_engine(scheduler: str, prefill_fn, decode_fn, params, cache_init,
                 **kw) -> _EngineBase:
     if scheduler not in SCHEDULERS:
-        # the paged engine registers itself on import (kept out of this
-        # module to avoid a circular import)
+        # the paged + disaggregated engines register themselves on import
+        # (kept out of this module to avoid circular imports)
+        import repro_torch.serving.disagg  # noqa: F401
         import repro_torch.serving.paged  # noqa: F401
     try:
         cls = SCHEDULERS[scheduler]

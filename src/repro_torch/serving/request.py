@@ -30,13 +30,13 @@ import numpy as np
 class Request:
     """One inference request: token prompt + decode budget + arrival.
 
-    The SLO fields drive deadline and preemption scheduling:
+    The SLO fields drive the fault-tolerant scheduling layer:
     ``deadline_s`` is a per-request latency budget measured *from
     arrival* (the request must finish by ``arrival_s + deadline_s`` on
     the engine clock; ``None`` = no deadline); ``priority`` orders
     admission (higher wins) and decides who gets preempted under page
-    pressure; ``max_retries`` bounds how many times a preempted request
-    is requeued before it is failed outright.
+    pressure; ``max_retries`` bounds how many times a preempted or
+    fault-hit request is requeued before it is failed outright.
     """
 
     rid: int
@@ -79,14 +79,22 @@ class RequestMetrics:
     finished: bool = False
     # terminal outcome ("" while in flight): completed | timed_out |
     # preempted (evicted, never resumed to completion) | rejected
-    # (inadmissible, never scheduled) | failed (retries exhausted)
+    # (inadmissible, never scheduled) | failed (retries exhausted or an
+    # injected/unrecoverable per-request fault)
     outcome: str = ""
     preemptions: int = 0            # times evicted from a decode lane
-    retries: int = 0                # times requeued after preemption
+    retries: int = 0                # times requeued (preemption or fault)
+    # prompt tokens served from the prefix cache (0 = cold prefill; >0
+    # means only the suffix was chunk-prefilled — the warm-TTFT lever)
+    cached_prompt_tokens: int = 0
     # duration of each decode step that produced one of this request's
     # tokens (token 0 comes from prefill and is covered by TTFT)
     token_latencies_s: List[float] = field(default_factory=list)
     tokens: Optional[np.ndarray] = None   # (new_tokens,) generated ids
+    # ---- role attribution (disaggregated engines; -1 = interleaved) ----
+    prefill_worker: int = -1        # which prefill worker ran the prompt
+    decode_worker: int = -1         # which decode pool generated tokens
+    handoff_latency_s: float = 0.0  # prefill-done -> decode-lane pickup
 
     @property
     def queue_s(self) -> float:
@@ -124,9 +132,11 @@ class SimClock:
     the schedule (admissions, step counts), never on host jitter."""
 
     def __init__(self, prefill_cost_s: float = 10.0,
-                 decode_cost_s: float = 1.0) -> None:
+                 decode_cost_s: float = 1.0,
+                 handoff_cost_s: float = 0.0) -> None:
         self._t = 0.0
-        self._cost = {"prefill": prefill_cost_s, "decode": decode_cost_s}
+        self._cost = {"prefill": prefill_cost_s, "decode": decode_cost_s,
+                      "handoff": handoff_cost_s}
 
     def now(self) -> float:
         return self._t
@@ -163,12 +173,36 @@ class ServeReport:
     pages_high_water: int = 0          # peak pages simultaneously in use
     failed_allocs: int = 0             # pool-side allocation refusals
     admission_blocked_steps: int = 0   # steps the queue head waited on pages
-    # ---- SLO enforcement + preemption -----------------------------
+    # ---- prefix-sharing radix cache (unset unless enabled) -----------
+    prefix_enabled: bool = False
+    prefix_lookups: int = 0            # admissions that consulted the cache
+    prefix_hits: int = 0               # admissions with >0 cached tokens
+    prefill_tokens_saved: int = 0      # prompt tokens not re-prefilled
+    pages_shared_peak: int = 0         # peak logical-minus-physical pages
+    prefix_evictions: int = 0          # LRU evictions under pool pressure
+    # ---- robustness: SLO enforcement + preemption + fault injection ---
     preemption_events: int = 0         # evictions of an active request
-    requeues: int = 0                  # preempted requests requeued
+    requeues: int = 0                  # preempted/faulted requests requeued
     pages_leaked: int = 0              # owner-held pages left at drain
-    # gaps between consecutive decode steps while lanes stayed active
-    # (the paged engine's prefill-interference metric)
+    faults_injected: int = 0           # FaultPlan events actually applied
+    fault_recoveries: int = 0          # faults the engine recovered from
+    # decode steps from each fault's injection to its recovery (the
+    # chaos_soak scenario's recovery-latency metric)
+    fault_recovery_steps: List[int] = field(default_factory=list)
+    # ---- P/D role split (zero/empty unless scheduler=="disaggregated",
+    # except decode_stalls_s, which the interleaved paged engine also
+    # fills: gaps between consecutive decode steps while lanes stayed
+    # active — the prefill-interference metric disaggregation removes)
+    prefill_workers: int = 0
+    decode_workers: int = 0
+    prefill_busy_s: float = 0.0        # summed over prefill workers
+    decode_busy_s: float = 0.0         # summed over decode workers
+    prefill_util: float = 0.0          # busy / (workers * makespan)
+    decode_util: float = 0.0
+    handoffs: int = 0                  # prefill->decode page transfers
+    handoff_latencies_s: List[float] = field(default_factory=list)
+    queue_depth_peak: int = 0          # pending requests, per-step samples
+    queue_depth_mean: float = 0.0
     decode_stalls_s: List[float] = field(default_factory=list)
 
     @property
@@ -211,8 +245,23 @@ class ServeReport:
         useful = sum(len(m.token_latencies_s) for m in self.metrics)
         return useful / (self.slots * self.decode_steps)
 
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Fraction of cache-consulting admissions that reused >= 1 page."""
+        return self.prefix_hits / max(self.prefix_lookups, 1)
+
     def ttft_samples_s(self) -> List[float]:
         return [m.ttft_s for m in self.metrics if m.finished]
+
+    def ttft_warm_samples_s(self) -> List[float]:
+        """TTFT of requests that reused cached prefix pages."""
+        return [m.ttft_s for m in self.metrics
+                if m.finished and m.cached_prompt_tokens > 0]
+
+    def ttft_cold_samples_s(self) -> List[float]:
+        """TTFT of requests prefilled entirely from scratch."""
+        return [m.ttft_s for m in self.metrics
+                if m.finished and m.cached_prompt_tokens == 0]
 
     def token_latency_samples_s(self) -> List[float]:
         out: List[float] = []
@@ -254,6 +303,15 @@ class ServeReport:
             "requeues": self.requeues,
             "retries": self.total_retries,
         })
+        if self.faults_injected:
+            rs = self.fault_recovery_steps
+            out.update({
+                "faults_injected": self.faults_injected,
+                "fault_recoveries": self.fault_recoveries,
+                "recovery_steps_mean": (sum(rs) / len(rs)) if rs else 0.0,
+                "recovery_steps_max": max(rs, default=0),
+                "pages_leaked": self.pages_leaked,
+            })
         if self.num_pages:
             out.update({
                 "page_size": self.page_size,
@@ -266,10 +324,36 @@ class ServeReport:
                 "failed_allocs": self.failed_allocs,
                 "admission_blocked_steps": self.admission_blocked_steps,
             })
+        if self.prefix_enabled:
+            warm = sorted(self.ttft_warm_samples_s())
+            cold = sorted(self.ttft_cold_samples_s())
+            out.update({
+                "prefix_hit_rate": self.prefix_hit_rate,
+                "prefix_hits": self.prefix_hits,
+                "prefix_lookups": self.prefix_lookups,
+                "prefill_tokens_saved": self.prefill_tokens_saved,
+                "pages_shared_peak": self.pages_shared_peak,
+                "prefix_evictions": self.prefix_evictions,
+                "ttft_warm_p50_s": pct(warm, 50.0),
+                "ttft_cold_p50_s": pct(cold, 50.0),
+            })
         if self.decode_stalls_s:
             ds = sorted(self.decode_stalls_s)
             out.update({
                 "decode_stall_p50_s": pct(ds, 50.0),
                 "decode_stall_p95_s": pct(ds, 95.0),
+            })
+        if self.prefill_workers:
+            hl = sorted(self.handoff_latencies_s)
+            out.update({
+                "prefill_workers": self.prefill_workers,
+                "decode_workers": self.decode_workers,
+                "prefill_util": self.prefill_util,
+                "decode_util": self.decode_util,
+                "handoffs": self.handoffs,
+                "handoff_p50_s": pct(hl, 50.0),
+                "handoff_p95_s": pct(hl, 95.0),
+                "queue_depth_peak": self.queue_depth_peak,
+                "queue_depth_mean": self.queue_depth_mean,
             })
         return out

@@ -1,21 +1,27 @@
 """Composable serving roles: scheduler, prefill worker, decode worker,
 and the page-ownership handoff between them.
 
-The PyTorch counterpart of ``repro/serving/roles.py`` (without the prefix
-cache, which comes in a later slice):
+The PyTorch counterpart of ``repro/serving/roles.py``:
 
 * :class:`Scheduler`     — admission policy: arrival-aware priority
   queueing, deadline reaping (queued and in-flight), preemption victim
   choice, and the deadline-truncation rule every engine credits tokens by.
 * :class:`PrefillWorker` — owns prefill compute: page reservation under
-  the *prefill* role key and the chunked prefill dispatches. The
-  monolithic engines use its batch flavor.
+  the *prefill* role key (prefix-cache attach included) and the chunked
+  prefill dispatches. The monolithic engines use its batch flavor.
 * :class:`DecodeWorker`  — owns a pool of decode lanes: the fused
   pool-step device state (torch tensors on the engine's device), lane
-  bookkeeping, and decode-stall samples.
+  bookkeeping, a virtual timeline for disaggregated scheduling, and
+  decode-stall samples.
 * :class:`PageHandoff`   — the ownership transfer: prefill reserves pages
   under ``("prefill", rid)``, decode takes them over under plain ``rid``,
   refcount-conserving at every instant.
+
+One *shared* page pool backs both roles, so the handoff is pure
+bookkeeping (refcount +1/-1) and moves no KV. The interleaved engines
+compose these roles in one loop;
+:class:`repro_torch.serving.disagg.DisaggregatedEngine` runs separate
+prefill and decode worker pools over the same roles.
 """
 from __future__ import annotations
 
@@ -95,6 +101,13 @@ class PageHandoff:
         self.alloc = alloc
         self._release = release_fn
         self.page_size = int(page_size)
+        self.handoffs = 0
+        self.latencies_s: List[float] = []
+
+    def roles_of(self, rid: int) -> Tuple[bool, bool]:
+        """(prefill holds, decode holds): the dual-ownership probe the
+        handoff invariant tests assert on."""
+        return (self.alloc.holds(prefill_owner(rid)), self.alloc.holds(rid))
 
     def transfer(self, rid: int) -> List[int]:
         """Move ``rid``'s pages from the prefill hold to the decode hold.
@@ -112,7 +125,19 @@ class PageHandoff:
         pages = self.alloc.owned(pkey)
         self.alloc.allocate(rid, len(pages) * self.page_size, shared=pages)
         self._release(self.alloc, pkey)
+        self.handoffs += 1
         return pages
+
+    def abort(self, rid: int) -> None:
+        """Release the prefill-role hold without transferring: the
+        containment path for a failed prefill (the request's pages go
+        straight back) and the completed-at-prefill path (a 1-token
+        budget or first-token EOS never reaches a decode lane)."""
+        pkey = prefill_owner(rid)
+        if not self.alloc.holds(pkey):
+            raise PoolInvariantError(
+                f"abort of rid {rid}: prefill role holds no pages")
+        self._release(self.alloc, pkey)
 
 
 # ---------------------------------------------------------------- scheduler
@@ -127,15 +152,16 @@ class Scheduler:
         self.req_of: Dict[int, Request] = {}
         self.has_deadlines = False
 
-    def validate(self, requests: Sequence[Request]) -> List[Request]:
+    def validate(self, requests: Sequence[Request]
+                 ) -> Tuple[List[Request], List[Request]]:
         """Admission-validate ``requests`` through the engine's
-        ``admission_error`` hook (an impossible request raises) and seed
-        the queue. Returns them in arrival order."""
-        ok = self.engine._validate(requests)
+        ``admission_error`` hook (via ``_validate``) and seed the queue
+        with the servable ones. Returns (servable, rejected)."""
+        ok, rejected = self.engine._validate(requests)
         self.queue = RequestQueue(ok)
         self.req_of = {r.rid: r for r in ok}
         self.has_deadlines = any(r.deadline_s is not None for r in ok)
-        return ok
+        return ok, rejected
 
     def peek_best(self, now_rel: float) -> Optional[Request]:
         return self.queue.peek_best(now_rel)
@@ -149,6 +175,9 @@ class Scheduler:
 
     def next_arrival(self) -> float:
         return self.queue.next_arrival()
+
+    def queue_depth(self) -> int:
+        return len(self.queue)
 
     def reap_queued(self, now_rel: float) -> List[Request]:
         """Queued requests past their deadline (removed from the queue)."""
@@ -204,17 +233,22 @@ class Scheduler:
 # ------------------------------------------------------------------ workers
 class PrefillWorker:
     """The prefill role: page reservation (under the prefill owner key)
-    and the chunked prefill dispatches. Compute stays on the engine's
-    entry points; the worker owns the role-local counters."""
+    and the chunked prefill dispatches, with a virtual timeline for
+    disaggregated scheduling. Compute stays on the engine's entry points;
+    the worker owns whose clock the work bills to and the role-local
+    counters."""
 
-    def __init__(self, engine) -> None:
+    def __init__(self, engine, wid: int = 0) -> None:
         self.engine = engine
+        self.wid = wid
+        self.t = 0.0                 # virtual timeline (disaggregated)
+        self.busy_s = 0.0
         self.dispatches = 0
 
-    def reserve(self, req: Request, alloc: PageAllocator):
-        """Reserve ``req``'s pages under the *prefill* role key; ``None``
-        when the pool cannot cover it yet."""
-        return self.engine._reserve_pages(req, alloc,
+    def reserve(self, req: Request, alloc: PageAllocator, radix):
+        """Reserve ``req``'s pages under the *prefill* role key (prefix
+        attach included); ``None`` when the pool cannot cover it yet."""
+        return self.engine._reserve_pages(req, alloc, radix,
                                           owner=prefill_owner(req.rid))
 
     def prefill(self, prompt: np.ndarray, btab_dev, clock, *,
@@ -235,12 +269,15 @@ class PrefillWorker:
 class DecodeWorker:
     """The decode role over ``lanes`` decode lanes: the fused pool-step
     device state (block-table flavored when ``npag_max`` is given), per-lane
-    bookkeeping and decode-stall samples (gaps between the end of one
-    decode step and the start of the next while lanes stayed active)."""
+    bookkeeping, a virtual timeline, and decode-stall samples (gaps
+    between the end of one decode step and the start of the next while
+    lanes stayed active: the time interleaved engines spend on admission
+    prefills between decode steps, which P/D disaggregation removes)."""
 
-    def __init__(self, engine, lanes: int,
+    def __init__(self, engine, lanes: int, wid: int = 0,
                  npag_max: Optional[int] = None) -> None:
         self.engine = engine
+        self.wid = wid
         self.lanes = lanes
         self.device = engine.device
         self.state = lane_state(lanes, engine.cache_span, self.device,
@@ -249,6 +286,9 @@ class DecodeWorker:
         self.admit_seq = [0] * lanes     # admission order, victim choice
         self.active_host = np.zeros(lanes, bool)
         self.slot_tokens = np.zeros(lanes, np.int64)
+        self.t = 0.0                 # virtual timeline (disaggregated)
+        self.busy_s = 0.0
+        self.steps = 0
         self.stalls_s: List[float] = []
         self._prev_end = 0.0
         self._carry = False
@@ -283,6 +323,7 @@ class DecodeWorker:
         eng._caches = eng._pool_step(eng.params, eng._caches, self.state, gen)
         sync(self.device)
         eng.clock.charge("decode")
+        self.steps += 1
         return read_flags(self.state)
 
 

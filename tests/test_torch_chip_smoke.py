@@ -312,3 +312,183 @@ def test_tier1_report_of_a_reduced_step_on_the_cpu(smoke):
     assert rep["counted"]["kernels"] == {}      # layernorm, chunked form
     assert smoke._tier1_problems(rep) == []
     json.dumps(rep)
+
+
+# ------------------------------------------------------------ phase 9
+def _launches(smoke):
+    """A full run's launch counts, every kernel launched on every path."""
+    paths = ["continuous", "paged", "train:6", "train:6b", "bench",
+             "hymba-1.5b:static", "hymba-1.5b:continuous"] + [
+        f"{a}:{e}" for a in smoke.SSM_ARCHS for e in ("static",
+                                                        "continuous")] + [
+        f"serving:{s}" for s in smoke.SERVING_SCENARIOS]
+    return {p: dict.fromkeys(smoke.KERNELS, 1) for p in paths}
+
+
+def test_phase9_is_wired(smoke):
+    import inspect
+
+    import repro_torch.bench.suites  # noqa: F401
+    from repro_torch.bench import select
+    assert list(smoke.SERVING_SCENARIOS) == [
+        s.name for s in select(only="serving")]
+    assert smoke._missing(_launches(smoke)) == []
+    bad = _launches(smoke)
+    bad["serving:serving/chaos_soak"]["paged_attention"] = 0
+    bad["serving:serving/slot_balance"]["flash_attention"] = 0
+    assert smoke._missing(bad) == [
+        "paged_attention in serving/chaos_soak",
+        "flash_attention in serving/slot_balance"]
+    # a kernel a scenario need not launch is not required of it
+    fine = _launches(smoke)
+    fine["serving:serving/chaos_soak"]["flash_attention"] = 0
+    assert smoke._missing(fine) == []
+    src = inspect.getsource(smoke.main)
+    assert src.index("_bench(dev, tier1)") < src.index(
+        "_serve_suite(dev)") < src.index('line = {"kernels"')
+    assert src.index("_missing(launches)") > src.index("_serve_suite(dev)")
+    last = src.rstrip().splitlines()[-4:]
+    assert last[0].strip() == 'print(json.dumps({"ok": True, "device": {'
+    assert '"platform": "gpu", "kind": torch.cuda.get_device_name(0),' in \
+        last[1]
+    assert '"count": torch.cuda.device_count()}}), flush=True)' in last[2]
+    assert last[-1].strip() == "return 0"
+
+
+@pytest.fixture(scope="module")
+def phase9_on_the_cpu(smoke):
+    """Phase 9 on the reference's reduced cell on the CPU: the suite, the
+    copy-on-write run and the gates (which raise on failure). Also the
+    shapes the engines gave K1 ((batch, prompt, causal, window) -> calls)
+    and K2 ((lanes, page size, table width, pool pages) -> longest
+    length, most all-null rows): the same on the reduced cell as at full
+    width, since only the heads and widths are cut."""
+    torch.set_num_threads(2)
+    from repro_torch.bench.suites import serving
+    from repro_torch.kernels import ops
+    k1, k2 = {}, {}
+    flash, paged = ops.flash_attention, ops.paged_attention
+
+    def flash_seen(q, k, v, *, causal, window):
+        key = (q.shape[0], q.shape[1], causal, window)
+        k1[key] = k1.get(key, 0) + 1
+        return flash(q, k, v, causal=causal, window=window)
+
+    def paged_seen(q, kp, vp, bt, lens):
+        key = (q.shape[0], kp.shape[1], bt.shape[1], kp.shape[0])
+        old = k2.get(key, (0, 0))
+        k2[key] = (max(old[0], int(lens.max())),
+                   max(old[1], int((bt == 0).all(1).sum())))
+        return paged(q, kp, vp, bt, lens)
+
+    ops.flash_attention, ops.paged_attention = flash_seen, paged_seen
+    try:
+        launches = smoke._serve_suite(torch.device("cpu"), use_reduced=True)
+    finally:
+        ops.flash_attention, ops.paged_attention = flash, paged
+    return launches, dict(serving.REPORTS), {"K1": k1, "K2": k2}
+
+
+def test_phase9_runs_on_the_cpu(smoke, phase9_on_the_cpu):
+    launches, reports, _ = phase9_on_the_cpu
+    assert sorted(launches) == sorted(f"serving:{s}"
+                                      for s in smoke.SERVING_SCENARIOS)
+    # the CPU runs the kernels' plain versions: no launch
+    assert all(n == 0 for c in launches.values() for n in c.values())
+    assert len(reports) == 21
+
+
+@pytest.mark.parametrize("break_it,problem", [
+    ("tokens", "greedy tokens differ between pd_interleaved and "
+               "pd_disaggregated"),
+    ("leak", "chaos_on: 3 pages leaked"),
+    ("faults", "faults injected/recovered 5/4 of 5"),
+    ("concurrency", "peak_concurrency not higher with the prefix cache"),
+    ("stall", "decode-step p95 stall not lower disaggregated"),
+    ("handoff", "handoffs for"),
+])
+def test_phase9_gates_trip(smoke, phase9_on_the_cpu, break_it, problem):
+    import copy
+    _, reports, _ = phase9_on_the_cpu
+    reports = copy.deepcopy(reports)
+    watch = smoke.SharedPageWatch()
+    watch.checks = 1
+    cow = {"tokens": {False: {}, True: {}}, "cached": {8: 23},
+           "prompt_len": 24}
+    assert smoke._serving_problems(reports, [], cow, watch) == []
+    if break_it == "tokens":
+        m = reports["serving/pd_disaggregated"].metrics[0]
+        m.tokens = m.tokens.copy()
+        m.tokens[-1] ^= 1
+    elif break_it == "leak":
+        reports["serving/chaos_on"].pages_leaked = 3
+    elif break_it == "faults":
+        reports["serving/chaos_on"].fault_recoveries = 4
+    elif break_it == "concurrency":
+        reports["serving/prefix_burst_on"].peak_concurrency = 3
+    elif break_it == "stall":
+        reports["serving/pd_disaggregated"].decode_stalls_s = [40.0] * 20
+    else:
+        reports["serving/pd_disaggregated"].handoffs = 7
+    got = smoke._serving_problems(reports, [], cow, watch)
+    assert len(got) == 1 and problem in got[0]
+    assert any(p.startswith("rid 8 took no") for p in smoke._serving_problems(
+        reports, [], {**cow, "cached": {8: 16}}, watch))
+    none = smoke.SharedPageWatch()
+    assert any("shared pages" in p for p in smoke._serving_problems(
+        reports, [], cow, none))
+
+
+def test_phase2_holds_every_shape_phase9_gives(smoke, phase9_on_the_cpu):
+    """Phase 2 holds K1 and K2 against their plain versions at every shape
+    phase 9's engines launch them at: each (batch, prompt) of K1, and each
+    (lanes, page size, table width, pool) of K2 with a line at least as
+    long and with all-null rows where the engines left some."""
+    _, _, seen = phase9_on_the_cpu
+    assert {(b, s) for b, s, causal, window in seen["K1"]} == \
+        set(smoke.SERVING_K1)
+    assert all(causal and window == 0 for _, _, causal, window in seen["K1"])
+    lines = {}
+    for line in smoke.SERVING_K2:
+        lines.setdefault(line[:4], []).append(line[4:])
+    assert set(seen["K2"]) == set(lines)
+    for key, (longest, null_rows) in seen["K2"].items():
+        assert max(max(lens) for lens, _, _ in lines[key]) >= longest, key
+        assert null_rows == 0 or any(1 in lens or retired
+                                     for lens, _, retired in lines[key]), key
+
+
+@pytest.mark.parametrize("line", range(8))
+def test_serving_tables(smoke, line):
+    """Each of phase 2's tables at phase 9's shapes is one the engine could
+    hold: live rows cover their lengths with distinct pages of the pool
+    (the shared leading ones excepted) and the null page past them;
+    never-admitted and retired rows are all null."""
+    assert len(smoke.SERVING_K2) == 8
+    B, ps, npag, P, lens, shared, retired = smoke.SERVING_K2[line]
+    assert max(lens) <= npag * ps and len(lens) == B
+    draws = []
+
+    def draw(shape):
+        draws.append(shape)
+        return torch.zeros(shape)
+
+    q, kp, vp, bt, lens_t = smoke._serving_tables(
+        draw, torch.Generator().manual_seed(5), B, ps, npag, P, lens,
+        shared, retired, "cpu")
+    assert draws == [(B, 1, 32, 128), (P, ps, 8, 128), (P, ps, 8, 128)]
+    assert bt.dtype == torch.int32 and tuple(bt.shape) == (B, npag)
+    assert lens_t.tolist() == list(lens)
+    owned = []
+    for b, n in enumerate(lens):
+        row = bt[b].tolist()
+        if n == 1 or b in retired:
+            assert row == [0] * npag
+            continue
+        live = -(-n // ps)
+        assert all(0 < p < P for p in row[:live]) and \
+            row[live:] == [0] * (npag - live)
+        assert row[:shared] == bt[0, :shared].tolist()
+        owned += row[shared:live]
+    assert len(owned) == len(set(owned))
+    assert not set(owned) & set(bt[0, :shared].tolist())

@@ -129,15 +129,23 @@ def test_static_engine_matches_continuous_tokens(jax_runs):
 
 
 def test_paged_engine_refuses_unported_options():
+    """The prefix cache and fault plans are ported: the paged engine takes
+    both. What it still refuses is the disaggregated engine's worker
+    layouts that the reference refuses too."""
     kw = dict(prompt_len=PROMPT, max_new_tokens=BUDGET, reduce_kw=REDUCE,
               device="cpu", scheduler="paged", batch=2)
     eng, _ = build_engine("granite-3-8b", **kw)
-    from repro_torch.serving import PagedEngine
-    for bad in (dict(prefix_cache=True), dict(fault_plan=object())):
-        with pytest.raises(ValueError, match="not ported yet"):
-            PagedEngine(eng._prefill_fn, eng._decode_fn, eng.params,
-                        eng.cache_init, slots=2, cache_span=SPAN,
-                        device="cpu", **bad)
+    from repro_torch.serving import DisaggregatedEngine, FaultPlan, PagedEngine
+    args = (eng._prefill_fn, eng._decode_fn, eng.params, eng.cache_init)
+    plan = FaultPlan.default(0)
+    got = PagedEngine(*args, slots=2, cache_span=SPAN, device="cpu",
+                      prefix_cache=True, fault_plan=plan)
+    assert got.prefix_cache and got.fault_plan is plan
+    for bad in (dict(decode_workers=0), dict(prefill_workers=0),
+                dict(decode_workers=3)):
+        with pytest.raises(ValueError, match="worker"):
+            DisaggregatedEngine(*args, slots=2, cache_span=SPAN,
+                                device="cpu", **bad)
 
 
 def test_profile_run_summarises_a_run():
