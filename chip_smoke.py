@@ -25,8 +25,14 @@ Phases, one JSON line each:
    engines give them, ``SERVING_K1`` and ``SERVING_K2``: 8-token prefills
    of 1 and 4 prompts, and 8, 2 and 1 decode lanes at page sizes 4, 8
    and 16 over the engines' pools and tables, up to 88 tokens, with
-   shared, never-admitted and retired rows; K3 also at a decode step's 4
-   rows and a training microbatch's 4096): in f32 the max abs
+   shared, never-admitted and retired rows; K1 and K2 also at every shape
+   phase 10 gives them, ``FAMILY_K1`` and ``FAMILY_K2``: whisper's
+   bidirectional encoder (B1 and B4 S1500 Hq20 D64), its decoder prompt
+   and cross attention (Sq4 and Sq128 against Sk1500, and a ragged
+   Sk1499), qwen2-vl's and arctic's prefills (Hq64 and Hq56, Hkv8 D128,
+   S128 and S125) and paged decode at phase 3's table; K3 also at a
+   decode step's 4 rows and a training microbatch's 4096): in f32 the
+   max abs
    error
    (tolerance 5e-4); in bf16 the error against the plain version computed
    in f32 from the same bf16 inputs, in units of bf16 rounding at each
@@ -46,7 +52,9 @@ Phases, one JSON line each:
    require grad through ``ops.flash_attention``, then
    ``torch.autograd.grad``; one launch of each) against their plain
    versions on the same inputs at the training shape (B1 S4096 Hq32 Hkv8
-   D128 causal) and a ragged length (S4000), in f32 and bf16: max abs
+   D128 causal) and a ragged length (S4000), and at whisper's (B1 S1500
+   Hq20 Hkv20 D64, non-causal as its encoder and cross attention run
+   them, and causal as its decoder does), in f32 and bf16: max abs
    error and that error over the plain result's max magnitude (tolerance
    5e-4 f32, 2e-2 bf16, on the relative error), times and bounds as in
    phase 2, in f32 also the 3xTF32 bound; library: ATen's attention forward with logsumexp beside B2
@@ -72,8 +80,8 @@ Phases, one JSON line each:
 4. parity: per-request greedy tokens of the two engines are identical;
    full-width prefill logits through the kernels agree with the plain
    attention path;
-5. profile: each engine serves the same workload again under
-   ``torch.profiler`` (``repro_torch.core.profile``): launches per
+5. profile: each engine serves the workload's first four requests again
+   under ``torch.profiler`` (``repro_torch.core.profile``): launches per
    forward pass, the device's busy share, device time by kernel group,
    copies and synchronisations;
 3b/3c. serving at full width and full depth: rwkv6-3b (32 layers,
@@ -137,13 +145,15 @@ Phases, one JSON line each:
 8. bench: the port's harness (``repro_torch.bench``) through its own API
    on the card, every launch count set to 0 before it: the structural
    suites (``allocation/*``, ``load_balance/{layers,hidden}``) with the
-   H100's constants, ``efficiency/measured`` (granite-3-8b at full width,
-   1, 2, 4 and 8 layers, 1 x 4096 tokens, f32, loss forward and backward
-   through B2, B3, B4 and K3) and ``roofline/measured`` (the 8-layer step
-   counted, its B2-B4 and K3 work held to their launches times the
-   per-call work), one line of their records; then the Tier-1 report
-   (``Tier1Report.to_dict()``) of each training phase (6, 6b, 6c): its
-   sections, the roofline of its counted step and its measured step
+   H100's constants, ``load_balance/moe`` (the experts' LI of a reduced
+   arctic block's routed forward), ``efficiency/measured`` (granite-3-8b
+   at full width, 1, 2, 4 and 8 layers, 1 x 4096 tokens, f32, loss
+   forward and backward through B2, B3, B4 and K3) and
+   ``roofline/measured`` (the 8-layer step counted, its B2-B4 and K3
+   work held to their launches times the per-call work), one line of
+   their records; then the Tier-1 report (``Tier1Report.to_dict()``) of
+   each training phase (6, 6b, 6c, 10a): its sections, the roofline of
+   its counted step and its measured step
    seconds. Fails when a scenario raises or gives no record, when any
    ``mfu`` or ``mfu_measured`` exceeds 1.05, or when a training step's
    ``useful_flops_ratio`` exceeds 1.05 (granite's also at or below 0.5);
@@ -163,11 +173,41 @@ Phases, one JSON line each:
    token-identical to the fault-free run; the disaggregated engine
    token-identical to the interleaved one, one handoff per request that
    reached decode, a lower decode-step p95 stall;
+10a. (phases 10a-10d run after 6d, before 8) whisper-large-v3 at full
+   width and depth (32 encoder and 32 decoder layers, f32, seeded random
+   weights): 4 requests of 1500 audio frames
+   (the audio stub's embeddings) with 4-token decoder prompts and 64
+   greedy tokens through ``serve_loop.generate``, on the kernels (K1: the
+   encoder's and the cross attention's non-causal launches, the decoder
+   prompt's causal ones) and on the plain path from the same parameters:
+   greedy tokens identical per request, prefill logits within 1e-3; then
+   training as phase 6 (``TRAIN["10a"]``): ``SyntheticLM(batch=2,
+   seq=1500)`` in 2 microbatches with remat and AdamW, B2-B4 three times a
+   layer pair (encoder self, decoder self, cross), 6a's leaves and the
+   plain path's own trajectory, and beside them the plain path against
+   itself with q moved by one ulp in every attention (what 64 layers make
+   of one rounding);
+10b. qwen2-vl-72b at full width cut to 8 of 80 layers: phase 3's request
+   mix through the continuous and the paged engine on the kernels and
+   the continuous engine on the plain path, greedy tokens identical
+   across the three; and one prefill of vision-stub embeddings on a
+   (t, h, w) = (2, 8, 8) position grid, so M-RoPE's three streams differ,
+   against the plain path (logits within 1e-3);
+10c. arctic-480b at full width cut to 1 of 35 layers (128 experts top-2,
+   expert ff 4864, a dense residual MLP of 4864): as 10b's serving, and
+   the experts' load summed over the kernel runs with its LI
+   (``core/metrics.expert_load_imbalance``); a token that differs is
+   reported with its logits' and its router's top-k margins;
+10d. reduced arctic-480b and qwen2-vl-72b trained on the card and on the
+   CPU as 6d;
 7. the ``kernels`` summary line, with the launch counts of the serving
-   (phases 3, 3b, 3c, 9), training (phases 6, 6b, 6c, 6d) and bench
-   (phase 8) runs; fails unless phase 8's steps launched B2, B3, B4 and
-   K3 and each scenario of phase 9 launched K3, K2 if it decodes from
-   pages and K1 if it prefills in one shot (``SERVING_SCENARIOS``).
+   (phases 3, 3b, 3c, 9, 10a-c), training (phases 6, 6b, 6c, 6d, 10a,
+   10d) and bench (phase 8) runs; fails unless phase 8's steps launched
+   B2, B3, B4 and K3, each scenario of phase 9 launched K3, K2 if it
+   decodes from pages and K1 if it prefills in one shot
+   (``SERVING_SCENARIOS``), whisper's prefill launched K1 three times a
+   decoder layer and its training B2-B4 likewise, and 10b's and 10c's
+   engines launched K1, K2 and K3.
 
 Any failure raises and exits non-zero. Without a CUDA device, or outside a
 checkout, it exits non-zero before printing any result. The last line of
@@ -203,8 +243,9 @@ LOGIT_TOL = 1e-3    # kernels vs plain path, over the logits' max magnitude
 LOGIT_CEILING = {"rwkv6-3b": 0.1, "hymba-1.5b": LOGIT_TOL}
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 3, 2, 4096
 REDUCED_TRAIN_SEQ = 128   # phase 6d: past the reduced window of 64
-# Training phases: the arch; a cut of its depth (0: all of it; 6d: the
-# reduced config's); why the depth was cut; how the run is held:
+# Training phases: the arch; a cut of its depth (0: all of it; 6d, 10d: the
+# reduced config's); its sequence length (TRAIN_SEQ unless "seq"); why the
+# depth was cut; how the run is held:
 # "free" - two free-running trajectories, the kernels' and the plain
 #   path's, per-step loss and grad_norm within TRAIN_TOL, and every leaf's
 #   step-0 gradient within GRAD_TOL (6a);
@@ -236,23 +277,37 @@ TRAIN = {
                      held=("loss",), cut=None),
     "6d-hymba": dict(arch="hymba-1.5b", layers=2, gate="forced",
                      held=("loss", "grad_norm"), cut=None),
+    "10a": dict(arch="whisper-large-v3", layers=0, seq=1500, gate="free",
+                held=("loss", "grad_norm"), cut=None, one_ulp=True),
+    "10d-arctic": dict(arch="arctic-480b", layers=2, gate="forced",
+                       held=("loss", "grad_norm"), cut=None),
+    "10d-qwen2-vl": dict(arch="qwen2-vl-72b", layers=2, gate="forced",
+                         held=("loss", "grad_norm"), cut=None),
 }
 TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-5}   # relative, kernel vs plain
 GRAD_TOL = 1e-4   # per leaf, |g_kernel - g_plain| / |g_plain| (L2 norms)
+# leaves whose gradient is zero in exact arithmetic where keys are not
+# rotated: a key bias adds q . bk to every score of a query's row, which the
+# softmax ignores. Both paths
+# give rounding noise there, which no relative gate can hold (whisper's
+# kernel and plain bk gradients differ by up to 28x, and the plain path's
+# by 1.6x from itself with q one ulp up; PERF.md, Findings, PR 20), so
+# these are held absolutely: norm over the global gradient norm
+ZERO_GRAD_LEAVES = (".bk",)
 TOL = {"float32": 5e-4, "bfloat16": 2e-2}
 # phase 8: the harness's scenarios it runs, efficiency/measured's depths,
 # the kernels its training steps must launch, and its gates
 BENCH_SCENARIOS = ("allocation/layers", "allocation/hidden",
                    "allocation/archs", "load_balance/layers",
-                   "load_balance/hidden", "efficiency/measured",
-                   "roofline/measured")
+                   "load_balance/hidden", "load_balance/moe",
+                   "efficiency/measured", "roofline/measured")
 BENCH_LAYERS = (1, 2, 4, 8)
 BENCH_KERNELS = ("flash_attention_lse", "flash_attention_dq",
                  "flash_attention_dkv", "rmsnorm")
 MFU_CEILING = 1.05      # no card gives more than its peak
 USEFUL_CEILING = 1.05   # above it, the counter missed work the model does
 GRANITE_USEFUL_FLOOR = 0.5
-TIER1_ARCHS = ("granite-3-8b", "hymba-1.5b", "rwkv6-3b")
+TIER1_ARCHS = ("granite-3-8b", "hymba-1.5b", "rwkv6-3b", "whisper-large-v3")
 SYSTEM_LEN = 16   # the prefix cache's shared system prompt (phases 2, 9)
 # phase 9: the serving suite's scenarios, in the suite's order, and the
 # kernels each must launch: K1 in every continuous or static prefill, K2 in
@@ -290,6 +345,43 @@ SERVING_K2 = (
     (2, 4, 7, 15, (28, 17), 0, (1,)),                       # pd interleaved
     (1, 4, 7, 15, (27,), 0, ()),                            # pd disagg
 )
+# phase 2 holds K1 and K2 at the shapes phase 10 gives them. K1: (batch,
+# Sq, Sk, Hq, Hkv, D, causal) of whisper's served prefill (B4: encoder,
+# decoder prompt, cross attention), a training microbatch's encoder (B1),
+# a 128-token prompt's cross attention and a ragged key length; then
+# qwen2-vl's and arctic's one-prompt prefills of phase 3's mix (the
+# vision-stub prefill of 10b is the S128 line). K2: (Hq, Hkv) of qwen2-vl
+# and arctic at phase 3's paged table (B4 ctx160 ps16 table 10)
+FAMILY_K1 = (
+    (4, 1500, 1500, 20, 20, 64, False), (4, 4, 4, 20, 20, 64, True),
+    (4, 4, 1500, 20, 20, 64, False), (1, 1500, 1500, 20, 20, 64, False),
+    (1, 128, 1500, 20, 20, 64, False), (1, 128, 1499, 20, 20, 64, False),
+    (1, 128, 128, 64, 8, 128, True), (1, 125, 125, 64, 8, 128, True),
+    (1, 128, 128, 56, 8, 128, True), (1, 125, 125, 56, 8, 128, True),
+)
+FAMILY_K2 = ((64, 8), (56, 8))
+# phase 2b's attention shapes: (B, S, Hq, Hkv, D, causal), granite's
+# training microbatch and a ragged length, then whisper's (non-causal:
+# its encoder and cross attention; causal: its decoder)
+TRAIN_ATTN = ((1, TRAIN_SEQ, 32, 8, 128, True), (1, 4000, 32, 8, 128, True),
+              (1, 1500, 20, 20, 64, False), (1, 1500, 20, 20, 64, True))
+# phase 10: whisper's served requests, and the depth qwen2-vl and arctic
+# are cut to (f32 params of 80 and 35 layers exceed one 80 GB card)
+WHISPER = dict(requests=4, frames=1500, prompt=4, new_tokens=64)
+FAMILY_LAYERS = {"qwen2-vl-72b": 8, "arctic-480b": 1}
+MROPE_GRID = (2, 8, 8)     # 10b's vision prefill: (t, h, w) patches
+PAGED_CHUNK = {"qwen2-vl-72b": 64, "arctic-480b": 0}   # 0: one chunk
+# the kernels each of phase 10's paths must launch: K1 in whisper's
+# prefill, B2-B4 in its training, K1 and K3 in the continuous engines' and
+# K2 and K3 in the paged engines' runs of 10b and 10c
+FAMILY_PATHS = {
+    "whisper:serve": ("flash_attention",),
+    "train:10a": ("flash_attention_lse", "flash_attention_dq",
+                  "flash_attention_dkv"),
+    **{f"{a}:{e}": k for a in ("qwen2-vl-72b", "arctic-480b") for e, k in (
+        ("continuous", ("flash_attention", "rmsnorm")),
+        ("paged", ("paged_attention", "rmsnorm")))},
+}
 KERNELS = {
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
@@ -413,16 +505,19 @@ def main() -> int:
     gen_k3 = torch.Generator(device=dev).manual_seed(3)
     gen_share = torch.Generator(device=dev).manual_seed(4)
     gen_serve = torch.Generator(device=dev).manual_seed(5)
+    gen_family = torch.Generator(device=dev).manual_seed(6)
 
     def rand(shape, dtype, hymba=False, stream=0):
         # the lines at hymba-1.5b's shapes (stream 1), K2's wide-table lines
         # (stream 2) and K3's decode and training lines (stream 3) draw from
-        # their own streams, as do K2's shared-table lines (stream 4) and
-        # the K1 and K2 lines at phase 9's shapes (stream 5), so the other
-        # lines keep the inputs they had before those were added
+        # their own streams, as do K2's shared-table lines (stream 4), the
+        # K1 and K2 lines at phase 9's shapes (stream 5) and at phase 10's
+        # and phase 2b's whisper lines (stream 6), so the other lines keep
+        # the inputs they had before those were added
         g = (gen_hymba if hymba or stream == 1 else gen_k2 if stream == 2
              else gen_k3 if stream == 3 else gen_share if stream == 4
-             else gen_serve if stream == 5 else gen)
+             else gen_serve if stream == 5 else gen_family if stream == 6
+             else gen)
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     # the floor under any one-kernel call: a one-element in-place add,
@@ -603,6 +698,7 @@ def main() -> int:
                 "floor_ms": floor_ms,
                 "floor_or_bound_ms": max(floor_ms, b_ms)},
                 main_path=(rows == 128 and d == 4096 and dname == "float32"))
+    _family_kernels(rand, record, gen_family)
     _train_kernels(rand, record)
     _wkv6_kernels(rand, record)
     torch.cuda.empty_cache()
@@ -626,6 +722,12 @@ def main() -> int:
         torch.cuda.empty_cache()
     for phase in ("6d-rwkv6", "6d-hymba"):   # reduced, card against CPU
         launches[f"train:{phase}"] = _train_on_cpu_too(dev, phase)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ 10 families
+    family_launches, tier1["10a"] = _families(dev)
+    launches.update(family_launches)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -664,8 +766,9 @@ def main() -> int:
 def _missing(launches: dict) -> list:
     """The kernels a path of the run never launched, from each path's
     counts (``launches``: path -> kernel -> launches): the serving phases'
-    (3, 3b, 3c), the training phases' (6, 6b), phase 8's (BENCH_KERNELS)
-    and every scenario of phase 9's (SERVING_SCENARIOS)."""
+    (3, 3b, 3c), the training phases' (6, 6b), phase 8's (BENCH_KERNELS),
+    every scenario of phase 9's (SERVING_SCENARIOS) and phase 10's paths
+    (FAMILY_PATHS)."""
     need = {"flash_attention": launches["continuous"]["flash_attention"],
             "paged_attention": launches["paged"]["paged_attention"],
             **{k: min(launches[e][k] for e in ("train:6", "train:6b"))
@@ -680,7 +783,9 @@ def _missing(launches: dict) -> list:
         f"{k} in phase 8" for k in BENCH_KERNELS
         if launches["bench"][k] <= 0] + [
         f"{k} in {scen}" for scen, kernels in SERVING_SCENARIOS.items()
-        for k in kernels if launches[f"serving:{scen}"][k] <= 0]
+        for k in kernels if launches[f"serving:{scen}"][k] <= 0] + [
+        f"{k} in {path}" for path, kernels in FAMILY_PATHS.items()
+        for k in kernels if launches[path][k] <= 0]
 
 
 def _serve(dev) -> dict:
@@ -776,9 +881,12 @@ def _serve(dev) -> dict:
         raise AssertionError(f"full-width prefill check failed: {parity}")
 
     # ----------------------------------------------------------- 5 profile
+    # the first four requests, as phases 3b and 3c profile: reading the
+    # whole mix's trace took 166 s of 885 on the H100 (PERF.md, PR 20)
     from repro_torch.core.profile import profile_run
     for name, eng in engines.items():
-        emit({"phase": "profile", **profile_run(eng, reqs)})
+        emit({"phase": "profile", "requests": 4,
+              **profile_run(eng, reqs[:4])})
     return launches
 
 
@@ -797,6 +905,320 @@ def _request_mix(cfg, long_len: int = 0) -> list:
             r.rid += 100 * g
         reqs += more
     return reqs
+
+
+def _families(dev) -> tuple:
+    """Phases 10a-10d: whisper-large-v3 served and trained, qwen2-vl-72b
+    and arctic-480b served, both reduced trained on the card and the CPU.
+    Each phase frees its model before the next. Returns (launch counts
+    per path, 10a's Tier-1 report)."""
+    import torch
+    launches = _serve_whisper(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["train:10a"], tier1 = _train(dev, "10a")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in FAMILY_LAYERS:                      # 10b, 10c
+        launches.update(_serve_family(dev, arch))
+        gc.collect()
+        torch.cuda.empty_cache()
+    for phase in ("10d-arctic", "10d-qwen2-vl"):
+        launches[f"train:{phase}"] = _train_on_cpu_too(dev, phase)
+    return launches, tier1
+
+
+def _weights_line(arch: str, cfg, params, t0: float) -> None:
+    from repro_torch._tree import tree_leaves
+    leaves = tree_leaves(params)
+    emit({"phase": "weights", "arch": arch, "layers": cfg.num_layers,
+          "encoder_layers": cfg.encoder_layers,
+          "params": sum(t.numel() for t in leaves), "dtype": "float32",
+          "bytes": sum(t.numel() * t.element_size() for t in leaves),
+          "init_s": time.perf_counter() - t0})
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak(dev) -> int:
+    import torch
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def _serve_whisper(dev, use_reduced: bool = False) -> dict:
+    """Phase 10a's serving: whisper-large-v3 at full width and depth
+    (``use_reduced``: the reference's reduced config, for tests on the
+    CPU), WHISPER's requests of audio frames and decoder prompts through
+    ``serve_loop.generate`` on the kernels and on the plain path from the
+    same seeded params: greedy tokens identical per request, the prefill
+    logits within LOGIT_TOL, K1 once per attention of the one prefill
+    (the encoder's and the cross attention's non-causal), nothing else
+    launched. Returns the kernel run's counts as ``whisper:serve``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.pipeline import synth_requests
+    from repro_torch.kernels import ops
+    from repro_torch.models import Runtime, build
+    from repro_torch.models.frontends import synth_batch
+    from repro_torch.runtime.serve_loop import generate
+
+    arch, w = "whisper-large-v3", WHISPER
+    cfg = get_arch(arch)
+    if use_reduced:
+        cfg = reduced(cfg)
+    models = {b: build(cfg, Runtime(attention_backend=b), device=dev)
+              for b in ("kernel", "dense")}
+    t0 = time.perf_counter()
+    params = models["kernel"].init_params(
+        torch.Generator(device=dev).manual_seed(0))
+    _sync(dev)
+    _weights_line(arch, cfg, params, t0)
+    frames = synth_batch(cfg, w["requests"], w["frames"], seed=0,
+                         kind="prefill", device=dev)["audio_embeds"]
+    prompts = np.stack([r.prompt for r in synth_requests(
+        cfg, w["requests"], w["prompt"])])
+    batch = {"audio_embeds": frames,
+             "tokens": torch.as_tensor(prompts, device=dev)}
+    span = w["prompt"] + w["new_tokens"]
+    toks, counts = {}, {}
+    for backend, m in models.items():
+        generate(m.prefill, m.decode_step, params, batch,
+                 prompt_len=w["prompt"], max_new_tokens=2)      # warm-up
+        _sync(dev)
+        ops.reset_launches()
+        res = generate(m.prefill, m.decode_step, params, batch,
+                       prompt_len=w["prompt"], max_new_tokens=w["new_tokens"])
+        counts[backend] = dict(ops.LAUNCHES)
+        toks[backend] = res.tokens
+        emit({"phase": "serve", "arch": arch, "backend": backend,
+              "via": "serve_loop.generate", "requests": w["requests"],
+              "audio_frames": w["frames"], "prompt_len": w["prompt"],
+              "new_tokens": w["new_tokens"], "prefill_s": res.prefill_s,
+              "decode_s": res.decode_s, "tokens_per_s": res.tokens_per_s,
+              "peak_memory_bytes": _peak(dev), "launches": counts[backend]})
+    mismatch = _first_mismatch(
+        {i: list(t) for i, t in enumerate(toks["kernel"])},
+        {i: list(t) for i, t in enumerate(toks["dense"])})
+    lk, _ = models["kernel"].prefill(params, batch, span)
+    lp, _ = models["dense"].prefill(params, batch, span)
+    err = _err(lk, lp)
+    want = {k: 0 for k in ops.KERNELS}
+    want["flash_attention"] = _attention_calls(cfg)
+    parity = {"phase": "parity", "arch": arch,
+              "requests": w["requests"],
+              "tokens_identical": mismatch is None,
+              "prefill_logits_shape": list(lk.shape),
+              "prefill_logits_finite": bool(torch.isfinite(lk).all()),
+              "kernel_vs_plain_prefill_max_abs_err": err, "tol": LOGIT_TOL,
+              "launches_expected": want}
+    if mismatch is not None:
+        row, step = mismatch
+        one = {"audio_embeds": frames[row:row + 1], "tokens": torch.as_tensor(
+            [list(prompts[row]) + list(toks["dense"][row][:step])],
+            device=dev)}
+        lg, _ = models["dense"].prefill(params, one, span)
+        top2 = torch.topk(lg[0, -1], 2).values
+        parity.update(first_mismatch_request=row, first_mismatch_step=step,
+                      top2_margin=float(top2[0] - top2[1]))
+    emit(parity)
+    on_card = dev.type == "cuda"
+    if (mismatch is not None or not parity["prefill_logits_finite"]
+            or err > LOGIT_TOL or (on_card and counts["kernel"] != want)
+            or any(counts["dense"].values())):
+        raise AssertionError(f"phase 10a serving failed: {parity}, "
+                             f"launches {counts}")
+    return {"whisper:serve": counts["kernel"]}
+
+
+class _expert_load:
+    """Within it, the MoE FFN (``models/moe.py::moe_ffn``) adds each
+    call's ``expert_load`` into ``total`` and keeps its last input and
+    router in ``last`` (for a flipped token's router margins)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_mod
+        self.mod, self.orig = moe_mod, moe_mod.moe_ffn
+        self.total, self.last = None, None
+
+        def counted(p, x, cfg):
+            y, aux = self.orig(p, x, cfg)
+            load = aux["expert_load"]
+            self.total = load if self.total is None else self.total + load
+            self.last = (x.detach(), p["router"])
+            return y, aux
+
+        moe_mod.moe_ffn = counted
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.mod.moe_ffn = self.orig
+
+
+def _router_margins(x, router, k: int) -> dict:
+    """The last token's router probabilities: its top k + 1, and the margin
+    between the k-th (the last routed) and the next."""
+    import torch
+    probs = torch.softmax(x[0, -1].float() @ router, dim=-1)
+    top = torch.topk(probs, k + 1)
+    return {"experts": top.indices.tolist(), "probs": top.values.tolist(),
+            "margin": float(top.values[k - 1] - top.values[k])}
+
+
+def _serve_family(dev, arch: str, use_reduced: bool = False) -> dict:
+    """Phases 10b (qwen2-vl-72b) and 10c (arctic-480b): the arch at full
+    width cut to FAMILY_LAYERS[arch] layers (``use_reduced``: the
+    reference's reduced config, for tests on the CPU), f32, seeded random
+    weights, phase 3's request mix through the continuous and the paged
+    engine (prefill chunks of PAGED_CHUNK[arch] tokens) on the kernels and
+    the continuous engine on the plain path:
+    every request completed, greedy tokens identical across the three,
+    K1 and K3 launched by the continuous engine, K2 and K3 by the paged
+    one. qwen2-vl: one prefill of vision-stub embeddings on a MROPE_GRID
+    position grid against the plain path (LOGIT_TOL). arctic: the
+    experts' load over the kernel runs and its LI. A flipped token is
+    reported with its logits' top-2 margin and its router's top-k margin
+    on both paths. Returns each engine's counts, keyed ``<arch>:<name>``."""
+    import torch
+
+    from repro_torch.core.metrics import expert_load_imbalance
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models import Runtime, build
+
+    prompt_len, budget = 128, 32
+    common = dict(batch=4, prompt_len=prompt_len, max_new_tokens=budget,
+                  use_reduced=use_reduced, device=dev,
+                  num_layers=0 if use_reduced else FAMILY_LAYERS[arch])
+    t0 = time.perf_counter()
+    eng, cfg = build_engine(arch, scheduler="continuous", **common)
+    params = eng.params
+    _sync(dev)
+    _weights_line(arch, cfg, params, t0)
+    common["params"] = params
+    engines = {
+        "continuous": eng,
+        # an MoE's capacity makes a token's output depend on the tokens
+        # routed beside it: arctic's paged engine prefills each prompt in
+        # one chunk, so every engine gives the experts the same batches
+        "paged": build_engine(arch, scheduler="paged", page_size=16,
+                              prefill_chunk_tokens=PAGED_CHUNK[arch],
+                              **common)[0],
+        "plain": build_engine(arch, scheduler="continuous",
+                              attention_backend="dense", **common)[0]}
+    models = {b: build(cfg, Runtime(attention_backend=b), device=dev)
+              for b in ("kernel", "dense")}
+    reqs = _request_mix(cfg)
+    toks, launches, load = {}, {}, None
+    for name, e in engines.items():
+        e.warmup(prompt_len)
+        _sync(dev)
+        ops.reset_launches()
+        with _expert_load() as seen:
+            rep = e.run(reqs)
+        if cfg.moe is not None and name != "plain":
+            load = seen.total if load is None else load + seen.total
+        launches[f"{arch}:{name}"] = n = dict(ops.LAUNCHES)
+        toks[name] = _tokens_of(rep)
+        s = rep.summary()
+        emit({"phase": "serve", "arch": arch, "scheduler": name,
+              "backend": "dense" if name == "plain" else "kernel",
+              "layers": cfg.num_layers, "requests": len(reqs),
+              "lanes": e.slots,
+              **{k: s[k] for k in (
+                  "completed", "total_new_tokens", "makespan_s",
+                  "goodput_tps", "decode_steps", "prefills", "ttft_p50_s",
+                  "tok_p50_s", "tok_p95_s", "peak_concurrency")},
+              "peak_memory_bytes": _peak(dev), "launches": n})
+        if s["completed"] != len(reqs):
+            raise AssertionError(f"{arch} {name}: {s['completed']}/"
+                                 f"{len(reqs)} requests completed")
+    problems = []
+    on_card = dev.type == "cuda"
+    for name, kernels in (("continuous", ("flash_attention", "rmsnorm")),
+                          ("paged", ("paged_attention", "rmsnorm"))):
+        problems += [f"{name} launched no {k}" for k in kernels
+                     if on_card and launches[f"{arch}:{name}"][k] <= 0]
+    line = {"phase": "engines_agree", "arch": arch,
+            "engines": list(engines)}
+    for other in ("paged", "plain"):
+        mismatch = _first_mismatch(toks["continuous"], toks[other])
+        line[f"continuous_vs_{other}_identical"] = mismatch is None
+        if mismatch is None:
+            continue
+        rid, step = mismatch
+        req = next(r for r in reqs if r.rid == rid)
+        prefix = {"tokens": torch.as_tensor(
+            [list(req.prompt) + toks["continuous"][rid][:step]],
+            dtype=torch.int32, device=dev)}
+        margins = {}
+        for name, m in models.items():
+            with _expert_load() as seen:
+                lg, _ = m.prefill(params, prefix, prefix["tokens"].shape[1])
+            top2 = torch.topk(lg[0, -1], 2).values
+            margins[name] = {"top2_logit_margin": float(top2[0] - top2[1])}
+            if seen.last is not None:
+                margins[name]["router"] = _router_margins(
+                    *seen.last, cfg.moe.top_k)
+        line[f"first_mismatch_{other}"] = {"rid": rid, "step": step,
+                                           "margins": margins}
+        problems.append(f"greedy tokens differ, continuous vs {other}")
+    if load is not None:
+        total = load.cpu().numpy()
+        line.update(expert_load=total.tolist(),
+                    expert_load_LI=float(expert_load_imbalance(total)))
+    emit(line)
+    if arch == "qwen2-vl-72b":
+        problems += _vision_prefill(dev, models, params, prompt_len + budget)
+    if problems:
+        raise AssertionError(f"phase 10 {arch} failed: {problems}")
+    return launches
+
+
+def _vision_prefill(dev, models, params, span: int) -> list:
+    """One prefill of vision-stub embeddings (seeded, N(0, 0.02^2), bf16
+    as the stub makes them) at M-RoPE positions of a MROPE_GRID (t, h, w)
+    patch grid, through the kernels and the plain path: logits within
+    LOGIT_TOL. Returns its problems."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.frontends import synth_batch
+
+    cfg = models["kernel"].cfg
+    t, h, w = MROPE_GRID
+    grid = np.stack([g.ravel() for g in np.meshgrid(
+        np.arange(t), np.arange(h), np.arange(w), indexing="ij")])
+    embeds = synth_batch(cfg, 1, grid.shape[1], seed=1, kind="prefill",
+                         device=dev)["embeds"]
+    batch = {"embeds": embeds,
+             "positions": torch.as_tensor(grid[None], dtype=torch.int32,
+                                          device=dev)}
+    ops.reset_launches()
+    lk, _ = models["kernel"].prefill(params, batch, span)
+    n = dict(ops.LAUNCHES)
+    lp, _ = models["dense"].prefill(params, batch, span)
+    err = _err(lk, lp)
+    line = {"phase": "vision_prefill", "arch": cfg.name,
+            "grid_thw": list(MROPE_GRID), "patches": grid.shape[1],
+            "streams_differ": bool((grid[0] != grid[1]).any()
+                                   and (grid[1] != grid[2]).any()),
+            "logits_finite": bool(torch.isfinite(lk).all()),
+            "kernel_vs_plain_max_abs_err": err, "tol": LOGIT_TOL,
+            "launches": n}
+    emit(line)
+    want_k1 = cfg.num_layers if dev.type == "cuda" else 0
+    if (not line["logits_finite"] or err > LOGIT_TOL
+            or n["flash_attention"] != want_k1):
+        return [f"vision prefill: {line}"]
+    return []
 
 
 def _shared_tables(draw, ps: int, cow: bool, dev) -> tuple:
@@ -1066,11 +1488,83 @@ def _layer_errors(model, plain, params, prompt) -> list:
     errs = []
     for i in range(cfg.num_layers):
         p = layer_at(params["layers"], i)
-        yk, _ = tfm.layer_apply(p, x, cfg, model.rt, positions)
-        yp, _ = tfm.layer_apply(p, x, cfg, plain.rt, positions)
+        yk = tfm.layer_apply(p, x, cfg, model.rt, positions)[0]
+        yp = tfm.layer_apply(p, x, cfg, plain.rt, positions)[0]
         errs.append(_err(yk, yp) / float((yp - x).abs().max()))
         x = yp
     return errs
+
+
+def _family_kernels(rand, record, gen) -> None:
+    """Phase 2's lines at phase 10's shapes, in f32 and bf16, from their own
+    stream (6; ``gen`` draws its block tables): K1 at FAMILY_K1 (whisper's
+    bidirectional encoder, its cross attention at Sq != Sk, its decoder
+    prompt, qwen2-vl's and arctic's prefills) against the plain version,
+    library SDPA with the same mask; K2 at FAMILY_K2's heads on phase 3's
+    paged table."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref, work
+
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        # K1 at phase 10's shapes (their own stream): whisper's
+        # bidirectional encoder and cross attention (Sq != Sk), its decoder
+        # prompt, and qwen2-vl's and arctic's prefills
+        for B, Sq, Sk, Hq, Hkv, D, causal in FAMILY_K1:
+            kw = dict(causal=causal, window=0)
+            q = rand((B, Sq, Hq, D), dtype, stream=6)
+            k, v = (rand((B, Sk, Hkv, D), dtype, stream=6) for _ in "kv")
+            out = ops.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                           **kw)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            flops, nbytes = work.flash_forward(q, k, **kw)
+            b_ms, b_by = bound(flops, nbytes, dname)
+            b_ms3 = ({"bound_3xtf32_ms": bound_3xtf32(flops, nbytes)}
+                     if dname == "float32" else {})
+            record({
+                "phase": "kernel", "kernel": "flash_attention",
+                "shape": f"B{B} Sq{Sq} Sk{Sk} Hq{Hq} Hkv{Hkv} D{D} "
+                         + ("causal" if causal else "non-causal"),
+                "dtype": dname, **_held(out, want, dname),
+                **_times(lambda: ops.flash_attention(q, k, v, **kw),
+                         lambda: ref.flash_attention_ref(q, k, v, **kw),
+                         lambda: F.scaled_dot_product_attention(
+                             qt, kt, vt, is_causal=causal,
+                             enable_gqa=True)),
+                "library": f"scaled_dot_product_attention(is_causal="
+                           f"{causal}, enable_gqa=True)",
+                "bound_ms": b_ms, "bound_by": b_by, **b_ms3},
+                main_path=False)
+            del q, k, v, out, want, qt, kt, vt
+        # K2 at qwen2-vl's and arctic's heads on phase 3's paged table
+        # (their own stream): 4 rows of 160 tokens, 16-token pages
+        for Hq, Hkv in FAMILY_K2:
+            B, ctx, npag, D, ps = 4, 160, 10, 128, 16
+            P = B * npag + 1
+            q = rand((B, 1, Hq, D), dtype, stream=6)
+            kp, vp = (rand((P, ps, Hkv, D), dtype, stream=6) for _ in "kv")
+            perm = torch.randperm(P - 1, generator=gen,
+                                  device=gen.device) + 1
+            bt = perm.reshape(B, npag).to(torch.int32).contiguous()
+            lens = torch.tensor([ctx, ctx - 1, ctx - 5, ctx - 15],
+                                dtype=torch.int32, device=gen.device)
+            out = ops.paged_attention(q, kp, vp, bt, lens)
+            want = ref.paged_decode_attention_ref(q.float(), kp.float(),
+                                                  vp.float(), bt, lens)
+            b_ms, b_by = bound(*work.paged_decode(q, kp, lens, ps), dname)
+            record({
+                "phase": "kernel", "kernel": "paged_attention",
+                "shape": f"B{B} ctx{ctx} ps{ps} Hq{Hq} Hkv{Hkv} D{D}",
+                "dtype": dname, **_held(out, want, dname),
+                **_times(lambda: ops.paged_attention(q, kp, vp, bt, lens),
+                         lambda: ref.paged_decode_attention_ref(
+                             q, kp, vp, bt, lens),
+                         None),
+                "library": "none: no single PyTorch call",
+                "bound_ms": b_ms, "bound_by": b_by}, main_path=False)
 
 
 def _wkv6_kernels(rand, record) -> None:
@@ -1152,12 +1646,13 @@ def _train_kernels(rand, record) -> None:
     it saves for the backward) and ``torch.autograd.grad`` of its output
     (B3 and B4, on the delta of the kernel's own o), each launched exactly
     once. o, lse, dq, dk and dv are held against the plain versions on the
-    same inputs. Times are of the launchers alone, B3 and B4 reading the
-    plain forward's lse and delta = rowsum(dO * O). Bounds count the
-    causal (q, k) pairs these inputs need, S (S + 1) / 2 per head: 2, 3
-    and 4 products of D multiply-adds each (QK^T and PV; + dO V^T and
-    ds K; + p^T dO and ds^T q), and every input read and output written
-    once (``kernels/work.py``)."""
+    same inputs, at each shape of ``TRAIN_ATTN``. Times are of the
+    launchers alone, B3 and B4 reading the plain forward's lse and delta
+    = rowsum(dO * O). Bounds count the (q, k) pairs these inputs need, S
+    (S + 1) / 2 per head causal and S^2 non-causal: 2, 3 and 4 products
+    of D multiply-adds each (QK^T and PV; + dO V^T and ds K; + p^T dO and
+    ds^T q), and every input read and output written once
+    (``kernels/work.py``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1166,13 +1661,17 @@ def _train_kernels(rand, record) -> None:
         flash_attention_dkv_cuda, flash_attention_dq_cuda,
         flash_attention_lse_cuda)
 
-    B, Hq, Hkv, D = 1, 32, 8, 128
-    kw = dict(causal=True, window=0)
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
-        for S in (TRAIN_SEQ, 4000):
-            q, do = rand((B, S, Hq, D), dtype), rand((B, S, Hq, D), dtype)
-            k, v = rand((B, S, Hkv, D), dtype), rand((B, S, Hkv, D), dtype)
+        for B, S, Hq, Hkv, D, causal in TRAIN_ATTN:
+            kw = dict(causal=causal, window=0)
+            # whisper's lines from their own stream (6): the others keep
+            # their inputs
+            stream = 6 if D == 64 else 0
+            q, do = (rand((B, S, Hq, D), dtype, stream=stream)
+                     for _ in "qo")
+            k, v = (rand((B, S, Hkv, D), dtype, stream=stream)
+                    for _ in "kv")
             # the wrapper, differentiated as the training step does
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
             before = dict(ops.LAUNCHES)
@@ -1207,8 +1706,10 @@ def _train_kernels(rand, record) -> None:
                     lambda: ref.flash_attention_dkv_ref(*args, **kw),
                     *work.flash_dkv(q, k, **kw)),
             }
-            shape = f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} causal"
-            lib_fwd, lib_bwd, lib_name = _attention_library(q, k, v, do)
+            shape = (f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} "
+                     + ("causal" if causal else "non-causal"))
+            lib_fwd, lib_bwd, lib_name = _attention_library(q, k, v, do,
+                                                            causal)
             library = {"flash_attention_lse": (lib_fwd, lib_name[0]),
                        "flash_attention_dq": (lib_bwd, lib_name[1]),
                        "flash_attention_dkv": (lib_bwd, lib_name[1])}
@@ -1244,21 +1745,23 @@ def _train_kernels(rand, record) -> None:
             dot = do.transpose(1, 2).contiguous()
 
             def sdpa_fwd_bwd():
-                o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                o = F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=causal,
                                                    enable_gqa=True)
                 torch.autograd.grad(o, (qt, kt, vt), dot)
 
             emit({"phase": "train_kernel_group", "shape": shape,
                   "dtype": dname, "b2_b3_b4_ms": group_ms,
                   "sdpa_fwd_bwd_ms": _eager_ms(sdpa_fwd_bwd),
-                  "library": "scaled_dot_product_attention(enable_gqa=True) "
-                             "forward + backward, eager"})
+                  "library": f"scaled_dot_product_attention(is_causal="
+                             f"{causal}, enable_gqa=True) forward + "
+                             "backward, eager"})
             del q, k, v, do, o_ref, lse_ref, delta, args, cases, qt, kt, vt
             del library, lib_fwd, lib_bwd
             torch.cuda.empty_cache()
 
 
-def _attention_library(q, k, v, do) -> tuple:
+def _attention_library(q, k, v, do, causal: bool = True) -> tuple:
     """PyTorch's own calls for B2's function and for B3 + B4's together
     on the same inputs, K and V expanded to the q heads and all four
     moved to (B, H, S, D) outside the timed calls: (forward fn, backward
@@ -1275,13 +1778,13 @@ def _attention_library(q, k, v, do) -> tuple:
     if q.dtype == torch.float32:
         def fwd():
             return aten._scaled_dot_product_efficient_attention(
-                qt, kt, vt, None, True, 0.0, True)
+                qt, kt, vt, None, True, 0.0, causal)
         o, lse, seed, offset = fwd()
 
         def bwd():
             return aten._scaled_dot_product_efficient_attention_backward(
                 dot, qt, kt, vt, None, o, lse, seed, offset, 0.0,
-                [True, True, True, False], True)
+                [True, True, True, False], causal)
         names = ("aten._scaled_dot_product_efficient_attention("
                  "compute_log_sumexp=True), K/V expanded to Hq",
                  "aten._scaled_dot_product_efficient_attention_backward: "
@@ -1289,13 +1792,13 @@ def _attention_library(q, k, v, do) -> tuple:
     else:
         def fwd():
             return aten._scaled_dot_product_flash_attention(
-                qt, kt, vt, 0.0, True)
+                qt, kt, vt, 0.0, causal)
         r = fwd()
 
         def bwd():
             return aten._scaled_dot_product_flash_attention_backward(
                 dot, qt, kt, vt, r[0], r[1], r[2], r[3], r[4], r[5], 0.0,
-                True, r[6], r[7])
+                causal, r[6], r[7])
         names = ("aten._scaled_dot_product_flash_attention, K/V expanded "
                  "to Hq",
                  "aten._scaled_dot_product_flash_attention_backward: dq, dk "
@@ -1306,14 +1809,15 @@ def _attention_library(q, k, v, do) -> tuple:
 def _train_config(phase: str, backend: str):
     """The RunConfig of training phase ``phase`` (``TRAIN``): its arch at
     full width, cut to its depth, f32, on the attention ``backend``;
-    2 x 4096 tokens in 2 microbatches with remat, lr 1e-3, 2 warmup steps.
-    Phase 6d's reduced configs keep the reference's reduced widths, its
-    64-token window and chunks of 16, at 2 x 128 tokens."""
+    2 x 4096 tokens (whisper: 2 x 1500) in 2 microbatches with remat, lr
+    1e-3, 2 warmup steps. Phases 6d's and 10d's reduced configs keep the
+    reference's reduced widths (hymba's 64-token window and chunks of 16),
+    at 2 x 128 tokens."""
     from repro_torch.configs import RunConfig, ShapeConfig, get_arch, reduced
     spec = TRAIN[phase]
     cfg = get_arch(spec["arch"])
-    seq = TRAIN_SEQ
-    if phase.startswith("6d"):
+    seq = spec.get("seq", TRAIN_SEQ)
+    if phase.startswith(("6d", "10d")):
         cfg, seq = reduced(cfg, layers=spec["layers"]), REDUCED_TRAIN_SEQ
     elif spec["layers"]:
         cfg = dataclasses.replace(cfg, num_layers=spec["layers"])
@@ -1342,7 +1846,8 @@ def _reference_metrics(rcfg, device, keep_grads: bool = False):
     def metrics(params, batch):
         p = tree_map(lambda t: t.detach().to(device), params)
         b = {k: v.to(device) for k, v in batch.items()}
-        grads, loss = accumulate_grads(model, p, b, rcfg.microbatches, acc_dt)
+        grads, loss, _ = accumulate_grads(model, p, b, rcfg.microbatches,
+                                          acc_dt)
         out = {"loss": float(loss), "grad_norm": float(global_norm(grads))}
         if keep_grads:
             out["grads"] = {n: t.cpu() for n, t in _named_leaves(grads)}
@@ -1432,24 +1937,30 @@ def _train(dev, phase: str) -> dict:
     and batches), 6b (hymba-1.5b, all 32 layers, "forced": 6a's per-leaf
     gradients reported, each layer's gradients gated, TRAIN_STEPS steps
     on the kernels each held to the plain path's step from the same
-    params) and 6c (rwkv6-3b, 8 layers, "none": no port kernel runs on its
+    params), 6c (rwkv6-3b, 8 layers, "none": no port kernel runs on its
     path, LayerNorm and the plain chunked ssm form that training pins, so
     TRAIN_STEPS clean steps with finite metrics and every kernel's count
-    at 0). Where kernels run: B3 and B4 at one launch per layer and
-    microbatch, B2 and K3 in every step, B6 in none; one more kernel step
+    at 0) and 10a (whisper-large-v3, 32 + 32 layers, "free", as 6, with the
+    one-ulp comparison beside 6a's). Where kernels run: B3 and B4 at one
+    launch per attention (``_attention_calls``) and microbatch, B2 in
+    every step, K3 too where the model's norm is RMSNorm, B6 in none; one
+    more kernel step
     under the profiler, and one more under the cost counter for the
-    phase's Tier-1 report (``_tier1_report``). Returns the kernel run's
-    launch counts and that report."""
+    phase's Tier-1 report (``_tier1_report``), its counted kernel calls
+    held to its launches. Returns the kernel run's launch counts and that
+    report."""
     import torch
 
     from repro_torch.configs import get_arch
     from repro_torch.core.cost import count_cost
     from repro_torch.core.profile import profile_device
+    from repro_torch.kernels import ops
 
     spec = TRAIN[phase]
     arch, gate = spec["arch"], spec["gate"]
     if gate != "none":
-        _train_grads(dev, phase, gated=gate == "free")    # 6a
+        _train_grads(dev, phase, gated=gate == "free",    # 6a
+                     one_ulp=spec.get("one_ulp", False))
     if gate == "forced":
         _layer_grads(dev, phase)
     reference = (_reference_metrics(_train_config(phase, "dense"), dev)
@@ -1466,10 +1977,18 @@ def _train(dev, phase: str) -> dict:
             emit({"phase": "train_profile", "train_phase": phase,
                   "arch": arch, "backend": backend, "step": TRAIN_STEPS,
                   **prof})
-            # and one more, counted: the roofline of phase 8's report
+            # and one more, counted: the roofline of phase 8's report; each
+            # kernel's counted calls equal its launches in that step
+            ops.reset_launches()
             cost = count_cost(lambda: run["step"](
                 run["params"], run["opt_state"],
                 run["data"].batch_at(TRAIN_STEPS + 1)))[1]
+            counted = {k: int(cost.kernels.get(k, {}).get("calls", 0))
+                       for k in ops.KERNELS}
+            if counted != ops.LAUNCHES:
+                raise AssertionError(f"{arch}: counted kernel calls "
+                                     f"{counted} differ from launches "
+                                     f"{ops.LAUNCHES}")
             tier1 = _tier1_report(phase, rcfg, run["res"].metrics, prof,
                                   cost)
         res = run["res"]
@@ -1519,14 +2038,14 @@ def _train(dev, phase: str) -> dict:
     else:
         _check_trajectories(phase, km, refs, "forced: the plain path's step "
                             "from the kernel run's params, no update")
+    rcfg = _train_config(phase, "kernel")
     need = ("flash_attention_lse", "flash_attention_dq", "flash_attention_dkv",
-            "rmsnorm")
+            *(("rmsnorm",) if rcfg.model.norm == "rmsnorm" else ()))
     short = [(i, k) for i, c in enumerate(per_step) for k in need if c[k] < 1]
     if short:
         raise AssertionError(f"{arch} training steps launched no {short}")
-    # B3 and B4: one launch each per layer and microbatch; no B6
-    rcfg = _train_config(phase, "kernel")
-    per_layer = rcfg.model.num_layers * rcfg.microbatches
+    # B3 and B4: one launch each per attention and microbatch; no B6
+    per_layer = _attention_calls(rcfg.model) * rcfg.microbatches
     off = [(i, k, c[k]) for i, c in enumerate(per_step)
            for k in ("flash_attention_dq", "flash_attention_dkv")
            if c[k] != per_layer] + [
@@ -1535,6 +2054,14 @@ def _train(dev, phase: str) -> dict:
         raise AssertionError(f"{arch}: B3/B4 launches per step differ from "
                              f"{per_layer}, or B6 launched: {off}")
     return launches, tier1
+
+
+def _attention_calls(cfg) -> int:
+    """Full-sequence attention calls in one forward of ``cfg``: one a
+    decoder layer; an encoder-decoder's encoder layers and cross
+    attention add one a layer each."""
+    return cfg.num_layers + (cfg.encoder_layers + cfg.num_layers
+                             if cfg.is_enc_dec else 0)
 
 
 def _tier1_report(phase: str, rcfg, metrics: list, prof: dict,
@@ -1898,10 +2425,10 @@ def _check_trajectories(phase: str, km: list, dm: list, against: str) -> None:
 
 
 def _train_on_cpu_too(dev, phase: str) -> dict:
-    """Phase 6d: the reduced arch of ``phase`` trained TRAIN_STEPS steps on
-    the card through the kernels from params initialised on the CPU from a
-    seeded generator, each step held ("forced") to the same step on this
-    machine's CPU through the kernels' plain versions, from the same
+    """Phases 6d and 10d: the reduced arch of ``phase`` trained TRAIN_STEPS
+    steps on the card through the kernels from params initialised on the
+    CPU from a seeded generator, each step held ("forced") to the same step
+    on this machine's CPU through the kernels' plain versions, from the same
     params and batch: each leaf's gradient within GRAD_TOL, the metrics of
     ``TRAIN[phase]["held"]`` within TRAIN_TOL. The CPU side is what the
     tier-1 tests hold to the JAX package. Returns the card run's launch
@@ -1920,8 +2447,9 @@ def _train_on_cpu_too(dev, phase: str) -> dict:
     def reference(p, batch):
         # each leaf's gradient, card against CPU, at this step's params
         a, b = on_card(p, batch), on_cpu(p, batch)
-        rel = {n: float((a["grads"][n] - w).norm() / w.norm())
-               for n, w in b["grads"].items()}
+        # the vision stub's embeds leave the token table's gradient 0
+        rel = {n: float((a["grads"][n] - w).norm() / w.norm().clamp(
+            min=1e-30)) for n, w in b["grads"].items()}
         worst = max(rel, key=rel.get)
         leaves.append({"max_rel_diff": rel[worst], "worst_leaf": worst})
         return {"loss": b["loss"], "grad_norm": b["grad_norm"]}
@@ -1932,8 +2460,13 @@ def _train_on_cpu_too(dev, phase: str) -> dict:
           "arch": arch,
           "reduced": f"the reference's reduced {arch}: "
                      f"{rcfg.model.num_layers} layers, d_model "
-                     f"{rcfg.model.d_model}, window {rcfg.model.window}, "
-                     f"chunks of {rcfg.model.ssm.chunk_size}",
+                     f"{rcfg.model.d_model}"
+                     + (f", window {rcfg.model.window}"
+                        if rcfg.model.window else "")
+                     + (f", chunks of {rcfg.model.ssm.chunk_size}"
+                        if rcfg.model.ssm else "")
+                     + (f", {rcfg.model.moe.num_experts} experts"
+                        if rcfg.model.moe else ""),
           "params": card["n_params"], "batch": TRAIN_BATCH,
           "seq": rcfg.shape.seq_len, "retries": card["res"].retries,
           "steps": card["steps"], "launches": card["launches"]})
@@ -1953,25 +2486,47 @@ def _train_on_cpu_too(dev, phase: str) -> dict:
     return card["launches"]
 
 
-def _first_microbatch(cfg, n_mb: int, dev) -> dict:
-    """Step 0's first microbatch of the training phases' batches."""
+def _first_microbatch(rcfg, dev) -> dict:
+    """Step 0's first microbatch of a training phase's batches."""
     from repro_torch.data.pipeline import SyntheticLM
-    return {k: v[:TRAIN_BATCH // n_mb] for k, v in SyntheticLM(
-        cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=str(dev)).batch_at(0)
-        .items()}
+    return {k: v[:TRAIN_BATCH // rcfg.microbatches] for k, v in SyntheticLM(
+        rcfg.model, TRAIN_BATCH, rcfg.shape.seq_len, seed=0,
+        device=str(dev)).batch_at(0).items()}
 
 
-def _train_grads(dev, phase: str, gated: bool = True) -> None:
-    """Phase 6a (and 6b's gradients): the gradient of every parameter leaf
-    (each layer's slice its own leaf, as in the training step) at the
-    seeded initial params on the first microbatch of step 0, through the
-    kernels and through the plain attention path. Where ``gated``, every
-    leaf's gradient must agree within GRAD_TOL, relative in L2 norm: a
-    global loss or grad norm cannot see a gradient that is wrong in one
-    leaf or only in direction."""
+def _stacks_as_leaves(params) -> dict:
+    """The params as the training step differentiates them: each leaf
+    detached into one of its own, each layer of the decoder's (and an
+    encoder-decoder's encoder's) stack a list entry of its own."""
+    from repro_torch._tree import tree_map
+    stacks = ("layers", "enc_layers")
+    tree = {k: tree_map(lambda a: a.detach().requires_grad_(), v)
+            for k, v in params.items() if k not in stacks}
+    for k in stacks:
+        if k in params:
+            n = next(iter(_named_leaves(params[k])))[1].shape[0]
+            tree[k] = [tree_map(lambda a: a[i].detach().requires_grad_(),
+                                params[k]) for i in range(n)]
+    return tree
+
+
+def _train_grads(dev, phase: str, gated: bool = True,
+                 one_ulp: bool = False) -> None:
+    """Phase 6a (and 6b's and 10a's gradients): the gradient of every
+    parameter leaf (each layer's slice its own leaf, as in the training
+    step) at the seeded initial params on the first microbatch of step 0,
+    through the kernels and through the plain attention path. Where
+    ``gated``, every leaf's gradient must agree within GRAD_TOL, relative
+    in L2 norm: a global loss or grad norm cannot see a gradient that is
+    wrong in one leaf or only in direction. The leaves of
+    ZERO_GRAD_LEAVES, whose gradient is zero in exact arithmetic, are held
+    absolutely instead: each one's norm, on every path, within GRAD_TOL of
+    the plain path's global gradient norm. With ``one_ulp``, also the
+    plain path against itself with q moved one ulp up in every attention
+    call (``_one_ulp_q``): what the model's depth makes of one rounding,
+    reported beside."""
     import torch
 
-    from repro_torch._tree import tree_map
     from repro_torch.runtime.steps import make_model
 
     rcfg = _train_config(phase, "kernel")
@@ -1980,35 +2535,64 @@ def _train_grads(dev, phase: str, gated: bool = True) -> None:
               for b in ("kernel", "dense")}
     params = models["kernel"].init_params(
         torch.Generator(device=dev).manual_seed(0))
-    batch = _first_microbatch(cfg, n_mb, dev)
+    batch = _first_microbatch(rcfg, dev)
     grads, losses = {}, {}
-    for backend, model in models.items():
-        tree = {k: tree_map(lambda a: a.detach().requires_grad_(), v)
-                for k, v in params.items() if k != "layers"}
-        tree["layers"] = [
-            tree_map(lambda a: a[i].detach().requires_grad_(),
-                     params["layers"]) for i in range(cfg.num_layers)]
+    runs = [(b, m, False) for b, m in models.items()]
+    if one_ulp:
+        runs.append(("dense_q_one_ulp", models["dense"], True))
+    for backend, model, nudged in runs:
+        tree = _stacks_as_leaves(params)
         named = _named_leaves(tree)
-        loss, _ = model.loss(tree, batch)
-        g = torch.autograd.grad(loss, [t for _, t in named])
-        grads[backend] = dict(zip((n for n, _ in named), g))
+        with _one_ulp_q(nudged):
+            loss, _ = model.loss(tree, batch)
+            # the vision stub's embeds bypass the token table
+            g = torch.autograd.grad(loss, [t for _, t in named],
+                                    allow_unused=True)
+        grads[backend] = {n: torch.zeros_like(t) if x is None else x
+                          for (n, t), x in zip(named, g)}
         losses[backend] = float(loss.detach())
         del tree, named, loss, g
     kg, dg = grads["kernel"], grads["dense"]
-    rel = {n: float((kg[n] - dg[n]).norm() / dg[n].norm()) for n in dg}
-    worst = max(rel, key=rel.get)
+    # (rotary positions rotate bk by the key's position: no longer zero)
+    zero = ([n for n in dg if n.endswith(ZERO_GRAD_LEAVES)]
+            if cfg.rope not in ("rope", "mrope") else [])
+
+    def rel_by_leaf(a):
+        return {n: float((a[n] - dg[n]).norm() / dg[n].norm().clamp(
+            min=1e-30)) for n in dg if n not in zero}
 
     def norm(g):
         return float(torch.stack([t.norm() for t in g.values()]).norm())
 
+    rel = rel_by_leaf(kg)
+    worst = max(rel, key=rel.get)
+    # the zero-gradient leaves' norms over the plain path's global norm
+    zero_norm = {n: max(float(a[n].norm()) for a in grads.values())
+                 / norm(dg) for n in zero}
+    z_worst = max(zero_norm, key=zero_norm.get, default=None)
     line = {"phase": "train_grads", "train_phase": phase,
             "arch": TRAIN[phase]["arch"], "layers": cfg.num_layers,
-            "tokens": TRAIN_SEQ * TRAIN_BATCH // n_mb,
+            "encoder_layers": cfg.encoder_layers,
+            "tokens": rcfg.shape.seq_len * TRAIN_BATCH // n_mb,
             "leaves": len(rel), "losses": losses,
             "grad_norm": {"kernel": norm(kg), "dense": norm(dg)},
             "max_rel_diff": rel[worst], "worst_leaf": worst,
             "median_rel_diff": sorted(rel.values())[len(rel) // 2],
             "tol": GRAD_TOL, "gated": gated, "rel_diff_by_leaf": rel}
+    if zero:
+        line["zero_gradient_leaves"] = {
+            "leaves": len(zero), "held": "norm over the global gradient "
+            "norm, on every path, within tol",
+            "max_norm_over_global": zero_norm[z_worst], "worst_leaf": z_worst,
+            "max_rel_diff_kernel_vs_plain": max(
+                float((kg[n] - dg[n]).norm() / dg[n].norm().clamp(min=1e-30))
+                for n in zero)}
+    if one_ulp:
+        ulp = rel_by_leaf(grads["dense_q_one_ulp"])
+        u_worst = max(ulp, key=ulp.get)
+        line["plain_vs_plain_q_one_ulp"] = {
+            "max_rel_diff": ulp[u_worst], "worst_leaf": u_worst,
+            "median_rel_diff": sorted(ulp.values())[len(ulp) // 2]}
     emit(line)
     del grads, kg, dg, params, models
     gc.collect()
@@ -2016,6 +2600,38 @@ def _train_grads(dev, phase: str, gated: bool = True) -> None:
     if gated and not rel[worst] <= GRAD_TOL:
         raise AssertionError(f"kernel and plain gradients disagree: leaf "
                              f"{worst} at {rel[worst]} > {GRAD_TOL}")
+    if gated and zero and not zero_norm[z_worst] <= GRAD_TOL:
+        raise AssertionError(f"a gradient that is zero in exact arithmetic "
+                             f"is not: {line['zero_gradient_leaves']}")
+
+
+class _one_ulp_q:
+    """Within it (when ``on``), every plain attention call of the models
+    (``models/attention.py``'s ``dense_attention``) gets q moved one ulp
+    away from zero: the smallest change of an input, to show what a
+    model's depth makes of one rounding."""
+
+    def __init__(self, on: bool) -> None:
+        self.on = on
+
+    def __enter__(self):
+        if self.on:
+            import torch
+
+            from repro_torch.models import attention as attn_mod
+            self.mod, self.orig = attn_mod, attn_mod.dense_attention
+
+            def nudged(q, k, v, **kw):
+                # the gradient passes through as through q itself
+                step = (torch.nextafter(q, q * 2) - q).detach()
+                return self.orig(q + step, k, v, **kw)
+
+            attn_mod.dense_attention = nudged
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.on:
+            self.mod.dense_attention = self.orig
 
 
 def _layer_grads(dev, phase: str) -> None:
@@ -2040,7 +2656,7 @@ def _layer_grads(dev, phase: str) -> None:
               for b in ("kernel", "dense")}
     plain = models["dense"]
     params = plain.init_params(torch.Generator(device=dev).manual_seed(0))
-    batch = _first_microbatch(cfg, rcfg.microbatches, dev)
+    batch = _first_microbatch(rcfg, dev)
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
     with torch.no_grad():
@@ -2064,7 +2680,7 @@ def _layer_grads(dev, phase: str) -> None:
             p = tree_map(lambda a: a[i].detach().requires_grad_(),
                          params["layers"])
             xi = xs[i].detach().requires_grad_()
-            y, _ = tfm.layer_apply(p, xi, cfg, model.rt, positions)
+            y = tfm.layer_apply(p, xi, cfg, model.rt, positions)[0]
             named = _named_leaves({"input": xi, **p})
             got[backend] = dict(zip((n for n, _ in named), torch.autograd.grad(
                 y, [t for _, t in named], g)))

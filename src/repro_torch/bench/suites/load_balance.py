@@ -1,17 +1,19 @@
 """Paper Fig. 8: load imbalance (LI, Eq. 3/4) vs layer count and hidden
-size under O1/O3 partitioning, with the card's constants. The port of
-``benchmarks/bench_load_balance.py``'s structural scenarios, under the
-same record names and derived keys (its MoE expert-load scenario waits
-for the port's moe family). ``chip`` defaults to the H100."""
+size under O1/O3 partitioning, with the card's constants, and the MoE
+expert-load LI measured on a routed forward. The port of
+``benchmarks/bench_load_balance.py``, under the same record names and
+derived keys. ``chip`` defaults to the H100; ``load_balance/moe`` runs on
+the ``device`` knob's device (``cuda`` unless the caller asks for
+``cpu``, as ``--device cpu`` does)."""
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.bench import (BENCH_MESH, BENCH_SHAPE, BenchRecord,
-                               Workload, scenario)
+                               Workload, scenario, timeit_us)
 from repro_torch.bench.suites.allocation import hidden_sweep_config
-from repro_torch.configs import ARCHS
-from repro_torch.core import sections
+from repro_torch.configs import ARCHS, reduced
+from repro_torch.core import metrics, sections
 from repro_torch.core.roofline import H100
 
 PARTITION_MODES = ("O1", "O3")
@@ -50,3 +52,40 @@ def load_balance_hidden(wl: Workload, chip=H100):
         yield BenchRecord(name=f"load_balance/{wl.label}/{m}",
                           knobs={"mode": m},
                           derived={"LI": round(rep.load_imbalance, 4)})
+
+
+MOE_BATCH, MOE_SEQ = 8, 64
+
+
+def moe_expert_load(cfg, params, x):
+    """The per-expert load (E,) of one routed MoE forward of ``x``."""
+    from repro_torch.models import moe as moe_mod
+    return moe_mod.moe_ffn(params, x, cfg)[1]["expert_load"]
+
+
+@scenario(
+    "load_balance/moe", tags=("tier1", "measured", "fig8", "moe"),
+    paper_ref="Fig. 8 (MoE extension)",
+    workloads=[Workload(label="experts8", arch="arctic-480b",
+                        knobs={"experts": 8})])
+def load_balance_moe(wl: Workload):
+    """Expert-load LI measured on a real routed forward of a reduced
+    arctic block: MOE_BATCH x MOE_SEQ tokens of N(0, 0.1^2), f32, the
+    block's parameters from a seeded generator."""
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import resolve_device
+
+    device = resolve_device(wl.knobs.get("device", "cuda"))
+    cfg = reduced(ARCHS[wl.arch], experts=wl.knobs["experts"])
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = moe_mod.moe_init(gen, cfg, torch.float32)
+    x = torch.randn((MOE_BATCH, MOE_SEQ, cfg.d_model), generator=gen,
+                    device=device) * 0.1
+    with torch.no_grad():
+        us = timeit_us(moe_expert_load, cfg, params, x)
+        load = moe_expert_load(cfg, params, x).cpu().numpy()
+    li = metrics.expert_load_imbalance(load)
+    yield BenchRecord(name="load_balance/moe_experts/measured",
+                      us_per_call=us, derived={"LI": round(float(li), 4)})

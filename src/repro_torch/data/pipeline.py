@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.frontends import bf16_from_numpy
 from repro_torch.serving.request import Request
 
 
@@ -101,9 +102,12 @@ def synth_sessions(cfg: ModelConfig, num_sessions: int, turns: int, *,
 @dataclass
 class SyntheticLM:
     """Next-token training batches of Zipf documents separated by EOS
-    (id 0), for the token-input (dense) family. ``batch_at(step)`` is
-    deterministic in (seed, step, row), so a restarted run sees the same
-    data. Tensors land on ``device``."""
+    (id 0). ``batch_at(step)`` is deterministic in (seed, step, row), so
+    a restarted run sees the same data. A frontend stub's batch carries
+    its embeddings as the reference builds them: the vision stub's
+    ``embeds`` (and M-RoPE ``positions``) in place of ``tokens``, the
+    audio stub's ``audio_embeds`` beside them. Tensors land on
+    ``device``."""
     cfg: ModelConfig
     batch: int
     seq: int
@@ -111,16 +115,15 @@ class SyntheticLM:
     mean_doc_len: int = 512
     device: str = "cuda"
 
-    def __post_init__(self):
-        if self.cfg.frontend != "none":
-            raise NotImplementedError(
-                f"{self.cfg.name}: the {self.cfg.frontend!r} frontend's "
-                "batches come with the other families (ROADMAP.md A.4)")
-
     def batch_at(self, step: int, shard: int = 0,
                  num_shards: int = 1) -> dict:
         """Deterministic batch for ``step``; only rows of ``shard`` are
-        built. {"tokens", "labels"}: (rows, seq) int32."""
+        built. {"tokens", "labels"}: (rows, seq) int32; the vision stub's
+        {"embeds": (rows, seq, d) bf16, "positions": (rows, 3, seq) int32
+        (M-RoPE only), "labels"}; the audio stub's {"audio_embeds": (rows,
+        seq, d) bf16, "tokens", "labels"}. The embeddings are N(0, 0.02^2)
+        from ``default_rng(seed * 7 + step)``, for every shard alike, as
+        in the reference."""
         if self.batch % num_shards:
             raise ValueError(
                 f"batch={self.batch} must divide evenly over "
@@ -138,4 +141,20 @@ class SyntheticLM:
                 buf.append(np.zeros(1, np.int64))   # EOS
             out[r] = np.concatenate(buf)[: self.seq + 1]
         out = torch.from_numpy(out).to(self.device)
-        return {"tokens": out[:, :-1], "labels": out[:, 1:]}
+        batch = {"tokens": out[:, :-1], "labels": out[:, 1:]}
+        frontend = self.cfg.frontend
+        if frontend in ("vision_stub", "audio_stub"):
+            rng = np.random.default_rng(self.seed * 7 + step)
+            embeds = bf16_from_numpy(rng.standard_normal(
+                (rows_per, self.seq, self.cfg.d_model)) * 0.02).to(
+                self.device)
+        if frontend == "vision_stub":
+            batch["embeds"] = embeds
+            if self.cfg.rope == "mrope":
+                batch["positions"] = torch.arange(
+                    self.seq, dtype=torch.int32, device=self.device)[
+                    None, None].expand(rows_per, 3, self.seq)
+            del batch["tokens"]
+        elif frontend == "audio_stub":
+            batch["audio_embeds"] = embeds
+        return batch

@@ -25,14 +25,22 @@ disaggregated engine under a deterministic fault-injection schedule
 
 The flags are those of ``repro.launch.serve``, plus ``--full`` (the
 full-size architecture instead of the reduced one the reference launcher
-always serves). Prefill attention runs through kernel K1, the ssm and
-hybrid families' prefill linear attention through kernel B6, paged decode
-attention (dense family only, as in the reference) through kernel K2 and
-every RMSNorm through kernel K3.
+always serves) and ``--num-layers`` (cut the depth: one 80 GB card
+holds the f32 weights of 8 of qwen2-vl-72b's 80 layers). Prefill
+attention runs through kernel K1, the ssm and hybrid families' prefill
+linear attention through kernel B6, paged decode attention
+(full-attention decoder-only models: the dense, moe and vlm families, as
+in the reference) through kernel K2 and every RMSNorm through kernel
+K3. The moe and vlm families serve token prompts, as the
+reference's engines do; an encoder-decoder model (whisper) is refused
+here, as the reference's engines fail on it, and serves through
+:func:`repro_torch.runtime.serve_loop.generate` with an
+``audio_embeds`` batch.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
@@ -74,7 +82,8 @@ def build_engine(arch: str, *, batch: int, prompt_len: int,
                  prefix_cache: bool = False, fault_plan=None,
                  reject_invalid: bool = False,
                  prefill_workers: int = 1, decode_workers: int = 1,
-                 params=None, device="cuda"):
+                 params=None, num_layers: int = 0,
+                 attention_backend: str = "kernel", device="cuda"):
     """Build a serving engine for ``arch`` (the launcher's plumbing,
     importable so benchmarks, tests and ``chip_smoke.py`` share it).
     Parameters are f32, as in the reference launcher. ``params`` is an
@@ -84,14 +93,26 @@ def build_engine(arch: str, *, batch: int, prompt_len: int,
     For ``scheduler="paged"`` or ``"disaggregated"`` the engine is wired
     to the model's paged triple and ``page_size``/``num_pages``/
     ``prefill_chunk_tokens``/``prefix_cache``/``fault_plan`` apply (and
-    the worker counts for the disaggregated one). Returns (engine,
-    cfg)."""
+    the worker counts for the disaggregated one). ``num_layers`` cuts the
+    config's depth (0 keeps it); ``attention_backend="dense"`` serves on
+    the plain attention path instead of the kernels (K3 still runs every
+    RMSNorm). Returns (engine, cfg)."""
     cfg = get_arch(arch)
     if use_reduced:
         cfg = reduced(cfg, **(reduce_kw or {}))
+    if num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    if cfg.is_enc_dec:
+        # the engines prefill token prompts; an encoder-decoder model needs
+        # its encoder's input too, which the reference's engines never pass
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder model: the engines serve "
+            "token prompts only; serve it through "
+            "repro_torch.runtime.serve_loop.generate with an "
+            "'audio_embeds' batch")
     device = resolve_device(device)
     span = prompt_len + max_new_tokens
-    model = build(cfg, Runtime(attention_backend="kernel"),
+    model = build(cfg, Runtime(attention_backend=attention_backend),
                   param_dtype=torch.float32, device=device)
     if params is None:
         params = model.init_params(
@@ -176,6 +197,9 @@ def parse_args(argv=None):
     ap.add_argument("--full", action="store_true",
                     help="serve the full-size architecture (default: the "
                          "reduced config the reference launcher serves)")
+    ap.add_argument("--num-layers", type=int, default=0,
+                    help="cut the depth of the (full or reduced) config "
+                         "to this many layers (0 = keep it)")
     args = ap.parse_args(argv)
     fault_plan = resolve_fault_plan(args.fault_plan, args.seed)
     if (fault_plan is not None
@@ -200,7 +224,7 @@ def main(argv=None):
         prefill_chunk_tokens=args.prefill_chunk,
         prefix_cache=args.prefix_cache, fault_plan=fault_plan,
         prefill_workers=args.prefill_workers,
-        decode_workers=args.decode_workers)
+        decode_workers=args.decode_workers, num_layers=args.num_layers)
     if args.num_sessions:
         requests = synth_sessions(cfg, args.num_sessions, args.turns,
                                   max_new_tokens=args.max_new_tokens,

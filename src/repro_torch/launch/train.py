@@ -17,9 +17,11 @@ import argparse
 import dataclasses
 import logging
 
+import numpy as np
 import torch
 
 from repro_torch.configs import RunConfig, ShapeConfig, get_arch, reduced
+from repro_torch.core.metrics import expert_load_imbalance
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.models import resolve_device
 from repro_torch.runtime import train_loop
@@ -88,8 +90,13 @@ def main(argv=None):
                             ckpt_every=args.ckpt_every)
     for i, m in enumerate(result.metrics):
         if i % args.log_every == 0 or i == len(result.metrics) - 1:
+            moe = ""
+            if "expert_load" in m:     # the moe family's router statistics
+                li = expert_load_imbalance(np.sum(m["expert_load"], 0))
+                moe = (f"aux_loss={m['aux_loss']:.5f} "
+                       f"expert_load_LI={li:.4f} ")
             print(f"  step {i}: loss={m['loss']:.4f} "
-                  f"grad_norm={m['grad_norm']:.4f} "
+                  f"grad_norm={m['grad_norm']:.4f} {moe}"
                   f"step_s={m['step_s']:.3f}")
     print(f"final_step={result.final_step} "
           f"first_loss={result.losses[0]:.4f} "

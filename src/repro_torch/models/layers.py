@@ -19,6 +19,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 
+# M-RoPE head-dim half split into (temporal, height, width) sections,
+# per Qwen2-VL (arXiv:2409.12191).
+MROPE_SECTIONS = (16, 24, 24)
+
 
 def normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
     """N(0, std^2) samples drawn in f32 on the generator's device."""
@@ -71,6 +75,62 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def mrope_sections(half: int) -> tuple:
+    """The (t, h, w) split of a head's ``half`` rotary frequencies:
+    MROPE_SECTIONS where they fill it, else (reduced configs) the same
+    (1/4, 3/8, 3/8) proportions."""
+    if sum(MROPE_SECTIONS) == half:
+        return MROPE_SECTIONS
+    s0 = half // 4
+    s1 = (half - s0) // 2
+    return (s0, s1, half - s0 - s1)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                theta: float) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): the rotary angle sections come from
+    three position streams (t, h, w). x: (B, S, H, D); positions3: (B, 3,
+    S), or (1, 3, S) for every row alike. Angles in f32."""
+    half = x.shape[-1] // 2
+    freqs = _rope_freqs_on(x.shape[-1], float(theta), x.device)
+    ang_all = positions3[..., None].float() * freqs            # (B,3,S,half)
+    parts, start = [], 0
+    for i, sec in enumerate(mrope_sections(half)):
+        parts.append(ang_all[:, i, :, start:start + sec])
+        start += sec
+    ang = torch.cat(parts, dim=-1)                               # (B,S,half)
+    cos, sin = ang.cos()[..., None, :], ang.sin()[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int) -> np.ndarray:
+    """(seq, d) f32 absolute position embedding (whisper): sin on the even
+    columns, cos on the odd, computed in float64 and rounded once, as the
+    reference computes it."""
+    pos = np.arange(seq)[:, None]
+    dim = np.arange(0, d, 2)[None, :]
+    ang = pos / np.power(10000.0, dim / d)
+    out = np.zeros((seq, d), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return out
+
+
+def sinusoidal_at(pos, d: int, device) -> torch.Tensor:
+    """The sinusoidal embedding at run-time positions ``pos`` (an int or a
+    1-D tensor) -> (len(pos), d) f32, computed in f32 on the device as the
+    reference's decode computes it."""
+    half_idx = torch.arange(0, d, 2, device=device, dtype=torch.float32)
+    pos_v = torch.as_tensor(pos, dtype=torch.float32, device=device)
+    ang = pos_v.reshape(-1)[:, None] / torch.pow(10000.0, half_idx / d)
+    pe = torch.zeros((ang.shape[0], d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe
 
 
 # ---------------------------------------------------------------- mlp

@@ -1,9 +1,16 @@
 """Top-level model API: ``build(cfg, rt, device=...) -> Model`` with
 init/loss/prefill/decode and the paged serving triple.
 
-The PyTorch counterpart of ``repro/models/model.py`` for the dense, ssm
-and hybrid families (``batch = {"tokens": (B,S) int, "labels": (B,S)
-int}``); moe, audio and vlm are ported in later slices.
+The PyTorch counterpart of ``repro/models/model.py``, for every family.
+Input contract per family (the reference's):
+
+* dense/moe/ssm/hybrid: ``batch = {"tokens": (B,S) int, "labels": (B,S)
+  int}``;
+* vlm and early fusion (``frontend="vision_stub"``): ``{"embeds": (B,S,d),
+  "positions": (B,3,S) int (M-RoPE only), "labels"}``, the patch frontend
+  stubbed; token batches are taken too;
+* audio (whisper, encoder-decoder): ``{"audio_embeds": (B,S_enc,d),
+  "tokens", "labels"}``, the conv/mel frontend stubbed.
 """
 from __future__ import annotations
 
@@ -16,7 +23,8 @@ from repro_torch._tree import layer_at
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (apply_norm, embed_tokens,
-                                       embedding_init, lm_logits, norm_init)
+                                       embedding_init, lm_logits, norm_init,
+                                       sinusoidal_at, sinusoidal_positions)
 from repro_torch.models.transformer import Runtime
 
 
@@ -59,17 +67,21 @@ class Model:
     paged_cache_init: Callable
 
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+def _per_layer(layers) -> list:
+    """A stack as a list of per-layer trees: the stacked tree's layers
+    (views), or the training step's list as it is."""
+    if isinstance(layers, list):
+        return layers
+    return [layer_at(layers, i) for i in range(tfm.num_layers_of(layers))]
+
+
+PORTED_FAMILIES = ("dense", "moe", "audio", "vlm", "ssm", "hybrid")
 
 
 def build(cfg: ModelConfig, rt: Runtime = Runtime(),
           param_dtype=torch.float32, device="cuda") -> Model:
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            f"builds the {', '.join(PORTED_FAMILIES)} families (moe, audio "
-            "and vlm come with the 'other families' slice, ROADMAP.md queue "
-            "A)")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     device = resolve_device(device)
     compute_dtype = param_dtype
 
@@ -78,10 +90,52 @@ def build(cfg: ModelConfig, rt: Runtime = Runtime(),
         ``torch.Generator`` on the model's device)."""
         if gen.device != device:
             raise ValueError(f"generator on {gen.device}, model on {device}")
-        return {"embed": embedding_init(gen, cfg, param_dtype),
-                "layers": tfm.stack_init(gen, cfg, cfg.num_layers,
-                                         param_dtype),
-                "final_norm": norm_init(cfg.d_model, cfg.norm, device)}
+        p = {"embed": embedding_init(gen, cfg, param_dtype),
+             "layers": tfm.stack_init(gen, cfg, cfg.num_layers, param_dtype,
+                                      cross=cfg.is_enc_dec),
+             "final_norm": norm_init(cfg.d_model, cfg.norm, device)}
+        if cfg.is_enc_dec:
+            p["enc_layers"] = tfm.stack_init(gen, cfg, cfg.encoder_layers,
+                                             param_dtype)
+            p["enc_norm"] = norm_init(cfg.d_model, cfg.norm, device)
+        return p
+
+    def _sinusoidal(n: int, dev) -> torch.Tensor:
+        return torch.from_numpy(sinusoidal_positions(n, cfg.d_model)).to(dev)
+
+    def _embed_inputs(params, batch):
+        """(x, positions) for the decoder stack: the vision stub's
+        ``embeds`` (with its M-RoPE ``positions``), or embedded tokens
+        (whisper's plus the sinusoidal embedding; M-RoPE's three streams
+        all at the token's position)."""
+        if cfg.frontend == "vision_stub" and "embeds" in batch:
+            x = batch["embeds"].to(compute_dtype)
+            positions = (batch["positions"] if cfg.rope == "mrope" else
+                         torch.arange(x.shape[1], device=x.device)[None])
+            return x, positions
+        x = embed_tokens(params["embed"], batch["tokens"]).to(compute_dtype)
+        B, S = x.shape[:2]
+        if cfg.rope == "sinusoidal":
+            x = x + _sinusoidal(S, x.device).to(x.dtype)
+        positions = torch.arange(S, device=x.device)[None]
+        if cfg.rope == "mrope":
+            positions = positions[:, None].expand(B, 3, S)
+        return x, positions
+
+    def _encode(params, batch):
+        """The encoder of an encoder-decoder model over the audio stub's
+        frame embeddings: sinusoidal positions, the bidirectional layer
+        stack, the encoder norm."""
+        if "audio_embeds" not in batch:
+            raise ValueError(
+                f"{cfg.name} is an encoder-decoder model: its batches carry "
+                "'audio_embeds' (B, S_enc, d) beside 'tokens'")
+        x = batch["audio_embeds"].to(compute_dtype)
+        x = x + _sinusoidal(x.shape[1], x.device).to(x.dtype)
+        x, _ = tfm.stack_apply(_per_layer(params["enc_layers"]), x, cfg, rt,
+                               torch.arange(x.shape[1], device=x.device)[None],
+                               causal=False)
+        return apply_norm(params["enc_norm"], x, cfg.norm)
 
     def _head(params, x_last):
         # the last position of a (B>1, S, d) batch is a strided view; the
@@ -95,18 +149,16 @@ def build(cfg: ModelConfig, rt: Runtime = Runtime(),
     def loss(params, batch):
         """Mean next-token NLL over ``batch["labels"]`` (B,S), from f32
         logits over the padded vocab (padded entries masked to -1e30).
-        Returns (total, {"nll", "aux_loss"}), total = nll + aux_loss.
-        ``params["layers"]`` is the stacked tree or a list of per-layer
-        trees (the training step's leaves, see
+        Returns (total, {"nll", "aux_loss"[, "expert_load"]}), total = nll
+        + aux_loss (the MoE load-balance loss summed over layers; 0
+        without one), ``expert_load`` (L, E) for the moe family.
+        ``params["layers"]`` (and ``"enc_layers"``) is the stacked tree or
+        a list of per-layer trees (the training step's leaves, see
         :func:`repro_torch.runtime.steps.build_train_step`)."""
-        tokens = batch["tokens"]
-        x = embed_tokens(params["embed"], tokens).to(compute_dtype)
-        positions = torch.arange(tokens.shape[1], device=x.device)[None]
-        layers = params["layers"]
-        if not isinstance(layers, list):
-            layers = [layer_at(layers, i)
-                      for i in range(tfm.num_layers_of(layers))]
-        x, aux = tfm.stack_apply(layers, x, cfg, rt, positions)
+        enc_out = _encode(params, batch) if cfg.is_enc_dec else None
+        x, positions = _embed_inputs(params, batch)
+        x, aux = tfm.stack_apply(_per_layer(params["layers"]), x, cfg, rt,
+                                 positions, enc_out)
         x = apply_norm(params["final_norm"], x, cfg.norm)
         logits = lm_logits(params["embed"], x, cfg.tie_embeddings,
                            true_vocab=cfg.vocab_size).float()
@@ -116,21 +168,39 @@ def build(cfg: ModelConfig, rt: Runtime = Runtime(),
         return nll + aux["aux_loss"], {"nll": nll, **aux}
 
     def prefill(params, batch, cache_span: int):
-        """batch["tokens"]: (B,S). Returns last-position logits (B,1,V)
-        and the stacked decode caches padded to ``cache_span``."""
-        tokens = batch["tokens"]
-        x = embed_tokens(params["embed"], tokens).to(compute_dtype)
-        positions = torch.arange(tokens.shape[1], device=x.device)[None]
+        """batch: the family's input (tokens, the vision stub's embeds, or
+        whisper's audio embeds and tokens), S positions. Returns
+        last-position logits (B,1,V) and the stacked decode caches padded
+        to ``cache_span``; for an encoder-decoder model also
+        ``caches["cross"]``, the cross attention's K/V over the encoder
+        output."""
+        enc_out = _encode(params, batch) if cfg.is_enc_dec else None
+        x, positions = _embed_inputs(params, batch)
         x, layer_caches = tfm.stack_prefill(params["layers"], x, cfg, rt,
-                                            positions, cache_span=cache_span)
-        return _head(params, x[:, -1:]), {"layers": layer_caches}
+                                            positions, enc_out,
+                                            cache_span=cache_span)
+        caches = {"layers": layer_caches}
+        if cfg.is_enc_dec:      # split the cross attention's K/V out
+            caches["cross"] = {"ck": layer_caches.pop("ck"),
+                               "cv": layer_caches.pop("cv")}
+        return _head(params, x[:, -1:]), caches
+
+    def _embed_at(params, tokens, pos):
+        """Embedded tokens (B, C) at run-time positions ``pos`` (an int,
+        (B,) per row, or (C,) per column), plus whisper's sinusoidal
+        embedding there."""
+        x = embed_tokens(params["embed"], tokens).to(compute_dtype)
+        if cfg.rope == "sinusoidal":
+            pe = sinusoidal_at(pos, cfg.d_model, x.device).to(x.dtype)
+            x = x + (pe[None] if tokens.shape[1] > 1 else pe[:, None])
+        return x
 
     def decode_step(params, caches, token, pos):
         """token: (B,1); pos: an int (next position to write) or a (B,)
         tensor of per-row positions. Updates ``caches`` IN PLACE."""
-        x = embed_tokens(params["embed"], token).to(compute_dtype)
+        x = _embed_at(params, token, pos)
         x, _ = tfm.stack_decode(params["layers"], x, caches["layers"], pos,
-                                cfg, rt)
+                                cfg, rt, cross_caches=caches.get("cross"))
         return _head(params, x), caches
 
     def prefill_chunk(params, caches, tokens, block_tables, start_pos: int):
@@ -139,15 +209,17 @@ def build(cfg: ModelConfig, rt: Runtime = Runtime(),
         ``paged_cache_init``, written IN PLACE; block_tables: (B, n_pages)
         int32. Returns the chunk's LAST-position logits ((B, 1, V)) and
         the pools."""
-        x = embed_tokens(params["embed"], tokens).to(compute_dtype)
+        start_pos = int(start_pos)
+        x = _embed_at(params, tokens, torch.arange(
+            start_pos, start_pos + tokens.shape[1]))
         x, _ = tfm.stack_prefill_chunk(params["layers"], x, caches["layers"],
-                                       block_tables, int(start_pos), cfg, rt)
+                                       block_tables, start_pos, cfg, rt)
         return _head(params, x[:, -1:]), caches
 
     def decode_step_paged(params, caches, token, pos, block_tables):
         """token: (B,1); pos: (B,) int32 next position per row;
         block_tables: (B, n_pages) int32. Updates the pools IN PLACE."""
-        x = embed_tokens(params["embed"], token).to(compute_dtype)
+        x = _embed_at(params, token, pos)
         x, _ = tfm.stack_decode_paged(params["layers"], x, caches["layers"],
                                       pos, block_tables, cfg, rt)
         return _head(params, x), caches
@@ -158,9 +230,20 @@ def build(cfg: ModelConfig, rt: Runtime = Runtime(),
                                                num_pages, page_size, dtype,
                                                device)}
 
-    def cache_init(batch: int, max_len: int, dtype=param_dtype):
-        return {"layers": tfm.cache_init(cfg, cfg.num_layers, batch,
-                                         max_len, dtype, device)}
+    def cache_init(batch: int, max_len: int, dtype=param_dtype,
+                   enc_len: int = 0):
+        """Zeroed decode caches; an encoder-decoder model's also hold the
+        cross attention's K/V, ``enc_len`` encoder positions (default
+        ``max_len``)."""
+        caches = {"layers": tfm.cache_init(cfg, cfg.num_layers, batch,
+                                           max_len, dtype, device)}
+        if cfg.is_enc_dec:
+            shape = (cfg.num_layers, batch, enc_len or max_len,
+                     cfg.num_kv_heads, cfg.resolved_head_dim)
+            caches["cross"] = {
+                "ck": torch.zeros(shape, dtype=dtype, device=device),
+                "cv": torch.zeros(shape, dtype=dtype, device=device)}
+        return caches
 
     return Model(cfg=cfg, rt=rt, init_params=init_params, loss=loss,
                  prefill=prefill, decode_step=decode_step,

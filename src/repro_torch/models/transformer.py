@@ -1,14 +1,18 @@
-"""Decoder stack of the dense, ssm (rwkv6) and hybrid (attention + SSD
-heads, sliding window) families: layer init, the training forward
-(``stack_apply``, with remat), prefill, decode and the paged-KV serving
-triple (dense only, as in the reference).
+"""Layer stacks of every family: dense, moe (an MoE FFN in place of the
+MLP, arctic's with a dense residual MLP beside it), vlm (M-RoPE), audio
+(whisper's bidirectional encoder and its decoder's cross attention), ssm
+(rwkv6) and hybrid (attention + SSD heads, sliding window): layer init,
+the training forward (``stack_apply``, with remat), prefill, decode and
+the paged-KV serving triple (full-attention decoder-only models, as in
+the reference).
 
-The PyTorch counterpart of the dense, ssm and hybrid subset of
-``repro/models/transformer.py``. Parameters keep the JAX layout: a
-leading stacked-layer axis on every leaf, and the JAX ``lax.scan`` over
-that axis becomes a Python loop. Caches and paged pools are updated IN
-PLACE (the JAX functions return new arrays); each function that writes
-says so, and returns the same cache objects it was given.
+The PyTorch counterpart of ``repro/models/transformer.py`` on one device
+(its sharding constraints and expert-parallel dispatch wait for the
+port's ``parallel/``). Parameters keep the JAX layout: a leading
+stacked-layer axis on every leaf, and the JAX ``lax.scan`` over that
+axis becomes a Python loop. Caches and paged pools are updated IN PLACE
+(the JAX functions return new arrays); each function that writes says
+so, and returns the same cache objects it was given.
 """
 from __future__ import annotations
 
@@ -22,9 +26,10 @@ from repro_torch._tree import layer_at, tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
-                                       mlp_init, norm_init)
+from repro_torch.models.layers import (apply_mlp, apply_mrope, apply_norm,
+                                       apply_rope, mlp_init, norm_init)
 
 
 @dataclass(frozen=True)
@@ -57,19 +62,42 @@ class Runtime:
 
 
 def _rope_q_k(cfg: ModelConfig, q, k, positions):
+    """Rotary embedding of q and k at ``positions``: (B or 1, S) for RoPE;
+    for M-RoPE its three (t, h, w) streams, (B or 1, 3, S). Sinusoidal
+    positions are added at the embedding; 'none' rotates nothing."""
     if cfg.rope == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope == "mrope":
+        q = apply_mrope(q, positions, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.rope_theta)
     return q, k
 
 
-def _mlp_block(p, x, cfg: ModelConfig):
-    return x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg.norm),
-                         cfg.activation)
+def _streams(cfg: ModelConfig, pos):
+    """Token positions (R, S) as :func:`_rope_q_k` takes them: M-RoPE's
+    three streams all equal to them (text tokens), (R, 3, S)."""
+    if cfg.rope == "mrope":
+        return pos[:, None].expand(pos.shape[0], 3, pos.shape[1])
+    return pos
+
+
+def _ffn(p, x, cfg: ModelConfig):
+    """The MLP, or the MoE FFN, on x's second pre-norm, added to x.
+    Returns (x, aux): the MoE's ``aux_loss``, ``expert_load`` and
+    ``capacity``, or {} for an MLP."""
+    h_in = apply_norm(p["norm2"], x, cfg.norm)
+    if cfg.moe is not None:
+        h, aux = moe_mod.moe_ffn(p["moe"], h_in, cfg)
+        return x + h, aux
+    return x + apply_mlp(p["mlp"], h_in, cfg.activation), {}
 
 
 # ===================================================================== init
-def layer_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+def layer_init(gen: torch.Generator, cfg: ModelConfig, dtype, *,
+               cross: bool = False) -> dict:
+    """One layer's parameters; ``cross``: with the cross attention of an
+    encoder-decoder model's decoder layer (whisper)."""
     dev = gen.device
     p = {"norm1": norm_init(cfg.d_model, cfg.norm, dev),
          "norm2": norm_init(cfg.d_model, cfg.norm, dev)}
@@ -80,18 +108,30 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     p["attn"] = attn_mod.attn_init(gen, cfg, dtype)
     if cfg.family == "hybrid":
         p["ssm"] = ssm_mod.ssd_init(gen, cfg, dtype)
-    p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.activation, dtype)
+    if cross:
+        p["norm_cross"] = norm_init(cfg.d_model, cfg.norm, dev)
+        p["cross_attn"] = attn_mod.attn_init(gen, cfg, dtype)
+    if cfg.moe is not None:
+        p["moe"] = moe_mod.moe_init(gen, cfg, dtype)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.activation,
+                            dtype)
     return p
 
 
 def stack_init(gen: torch.Generator, cfg: ModelConfig, num_layers: int,
-               dtype) -> dict:
+               dtype, *, cross: bool = False) -> dict:
     """Stacked (L, ...) layer parameters, drawn one layer at a time into
-    preallocated tensors, so peak memory is the stack plus one layer."""
-    first = layer_init(gen, cfg, dtype)
+    preallocated tensors, so peak memory is the stack plus one layer (one
+    layer alone is stacked as a view of itself: a full-width arctic layer
+    is 56 GB in f32)."""
+    first = layer_init(gen, cfg, dtype, cross=cross)
+    if num_layers == 1:
+        return tree_map(lambda a: a[None], first)
     stacked = tree_map(lambda a: a.new_empty((num_layers, *a.shape)), first)
     for i in range(num_layers):
-        layer = first if i == 0 else layer_init(gen, cfg, dtype)
+        layer = first if i == 0 else layer_init(gen, cfg, dtype,
+                                                cross=cross)
         tree_map(lambda dst, src: dst[i].copy_(src), stacked, layer)
     return stacked
 
@@ -112,15 +152,19 @@ def _ring_from_prefill(k, span: int):
     return ring
 
 
-def layer_apply(p, x, cfg: ModelConfig, rt: Runtime, positions, *,
-                causal: bool = True, return_cache: bool = False,
-                cache_span: int = 0):
-    """Full-sequence layer forward. Returns (x, cache_entry); cache_entry
-    is None unless return_cache, in which case it holds this layer's part
-    of the decode cache (the per-layer structure of cache_init): K/V
-    zero-padded to cache_span, or for sliding attention the last
-    min(cache_span, window) rows in ring order; the SSD state (hybrid);
-    the WKV state and both token shifts (ssm)."""
+def layer_apply(p, x, cfg: ModelConfig, rt: Runtime, positions,
+                enc_out=None, *, causal: bool = True,
+                return_cache: bool = False, cache_span: int = 0):
+    """Full-sequence layer forward. Returns (x, aux, cache_entry): aux is
+    the MoE's (``aux_loss``, ``expert_load``, ``capacity``) or {};
+    cache_entry is None unless return_cache, in which case it holds this
+    layer's part of the decode cache (the per-layer structure of
+    cache_init): K/V zero-padded to cache_span, or for sliding attention
+    the last min(cache_span, window) rows in ring order; the SSD state
+    (hybrid); the WKV state and both token shifts (ssm); and with
+    ``enc_out`` (an encoder-decoder's decoder layer) the cross attention's
+    K/V over the encoder output, ``ck`` and ``cv``. ``causal=False`` is
+    the bidirectional self-attention of an encoder layer."""
     if cfg.family == "ssm":
         h, (state, last1) = ssm_mod.rwkv6_time_mix(
             p["time_mix"], apply_norm(p["norm1"], x, cfg.norm), cfg,
@@ -130,7 +174,7 @@ def layer_apply(p, x, cfg: ModelConfig, rt: Runtime, positions, *,
             p["channel_mix"], apply_norm(p["norm2"], x, cfg.norm))
         entry = ({"wkv_state": state, "shift1": last1, "shift2": last2}
                  if return_cache else None)
-        return x + h, entry
+        return x + h, {}, entry
 
     h_in = apply_norm(p["norm1"], x, cfg.norm)
     q, k, v = attn_mod.project_qkv(p["attn"], h_in, h_in, cfg)
@@ -155,16 +199,26 @@ def layer_apply(p, x, cfg: ModelConfig, rt: Runtime, positions, *,
         h = (h + h_ssm) * 0.5
         if return_cache:
             entry["ssd_state"] = ssd_state
-    return _mlp_block(p, x + h, cfg), entry
+    x = x + h
+    if enc_out is not None:          # cross attention (whisper's decoder)
+        h_in = apply_norm(p["norm_cross"], x, cfg.norm)
+        q, ck, cv = attn_mod.project_qkv(p["cross_attn"], h_in, enc_out, cfg)
+        o = attn_mod.attention(q, ck, cv, backend=rt.attention_backend,
+                               causal=False)
+        x = x + o.reshape(*x.shape[:-1], -1) @ p["cross_attn"]["wo"]
+        if return_cache:
+            entry["ck"], entry["cv"] = ck, cv
+    x, aux = _ffn(p, x, cfg)
+    return x, aux, entry
 
 
 def stack_apply(layers: list, x, cfg: ModelConfig, rt: Runtime, positions,
-                *, causal: bool = True):
+                enc_out=None, *, causal: bool = True):
     """The layer stack's forward, for the loss, over ``layers``, a list of
     per-layer trees (:func:`~repro_torch._tree.layer_at` of the stacked
-    tree, or the training step's per-layer leaves). Returns (x, aux), aux
-    holding the auxiliary loss summed over layers (0: the dense family
-    has none).
+    tree, or the training step's per-layer leaves). Returns (x, aux): aux
+    holds the MoE's ``aux_loss`` summed over layers (a zero f32 scalar
+    without one) and, for the moe family, ``expert_load`` stacked (L, E).
 
     With ``rt.remat`` and autograd recording, each block of
     ``rt.layers_per_block`` layers (one layer when that does not divide
@@ -174,32 +228,47 @@ def stack_apply(layers: list, x, cfg: ModelConfig, rt: Runtime, positions,
     k = max(1, rt.layers_per_block)
     if L % k:
         k = 1
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def block(x, lo: int):
+    def block(x, lo: int, enc_out):
+        aux_loss, loads = zero, []
         for p in layers[lo:lo + k]:
-            x, _ = layer_apply(p, x, cfg, rt, positions, causal=causal)
-        return x
+            x, aux, _ = layer_apply(p, x, cfg, rt, positions, enc_out,
+                                    causal=causal)
+            if aux:
+                aux_loss = aux_loss + aux["aux_loss"]
+                loads.append(aux["expert_load"])
+        return x, aux_loss, torch.stack(loads) if loads else None
 
     remat = rt.remat and torch.is_grad_enabled()
+    aux_loss, loads = zero, []
     for lo in range(0, L, k):
         # no RNG runs inside a layer, and stashing the CUDA RNG state
         # would synchronise the host with the device at every block
-        x = (checkpoint(block, x, lo, use_reentrant=False,
-                        preserve_rng_state=False) if remat else block(x, lo))
-    return x, {"aux_loss": torch.zeros((), dtype=torch.float32,
-                                       device=x.device)}
+        x, a, load = (checkpoint(block, x, lo, enc_out, use_reentrant=False,
+                                 preserve_rng_state=False)
+                      if remat else block(x, lo, enc_out))
+        aux_loss = aux_loss + a
+        if load is not None:
+            loads.append(load)
+    aux = {"aux_loss": aux_loss}
+    if loads:
+        aux["expert_load"] = torch.cat(loads)
+    return x, aux
 
 
-def stack_prefill(stacked, x, cfg: ModelConfig, rt: Runtime, positions, *,
-                  cache_span: int):
+def stack_prefill(stacked, x, cfg: ModelConfig, rt: Runtime, positions,
+                  enc_out=None, *, cache_span: int):
     """Forward that also collects the stacked (L, ...) decode cache
     (prefill): each entry of :func:`layer_apply`'s cache stacked over the
-    layers."""
+    layers (with ``enc_out``, the cross attention's ``ck`` and ``cv``
+    too)."""
     L = num_layers_of(stacked)
     caches = None
     for i in range(L):
-        x, entry = layer_apply(layer_at(stacked, i), x, cfg, rt, positions,
-                               return_cache=True, cache_span=cache_span)
+        x, _, entry = layer_apply(layer_at(stacked, i), x, cfg, rt,
+                                  positions, enc_out, return_cache=True,
+                                  cache_span=cache_span)
         if caches is None:
             caches = {n: t.new_empty((L, *t.shape)) for n, t in entry.items()}
         for n, t in entry.items():
@@ -311,11 +380,30 @@ def _ssd_decode(sp, h_in, state, cfg: ModelConfig):
     return (o.reshape(B, H * hs).to(h_in.dtype) * z) @ sp["wo"]
 
 
-def layer_decode(p, x, cache, pos, cfg: ModelConfig, rt: Runtime):
+def _cross_decode(p, x, cross_cache, cfg: ModelConfig):
+    """One token's cross attention over an encoder-decoder's cross cache
+    (this layer's ``ck``, ``cv``: (B, enc_len, Hkv, D)), every encoder
+    position valid, through the plain decode attention as in the
+    reference (no kernel). Returns the residual sum."""
+    h_in = apply_norm(p["norm_cross"], x, cfg.norm)
+    ca = p["cross_attn"]
+    q = h_in @ ca["wq"]
+    if cfg.qkv_bias:
+        q = q + ca["bq"]
+    q = q.reshape(x.shape[0], 1, cfg.num_heads, cfg.resolved_head_dim)
+    o = attn_mod.decode_attention_simple(q, cross_cache["ck"],
+                                         cross_cache["cv"],
+                                         cross_cache["ck"].shape[1])
+    return x + o.reshape(*x.shape[:-1], -1) @ ca["wo"]
+
+
+def layer_decode(p, x, cache, pos, cfg: ModelConfig, rt: Runtime,
+                 cross_cache=None):
     """Single-token step. x: (B,1,d); cache: this layer's entries (views of
     the stacked cache), written IN PLACE: K/V at ``pos`` (at ``pos % span``
-    in a sliding ring), the SSD state, or the WKV state and token shifts.
-    Returns (x, cache).
+    in a sliding ring), the SSD state, or the WKV state and token shifts;
+    ``cross_cache``: this layer's cross attention K/V (encoder-decoder
+    models), read only. Returns (x, cache).
 
     pos is a Python int (lockstep batch: every row writes the same slot)
     or a (B,) int tensor (continuous batching: each row carries its own
@@ -329,15 +417,15 @@ def layer_decode(p, x, cache, pos, cfg: ModelConfig, rt: Runtime):
     h_in = apply_norm(p["norm1"], x, cfg.norm)
     q, k, v = attn_mod.project_qkv(p["attn"], h_in, h_in, cfg)
     if isinstance(pos, torch.Tensor):
-        q, k = _rope_q_k(cfg, q, k, pos.reshape(-1, 1))
+        q, k = _rope_q_k(cfg, q, k, _streams(cfg, pos.reshape(-1, 1)))
         bidx = torch.arange(B, device=x.device)
         slot = (pos % span if sliding else pos).long()
         cache["k"][bidx, slot] = k[:, 0]
         cache["v"][bidx, slot] = v[:, 0]
         cache_len = torch.clamp(pos + 1, max=span)
     else:
-        q, k = _rope_q_k(cfg, q, k,
-                         torch.full((B, 1), pos, device=x.device))
+        q, k = _rope_q_k(cfg, q, k, _streams(
+            cfg, torch.full((B, 1), pos, device=x.device)))
         slot = pos % span if sliding else pos
         cache["k"][:, slot] = k[:, 0]
         cache["v"][:, slot] = v[:, 0]
@@ -347,15 +435,21 @@ def layer_decode(p, x, cache, pos, cfg: ModelConfig, rt: Runtime):
     if cfg.family == "hybrid":
         h_ssm = _ssd_decode(p["ssm"], h_in, cache["ssd_state"], cfg)
         h = (h + h_ssm[:, None]) * 0.5
-    return _mlp_block(p, x + h, cfg), cache
+    x = x + h
+    if cross_cache is not None:
+        x = _cross_decode(p, x, cross_cache, cfg)
+    return _ffn(p, x, cfg)[0], cache
 
 
-def stack_decode(stacked, x, caches, pos, cfg: ModelConfig, rt: Runtime):
+def stack_decode(stacked, x, caches, pos, cfg: ModelConfig, rt: Runtime,
+                 cross_caches=None):
     """Decode one token through every layer; ``caches`` is updated IN
-    PLACE and returned."""
+    PLACE and returned. ``cross_caches``: the stacked (L, ...) cross
+    attention K/V of an encoder-decoder model, read only."""
     for i in range(num_layers_of(stacked)):
+        cross = None if cross_caches is None else layer_at(cross_caches, i)
         x, _ = layer_decode(layer_at(stacked, i), x, layer_at(caches, i),
-                            pos, cfg, rt)
+                            pos, cfg, rt, cross_cache=cross)
     return x, caches
 
 
@@ -385,7 +479,7 @@ def layer_decode_paged(p, x, cache, pos, block_tables, cfg: ModelConfig,
     B = x.shape[0]
     h_in = apply_norm(p["norm1"], x, cfg.norm)
     q, k, v = attn_mod.project_qkv(p["attn"], h_in, h_in, cfg)
-    q, k = _rope_q_k(cfg, q, k, pos.reshape(-1, 1))
+    q, k = _rope_q_k(cfg, q, k, _streams(cfg, pos.reshape(-1, 1)))
     ps = cache["k"].shape[1]
     bidx = torch.arange(B, device=x.device)
     # clamp like the reference's gather, which clamps out-of-range indices
@@ -397,7 +491,7 @@ def layer_decode_paged(p, x, cache, pos, block_tables, cfg: ModelConfig,
     o = _paged_attend(q, cache["k"], cache["v"], block_tables,
                       (pos + 1).to(torch.int32), rt)
     x = x + o.reshape(*x.shape[:-1], -1) @ p["attn"]["wo"]
-    return _mlp_block(p, x, cfg), cache
+    return _ffn(p, x, cfg)[0], cache
 
 
 def stack_decode_paged(stacked, x, caches, pos, block_tables,
@@ -427,7 +521,7 @@ def layer_prefill_chunk(p, x, cache, block_tables, start_pos: int,
     positions = start_pos + torch.arange(C, device=x.device)
     h_in = apply_norm(p["norm1"], x, cfg.norm)
     q, k, v = attn_mod.project_qkv(p["attn"], h_in, h_in, cfg)
-    q, k = _rope_q_k(cfg, q, k, positions[None])
+    q, k = _rope_q_k(cfg, q, k, _streams(cfg, positions[None]))
     _, ps, Hkv, D = cache["k"].shape
     npag = block_tables.shape[1]
     pages = block_tables[:, positions // ps].long()             # (B, C)
@@ -440,7 +534,7 @@ def layer_prefill_chunk(p, x, cache, block_tables, start_pos: int,
     o = attn_mod.dense_attention(q, k_all, v_all, causal=True,
                                  q_offset=start_pos)
     x = x + o.reshape(*x.shape[:-1], -1) @ p["attn"]["wo"]
-    return _mlp_block(p, x, cfg), cache
+    return _ffn(p, x, cfg)[0], cache
 
 
 def stack_prefill_chunk(stacked, x, caches, block_tables, start_pos: int,

@@ -46,8 +46,9 @@ def _grad_leaves(params, gsum):
     a separate leaf (a view of the same storage), in a list of per-layer
     trees: a layer's gradient then lands in a tensor of the layer's size,
     where through the stacked tensor each layer's slice would give back a
-    zero-filled gradient of the whole stack. Returns (tree, [(leaf,
-    accumulator)])."""
+    zero-filled gradient of the whole stack. An encoder-decoder model's
+    encoder stack (``enc_layers``) is split the same way. Returns (tree,
+    [(leaf, accumulator)])."""
     pairs = []
 
     def leaf(a, acc):
@@ -55,12 +56,14 @@ def _grad_leaves(params, gsum):
         pairs.append((t, acc))
         return t
 
+    stacks = ("layers", "enc_layers")     # the decoder's and encoder's
     tree = {k: tree_map(leaf, v, gsum[k]) for k, v in params.items()
-            if k != "layers"}
-    layers, acc_layers = params["layers"], gsum["layers"]
-    tree["layers"] = [
-        tree_map(lambda a, acc: leaf(a[i], acc[i]), layers, acc_layers)
-        for i in range(num_layers_of(layers))]
+            if k not in stacks}
+    for k in stacks:
+        if k in params:
+            tree[k] = [tree_map(lambda a, acc: leaf(a[i], acc[i]), params[k],
+                                gsum[k])
+                       for i in range(num_layers_of(params[k]))]
     return tree, pairs
 
 
@@ -68,29 +71,44 @@ def accumulate_grads(model, params, batch, microbatches: int,
                      acc_dtype=torch.float32):
     """The gradients of ``model.loss`` over ``batch`` split into
     ``microbatches`` consecutive microbatches, summed in ``acc_dtype`` and
-    divided by their number, and the mean loss: (grads, a tree like
-    ``params``; loss, a device scalar). Touches neither ``params`` nor
+    divided by their number, the mean loss, and the moe family's router
+    statistics: (grads, a tree like ``params``; loss, a device scalar;
+    stats, {} or the mean ``aux_loss`` and the ``expert_load`` (L, E)
+    summed over the microbatches). The MoE's ``aux_loss`` is part of the
+    loss, so it reaches the gradients. Touches neither ``params`` nor
     anything else."""
-    gb = batch["tokens"].shape[0]
+    gb = batch["labels"].shape[0]
     if gb % microbatches:
         raise ValueError(f"global batch {gb} does not split into "
                          f"{microbatches} microbatches")
     mb = gb // microbatches
     gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype,
                                           device=p.device), params)
-    losses = []
+    losses, aux_losses, loads = [], [], []
     for i in range(microbatches):
         mbatch = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
         tree, pairs = _grad_leaves(params, gsum)
-        loss, _ = model.loss(tree, mbatch)
-        grads = torch.autograd.grad(loss, [t for t, _ in pairs])
+        loss, aux = model.loss(tree, mbatch)
+        # a leaf the loss does not reach (the token table under the vision
+        # stub's embeds) has no gradient: its accumulator stays 0, the
+        # reference's zero gradient
+        grads = torch.autograd.grad(loss, [t for t, _ in pairs],
+                                    allow_unused=True)
         for (_, acc), g in zip(pairs, grads):
-            acc.add_(g.to(acc_dtype))
+            if g is not None:
+                acc.add_(g.to(acc_dtype))
         del tree, pairs, grads
         losses.append(loss.detach())
+        if "expert_load" in aux:
+            aux_losses.append(aux["aux_loss"].detach())
+            loads.append(aux["expert_load"])
     for g in tree_leaves(gsum):
         g.div_(microbatches)
-    return gsum, torch.stack(losses).mean()
+    stats = {}
+    if loads:
+        stats = {"aux_loss": torch.stack(aux_losses).mean(),
+                 "expert_load": torch.stack(loads).sum(0)}
+    return gsum, torch.stack(losses).mean(), stats
 
 
 def build_train_step(rcfg: RunConfig, total_steps: int = 10000, *,
@@ -101,7 +119,9 @@ def build_train_step(rcfg: RunConfig, total_steps: int = 10000, *,
     The batch carries the full global batch; gradient accumulation splits
     its rows into ``rcfg.microbatches`` consecutive microbatches, sums
     their gradients in ``rcfg.grad_accum_dtype``, divides by their number
-    and reports the mean loss, as the reference does.
+    and reports the mean loss, as the reference does. For the moe family
+    the metrics also hold the step's mean ``aux_loss`` and its
+    ``expert_load`` ((L, E), summed over the microbatches).
 
     The step updates ``params`` and ``opt_state`` IN PLACE and returns the
     same objects. It computes every gradient before it touches either, so
@@ -118,8 +138,9 @@ def build_train_step(rcfg: RunConfig, total_steps: int = 10000, *,
     acc_dt = getattr(torch, rcfg.grad_accum_dtype)
 
     def train_step(params, opt_state, batch):
-        gsum, loss = accumulate_grads(model, params, batch, n_mb, acc_dt)
-        metrics = {"loss": loss}
+        gsum, loss, stats = accumulate_grads(model, params, batch, n_mb,
+                                             acc_dt)
+        metrics = {"loss": loss, **stats}
         if not torch.isfinite(loss):       # the loop skips this step
             return params, opt_state, metrics
         try:

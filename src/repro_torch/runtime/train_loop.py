@@ -21,6 +21,8 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
+import torch
+
 log = logging.getLogger("repro_torch.train")
 
 
@@ -77,8 +79,9 @@ def run(train_step: Callable, params, opt_state, data_iter_fn: Callable,
     fail_injector(step) may raise to simulate node failures (tests).
     ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` with a ``"loss"`` metric. Each committed step's metrics,
-    as Python floats, with its wall time ``step_s`` (the loss read
-    synchronises with the device), land in ``metrics``."""
+    as Python floats (a tensor metric as its ``tolist()``: the moe
+    family's ``expert_load`` is (L, E)), with its wall time ``step_s``
+    (the loss read synchronises with the device), land in ``metrics``."""
     if ckpt_dir:
         raise NotImplementedError(
             "ckpt_dir: checkpointing and resume come with the checkpoint "
@@ -113,7 +116,9 @@ def run(train_step: Callable, params, opt_state, data_iter_fn: Callable,
         dt = time.perf_counter() - t0
         params, opt_state = new_params, new_opt
         losses.append(loss)
-        metrics_log.append({**{k: float(v) for k, v in metrics.items()},
+        metrics_log.append({**{k: v.tolist() if torch.is_tensor(v)
+                                else float(v)
+                                for k, v in metrics.items()},
                             "step_s": dt})
         watchdog.observe(step, dt)
         step += 1

@@ -253,7 +253,7 @@ def test_tier1_gates(smoke):
 def _bench_records(**roofline_derived):
     from repro_torch.bench import BenchRecord
     recs = [BenchRecord(name=f"{s}/x", scenario=s)
-            for s in smoke_scenarios()[:5]]
+            for s in smoke_scenarios()[:6]]
     recs += [BenchRecord(name=f"efficiency/layers{L}/measured",
                          scenario="efficiency/measured")
              for L in (1, 2, 4, 8)]
@@ -267,7 +267,7 @@ def _bench_records(**roofline_derived):
 
 def smoke_scenarios():
     return ("allocation/layers", "allocation/hidden", "allocation/archs",
-            "load_balance/layers", "load_balance/hidden",
+            "load_balance/layers", "load_balance/hidden", "load_balance/moe",
             "efficiency/measured", "roofline/measured")
 
 
@@ -321,7 +321,8 @@ def _launches(smoke):
              "hymba-1.5b:static", "hymba-1.5b:continuous"] + [
         f"{a}:{e}" for a in smoke.SSM_ARCHS for e in ("static",
                                                         "continuous")] + [
-        f"serving:{s}" for s in smoke.SERVING_SCENARIOS]
+        f"serving:{s}" for s in smoke.SERVING_SCENARIOS] + list(
+        smoke.FAMILY_PATHS)
     return {p: dict.fromkeys(smoke.KERNELS, 1) for p in paths}
 
 
@@ -492,3 +493,119 @@ def test_serving_tables(smoke, line):
         owned += row[shared:live]
     assert len(owned) == len(set(owned))
     assert not set(owned) & set(bt[0, :shared].tolist())
+
+
+# ----------------------------------------------------------- phase 10
+def test_phase10_is_wired(smoke):
+    """Phase 10 runs after the training phases and before phase 8 (whose
+    Tier-1 lines include 10a's), and the kernels line fails when one of
+    its paths launched none of a kernel it must."""
+    import inspect
+    src = inspect.getsource(smoke.main)
+    assert src.index('"6d-hymba"') < src.index("_families(dev)") < \
+        src.index("_bench(dev, tier1)")
+    bad = _launches(smoke)
+    bad["arctic-480b:paged"]["paged_attention"] = 0
+    bad["whisper:serve"]["flash_attention"] = 0
+    assert smoke._missing(bad) == [
+        "flash_attention in whisper:serve",
+        "paged_attention in arctic-480b:paged"]
+    assert "load_balance/moe" in smoke.BENCH_SCENARIOS
+    assert smoke.TRAIN["10a"]["arch"] == "whisper-large-v3"
+
+
+def test_attention_calls_per_forward(smoke):
+    from repro_torch.configs import get_arch
+    assert smoke._attention_calls(get_arch("granite-3-8b")) == 40
+    assert smoke._attention_calls(get_arch("whisper-large-v3")) == 96
+
+
+def test_one_ulp_q_moves_the_plain_attention_and_restores_it(smoke):
+    from repro_torch.models import attention as attn_mod
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((1, 6, 2, 16), generator=gen) for _ in "qkv")
+    before = attn_mod.dense_attention(q, k, v, causal=True)
+    orig = attn_mod.dense_attention
+    with smoke._one_ulp_q(True):
+        moved = attn_mod.dense_attention(q, k, v, causal=True)
+    assert attn_mod.dense_attention is orig
+    with smoke._one_ulp_q(False):
+        assert attn_mod.dense_attention is orig
+    diff = float((moved - before).abs().max())
+    assert 0 < diff < 1e-5
+
+
+@pytest.fixture(scope="module")
+def phase10_on_the_cpu(smoke):
+    """Phase 10's serving on the reference's reduced configs on the CPU:
+    whisper through ``serve_loop.generate``, qwen2-vl and arctic through
+    the three engines (their gates raise on failure); and the shapes they
+    gave K1 ((batch, Sq, Sk, causal, window) -> calls) and K2 ((lanes,
+    page size, table width, pool pages) -> calls): the same on the
+    reduced configs as at full width, since only the heads, widths and
+    depth are cut."""
+    torch.set_num_threads(2)
+    from repro_torch.kernels import ops
+    k1, k2 = {}, {}
+    flash, paged = ops.flash_attention, ops.paged_attention
+
+    def flash_seen(q, k, v, *, causal, window):
+        key = (q.shape[0], q.shape[1], k.shape[1], causal, window)
+        k1[key] = k1.get(key, 0) + 1
+        return flash(q, k, v, causal=causal, window=window)
+
+    def paged_seen(q, kp, vp, bt, lens):
+        key = (q.shape[0], kp.shape[1], bt.shape[1], kp.shape[0])
+        k2[key] = k2.get(key, 0) + 1
+        return paged(q, kp, vp, bt, lens)
+
+    cpu = torch.device("cpu")
+    ops.flash_attention, ops.paged_attention = flash_seen, paged_seen
+    try:
+        launches = smoke._serve_whisper(cpu, use_reduced=True)
+        for arch in smoke.FAMILY_LAYERS:
+            launches.update(smoke._serve_family(cpu, arch, use_reduced=True))
+    finally:
+        ops.flash_attention, ops.paged_attention = flash, paged
+    return launches, {"K1": k1, "K2": k2}
+
+
+def test_phase10_runs_on_the_cpu(smoke, phase10_on_the_cpu):
+    launches, seen = phase10_on_the_cpu
+    assert set(smoke.FAMILY_PATHS) - {"train:10a"} <= set(launches)
+    # the CPU runs the kernels' plain versions: no launch
+    assert all(n == 0 for c in launches.values() for n in c.values())
+    # whisper's prefills (the warm-up's, the served run's, the parity
+    # check's): encoder (non-causal), decoder prompt (causal) and cross
+    # attention (non-causal, Sq != Sk), once a layer (2 reduced) each
+    w = smoke.WHISPER
+    B, S, F = w["requests"], w["prompt"], w["frames"]
+    assert {key: n for key, n in seen["K1"].items() if key[0] == B} == {
+        (B, F, F, False, 0): 6, (B, S, S, True, 0): 6, (B, S, F, False, 0): 6}
+
+
+def test_phase2_holds_every_shape_phase10_gives(smoke, phase10_on_the_cpu):
+    """Phase 2 holds K1 and K2 against their plain versions at every shape
+    phase 10 launches them at: each (batch, Sq, Sk, mask) of K1, with the
+    full configs' heads, and K2 at phase 3's paged table with qwen2-vl's
+    and arctic's heads."""
+    from repro_torch.configs import get_arch
+    _, seen = phase10_on_the_cpu
+    lines = {(b, sq, sk, causal) for b, sq, sk, _, _, _, causal
+             in smoke.FAMILY_K1}
+    assert {(b, sq, sk, causal) for b, sq, sk, causal, window in seen["K1"]
+            if window == 0} <= lines
+    heads = {(hq, hkv, d) for _, _, _, hq, hkv, d, _ in smoke.FAMILY_K1}
+    archs = ("whisper-large-v3", "qwen2-vl-72b", "arctic-480b")
+    assert heads == {(get_arch(a).num_heads, get_arch(a).num_kv_heads,
+                      get_arch(a).resolved_head_dim) for a in archs}
+    assert set(seen["K2"]) == {(4, 16, 10, 41)}
+    assert set(smoke.FAMILY_K2) == {(get_arch(a).num_heads,
+                                     get_arch(a).num_kv_heads)
+                                    for a in archs[1:]}
+    # phase 2b at whisper's training microbatch, both masks
+    cfg, seq = get_arch("whisper-large-v3"), smoke.TRAIN["10a"]["seq"]
+    rows = smoke.TRAIN_BATCH // 2
+    assert {a for a in smoke.TRAIN_ATTN if a[4] == 64} == {
+        (rows, seq, cfg.num_heads, cfg.num_kv_heads, 64, causal)
+        for causal in (False, True)}

@@ -119,12 +119,3 @@ def test_port_params_have_the_jax_layout():
             node = node[key.key]
         assert tuple(node.shape) == leaf.shape, path
         assert str(node.dtype).split(".")[-1] == str(leaf.dtype), path
-
-
-@pytest.mark.parametrize("arch", ["arctic-480b", "whisper-large-v3",
-                                  "qwen2-vl-72b"])
-def test_other_families_are_not_built_yet(arch):
-    """moe, audio and vlm: the families no slice has ported yet."""
-    cfg = torch_reduced(torch_get_arch(arch))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build(cfg, device="cpu")
