@@ -31,10 +31,13 @@ Phases, one JSON line each:
    and cross attention (Sq4 and Sq128 against Sk1500, and a ragged
    Sk1499), qwen2-vl's and arctic's prefills (Hq64 and Hq56, Hkv8 D128,
    S128 and S125) and paged decode at phase 3's table; K3 also at a
-   decode step's 4 rows and a training microbatch's 4096): in f32 the
-   max abs
-   error
-   (tolerance 5e-4); in bf16 the error against the plain version computed
+   decode step's 4 rows and a training microbatch's 4096; and at every
+   shape and dtype phase 11 gives them: in bf16 K1 at llama4's one-prompt
+   prefills (Hq40 Hkv8 D128, S128 and S125, ``LLAMA4_K1``) and K2 at its
+   heads on phase 3's table; K3 at d_model 5120 (``SLICE_K3``): 11b's
+   microbatches in f32 (128 to 4096 rows) and bf16 (1024), llama4's
+   prompts, decode steps and head (128, 125, 4 and 1 rows) in bf16): in
+   f32 the max abs error (tolerance 5e-4); in bf16 the error against the plain version computed
    in f32 from the same bf16 inputs, in units of bf16 rounding at each
    element's magnitude (at most 1, ``_held``; a line first shows that an
    output 2 units off fails); the device time of the kernel, of the plain version and of one library
@@ -61,7 +64,9 @@ Phases, one JSON line each:
    and its backward (dq, dk and dv in one call) beside B3 and B4
    (efficient attention in f32, flash attention in bf16, K and V
    expanded to the q heads outside the timed call), and SDPA's forward
-   plus backward beside B2 + B3 + B4;
+   plus backward beside B2 + B3 + B4; also at each of 11b's microbatches
+   (S128 Hq40 Hkv8 D128 causal, ``DEPLOY_ATTN``: B1-32 in f32, B8 in
+   bf16);
 2c. kernel B6 (chunked WKV6) against its plain version on the same
    inputs: rwkv6 mode at rwkv6-3b's prefill shape (B1 T128 H40 K64 V64,
    with u, mild decay: every chunk on the rescaled product), the same at
@@ -196,18 +201,56 @@ Phases, one JSON line each:
 10c. arctic-480b at full width cut to 1 of 35 layers (128 experts top-2,
    expert ff 4864, a dense residual MLP of 4864): as 10b's serving, and
    the experts' load summed over the kernel runs with its LI
-   (``core/metrics.expert_load_imbalance``); a token that differs is
-   reported with its logits' and its router's top-k margins;
+   (``core/metrics.expert_load_imbalance``) and the smallest router
+   margin of each engine's run; a token that differs is reported with
+   both paths' top-2 logit margins and router margins;
 10d. reduced arctic-480b and qwen2-vl-72b trained on the card and on the
    CPU as 6d;
+11a. (phases 11a-11d run after 10d, before 8) granite-3-8b as phase 6 (8
+   layers, 2 x 4096 tokens, 2 microbatches, remat) with bf16 params, an
+   f32 master, f32 moments and f32 gradient sums (``TRAIN["11a"]``):
+   6a's per-leaf gradients and the 3-step trajectories, kernels against
+   the plain path, within 2e-2; beside them the plain path against itself
+   with q one bf16 ulp up; both paths profiled (device time by kernel
+   group) with ``mfu_measured`` against the bf16 peak;
+11b. the port's batch/precision suite (``deploy/batch`` B1-32 in f32,
+   ``deploy/precision`` f32 and bf16 at B8, S128; the loss gradient of
+   qwen2.5-32b at its published width cut to 4 layers) through the
+   harness's runner: a record with a finite tok_s for every workload, B2,
+   B3, B4 and K3 launched, the bf16/f32 tok_s ratio (Table IV);
+11c. llama4-maverick-400b-a17b at full width cut to 1 of 48 layers in
+   bf16 (36.5 GB; the init's peak reported): phase 3's request mix
+   through the continuous and paged engines (one-chunk prefills) on the
+   kernels and the continuous engine on the plain path (``_serve_family``
+   in bf16); each prompt's prefill logits at every position, kernels
+   against plain, within LOGIT_UNITS units of bf16 rounding at the
+   largest logit, where both paths routed the tokens alike (a token sent
+   to other experts, or dropped otherwise, is left out with what it
+   reaches: its own position in the last layer), at least
+   LOGIT_HELD_SHARE of the positions held; tokens per rid under the flip
+   rule
+   (``_flip_check``: identical up to the first differing step, where the
+   plain path's top-2 logit margin must not exceed the largest prefill
+   logit difference), the paged engine against the continuous one and the
+   kernels against the plain path; TTFT and per-token p50/p95, peak
+   memory, expert load and LI, and the smallest router margin over the
+   run;
+11d. checkpoint and resume: granite-3-8b at full width, 1 layer, bf16
+   params with an f32 master, 4 steps unbroken twice, then 2 steps
+   saving, the state rebuilt from another seed and resumed through
+   ``train_loop.run`` to step 4: the resumed steps' losses and grad norms
+   equal the unbroken run's bit for bit (or within the two unbroken runs'
+   difference); a save's bytes, save and restore seconds;
 7. the ``kernels`` summary line, with the launch counts of the serving
-   (phases 3, 3b, 3c, 9, 10a-c), training (phases 6, 6b, 6c, 6d, 10a,
-   10d) and bench (phase 8) runs; fails unless phase 8's steps launched
+   (phases 3, 3b, 3c, 9, 10a-c, 11c), training (phases 6, 6b, 6c, 6d,
+   10a, 10d, 11a, 11d) and bench (phases 8, 11b) runs; fails unless phase
+   8's steps launched
    B2, B3, B4 and K3, each scenario of phase 9 launched K3, K2 if it
    decodes from pages and K1 if it prefills in one shot
    (``SERVING_SCENARIOS``), whisper's prefill launched K1 three times a
-   decoder layer and its training B2-B4 likewise, and 10b's and 10c's
-   engines launched K1, K2 and K3.
+   decoder layer and its training B2-B4 likewise, 10b's and 10c's
+   engines launched K1, K2 and K3, 11a's and 11b's steps B2, B3, B4 and
+   K3, and llama4's engines K1, K2 and K3.
 
 Any failure raises and exits non-zero. Without a CUDA device, or outside a
 checkout, it exits non-zero before printing any result. The last line of
@@ -283,6 +326,17 @@ TRAIN = {
                        held=("loss", "grad_norm"), cut=None),
     "10d-qwen2-vl": dict(arch="qwen2-vl-72b", layers=2, gate="forced",
                          held=("loss", "grad_norm"), cut=None),
+    # bf16 params with an f32 master, f32 moments and f32 gradient sums,
+    # held at TOL["bfloat16"] (``_train_tol``); both paths profiled
+    "11a": dict(arch="granite-3-8b", layers=8, gate="free",
+                held=("loss", "grad_norm"), one_ulp=True, dtype="bfloat16",
+                cut="bf16 params, f32 gradient sums, master and two AdamW "
+                    "moments of 40 layers (18 B a parameter, ~147 GB) "
+                    "exceed one 80 GB card"),
+    # phase 11d's checkpointed run (``_ckpt_resume``, not ``_train``)
+    "11d": dict(arch="granite-3-8b", layers=1, dtype="bfloat16",
+                cut="a checkpoint a layer deep: 0.40 B parameters, 5.6 GB "
+                    "a save"),
 }
 TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-5}   # relative, kernel vs plain
 GRAD_TOL = 1e-4   # per leaf, |g_kernel - g_plain| / |g_plain| (L2 norms)
@@ -365,12 +419,53 @@ FAMILY_K2 = ((64, 8), (56, 8))
 # its encoder and cross attention; causal: its decoder)
 TRAIN_ATTN = ((1, TRAIN_SEQ, 32, 8, 128, True), (1, 4000, 32, 8, 128, True),
               (1, 1500, 20, 20, 64, False), (1, 1500, 20, 20, 64, True))
+# phase 11b: the port's batch/precision suite, its batches (deploy/batch's
+# in f32; deploy/precision's B8 in f32 and bf16) and the records it must
+# give; phase 2 holds B2-B4 at each of its microbatches in each dtype it
+# runs them in (S128, qwen2.5's GQA 40:8 at D128)
+DEPLOY_SCENARIOS = ("deploy/batch", "deploy/precision")
+DEPLOY_BATCHES = (1, 2, 4, 8, 16, 32)
+DEPLOY_RECORDS = tuple(f"deploy/batch{b}" for b in DEPLOY_BATCHES) + (
+    "deploy/precision_float32", "deploy/precision_bfloat16")
+DEPLOY_ATTN = {
+    "float32": tuple((b, 128, 40, 8, 128, True) for b in DEPLOY_BATCHES),
+    "bfloat16": ((8, 128, 40, 8, 128, True),)}
+# phase 11c: llama4-maverick at full width cut to 1 of 48 layers, bf16
+# (18.24 B parameters: 72.96 GB in f32, 36.5 GB in bf16); its prefill
+# logits through the kernels within LOGIT_UNITS units of bf16 rounding at
+# the plain logits' largest magnitude, at every position whose token the
+# router sent to the same expert, kept, on both paths; at least
+# LOGIT_HELD_SHARE of the positions. Phase 2 holds K1 at its one-prompt
+# prefills (causal, Hq40 Hkv8 D128) and K2 at its heads on phase 3's
+# paged table, in bf16; and K3 at d_model 5120 (both models') per dtype:
+# 11b's microbatches (128 rows a sequence), llama4's prompts (128 and 125
+# rows), its decode steps (4) and its head's last position (1)
+LLAMA4 = "llama4-maverick-400b-a17b"
+LOGIT_UNITS = 4
+LOGIT_HELD_SHARE = 0.9
+LLAMA4_K1 = ((1, 128, 128, 40, 8, 128, True), (1, 125, 125, 40, 8, 128, True))
+LLAMA4_K2 = ((40, 8),)
+SLICE_K3 = {"float32": tuple((128 * b, 5120) for b in DEPLOY_BATCHES),
+            "bfloat16": ((128, 5120), (125, 5120), (4, 5120), (1, 5120),
+                         (1024, 5120))}
+# the kernels each of phase 11's paths must launch: B2-B4 and K3 in 11a's
+# bf16 training and 11b's suite, K1 and K3 in llama4's continuous engine,
+# K2 and K3 in its paged one
+BF16_PATHS = {
+    **{p: ("flash_attention_lse", "flash_attention_dq", "flash_attention_dkv",
+           "rmsnorm") for p in ("train:11a", "deploy")},
+    f"{LLAMA4}:continuous": ("flash_attention", "rmsnorm"),
+    f"{LLAMA4}:paged": ("paged_attention", "rmsnorm"),
+}
+CKPT_STEPS, CKPT_EVERY = 4, 2   # phase 11d: the unbroken run, the save
 # phase 10: whisper's served requests, and the depth qwen2-vl and arctic
-# are cut to (f32 params of 80 and 35 layers exceed one 80 GB card)
+# are cut to (f32 params of 80 and 35 layers exceed one 80 GB card); and
+# 11c's llama4 (1 of 48 layers, bf16: 36.5 GB)
 WHISPER = dict(requests=4, frames=1500, prompt=4, new_tokens=64)
 FAMILY_LAYERS = {"qwen2-vl-72b": 8, "arctic-480b": 1}
+SERVED_LAYERS = {**FAMILY_LAYERS, LLAMA4: 1}
 MROPE_GRID = (2, 8, 8)     # 10b's vision prefill: (t, h, w) patches
-PAGED_CHUNK = {"qwen2-vl-72b": 64, "arctic-480b": 0}   # 0: one chunk
+PAGED_CHUNK = {"qwen2-vl-72b": 64, "arctic-480b": 0, LLAMA4: 0}  # 0: one
 # the kernels each of phase 10's paths must launch: K1 in whisper's
 # prefill, B2-B4 in its training, K1 and K3 in the continuous engines' and
 # K2 and K3 in the paged engines' runs of 10b and 10c
@@ -506,18 +601,20 @@ def main() -> int:
     gen_share = torch.Generator(device=dev).manual_seed(4)
     gen_serve = torch.Generator(device=dev).manual_seed(5)
     gen_family = torch.Generator(device=dev).manual_seed(6)
+    gen_slice = torch.Generator(device=dev).manual_seed(7)
 
     def rand(shape, dtype, hymba=False, stream=0):
         # the lines at hymba-1.5b's shapes (stream 1), K2's wide-table lines
         # (stream 2) and K3's decode and training lines (stream 3) draw from
         # their own streams, as do K2's shared-table lines (stream 4), the
         # K1 and K2 lines at phase 9's shapes (stream 5) and at phase 10's
-        # and phase 2b's whisper lines (stream 6), so the other lines keep
-        # the inputs they had before those were added
+        # and phase 2b's whisper lines (stream 6) and at phase 11's (stream
+        # 7), so the other lines keep the inputs they had before those were
+        # added
         g = (gen_hymba if hymba or stream == 1 else gen_k2 if stream == 2
              else gen_k3 if stream == 3 else gen_share if stream == 4
              else gen_serve if stream == 5 else gen_family if stream == 6
-             else gen)
+             else gen_slice if stream == 7 else gen)
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     # the floor under any one-kernel call: a one-element in-place add,
@@ -548,7 +645,6 @@ def main() -> int:
 
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
-        isz = torch.finfo(dtype).bits // 8
         # K1: one-shot prefill, granite's GQA 32:8 at head dim 128, and
         # hymba-1.5b's GQA 25:5 at head dim 64 with its 1024-token window
         # (S1100: the long prompts of phase 3c, past the window); then
@@ -680,27 +776,15 @@ def main() -> int:
             stream = 3 if rows in (4, 4096) else 1 if d == 1600 else 0
             x = rand((rows, d), dtype, stream=stream)
             scale = rand((d,), torch.float32, stream=stream)
-            scale_lib = scale.to(dtype)
-            out = ops.rmsnorm(x, scale)
-            want = ref.rmsnorm_ref(x.float(), scale)
             if dname == "bfloat16" and rows == 512:
-                _check_ulp_gate(out, want)
-            b_ms, b_by = bound(*work.rmsnorm(rows, d, isz), dname)
-            record({
-                "phase": "kernel", "kernel": "rmsnorm",
-                "shape": f"rows{rows} d{d}", "dtype": dname,
-                **_held(out, want, dname),
-                **_times(lambda: ops.rmsnorm(x, scale),
-                         lambda: ref.rmsnorm_ref(x, scale),
-                         lambda: F.rms_norm(x, (d,), weight=scale_lib,
-                                            eps=1e-5)),
-                "library": "rms_norm", "bound_ms": b_ms, "bound_by": b_by,
-                "floor_ms": floor_ms,
-                "floor_or_bound_ms": max(floor_ms, b_ms)},
-                main_path=(rows == 128 and d == 4096 and dname == "float32"))
+                _check_ulp_gate(ops.rmsnorm(x, scale),
+                                ref.rmsnorm_ref(x.float(), scale))
+            record(_rmsnorm_line(x, scale, floor_ms), main_path=(
+                rows == 128 and d == 4096 and dname == "float32"))
     _family_kernels(rand, record, gen_family)
     _train_kernels(rand, record)
     _wkv6_kernels(rand, record)
+    _slice_kernels(rand, record, gen_slice, floor_ms)
     torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
@@ -728,6 +812,12 @@ def main() -> int:
     # ------------------------------------------------------------ 10 families
     family_launches, tier1["10a"] = _families(dev)
     launches.update(family_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ 11 bf16
+    bf16_launches, tier1["11a"] = _bf16_phases(dev)
+    launches.update(bf16_launches)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -767,8 +857,8 @@ def _missing(launches: dict) -> list:
     """The kernels a path of the run never launched, from each path's
     counts (``launches``: path -> kernel -> launches): the serving phases'
     (3, 3b, 3c), the training phases' (6, 6b), phase 8's (BENCH_KERNELS),
-    every scenario of phase 9's (SERVING_SCENARIOS) and phase 10's paths
-    (FAMILY_PATHS)."""
+    every scenario of phase 9's (SERVING_SCENARIOS), phase 10's paths
+    (FAMILY_PATHS) and phase 11's (BF16_PATHS)."""
     need = {"flash_attention": launches["continuous"]["flash_attention"],
             "paged_attention": launches["paged"]["paged_attention"],
             **{k: min(launches[e][k] for e in ("train:6", "train:6b"))
@@ -784,7 +874,8 @@ def _missing(launches: dict) -> list:
         if launches["bench"][k] <= 0] + [
         f"{k} in {scen}" for scen, kernels in SERVING_SCENARIOS.items()
         for k in kernels if launches[f"serving:{scen}"][k] <= 0] + [
-        f"{k} in {path}" for path, kernels in FAMILY_PATHS.items()
+        f"{k} in {path}" for path, kernels in {**FAMILY_PATHS,
+                                               **BF16_PATHS}.items()
         for k in kernels if launches[path][k] <= 0]
 
 
@@ -928,14 +1019,15 @@ def _families(dev) -> tuple:
     return launches, tier1
 
 
-def _weights_line(arch: str, cfg, params, t0: float) -> None:
+def _weights_line(arch: str, cfg, params, t0: float, dtype="float32",
+                  **more) -> None:
     from repro_torch._tree import tree_leaves
     leaves = tree_leaves(params)
     emit({"phase": "weights", "arch": arch, "layers": cfg.num_layers,
           "encoder_layers": cfg.encoder_layers,
-          "params": sum(t.numel() for t in leaves), "dtype": "float32",
+          "params": sum(t.numel() for t in leaves), "dtype": dtype,
           "bytes": sum(t.numel() * t.element_size() for t in leaves),
-          "init_s": time.perf_counter() - t0})
+          "init_s": time.perf_counter() - t0, **more})
 
 
 def _sync(dev) -> None:
@@ -1038,20 +1130,23 @@ def _serve_whisper(dev, use_reduced: bool = False) -> dict:
 
 
 class _expert_load:
-    """Within it, the MoE FFN (``models/moe.py::moe_ffn``) adds each
-    call's ``expert_load`` into ``total`` and keeps its last input and
-    router in ``last`` (for a flipped token's router margins)."""
+    """Within it, the MoE FFN (``models/moe.py::moe_ffn``) records each
+    call: its ``expert_load`` summed into ``total``, and in ``calls`` its
+    tokens' routes (``_token_routes``: router margin, routed experts and
+    which (token, k) pairs the capacity kept). ``smallest`` is the
+    smallest router margin over the calls (None before one)."""
 
     def __enter__(self):
         from repro_torch.models import moe as moe_mod
         self.mod, self.orig = moe_mod, moe_mod.moe_ffn
-        self.total, self.last = None, None
+        self.total, self.calls = None, []
 
         def counted(p, x, cfg):
             y, aux = self.orig(p, x, cfg)
             load = aux["expert_load"]
             self.total = load if self.total is None else self.total + load
-            self.last = (x.detach(), p["router"])
+            self.calls.append(_token_routes(x.detach(), p["router"],
+                                            cfg.moe.top_k, aux["capacity"]))
             return y, aux
 
         moe_mod.moe_ffn = counted
@@ -1060,31 +1155,161 @@ class _expert_load:
     def __exit__(self, *exc) -> None:
         self.mod.moe_ffn = self.orig
 
+    @property
+    def smallest(self):
+        if not self.calls:
+            return None
+        return min(float(c["margin"].min()) for c in self.calls)
 
-def _router_margins(x, router, k: int) -> dict:
-    """The last token's router probabilities: its top k + 1, and the margin
-    between the k-th (the last routed) and the next."""
+    def last_token(self) -> dict:
+        """The last call's last token: its routed experts and margin."""
+        c = self.calls[-1]
+        return {"experts": c["experts"][-1].tolist(),
+                "margin": float(c["margin"][-1])}
+
+
+def _token_routes(x, router, k: int, capacity: int) -> dict:
+    """Per token of ``x`` (..., d), as ``moe_ffn`` routes it: ``margin``
+    (T,), the router probability of its k-th (last routed) expert less
+    the (k+1)-th's; ``experts`` (T, k), its routed experts; ``keep`` (T,
+    k), whether each (token, k) pair fits its expert's ``capacity`` (its
+    place in the expert's queue in token order, as the stable sort by
+    expert orders it)."""
     import torch
-    probs = torch.softmax(x[0, -1].float() @ router, dim=-1)
-    top = torch.topk(probs, k + 1)
-    return {"experts": top.indices.tolist(), "probs": top.values.tolist(),
-            "margin": float(top.values[k - 1] - top.values[k])}
+    import torch.nn.functional as F
+    probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ router, dim=-1)
+    top = torch.topk(probs, k + 1, dim=-1)
+    experts = top.indices[:, :k]
+    flat = experts.reshape(-1)
+    place = (F.one_hot(flat, router.shape[1]).cumsum(0) - 1).gather(
+        1, flat[:, None])[:, 0]
+    return {"margin": top.values[:, k - 1] - top.values[:, k],
+            "experts": experts, "keep": (place < capacity).reshape(-1, k)}
 
 
-def _serve_family(dev, arch: str, use_reduced: bool = False) -> dict:
-    """Phases 10b (qwen2-vl-72b) and 10c (arctic-480b): the arch at full
-    width cut to FAMILY_LAYERS[arch] layers (``use_reduced``: the
-    reference's reduced config, for tests on the CPU), f32, seeded random
-    weights, phase 3's request mix through the continuous and the paged
-    engine (prefill chunks of PAGED_CHUNK[arch] tokens) on the kernels and
-    the continuous engine on the plain path:
-    every request completed, greedy tokens identical across the three,
-    K1 and K3 launched by the continuous engine, K2 and K3 by the paged
-    one. qwen2-vl: one prefill of vision-stub embeddings on a MROPE_GRID
-    position grid against the plain path (LOGIT_TOL). arctic: the
-    experts' load over the kernel runs and its LI. A flipped token is
-    reported with its logits' top-2 margin and its router's top-k margin
-    on both paths. Returns each engine's counts, keyed ``<arch>:<name>``."""
+def _rerouted(a: list, b: list, last_pointwise: bool):
+    """The positions (S,) of a one-prompt forward whose output two paths'
+    routes (``_expert_load().calls``, one per MoE layer) let differ: a
+    token routed to other experts or kept otherwise changes its own
+    position in that layer and, through the next layers' causal attention,
+    every later one; in the last layer (``last_pointwise``: every layer is
+    an MoE layer) only its own."""
+    import torch
+    out = None
+    for i, (ca, cb) in enumerate(zip(a, b)):
+        d = ((ca["experts"] != cb["experts"]) | (ca["keep"] != cb["keep"]))
+        d = d.any(-1)
+        if not (last_pointwise and i == len(a) - 1):
+            d = torch.cummax(d.int(), 0).values.bool()
+        out = d if out is None else out | d
+    return out
+
+
+def _all_logits(params, cfg, x):
+    """The head's f32 logits at every position of the stack's output ``x``
+    (B, S, d), as the model's head computes them at the last."""
+    from repro_torch.models.layers import apply_norm, lm_logits
+    x = apply_norm(params["final_norm"], x.contiguous(), cfg.norm)
+    return lm_logits(params["embed"], x, cfg.tie_embeddings,
+                     true_vocab=cfg.vocab_size).float()[..., :cfg.vocab_size]
+
+
+class _stack_output:
+    """Within it, ``transformer.stack_prefill`` keeps its output hidden
+    states (B, S, d) in ``x``: a prefill's every position, where the model
+    returns the last one's logits."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tfm
+        self.mod, self.orig, self.x = tfm, tfm.stack_prefill, None
+
+        def kept(*args, **kw):
+            x, caches = self.orig(*args, **kw)
+            self.x = x
+            return x, caches
+
+        tfm.stack_prefill = kept
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.mod.stack_prefill = self.orig
+
+
+def _prefill_logits(dev, arch: str, cfg, models, params, reqs,
+                    span: int) -> tuple:
+    """Phase 11c's gate 1: each prompt's prefill through the kernels and
+    the plain path, logits at every position (``_all_logits``), held where
+    the two paths routed the tokens alike (``_rerouted``): the largest
+    difference within LOGIT_UNITS units of bf16 rounding at the plain
+    logits' largest magnitude there, at least LOGIT_HELD_SHARE of all
+    positions held, every logit finite; the smallest router margin of
+    these prefills reported. Returns (the largest held difference: the
+    flip rule's bound, problems)."""
+    import torch
+    per, problems, margins = [], [], []
+    every_layer = None
+    for r in reqs:
+        batch = {"tokens": torch.as_tensor(r.prompt[None], device=dev)}
+        got = {}
+        for name, m in models.items():
+            with _expert_load() as seen, _stack_output() as out:
+                m.prefill(params, batch, span)
+            got[name] = (_all_logits(params, cfg, out.x)[0], seen.calls)
+            if seen.calls:
+                margins.append(seen.smallest)
+        (lk, ck), (lp, cp) = got["kernel"], got["dense"]
+        every_layer = len(ck) == cfg.num_layers
+        held = ~_rerouted(ck, cp, every_layer) if ck else torch.ones(
+            lk.shape[0], dtype=torch.bool, device=lk.device)
+        diff = float((lk[held] - lp[held]).abs().max()) if held.any() \
+            else 0.0
+        unit = _bf16_unit(lp[held]) if held.any() else float("nan")
+        per.append({"rid": r.rid, "positions": int(held.numel()),
+                    "held": int(held.sum()), "max_abs_diff": diff,
+                    "units": diff / unit,
+                    "finite": bool(torch.isfinite(lk).all())})
+        del got, lk, lp
+    n, held_n = sum(p["positions"] for p in per), sum(p["held"] for p in per)
+    bound = max(p["max_abs_diff"] for p in per)
+    worst = max(per, key=lambda p: p["units"])
+    emit({"phase": "prefill_logits", "arch": arch, "dtype": "bfloat16",
+          "prompts": len(reqs), "positions": n, "held": held_n,
+          "held_share": held_n / n, "held_share_min": LOGIT_HELD_SHARE,
+          "last_layer_pointwise": every_layer,
+          "max_units": worst["units"], "units_tol": LOGIT_UNITS,
+          "unit": "bf16 rounding at the plain logits' largest magnitude "
+          "over a prompt's held positions", "worst": worst,
+          "flip_bound": bound,
+          "smallest_router_margin": min(margins, default=None),
+          "per_prompt": per})
+    if held_n < LOGIT_HELD_SHARE * n:
+        problems.append(f"prefill: {held_n} of {n} positions routed alike")
+    problems += [f"prefill rid {p['rid']}: {p}" for p in per
+                 if not p["finite"] or not p["units"] <= LOGIT_UNITS]
+    return bound, problems
+
+
+def _serve_family(dev, arch: str, use_reduced: bool = False,
+                  param_dtype: str = "float32") -> dict:
+    """Phases 10b (qwen2-vl-72b), 10c (arctic-480b) and 11c
+    (llama4-maverick in bf16): the arch at full width cut to
+    SERVED_LAYERS[arch] layers (``use_reduced``: the reference's reduced
+    config, for tests on the CPU), seeded random weights in
+    ``param_dtype`` (the init's peak memory reported), phase 3's request
+    mix through the continuous and the paged engine (prefill chunks of
+    PAGED_CHUNK[arch] tokens) on the kernels and the continuous engine on
+    the plain path: every request completed, K1 and K3 launched by the
+    continuous engine, K2 and K3 by the paged one; the paged engine's
+    greedy tokens against the continuous one's and the plain path's
+    against the kernels', per rid under ``_flip_check``. In f32 its bound
+    is -inf: tokens identical. In bf16 (11c), where a 202,048-row head
+    gives near-ties, it is the largest prefill logit difference of
+    ``_prefill_logits``, which holds the logits too. A flip is reported
+    with both paths' top-2 logit margins and router margins. qwen2-vl:
+    one prefill of vision-stub embeddings on a MROPE_GRID position grid
+    against the plain path (LOGIT_TOL). An MoE: the experts' load over
+    the kernel runs and its LI, and the smallest router margin of each
+    run. Returns each engine's counts, keyed ``<arch>:<name>``."""
     import torch
 
     from repro_torch.core.metrics import expert_load_imbalance
@@ -1095,27 +1320,32 @@ def _serve_family(dev, arch: str, use_reduced: bool = False) -> dict:
     prompt_len, budget = 128, 32
     common = dict(batch=4, prompt_len=prompt_len, max_new_tokens=budget,
                   use_reduced=use_reduced, device=dev,
-                  num_layers=0 if use_reduced else FAMILY_LAYERS[arch])
+                  param_dtype=param_dtype,
+                  num_layers=0 if use_reduced else SERVED_LAYERS[arch])
+    _sync(dev)
     t0 = time.perf_counter()
     eng, cfg = build_engine(arch, scheduler="continuous", **common)
     params = eng.params
-    _sync(dev)
-    _weights_line(arch, cfg, params, t0)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    _weights_line(arch, cfg, params, t0, dtype=param_dtype,
+                  init_peak_memory_bytes=_peak(dev))
     common["params"] = params
     engines = {
         "continuous": eng,
         # an MoE's capacity makes a token's output depend on the tokens
-        # routed beside it: arctic's paged engine prefills each prompt in
+        # routed beside it: an MoE's paged engine prefills each prompt in
         # one chunk, so every engine gives the experts the same batches
         "paged": build_engine(arch, scheduler="paged", page_size=16,
                               prefill_chunk_tokens=PAGED_CHUNK[arch],
                               **common)[0],
         "plain": build_engine(arch, scheduler="continuous",
                               attention_backend="dense", **common)[0]}
-    models = {b: build(cfg, Runtime(attention_backend=b), device=dev)
+    models = {b: build(cfg, Runtime(attention_backend=b),
+                       param_dtype=getattr(torch, param_dtype), device=dev)
               for b in ("kernel", "dense")}
     reqs = _request_mix(cfg)
-    toks, launches, load = {}, {}, None
+    toks, launches, load, smallest = {}, {}, None, {}
     for name, e in engines.items():
         e.warmup(prompt_len)
         _sync(dev)
@@ -1124,17 +1354,19 @@ def _serve_family(dev, arch: str, use_reduced: bool = False) -> dict:
             rep = e.run(reqs)
         if cfg.moe is not None and name != "plain":
             load = seen.total if load is None else load + seen.total
+        smallest[name] = seen.smallest
         launches[f"{arch}:{name}"] = n = dict(ops.LAUNCHES)
         toks[name] = _tokens_of(rep)
         s = rep.summary()
         emit({"phase": "serve", "arch": arch, "scheduler": name,
               "backend": "dense" if name == "plain" else "kernel",
-              "layers": cfg.num_layers, "requests": len(reqs),
-              "lanes": e.slots,
+              "param_dtype": param_dtype, "layers": cfg.num_layers,
+              "requests": len(reqs), "lanes": e.slots,
               **{k: s[k] for k in (
                   "completed", "total_new_tokens", "makespan_s",
                   "goodput_tps", "decode_steps", "prefills", "ttft_p50_s",
-                  "tok_p50_s", "tok_p95_s", "peak_concurrency")},
+                  "ttft_p95_s", "tok_p50_s", "tok_p95_s",
+                  "peak_concurrency")},
               "peak_memory_bytes": _peak(dev), "launches": n})
         if s["completed"] != len(reqs):
             raise AssertionError(f"{arch} {name}: {s['completed']}/"
@@ -1145,39 +1377,52 @@ def _serve_family(dev, arch: str, use_reduced: bool = False) -> dict:
                           ("paged", ("paged_attention", "rmsnorm"))):
         problems += [f"{name} launched no {k}" for k in kernels
                      if on_card and launches[f"{arch}:{name}"][k] <= 0]
-    line = {"phase": "engines_agree", "arch": arch,
-            "engines": list(engines)}
-    for other in ("paged", "plain"):
-        mismatch = _first_mismatch(toks["continuous"], toks[other])
-        line[f"continuous_vs_{other}_identical"] = mismatch is None
-        if mismatch is None:
-            continue
-        rid, step = mismatch
+    if param_dtype == "bfloat16":
+        bound, bad = _prefill_logits(dev, arch, cfg, models, params, reqs,
+                                     prompt_len + budget)
+        problems += bad
+    else:
+        bound = -math.inf
+
+    def margin_at(rid, step):
+        # both paths' top-2 logit margins (and routers') after the
+        # continuous engine's first ``step`` tokens; the plain path's rules
         req = next(r for r in reqs if r.rid == rid)
         prefix = {"tokens": torch.as_tensor(
             [list(req.prompt) + toks["continuous"][rid][:step]],
             dtype=torch.int32, device=dev)}
-        margins = {}
+        paths = {}
         for name, m in models.items():
             with _expert_load() as seen:
                 lg, _ = m.prefill(params, prefix, prefix["tokens"].shape[1])
             top2 = torch.topk(lg[0, -1], 2).values
-            margins[name] = {"top2_logit_margin": float(top2[0] - top2[1])}
-            if seen.last is not None:
-                margins[name]["router"] = _router_margins(
-                    *seen.last, cfg.moe.top_k)
-        line[f"first_mismatch_{other}"] = {"rid": rid, "step": step,
-                                           "margins": margins}
-        problems.append(f"greedy tokens differ, continuous vs {other}")
+            paths[name] = {"top2_logit_margin": float(top2[0] - top2[1])}
+            if seen.calls:
+                paths[name]["router"] = seen.last_token()
+        return {"margin": paths["dense"]["top2_logit_margin"],
+                "paths": paths}
+
+    line = {"phase": "engines_agree", "arch": arch, "engines": list(engines),
+            "rule": "identical" if bound == -math.inf else
+            "identical up to the first differing step; there the plain "
+            "path's top-2 logit margin at most the largest prefill logit "
+            "difference"}
+    for other in ("paged", "plain"):
+        flips, bad = _flip_check(toks["continuous"], toks[other], margin_at,
+                                 bound)
+        line[f"continuous_vs_{other}"] = {
+            "identical": not flips and not bad, "flips": flips}
+        problems += [f"continuous vs {other}: {b}" for b in bad]
     if load is not None:
         total = load.cpu().numpy()
         line.update(expert_load=total.tolist(),
-                    expert_load_LI=float(expert_load_imbalance(total)))
+                    expert_load_LI=float(expert_load_imbalance(total)),
+                    smallest_router_margin=smallest)
     emit(line)
     if arch == "qwen2-vl-72b":
         problems += _vision_prefill(dev, models, params, prompt_len + budget)
     if problems:
-        raise AssertionError(f"phase 10 {arch} failed: {problems}")
+        raise AssertionError(f"{arch} serving failed: {problems}")
     return launches
 
 
@@ -1219,6 +1464,294 @@ def _vision_prefill(dev, models, params, span: int) -> list:
             or n["flash_attention"] != want_k1):
         return [f"vision prefill: {line}"]
     return []
+
+
+def _slice_kernels(rand, record, gen, floor_ms: float) -> None:
+    """Phase 2's lines at phase 11's new shapes, from their own stream (7;
+    ``gen`` draws K2's block tables), each against its plain version as
+    the other lines are: K1 at llama4's one-prompt prefills (LLAMA4_K1),
+    K2 at its heads on phase 3's paged table (LLAMA4_K2) and K3 at its
+    d_model 5120 (SLICE_K3); B2-B4 at 11b's microbatches (DEPLOY_ATTN);
+    K3, B2-B4 in each dtype its paths run them in."""
+    import torch
+
+    _family_kernels(rand, record, gen, k1=LLAMA4_K1, k2=LLAMA4_K2,
+                    dtypes=("bfloat16",), stream=7)
+    for dname, shapes in SLICE_K3.items():
+        for rows, d in shapes:
+            record(_rmsnorm_line(
+                rand((rows, d), getattr(torch, dname), stream=7),
+                rand((d,), torch.float32, stream=7), floor_ms),
+                main_path=False)
+    for dname, shapes in DEPLOY_ATTN.items():
+        _train_kernels(rand, record, shapes=shapes, stream=7,
+                       dtypes=(dname,))
+
+
+def _rmsnorm_line(x, scale, floor_ms: float) -> dict:
+    """Phase 2's K3 line: ``ops.rmsnorm`` of rows ``x`` (its dtype) with
+    an f32 ``scale`` against its plain version, times, the bound (and the
+    floor under it), library ``F.rms_norm``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref, work
+
+    rows, d = x.shape
+    dname = str(x.dtype).split(".")[1]
+    scale_lib = scale.to(x.dtype)
+    out = ops.rmsnorm(x, scale)
+    want = ref.rmsnorm_ref(x.float(), scale)
+    b_ms, b_by = bound(*work.rmsnorm(rows, d, x.element_size()), dname)
+    return {
+        "phase": "kernel", "kernel": "rmsnorm", "shape": f"rows{rows} d{d}",
+        "dtype": dname, **_held(out, want, dname),
+        **_times(lambda: ops.rmsnorm(x, scale),
+                 lambda: ref.rmsnorm_ref(x, scale),
+                 lambda: F.rms_norm(x, (d,), weight=scale_lib, eps=1e-5)),
+        "library": "rms_norm", "bound_ms": b_ms, "bound_by": b_by,
+        "floor_ms": floor_ms, "floor_or_bound_ms": max(floor_ms, b_ms)}
+
+
+def _bf16_phases(dev) -> tuple:
+    """Phases 11a-11d: granite-3-8b's bf16 training held to its plain path
+    (``TRAIN["11a"]``), the batch/precision suite at qwen2.5-32b's width
+    (``_deploy``), llama4-maverick served in bf16 (``_serve_family``) and
+    checkpoint/resume (``_ckpt_resume``). Returns (launch counts per
+    path, 11a's Tier-1 report)."""
+    import torch
+    launches = {}
+    t0 = time.perf_counter()
+    launches["train:11a"], tier1 = _train(dev, "11a")
+    emit({"phase": "11a", "seconds": time.perf_counter() - t0})
+    def llama4(dev):
+        return _serve_family(dev, LLAMA4, param_dtype="bfloat16")
+
+    for name, fn in (("11b", _deploy), ("11c", llama4),
+                     ("11d", _ckpt_resume)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        launches.update(fn(dev))
+        emit({"phase": name, "seconds": time.perf_counter() - t0})
+    return launches, tier1
+
+
+def _deploy_problems(records: list, failures: list, launches: dict,
+                     on_card: bool) -> list:
+    """Phase 11b's gates: no workload failed; every record of
+    DEPLOY_RECORDS is there with a finite, positive ``tok_s``; on the card
+    B2, B3, B4 and K3 each launched."""
+    out = [f"{name}: {err}" for name, err in failures]
+    ok = {r.name: r for r in records if r.status == "ok"}
+    for name in DEPLOY_RECORDS:
+        tok = ok[name].derived.get("tok_s") if name in ok else None
+        if tok is None or not math.isfinite(tok) or tok <= 0:
+            out.append(f"{name}: no record with a finite tok_s ({tok})")
+    if on_card:
+        out += [f"deploy launched no {k}" for k in BF16_PATHS["deploy"]
+                if launches.get(k, 0) <= 0]
+    return out
+
+
+def _deploy(dev, use_reduced: bool = False) -> dict:
+    """Phase 11b: the port's batch/precision suite (``deploy/batch`` B1-32
+    in f32, ``deploy/precision`` f32 and bf16 at B8; qwen2.5-32b at its
+    published width cut to 4 layers, or under ``use_reduced`` the
+    reference's reduced block) through the harness's runner, every launch
+    count set to 0 before it; one line of its records with the bf16/f32
+    tok_s ratio; fails on ``_deploy_problems``. Returns its counts as
+    ``deploy``."""
+    import repro_torch.bench.suites  # noqa: F401  (registers the scenarios)
+    from repro_torch.bench import (BenchRunner, ListSink, env_fingerprint,
+                                   select)
+    from repro_torch.bench.suites import batch_precision
+    from repro_torch.kernels import ops
+
+    def on(scen):
+        return dataclasses.replace(scen, workloads=tuple(
+            dataclasses.replace(w, knobs={**w.knobs, "device": dev.type,
+                                          "reduced": use_reduced})
+            for w in scen.workloads))
+
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    sink = ListSink()
+    try:
+        summary = BenchRunner(sinks=[sink],
+                              env=env_fingerprint(dev.type)).run(
+            [on(s) for s in select(only=",".join(DEPLOY_SCENARIOS))])
+    finally:
+        batch_precision._grad_fn.cache_clear()
+    counts = dict(ops.LAUNCHES)
+    tok = {r.name: r.derived.get("tok_s") for r in sink.records
+           if r.status == "ok"}
+    f32, bf16 = (tok.get(f"deploy/precision_{d}")
+                 for d in ("float32", "bfloat16"))
+    cfg = batch_precision.config(use_reduced)
+    emit({"phase": "deploy", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "params": cfg.param_count(),
+          "seq": batch_precision.SEQ, "seconds": time.perf_counter() - t0,
+          "failures": summary.failures,
+          "records": [{"name": r.name, "status": r.status,
+                       "us_per_call": r.us_per_call, "derived": r.derived}
+                      for r in sink.records],
+          "bf16_over_f32_tok_s": bf16 / f32 if f32 and bf16 else None,
+          "launches": counts})
+    problems = _deploy_problems(sink.records, summary.failures, counts,
+                                dev.type == "cuda")
+    if problems:
+        raise AssertionError(f"phase 11b failed: {problems}")
+    return {"deploy": counts}
+
+
+def _bf16_unit(x) -> float:
+    """One unit of bf16 rounding at ``x``'s largest magnitude."""
+    import torch
+    _, e = torch.frexp(x.float().abs().max())
+    return math.ldexp(1.0, int(e) - 8)
+
+
+def _flip_check(a: dict, b: dict, margin_at, bound: float) -> tuple:
+    """Greedy tokens of two paths per rid (``a``, ``b``) under the flip
+    rule: identical up to the first step where they differ; at that step
+    the plain path's top-1/top-2 logit margin there (``margin_at(rid,
+    step)["margin"]``; its other keys are reported) must not exceed
+    ``bound`` (11c: the largest logit difference between the paths at
+    prefill; -inf: no flip at all); nothing after it is compared. Returns
+    (flips: [{rid, step, margin, bound, ok, ...}], problems)."""
+    flips, problems = [], []
+    for rid in sorted(a):
+        x, y = a[rid], b.get(rid)
+        if y is None:
+            problems.append(f"rid {rid} missing")
+            continue
+        step = next((i for i, (s, t) in enumerate(zip(x, y)) if s != t),
+                    None)
+        if step is None:
+            if len(x) != len(y):
+                problems.append(f"rid {rid}: {len(x)} against {len(y)} "
+                                "tokens")
+            continue
+        at = margin_at(rid, step)
+        margin = float(at["margin"])
+        flips.append({**at, "rid": rid, "step": step, "margin": margin,
+                      "bound": bound, "ok": margin <= bound})
+        if margin > bound:
+            problems.append(f"rid {rid} flips at step {step} with margin "
+                            f"{margin} > {bound}")
+    return flips, problems
+
+
+def _ckpt_config(use_reduced: bool):
+    """Phase 11d's RunConfig: ``TRAIN["11d"]`` (granite-3-8b at full width,
+    1 layer, bf16 params with an f32 master) on the kernels, or under
+    ``use_reduced`` the reference's reduced granite at 1 layer and 2 x 128
+    tokens."""
+    from repro_torch.configs import ShapeConfig, get_arch, reduced
+    rcfg = _train_config("11d", "kernel")
+    if use_reduced:
+        rcfg = dataclasses.replace(
+            rcfg, model=reduced(get_arch(ARCH), layers=1),
+            shape=ShapeConfig("train", "train", REDUCED_TRAIN_SEQ,
+                              TRAIN_BATCH))
+    return rcfg
+
+
+def _ckpt_resume(dev, use_reduced: bool = False, where=None) -> dict:
+    """Phase 11d: CKPT_STEPS steps of ``_ckpt_config`` unbroken, twice
+    (whether the step is deterministic); then CKPT_EVERY steps saving with
+    ``ckpt_every=CKPT_EVERY``, the state rebuilt from another seed, and a
+    resume through ``train_loop.run`` to CKPT_STEPS. Gate: the resumed
+    steps' losses and grad norms equal the unbroken run's bit for bit (or,
+    if the two unbroken runs differ, within their difference), resumed
+    from step CKPT_EVERY - 1. Reports a save's bytes and its save and
+    restore seconds. Writes under a temporary directory of ``where``
+    (default ``build/``) and removes it. Returns the resumed run's counts
+    as ``train:11d``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import train_loop
+    from repro_torch.runtime.steps import build_train_step
+
+    rcfg = _ckpt_config(use_reduced)
+    data = SyntheticLM(rcfg.model, TRAIN_BATCH, rcfg.shape.seq_len, seed=0,
+                       device=str(dev))
+
+    def state(seed: int):
+        step, model, opt = build_train_step(rcfg, total_steps=CKPT_STEPS,
+                                            device=dev)
+        params = model.init_params(
+            torch.Generator(device=dev).manual_seed(seed))
+        return step, params, opt.init(params)
+
+    def metrics(res):
+        return [(m["loss"], m["grad_norm"]) for m in res.metrics]
+
+    unbroken = []
+    for _ in range(2):
+        unbroken.append(metrics(train_loop.run(
+            *state(0), data.batch_at, total_steps=CKPT_STEPS)))
+        gc.collect()
+    base = Path(where) if where is not None else ROOT / "build"
+    base.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix=".ckpt-", dir=base))
+    try:
+        first = train_loop.run(*state(0), data.batch_at,
+                               total_steps=CKPT_EVERY, ckpt_dir=str(tmp),
+                               ckpt_every=CKPT_EVERY)
+        gc.collect()
+        step, params, opt_state = state(1)       # another seed
+        ops.reset_launches()
+        resumed = train_loop.run(step, params, opt_state, data.batch_at,
+                                 total_steps=CKPT_STEPS, ckpt_dir=str(tmp),
+                                 ckpt_every=CKPT_EVERY)
+        counts = dict(ops.LAUNCHES)
+        # one save and one restore of the resumed run's state, timed
+        tree = {"params": params, "opt": opt_state}
+        _sync(dev)
+        t0 = time.perf_counter()
+        ckpt.save(tmp / "timed", 0, tree)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ckpt.restore(tmp / "timed", 0, tree)
+        _sync(dev)
+        restore_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size
+                     for f in (tmp / "timed" / "step_0").iterdir())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got, want, again = metrics(resumed), unbroken[0][CKPT_EVERY:], \
+        unbroken[1][CKPT_EVERY:]
+    noise = max((abs(a - b) for x, y in zip(want, again)
+                 for a, b in zip(x, y)), default=0.0)
+    off = max((abs(a - b) for x, y in zip(got, want) for a, b in zip(x, y)),
+              default=float("inf"))
+    line = {"phase": "checkpoint", "arch": rcfg.model.name,
+            "layers": rcfg.model.num_layers, "param_dtype": rcfg.param_dtype,
+            "reduced": TRAIN["11d"]["cut"] if not use_reduced else
+            "the reference's reduced config",
+            "saved_steps": first.checkpoints,
+            "resumed_from": resumed.resumed_from,
+            "final_step": resumed.final_step,
+            "resumed_saves": resumed.checkpoints,
+            "unbroken": unbroken[0], "unbroken_again": unbroken[1],
+            "resumed": got, "step_deterministic": noise == 0.0,
+            "max_diff_resumed": off, "max_diff_unbroken_runs": noise,
+            "bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+            "launches": counts}
+    emit(line)
+    if (first.checkpoints != [CKPT_EVERY - 1]
+            or resumed.resumed_from != CKPT_EVERY - 1
+            or resumed.final_step != CKPT_STEPS
+            or len(got) != CKPT_STEPS - CKPT_EVERY or off > noise):
+        raise AssertionError(f"phase 11d: resume differs: {line}")
+    return {"train:11d": counts}
 
 
 def _shared_tables(draw, ps: int, cow: bool, dev) -> tuple:
@@ -1495,27 +2028,30 @@ def _layer_errors(model, plain, params, prompt) -> list:
     return errs
 
 
-def _family_kernels(rand, record, gen) -> None:
+def _family_kernels(rand, record, gen, k1=FAMILY_K1, k2=FAMILY_K2,
+                    dtypes=("float32", "bfloat16"), stream: int = 6) -> None:
     """Phase 2's lines at phase 10's shapes, in f32 and bf16, from their own
     stream (6; ``gen`` draws its block tables): K1 at FAMILY_K1 (whisper's
     bidirectional encoder, its cross attention at Sq != Sk, its decoder
     prompt, qwen2-vl's and arctic's prefills) against the plain version,
     library SDPA with the same mask; K2 at FAMILY_K2's heads on phase 3's
-    paged table."""
+    paged table. Phase 11's lines pass their own shapes, dtypes and
+    stream."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref, work
 
-    for dname, dtype in (("float32", torch.float32),
-                         ("bfloat16", torch.bfloat16)):
+    for dname in dtypes:
+        dtype = getattr(torch, dname)
         # K1 at phase 10's shapes (their own stream): whisper's
         # bidirectional encoder and cross attention (Sq != Sk), its decoder
         # prompt, and qwen2-vl's and arctic's prefills
-        for B, Sq, Sk, Hq, Hkv, D, causal in FAMILY_K1:
+        for B, Sq, Sk, Hq, Hkv, D, causal in k1:
             kw = dict(causal=causal, window=0)
-            q = rand((B, Sq, Hq, D), dtype, stream=6)
-            k, v = (rand((B, Sk, Hkv, D), dtype, stream=6) for _ in "kv")
+            q = rand((B, Sq, Hq, D), dtype, stream=stream)
+            k, v = (rand((B, Sk, Hkv, D), dtype, stream=stream)
+                    for _ in "kv")
             out = ops.flash_attention(q, k, v, **kw)
             want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
                                            **kw)
@@ -1541,11 +2077,12 @@ def _family_kernels(rand, record, gen) -> None:
             del q, k, v, out, want, qt, kt, vt
         # K2 at qwen2-vl's and arctic's heads on phase 3's paged table
         # (their own stream): 4 rows of 160 tokens, 16-token pages
-        for Hq, Hkv in FAMILY_K2:
+        for Hq, Hkv in k2:
             B, ctx, npag, D, ps = 4, 160, 10, 128, 16
             P = B * npag + 1
-            q = rand((B, 1, Hq, D), dtype, stream=6)
-            kp, vp = (rand((P, ps, Hkv, D), dtype, stream=6) for _ in "kv")
+            q = rand((B, 1, Hq, D), dtype, stream=stream)
+            kp, vp = (rand((P, ps, Hkv, D), dtype, stream=stream)
+                      for _ in "kv")
             perm = torch.randperm(P - 1, generator=gen,
                                   device=gen.device) + 1
             bt = perm.reshape(B, npag).to(torch.int32).contiguous()
@@ -1639,7 +2176,8 @@ def _wkv6_kernels(rand, record) -> None:
         torch.cuda.empty_cache()
 
 
-def _train_kernels(rand, record) -> None:
+def _train_kernels(rand, record, shapes=TRAIN_ATTN, stream=None,
+                   dtypes=("float32", "bfloat16")) -> None:
     """Phase 2b: kernels B2 (forward with lse), B3 (dq) and B4 (dk, dv)
     through their wrapper as the training path calls it: q, k and v that
     require grad go through ``ops.flash_attention`` (B2, with the lse rows
@@ -1652,7 +2190,8 @@ def _train_kernels(rand, record) -> None:
     (S + 1) / 2 per head causal and S^2 non-causal: 2, 3 and 4 products
     of D multiply-adds each (QK^T and PV; + dO V^T and ds K; + p^T dO and
     ds^T q), and every input read and output written once
-    (``kernels/work.py``)."""
+    (``kernels/work.py``). Phase 11's lines pass their own shapes, stream
+    and dtypes."""
     import torch
     import torch.nn.functional as F
 
@@ -1661,17 +2200,15 @@ def _train_kernels(rand, record) -> None:
         flash_attention_dkv_cuda, flash_attention_dq_cuda,
         flash_attention_lse_cuda)
 
-    for dname, dtype in (("float32", torch.float32),
-                         ("bfloat16", torch.bfloat16)):
-        for B, S, Hq, Hkv, D, causal in TRAIN_ATTN:
+    for dname in dtypes:
+        dtype = getattr(torch, dname)
+        for B, S, Hq, Hkv, D, causal in shapes:
             kw = dict(causal=causal, window=0)
             # whisper's lines from their own stream (6): the others keep
             # their inputs
-            stream = 6 if D == 64 else 0
-            q, do = (rand((B, S, Hq, D), dtype, stream=stream)
-                     for _ in "qo")
-            k, v = (rand((B, S, Hkv, D), dtype, stream=stream)
-                    for _ in "kv")
+            st = stream if stream is not None else 6 if D == 64 else 0
+            q, do = (rand((B, S, Hq, D), dtype, stream=st) for _ in "qo")
+            k, v = (rand((B, S, Hkv, D), dtype, stream=st) for _ in "kv")
             # the wrapper, differentiated as the training step does
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
             before = dict(ops.LAUNCHES)
@@ -1733,7 +2270,7 @@ def _train_kernels(rand, record) -> None:
                     "bound_ms": b_ms, "bound_by": b_by}
                 if dname == "float32":
                     line["bound_3xtf32_ms"] = bound_3xtf32(flops, nbytes)
-                record(line, main_path=(S == TRAIN_SEQ
+                record(line, main_path=(S == TRAIN_SEQ and stream is None
                                         and dname == "float32"))
             if rose["flash_attention"]:
                 raise AssertionError(f"the differentiated wrapper launched "
@@ -1808,7 +2345,9 @@ def _attention_library(q, k, v, do, causal: bool = True) -> tuple:
 
 def _train_config(phase: str, backend: str):
     """The RunConfig of training phase ``phase`` (``TRAIN``): its arch at
-    full width, cut to its depth, f32, on the attention ``backend``;
+    full width, cut to its depth, f32 (or its ``dtype``: bf16 params with
+    an f32 master, f32 moments and f32 gradient sums), on the attention
+    ``backend``;
     2 x 4096 tokens (whisper: 2 x 1500) in 2 microbatches with remat, lr
     1e-3, 2 warmup steps. Phases 6d's and 10d's reduced configs keep the
     reference's reduced widths (hymba's 64-token window and chunks of 16),
@@ -1825,7 +2364,7 @@ def _train_config(phase: str, backend: str):
         model=cfg, shape=ShapeConfig("train", "train", seq, TRAIN_BATCH),
         microbatches=2, remat=True, attention_backend=backend,
         learning_rate=1e-3, warmup_steps=2, opt_state_dtype="float32",
-        opt_master=True, param_dtype="float32")
+        opt_master=True, param_dtype=spec.get("dtype", "float32"))
 
 
 def _reference_metrics(rcfg, device, keep_grads: bool = False):
@@ -1921,13 +2460,16 @@ def _train_steps(rcfg, dev, params=None, reference=None) -> dict:
 
 
 def _memory_reckoning(n_params: int, rcfg) -> dict:
-    """The bytes the training state needs before activations: f32 params,
-    the gradient accumulator, the master copy and two AdamW moments (20
-    bytes a parameter), plus one microbatch's gradients."""
-    per = 4 * (5 if rcfg.opt_master else 4)
+    """The bytes the training state needs before activations: the params
+    (4 bytes a parameter in f32, 2 in bf16), the f32 gradient accumulator,
+    the f32 master copy and two f32 AdamW moments (20 bytes a parameter in
+    f32, 18 in bf16), plus one microbatch's gradients (the params'
+    dtype)."""
+    isz = 2 if rcfg.param_dtype == "bfloat16" else 4
+    per = isz + 4 * (4 if rcfg.opt_master else 3)
     return {"params": n_params, "state_bytes_per_param": per,
             "state_bytes": per * n_params,
-            "microbatch_grad_bytes": 4 * n_params}
+            "microbatch_grad_bytes": isz * n_params}
 
 
 def _train(dev, phase: str) -> dict:
@@ -1969,14 +2511,19 @@ def _train(dev, phase: str) -> dict:
     for backend in ("kernel", "dense") if gate == "free" else ("kernel",):
         rcfg = _train_config(phase, backend)
         run = _train_steps(rcfg, dev, reference=reference)
-        if backend == "kernel":    # one more step, traced, after the count
-            # [1]: keep only the summary, not the step's (params, state)
+        # a bf16 run profiles the plain path too: its products' share
+        if backend == "kernel" or spec.get("dtype") == "bfloat16":
+            # one more step, traced, after the count; [1]: keep only the
+            # summary, not the step's (params, state)
             prof = profile_device(lambda: run["step"](
                 run["params"], run["opt_state"],
                 run["data"].batch_at(TRAIN_STEPS)))[1]
             emit({"phase": "train_profile", "train_phase": phase,
                   "arch": arch, "backend": backend, "step": TRAIN_STEPS,
+                  "param_dtype": rcfg.param_dtype,
+                  "mfu_measured": _mfu_measured(rcfg, run["res"].metrics),
                   **prof})
+        if backend == "kernel":
             # and one more, counted: the roofline of phase 8's report; each
             # kernel's counted calls equal its launches in that step
             ops.reset_launches()
@@ -1994,6 +2541,7 @@ def _train(dev, phase: str) -> dict:
         res = run["res"]
         emit({"phase": "train", "train_phase": phase, "backend": backend,
               "arch": arch, "layers": rcfg.model.num_layers,
+              "param_dtype": rcfg.param_dtype,
               "reduced": (f"depth {rcfg.model.num_layers} of "
                           f"{get_arch(arch).num_layers} layers: "
                           f"{spec['cut']}"
@@ -2067,7 +2615,8 @@ def _attention_calls(cfg) -> int:
 def _tier1_report(phase: str, rcfg, metrics: list, prof: dict,
                   cost) -> dict:
     """The Tier-1 report (``core/profiler.py``) of training phase
-    ``phase`` on one H100 in f32: sections of its config at the phase's
+    ``phase`` on one H100 in its params' dtype: sections of its config at
+    the phase's
     2 x seq tokens, the roofline of one counted step (``cost``), and the
     measured part from the phase's own run: its median step seconds and
     the profiled step's device summary (``prof``)."""
@@ -2078,8 +2627,24 @@ def _tier1_report(phase: str, rcfg, metrics: list, prof: dict,
     shape = ShapeConfig("train", "train", rcfg.shape.seq_len, TRAIN_BATCH)
     step_s = statistics.median(m["step_s"] for m in metrics)
     rep = profile(rcfg.model, shape, MeshConfig((1, 1)), cost=cost,
-                  measured={"step_s": step_s, **prof}, dtype="float32")
+                  measured={"step_s": step_s, **prof},
+                  dtype=rcfg.param_dtype)
     return {"train_phase": phase, **rep.to_dict(), "counted": cost.to_dict()}
+
+
+def _mfu_measured(rcfg, metrics: list) -> float:
+    """Model flops of a training phase's step over the H100's peak for its
+    params' dtype times its median step seconds (``core/profiler.py``'s
+    ``mfu_measured``)."""
+    import statistics
+
+    from repro_torch.configs import MeshConfig, ShapeConfig
+    from repro_torch.core.profiler import profile
+    shape = ShapeConfig("train", "train", rcfg.shape.seq_len, TRAIN_BATCH)
+    step_s = statistics.median(m["step_s"] for m in metrics)
+    rep = profile(rcfg.model, shape, MeshConfig((1, 1)),
+                  measured={"step_s": step_s}, dtype=rcfg.param_dtype)
+    return rep.to_dict()["measured"]["mfu_measured"]
 
 
 def _mfu_problems(where: str, mfu, mfu_measured, useful, arch: str) -> list:
@@ -2404,11 +2969,20 @@ def _serving_problems(reports: dict, failures: list, cow: dict,
     return out
 
 
+def _train_tol(phase: str, f32_tol: float) -> float:
+    """A training phase's tolerance: ``f32_tol`` for f32 params, the bf16
+    tolerance of ``tests/test_kernels.py::_tol`` (TOL) for bf16."""
+    if TRAIN[phase].get("dtype") == "bfloat16":
+        return TOL["bfloat16"]
+    return f32_tol
+
+
 def _check_trajectories(phase: str, km: list, dm: list, against: str) -> None:
     """Per-step loss and grad_norm of a run (``km``) and its reference
     (``dm``), relative to the reference; those of ``TRAIN[phase]["held"]``
-    within TRAIN_TOL."""
+    within TRAIN_TOL (``_train_tol``)."""
     held = TRAIN[phase]["held"]
+    tol = {k: _train_tol(phase, t) for k, t in TRAIN_TOL.items()}
     rel = {key: [abs(a[key] - b[key]) / abs(b[key]) for a, b in zip(km, dm)]
            for key in TRAIN_TOL}
     parity = {"phase": "train_parity", "train_phase": phase,
@@ -2417,10 +2991,9 @@ def _check_trajectories(phase: str, km: list, dm: list, against: str) -> None:
               "losses_reference": [m["loss"] for m in dm],
               "grad_norms": [m["grad_norm"] for m in km],
               "grad_norms_reference": [m["grad_norm"] for m in dm],
-              "rel_diff": rel, "held": held, "tol": TRAIN_TOL}
+              "rel_diff": rel, "held": held, "tol": tol}
     emit(parity)
-    if len(dm) != len(km) or any(max(rel[key]) > TRAIN_TOL[key]
-                                 for key in held):
+    if len(dm) != len(km) or any(max(rel[key]) > tol[key] for key in held):
         raise AssertionError(f"phase {phase}: trajectories disagree: {parity}")
 
 
@@ -2516,7 +3089,8 @@ def _train_grads(dev, phase: str, gated: bool = True,
     parameter leaf (each layer's slice its own leaf, as in the training
     step) at the seeded initial params on the first microbatch of step 0,
     through the kernels and through the plain attention path. Where
-    ``gated``, every leaf's gradient must agree within GRAD_TOL, relative
+    ``gated``, every leaf's gradient must agree within GRAD_TOL
+    (``_train_tol``), relative
     in L2 norm: a global loss or grad norm cannot see a gradient that is
     wrong in one leaf or only in direction. The leaves of
     ZERO_GRAD_LEAVES, whose gradient is zero in exact arithmetic, are held
@@ -2531,6 +3105,7 @@ def _train_grads(dev, phase: str, gated: bool = True,
 
     rcfg = _train_config(phase, "kernel")
     cfg, n_mb = rcfg.model, rcfg.microbatches
+    tol = _train_tol(phase, GRAD_TOL)
     models = {b: make_model(_train_config(phase, b), device=dev)
               for b in ("kernel", "dense")}
     params = models["kernel"].init_params(
@@ -2578,7 +3153,7 @@ def _train_grads(dev, phase: str, gated: bool = True,
             "grad_norm": {"kernel": norm(kg), "dense": norm(dg)},
             "max_rel_diff": rel[worst], "worst_leaf": worst,
             "median_rel_diff": sorted(rel.values())[len(rel) // 2],
-            "tol": GRAD_TOL, "gated": gated, "rel_diff_by_leaf": rel}
+            "tol": tol, "gated": gated, "rel_diff_by_leaf": rel}
     if zero:
         line["zero_gradient_leaves"] = {
             "leaves": len(zero), "held": "norm over the global gradient "
@@ -2597,10 +3172,10 @@ def _train_grads(dev, phase: str, gated: bool = True,
     del grads, kg, dg, params, models
     gc.collect()
     torch.cuda.empty_cache()
-    if gated and not rel[worst] <= GRAD_TOL:
+    if gated and not rel[worst] <= tol:
         raise AssertionError(f"kernel and plain gradients disagree: leaf "
-                             f"{worst} at {rel[worst]} > {GRAD_TOL}")
-    if gated and zero and not zero_norm[z_worst] <= GRAD_TOL:
+                             f"{worst} at {rel[worst]} > {tol}")
+    if gated and zero and not zero_norm[z_worst] <= tol:
         raise AssertionError(f"a gradient that is zero in exact arithmetic "
                              f"is not: {line['zero_gradient_leaves']}")
 
@@ -2608,8 +3183,8 @@ def _train_grads(dev, phase: str, gated: bool = True,
 class _one_ulp_q:
     """Within it (when ``on``), every plain attention call of the models
     (``models/attention.py``'s ``dense_attention``) gets q moved one ulp
-    away from zero: the smallest change of an input, to show what a
-    model's depth makes of one rounding."""
+    of its dtype away from zero: the smallest change of an input, to show
+    what a model's depth makes of one rounding."""
 
     def __init__(self, on: bool) -> None:
         self.on = on
@@ -2622,8 +3197,13 @@ class _one_ulp_q:
             self.mod, self.orig = attn_mod, attn_mod.dense_attention
 
             def nudged(q, k, v, **kw):
-                # the gradient passes through as through q itself
-                step = (torch.nextafter(q, q * 2) - q).detach()
+                # the gradient passes through as through q itself; a bf16
+                # value's bits plus one are the next value away from zero
+                if q.dtype == torch.float32:
+                    step = (torch.nextafter(q, q * 2) - q).detach()
+                else:
+                    qd = q.detach()
+                    step = (qd.view(torch.int16) + 1).view(q.dtype) - qd
                 return self.orig(q + step, k, v, **kw)
 
             attn_mod.dense_attention = nudged

@@ -35,6 +35,7 @@ samples, :mod:`repro_torch.bench.compare`), appends a point to
 | suites.efficiency     | efficiency      | Fig. 9 (measured)         |
 | suites.roofline       | roofline        | Fig. 10 (measured step)   |
 | suites.serving        | serving         | Tier-2 (serving, 9 scen.) |
+| suites.batch_precision| deploy          | Fig. 12 / Table IV        |
 """
 from __future__ import annotations
 

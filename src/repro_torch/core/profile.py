@@ -21,7 +21,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.serving.roles import sync
 
-# kernel name fragment -> group (first match wins)
+# kernel name fragment -> group (first match wins); "nvjet" names
+# cuBLASLt's Hopper kernels, which run the bf16 products
 GROUPS = (("attn_fwd_kernel", "K1/B2 flash forward"),
           ("attn_dq_kernel", "B3 flash dq"),
           ("attn_dkv_kernel", "B4 flash dkv"),
@@ -29,7 +30,7 @@ GROUPS = (("attn_fwd_kernel", "K1/B2 flash forward"),
           ("rmsnorm_kernel", "K3 rmsnorm"),
           ("wkv6_kernel", "B6 wkv6"),
           ("gemm", "matmul"), ("gemv", "matmul"), ("cutlass", "matmul"),
-          ("xmma", "matmul"))
+          ("xmma", "matmul"), ("nvjet", "matmul"))
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize")
 

@@ -3,7 +3,10 @@
 sessions and arrival times, byte for byte, in both packages."""
 from __future__ import annotations
 
+import queue
+import threading
 from dataclasses import dataclass
+from typing import Iterator
 
 import numpy as np
 import torch
@@ -158,3 +161,41 @@ class SyntheticLM:
         elif frontend == "audio_stub":
             batch["audio_embeds"] = embeds
         return batch
+
+    def iterate(self, start_step: int = 0, prefetch: int = 2,
+                shard: int = 0, num_shards: int = 1) -> Iterator[dict]:
+        """Prefetching iterator (producer thread + bounded queue), as the
+        reference's. ``shard``/``num_shards`` reach :meth:`batch_at`, so
+        a data-parallel host builds only its rows. Each step's batch is
+        built exactly once (a full queue blocks the producer on ``put``),
+        and closing the generator joins the producer thread."""
+        q: "queue.Queue" = queue.Queue(maxsize=prefetch)
+        stop = threading.Event()
+
+        def producer():
+            step = start_step
+            while not stop.is_set():
+                item = self.batch_at(step, shard=shard,
+                                     num_shards=num_shards)
+                while not stop.is_set():
+                    try:
+                        q.put(item, timeout=0.1)
+                        step += 1
+                        break
+                    except queue.Full:
+                        continue
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                yield q.get()
+        finally:
+            stop.set()
+            # unblock a producer stuck on a full queue, then join it
+            while not q.empty():
+                try:
+                    q.get_nowait()
+                except queue.Empty:   # the producer may race the drain
+                    break
+            t.join(timeout=5.0)

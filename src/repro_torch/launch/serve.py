@@ -83,10 +83,15 @@ def build_engine(arch: str, *, batch: int, prompt_len: int,
                  reject_invalid: bool = False,
                  prefill_workers: int = 1, decode_workers: int = 1,
                  params=None, num_layers: int = 0,
-                 attention_backend: str = "kernel", device="cuda"):
+                 attention_backend: str = "kernel",
+                 param_dtype: str = "float32", device="cuda"):
     """Build a serving engine for ``arch`` (the launcher's plumbing,
     importable so benchmarks, tests and ``chip_smoke.py`` share it).
-    Parameters are f32, as in the reference launcher. ``params`` is an
+    Parameters are f32, as in the reference launcher, unless
+    ``param_dtype`` asks for "bfloat16": then the weights, activations
+    and KV caches are bf16, while the leaves the reference's init keeps
+    in f32 stay f32 (every norm's scale and bias, the moe family's
+    router), and the logits are f32. ``params`` is an
     existing parameter tree — numpy arrays (e.g. a JAX engine's, through
     :func:`repro_torch.bridge.params_from_jax`) or tensors, which are
     shared, not copied — instead of a fresh random init from ``seed``.
@@ -113,7 +118,7 @@ def build_engine(arch: str, *, batch: int, prompt_len: int,
     device = resolve_device(device)
     span = prompt_len + max_new_tokens
     model = build(cfg, Runtime(attention_backend=attention_backend),
-                  param_dtype=torch.float32, device=device)
+                  param_dtype=getattr(torch, param_dtype), device=device)
     if params is None:
         params = model.init_params(
             torch.Generator(device=device).manual_seed(seed))

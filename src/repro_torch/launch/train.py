@@ -8,8 +8,12 @@ default, ``--full`` for the full-size architecture), plus
 ``--num-layers`` (cut the depth of a ``--full`` run: one card holds the
 f32 params, gradients, master copy and AdamW moments of about 8 of
 granite-3-8b's 40 layers). Attention runs through the hand kernels.
-``--ckpt-dir`` raises: checkpointing comes with a later slice of the
-port.
+``--ckpt-dir DIR`` resumes from the newest committed checkpoint in DIR
+and saves one every ``--ckpt-every`` steps and after the last
+(:mod:`repro_torch.checkpoint.checkpoint`). The launcher trains in f32,
+as the reference's pins it; :func:`build_trainer` takes ``param_dtype``
+("bfloat16": bf16 params with an f32 master copy, f32 moments and f32
+gradient sums).
 """
 from __future__ import annotations
 
@@ -31,11 +35,16 @@ from repro_torch.runtime.steps import build_train_step
 def build_trainer(arch: str, *, steps: int, batch: int, seq: int,
                   use_reduced: bool = True, reduce_kw=None,
                   num_layers: int = 0, microbatches: int = 1,
-                  lr: float = 3e-4, device="cuda"):
+                  lr: float = 3e-4, param_dtype: str = "float32",
+                  device="cuda"):
     """The launcher's plumbing, importable so tests and ``chip_smoke.py``
-    share it: f32 params from a seeded ``torch.Generator`` on ``device``,
-    their AdamW state, and the step and data of the reference launcher's
-    run config. Returns (train_step, params, opt_state, data, rcfg)."""
+    share it: params of ``param_dtype`` (f32 by default, as the reference
+    launcher pins it) from a seeded ``torch.Generator`` on ``device``,
+    their AdamW state (an f32 master copy and f32 moments), and the step
+    and data of the reference launcher's run config. In bf16 the leaves
+    the reference's init keeps in f32 stay f32: every norm's scale (and
+    bias) and, in the moe family, the router. Returns (train_step,
+    params, opt_state, data, rcfg)."""
     cfg = get_arch(arch)
     if use_reduced:
         cfg = reduced(cfg, **(reduce_kw or {}))
@@ -45,7 +54,7 @@ def build_trainer(arch: str, *, steps: int, batch: int, seq: int,
     rcfg = RunConfig(model=cfg, shape=ShapeConfig("custom", "train", seq,
                                                   batch),
                      microbatches=microbatches, attention_backend="kernel",
-                     learning_rate=lr, param_dtype="float32",
+                     learning_rate=lr, param_dtype=param_dtype,
                      warmup_steps=max(10, steps // 10))
     step_fn, model, opt = build_train_step(rcfg, total_steps=steps,
                                            device=device)

@@ -4,6 +4,7 @@ units of bf16 rounding, and phase 1's reading of the kernel instances
 groups against the kernels the port defines."""
 import importlib.util
 import json
+import math
 import re
 from pathlib import Path
 
@@ -322,7 +323,7 @@ def _launches(smoke):
         f"{a}:{e}" for a in smoke.SSM_ARCHS for e in ("static",
                                                         "continuous")] + [
         f"serving:{s}" for s in smoke.SERVING_SCENARIOS] + list(
-        smoke.FAMILY_PATHS)
+        smoke.FAMILY_PATHS) + list(smoke.BF16_PATHS)
     return {p: dict.fromkeys(smoke.KERNELS, 1) for p in paths}
 
 
@@ -609,3 +610,292 @@ def test_phase2_holds_every_shape_phase10_gives(smoke, phase10_on_the_cpu):
     assert {a for a in smoke.TRAIN_ATTN if a[4] == 64} == {
         (rows, seq, cfg.num_heads, cfg.num_kv_heads, 64, causal)
         for causal in (False, True)}
+
+
+# ----------------------------------------------------------- phase 11
+def test_phase11_is_wired(smoke):
+    """Phases 11a-11d run after phase 10 and before phase 8 (whose Tier-1
+    lines include 11a's), and the kernels line fails when one of their
+    paths launched none of a kernel it must."""
+    import inspect
+    src = inspect.getsource(smoke.main)
+    assert src.index("_families(dev)") < src.index("_bf16_phases(dev)") < \
+        src.index("_bench(dev, tier1)")
+    bad = _launches(smoke)
+    bad["deploy"]["flash_attention_dkv"] = 0
+    bad[f"{smoke.LLAMA4}:paged"]["paged_attention"] = 0
+    assert smoke._missing(bad) == [
+        "flash_attention_dkv in deploy",
+        f"paged_attention in {smoke.LLAMA4}:paged"]
+    spec = smoke.TRAIN["11a"]
+    assert (spec["arch"], spec["layers"], spec["dtype"]) == (
+        "granite-3-8b", 8, "bfloat16")
+    assert smoke._train_tol("11a", smoke.GRAD_TOL) == 2e-2
+    assert smoke._train_tol("6", smoke.GRAD_TOL) == smoke.GRAD_TOL
+    rcfg = smoke._train_config("11a", "kernel")
+    assert rcfg.param_dtype == "bfloat16" and rcfg.opt_master
+    assert smoke._train_config("6", "kernel").param_dtype == "float32"
+
+
+@pytest.mark.parametrize("dtype,per", [("float32", 20), ("bfloat16", 18)])
+def test_memory_reckoning_by_dtype(smoke, dtype, per):
+    import dataclasses
+    rcfg = dataclasses.replace(smoke._train_config("6", "kernel"),
+                               param_dtype=dtype)
+    got = smoke._memory_reckoning(1000, rcfg)
+    assert got["state_bytes_per_param"] == per
+    assert got["microbatch_grad_bytes"] == (2 if per == 18 else 4) * 1000
+
+
+def test_one_ulp_q_in_bf16(smoke):
+    """In bf16 the plain attention's q moves by one bf16 unit, away from
+    zero."""
+    from repro_torch.models import attention as attn_mod
+    q = torch.tensor([1.0, -1.0, 0.15625, -3.0]).to(torch.bfloat16)
+    seen = []
+    orig = attn_mod.dense_attention
+    attn_mod.dense_attention = lambda q, k, v, **kw: seen.append(q)
+    try:
+        with smoke._one_ulp_q(True):
+            attn_mod.dense_attention(q, None, None)
+    finally:
+        attn_mod.dense_attention = orig
+    moved = seen[0].float()
+    assert moved.tolist() == [1.0078125, -1.0078125, 0.1572265625,
+                              -3.015625]
+
+
+def test_bf16_unit(smoke):
+    assert smoke._bf16_unit(torch.tensor([0.5, -7.9])) == 2.0 ** -5
+    assert smoke._bf16_unit(torch.tensor([1.0])) == 2.0 ** -7
+
+
+def _margins(table):
+    return lambda rid, step: {"margin": table[(rid, step)], "paths": {}}
+
+
+@pytest.mark.parametrize("b,table,flips,problems", [
+    ({0: [1, 2, 3], 1: [4, 5]}, {}, [], 0),
+    # rid 1 flips at step 1 within the bound; later steps are not compared
+    ({0: [1, 2, 3], 1: [4, 9, 7]}, {(1, 1): 0.01}, [(1, 1, True)], 0),
+    # a flip whose margin exceeds the bound fails
+    ({0: [1, 2, 8], 1: [4, 5]}, {(0, 2): 0.5}, [(0, 2, False)], 1),
+    # a missing rid or a shorter run fails
+    ({0: [1, 2, 3]}, {}, [], 1),
+    ({0: [1, 2], 1: [4, 5]}, {}, [], 1),
+])
+def test_flip_rule(smoke, b, table, flips, problems):
+    a = {0: [1, 2, 3], 1: [4, 5]}
+    if table.get((1, 1)):
+        a = {0: [1, 2, 3], 1: [4, 5, 6]}
+    got, bad = smoke._flip_check(a, b, _margins(table), 0.03125)
+    assert [(f["rid"], f["step"], f["ok"]) for f in got] == flips
+    assert len(bad) == problems
+    assert all(f["bound"] == 0.03125 and f["paths"] == {} for f in got)
+
+
+def test_flip_rule_with_no_bound_wants_identical_tokens(smoke):
+    """10b and 10c hold their tokens identical: a bound of -inf fails
+    every flip, whatever its margin."""
+    a = {0: [1, 2, 3], 1: [4, 5]}
+    got, bad = smoke._flip_check(a, {0: [1, 2, 3], 1: [4, 6]},
+                                 _margins({(1, 1): 0.0}), -math.inf)
+    assert [(f["rid"], f["step"], f["ok"]) for f in got] == [(1, 1, False)]
+    assert len(bad) == 1
+    assert smoke._flip_check(a, dict(a), _margins({}), -math.inf) == ([], [])
+
+
+def test_min_router_margin_tracks_a_near_tie(smoke):
+    """A token whose two best experts' router probabilities differ by
+    about 1.5e-4 sets the smallest margin; the MoE FFN is restored after."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import moe as moe_mod
+    cfg = reduced(get_arch("llama4-maverick-400b-a17b"), d_model=8,
+                  d_ff=16, experts=4)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, router_aux_weight=0.0))
+    p = moe_mod.moe_init(torch.Generator().manual_seed(0), cfg,
+                         torch.float32)
+    p["router"] = torch.zeros((8, 4))
+    p["router"][0, 0] = p["router"][1, 1] = 1.0
+    p["router"][2, 2] = p["router"][3, 3] = 1.0
+    x = torch.zeros((1, 3, 8))
+    x[0, 0, :4] = torch.tensor([2.0, 0.0, 0.0, 0.0])       # clear winner
+    x[0, 1, :4] = torch.tensor([1.0, 1.0004, 0.0, 0.0])    # a near-tie
+    x[0, 2, :4] = torch.tensor([0.0, 0.0, 3.0, 1.0])
+    orig = moe_mod.moe_ffn
+    with smoke._expert_load() as rm:
+        y, aux = moe_mod.moe_ffn(p, x, cfg)
+    assert moe_mod.moe_ffn is orig
+    probs = torch.softmax(x[0, 1, :4], -1)
+    assert rm.smallest == pytest.approx(float(probs[1] - probs[0]),
+                                        rel=1e-4)
+    assert 0 < rm.smallest < 2e-4
+    assert [c["experts"].tolist() for c in rm.calls] == [[[0], [1], [2]]]
+    assert rm.last_token()["experts"] == [2]
+    assert torch.equal(rm.total, aux["expert_load"])
+    assert torch.equal(y, orig(p, x, cfg)[0])
+
+
+def test_token_routes_keep_what_the_capacity_keeps(smoke):
+    """Tokens past an expert's capacity, in token order, are not kept,
+    as ``moe_ffn`` drops them: its expert load counts the kept pairs."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import moe as moe_mod
+    cfg = reduced(get_arch("llama4-maverick-400b-a17b"), d_model=8,
+                  d_ff=16, experts=4)
+    p = moe_mod.moe_init(torch.Generator().manual_seed(0), cfg,
+                         torch.float32)
+    p["router"] = torch.zeros((8, 4))
+    p["router"][0, 0] = p["router"][1, 1] = 1.0
+    x = torch.zeros((1, 16, 8))
+    x[0, :12, 0] = 3.0          # 12 tokens to expert 0, capacity 8
+    x[0, 12:, 1] = 3.0          # 4 to expert 1
+    with smoke._expert_load() as seen:
+        _, aux = moe_mod.moe_ffn(p, x, cfg)
+    keep = seen.calls[0]["keep"][:, 0]
+    assert aux["capacity"] == 8
+    assert keep.tolist() == [True] * 8 + [False] * 4 + [True] * 4
+    assert seen.total.tolist() == [8.0, 4.0, 0.0, 0.0]
+
+
+def _call(experts, keep=None):
+    e = torch.tensor(experts)[:, None]
+    k = torch.ones_like(e, dtype=torch.bool) if keep is None else \
+        torch.tensor(keep, dtype=torch.bool)[:, None]
+    return {"experts": e, "keep": k}
+
+
+@pytest.mark.parametrize("a,b,pointwise,want", [
+    # one layer: only the rerouted (or dropped) positions
+    ([[0, 1, 2, 3]], [[0, 2, 2, 3]], True, [0, 1, 0, 0]),
+    ([_call([0, 1, 2, 3], [1, 1, 0, 1])], [_call([0, 1, 2, 3])], True,
+     [0, 0, 1, 0]),
+    # an earlier layer's reroute reaches every later position
+    ([[0, 1, 2, 3], [0, 1, 2, 3]], [[0, 3, 2, 3], [0, 1, 2, 2]], True,
+     [0, 1, 1, 1]),
+    ([[0, 1, 2, 3], [0, 1, 2, 3]], [[0, 1, 2, 3], [0, 1, 3, 3]], True,
+     [0, 0, 1, 0]),
+    # not every layer an MoE: attention may follow the last one
+    ([[0, 1, 2, 3]], [[0, 2, 2, 3]], False, [0, 1, 1, 1]),
+])
+def test_rerouted_positions(smoke, a, b, pointwise, want):
+    a, b = ([c if isinstance(c, dict) else _call(c) for c in x]
+            for x in (a, b))
+    assert smoke._rerouted(a, b, pointwise).tolist() == [bool(w)
+                                                          for w in want]
+
+
+def test_deploy_gates(smoke):
+    from repro_torch.bench import BenchRecord
+
+    def rec(name, tok=100.0, status="ok"):
+        return BenchRecord(name=name, status=status, derived={"tok_s": tok})
+    good = [rec(n) for n in smoke.DEPLOY_RECORDS]
+    all_in = dict.fromkeys(smoke.KERNELS, 1)
+    assert smoke._deploy_problems(good, [], all_in, True) == []
+    worse = good[:2] + [rec(good[2].name, float("nan"))] + good[4:]
+    out = smoke._deploy_problems(worse, [("deploy/batch", "boom")],
+                                 {**all_in, "rmsnorm": 0}, True)
+    assert out == ["deploy/batch: boom",
+                   "deploy/batch4: no record with a finite tok_s (nan)",
+                   "deploy/batch8: no record with a finite tok_s (None)",
+                   "deploy launched no rmsnorm"]
+    # the CPU launches no kernel: not required there
+    assert smoke._deploy_problems(good, [], {}, False) == []
+
+
+@pytest.fixture(scope="module")
+def phase11_on_the_cpu(smoke, tmp_path_factory):
+    """Phases 11b-11d on the reference's reduced configs on the CPU (their
+    gates raise on failure), and the shapes 11b and 11c gave the kernels'
+    wrappers: K1 (batch, Sq, Sk, causal, window, dtype), B2-B4 (batch,
+    Sq, Sk, causal, dtype: the attention differentiated), K2 (lanes, page
+    size, table width, pool pages, dtype) and K3 (rows, d, dtype), each
+    -> calls; the same on the reduced configs as at full width, since
+    only the heads, widths and depth are cut."""
+    torch.set_num_threads(2)
+    from repro_torch.kernels import ops
+    seen = {"K1": {}, "B2-B4": {}, "K2": {}, "K3": {}}
+    flash, paged, norm = ops.flash_attention, ops.paged_attention, ops.rmsnorm
+
+    def add(kernel, key):
+        seen[kernel][key] = seen[kernel].get(key, 0) + 1
+
+    def flash_seen(q, k, v, *, causal, window):
+        dt = str(q.dtype).split(".")[1]
+        if q.requires_grad or k.requires_grad or v.requires_grad:
+            add("B2-B4", (q.shape[0], q.shape[1], k.shape[1], causal, dt))
+        else:
+            add("K1", (q.shape[0], q.shape[1], k.shape[1], causal, window,
+                       dt))
+        return flash(q, k, v, causal=causal, window=window)
+
+    def paged_seen(q, kp, vp, bt, lens):
+        add("K2", (q.shape[0], kp.shape[1], bt.shape[1], kp.shape[0],
+                   str(q.dtype).split(".")[1]))
+        return paged(q, kp, vp, bt, lens)
+
+    def norm_seen(x, scale, **kw):
+        add("K3", (x.numel() // x.shape[-1], x.shape[-1],
+                   str(x.dtype).split(".")[1]))
+        return norm(x, scale, **kw)
+
+    cpu = torch.device("cpu")
+    ops.flash_attention, ops.paged_attention, ops.rmsnorm = (
+        flash_seen, paged_seen, norm_seen)
+    try:
+        launches = smoke._serve_family(cpu, smoke.LLAMA4, use_reduced=True,
+                                       param_dtype="bfloat16")
+        launches.update(smoke._deploy(cpu, use_reduced=True))
+    finally:
+        ops.flash_attention, ops.paged_attention, ops.rmsnorm = (
+            flash, paged, norm)
+    launches.update(smoke._ckpt_resume(
+        cpu, use_reduced=True, where=tmp_path_factory.mktemp("ckpt")))
+    return launches, seen
+
+
+def test_phase11_runs_on_the_cpu(smoke, phase11_on_the_cpu):
+    launches, _ = phase11_on_the_cpu
+    assert set(smoke.BF16_PATHS) - {"train:11a"} <= set(launches)
+    assert "train:11d" in launches
+    assert all(n == 0 for c in launches.values() for n in c.values())
+
+
+def test_phase2_holds_every_shape_phase11_gives(smoke, phase11_on_the_cpu):
+    """Phase 2 holds each kernel at every shape and dtype 11b and 11c
+    launch it at, with the full configs' heads and widths: K1 at llama4's
+    one-prompt prefills of phase 3's mix, K2 at its heads on phase 3's
+    paged table, K3 at every row count and dtype of both (d_model 5120),
+    B2-B4 at each of 11b's microbatches in each dtype."""
+    from repro_torch.bench.suites import batch_precision
+    from repro_torch.configs import get_arch
+    _, seen = phase11_on_the_cpu
+    cfg, qwen = get_arch(smoke.LLAMA4), batch_precision.config(False)
+    assert cfg.d_model == qwen.d_model
+    k1 = {(b, sq, sk, causal, "bfloat16") for b, sq, sk, _, _, _, causal
+          in smoke.LLAMA4_K1}
+    assert {(b, sq, sk, causal, dt) for b, sq, sk, causal, window, dt
+            in seen["K1"] if window == 0} <= k1
+    assert all(window == 0 for *_, window, _ in seen["K1"])
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)
+    assert {k[3:6] for k in smoke.LLAMA4_K1} == {heads}
+    assert set(seen["K2"]) == {(4, 16, 10, 41, "bfloat16")}
+    assert set(smoke.LLAMA4_K2) == {heads[:2]}
+    assert {(rows, cfg.d_model, dt) for rows, _, dt in seen["K3"]} <= {
+        (rows, d, dt) for dt, shapes in smoke.SLICE_K3.items()
+        for rows, d in shapes}
+    b2 = {(b, s, s, causal, dt) for dt, shapes in smoke.DEPLOY_ATTN.items()
+          for b, s, *_, causal in shapes}
+    assert set(seen["B2-B4"]) <= b2
+    assert {a[2:5] for shapes in smoke.DEPLOY_ATTN.values()
+            for a in shapes} == {(qwen.num_heads, qwen.num_kv_heads,
+                                  qwen.resolved_head_dim)}
+    # every batch the suite runs, in each dtype it runs it in
+    assert {(b, dt) for b, _, _, _, dt in seen["B2-B4"]} == {
+        *((b, "float32") for b in smoke.DEPLOY_BATCHES), (8, "bfloat16")}

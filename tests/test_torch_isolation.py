@@ -39,6 +39,27 @@ def test_port_imports_neither_jax_nor_repro(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+def test_port_imports_nothing_the_card_machine_lacks():
+    """The card's machine has neither msgpack nor ml_dtypes: the port
+    writes its checkpoint metadata as JSON and carries bf16 as uint16
+    bits; importing its checkpoint, launchers and suites pulls in
+    neither."""
+    bad = {str(p.relative_to(REPO)): sorted(
+        m for m in _imported_modules(p)
+        if m.split(".")[0] in ("msgpack", "ml_dtypes")) for p in PORT_FILES}
+    assert not {k: v for k, v in bad.items() if v}
+    code = ("import sys, repro_torch.checkpoint.checkpoint, "
+            "repro_torch.launch.train, repro_torch.launch.serve, "
+            "repro_torch.bench.suites, repro_torch.runtime.train_loop; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('msgpack', 'ml_dtypes', 'jax', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == "[]"
+
+
 def test_launcher_import_pulls_in_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.launch.train, "
             "repro_torch.bridge, "

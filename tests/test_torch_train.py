@@ -7,7 +7,7 @@ attention trains through it; the ssm mixes in the plain ``chunked``
 form that training pins), from the same parameters
 (JAX's init, through :func:`repro_torch.bridge.params_from_jax`) and the
 same batches. Then the loop's retry, the launcher, and the refusal to run
-without a card.
+without a card (checkpoints and resume: ``test_torch_checkpoint.py``).
 
 Tolerances: loss and gradients 1e-4 (atol and rtol), as
 ``test_torch_model.py``, since the error accumulates over layers; over 10
@@ -201,9 +201,6 @@ def test_loop_does_not_retry_a_failed_update():
     with pytest.raises(train_loop.UpdateFailed):
         train_loop.run(bad_update, p, o, data.batch_at, total_steps=2)
     assert len(calls) == 1
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        train_loop.run(step, p, o, data.batch_at, total_steps=1,
-                       ckpt_dir="ckpt")
 
 
 def test_launcher_trains_two_steps_on_the_cpu():
