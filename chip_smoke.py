@@ -241,16 +241,41 @@ Phases, one JSON line each:
    ``train_loop.run`` to step 4: the resumed steps' losses and grad norms
    equal the unbroken run's bit for bit (or within the two unbroken runs'
    difference); a save's bytes, save and restore seconds;
+12a. (phases 12a-12e run after 11d, before 8) the kernel micro-benchmarks
+   through the harness (``kernels/*``: K1, B6 and K3 against their plain
+   versions and the library call, at the reference's shapes and the
+   serving path's): every kernel record launched its kernel and holds
+   phase 2's f32 gate, its time printed beside phase 2's at the path
+   shape;
+12b. a world-size-1 NCCL process group (a ``FileStore`` under ``build/``)
+   and a (1, 1) data x model mesh: granite-3-8b at full width, 2 layers,
+   f32, ``SyntheticLM(batch=2, seq=4096)``, 2 steps of the sharded step
+   in the resident and the streaming mode against the unsharded step
+   from the same params and batches (losses and grad norms within
+   TRAIN_TOL), and every collective wrapper once on the card's tensors;
+   without NCCL the phase fails (no gloo on the card);
+12c. partitioned decode at qwen1.5-110b's heads (Hq64 Hkv8 D128), B4,
+   f32, 32,768 cached tokens cut into 1, 2, 4 and 8 shards and combined
+   (``combine_partials``), at cache_len 32,768 and at per-row lengths:
+   within 1e-5 of the plain decode, each P's device time; over the
+   one-rank mesh too; against K2 at 4,096 tokens within phase 2's gate;
+12d. the reduced arctic-480b's ``moe_ffn_shardmap`` over the mesh on
+   the card against the same function on the CPU: outputs within 1e-5,
+   ``expert_load`` equal;
+12e. the scalability suite (``scalability/*``) on the card: its one-rank
+   point (dp1) runs over NCCL in a fresh process, every other point is
+   recorded as not run for want of cards;
 7. the ``kernels`` summary line, with the launch counts of the serving
    (phases 3, 3b, 3c, 9, 10a-c, 11c), training (phases 6, 6b, 6c, 6d,
-   10a, 10d, 11a, 11d) and bench (phases 8, 11b) runs; fails unless phase
-   8's steps launched
+   10a, 10d, 11a, 11d, 12b) and bench (phases 8, 11b) runs; fails unless
+   phase 8's steps launched
    B2, B3, B4 and K3, each scenario of phase 9 launched K3, K2 if it
    decodes from pages and K1 if it prefills in one shot
    (``SERVING_SCENARIOS``), whisper's prefill launched K1 three times a
    decoder layer and its training B2-B4 likewise, 10b's and 10c's
    engines launched K1, K2 and K3, 11a's and 11b's steps B2, B3, B4 and
-   K3, and llama4's engines K1, K2 and K3.
+   K3, llama4's engines K1, K2 and K3, 12b's sharded steps B2, B3, B4
+   and K3, and 12c K2.
 
 Any failure raises and exits non-zero. Without a CUDA device, or outside a
 checkout, it exits non-zero before printing any result. The last line of
@@ -457,6 +482,20 @@ BF16_PATHS = {
     f"{LLAMA4}:continuous": ("flash_attention", "rmsnorm"),
     f"{LLAMA4}:paged": ("paged_attention", "rmsnorm"),
 }
+# phase 12: the sharded step's arch, depth and batch (12b); partitioned
+# decode at qwen1.5-110b's heads over 32,768 cached tokens, cut into P
+# shards, with per-row lengths too, and against K2 at 4,096 tokens (12c);
+# the kernels each of its paths must launch
+SHARDED = dict(arch="granite-3-8b", layers=2, batch=2, seq=4096, steps=2)
+DECODE = dict(B=4, Hq=64, Hkv=8, D=128, S=32768, K2_S=4096, ps=16)
+DECODE_SHARDS = (1, 2, 4, 8)
+DECODE_ROWS = (32768, 20000, 37, 5)
+PHASE12_PATHS = {
+    **{f"train:12b-{m}": ("flash_attention_lse", "flash_attention_dq",
+                          "flash_attention_dkv", "rmsnorm")
+       for m in ("resident", "streaming")},
+    "12c": ("paged_attention",)}
+SCAL_TIMEOUT = 300      # 12e: seconds a point's ranks may take
 CKPT_STEPS, CKPT_EVERY = 4, 2   # phase 11d: the unbroken run, the save
 # phase 10: whisper's served requests, and the depth qwen2-vl and arctic
 # are cut to (f32 params of 80 and 35 layers exceed one 80 GB card); and
@@ -821,6 +860,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---------------------------------------------------------- 12 inter-chip
+    launches.update(_inter_chip(dev, summary))
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- 8 bench
     ops.reset_launches()
     _bench(dev, tier1)
@@ -858,7 +902,8 @@ def _missing(launches: dict) -> list:
     counts (``launches``: path -> kernel -> launches): the serving phases'
     (3, 3b, 3c), the training phases' (6, 6b), phase 8's (BENCH_KERNELS),
     every scenario of phase 9's (SERVING_SCENARIOS), phase 10's paths
-    (FAMILY_PATHS) and phase 11's (BF16_PATHS)."""
+    (FAMILY_PATHS), phase 11's (BF16_PATHS) and phase 12's
+    (PHASE12_PATHS)."""
     need = {"flash_attention": launches["continuous"]["flash_attention"],
             "paged_attention": launches["paged"]["paged_attention"],
             **{k: min(launches[e][k] for e in ("train:6", "train:6b"))
@@ -875,7 +920,8 @@ def _missing(launches: dict) -> list:
         f"{k} in {scen}" for scen, kernels in SERVING_SCENARIOS.items()
         for k in kernels if launches[f"serving:{scen}"][k] <= 0] + [
         f"{k} in {path}" for path, kernels in {**FAMILY_PATHS,
-                                               **BF16_PATHS}.items()
+                                               **BF16_PATHS,
+                                               **PHASE12_PATHS}.items()
         for k in kernels if launches[path][k] <= 0]
 
 
@@ -1141,8 +1187,8 @@ class _expert_load:
         self.mod, self.orig = moe_mod, moe_mod.moe_ffn
         self.total, self.calls = None, []
 
-        def counted(p, x, cfg):
-            y, aux = self.orig(p, x, cfg)
+        def counted(p, x, cfg, rt=None):
+            y, aux = self.orig(p, x, cfg, rt)
             load = aux["expert_load"]
             self.total = load if self.total is None else self.total + load
             self.calls.append(_token_routes(x.detach(), p["router"],
@@ -1534,6 +1580,362 @@ def _bf16_phases(dev) -> tuple:
         launches.update(fn(dev))
         emit({"phase": name, "seconds": time.perf_counter() - t0})
     return launches, tier1
+
+
+# ============================================================ 12 inter-chip
+def _inter_chip(dev, summary=None, use_reduced: bool = False) -> dict:
+    """Phase 12, the paper's inter-chip half on one card: 12a the kernel
+    micro-benchmarks through the harness (the card only); 12b-12d over a
+    process group of one rank (NCCL on the card, gloo on the CPU where
+    the tests run it) and a (1, 1) data x model mesh; 12e the scalability
+    suite's one-rank points (the card only). ``use_reduced``: the
+    reference's reduced configs and small shapes. Returns the launch
+    counts of 12b's steps and 12c."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import MeshConfig
+    from repro_torch.launch.mesh import init_world, make_mesh
+
+    on_card = dev.type == "cuda"
+    launches = {}
+    if on_card:
+        t0 = time.perf_counter()
+        _kernel_suite(summary or {})
+        emit({"phase": "12a", "seconds": time.perf_counter() - t0})
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix=".dist-",
+                                     dir=ROOT / "build") as store:
+        init_world(dev.type, store_dir=store, rank=0, world_size=1)
+        try:
+            backend = dist.get_backend()
+            mesh = make_mesh(MeshConfig(shape=(1, 1),
+                                        axes=("data", "model")), dev.type)
+            for name, fn in (("12b", _sharded_steps), ("12c", _decode_shards),
+                             ("12d", _moe_ep)):
+                gc.collect()
+                if on_card:
+                    torch.cuda.empty_cache()
+                t0 = time.perf_counter()
+                launches.update(fn(dev, mesh, use_reduced))
+                emit({"phase": name, "seconds": time.perf_counter() - t0,
+                      "backend": backend})
+        finally:
+            dist.destroy_process_group()
+    if on_card:
+        t0 = time.perf_counter()
+        _scalability_suite()
+        emit({"phase": "12e", "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def _kernel_suite(summary: dict) -> None:
+    """12a: ``python -m repro_torch.bench --only kernels`` through the
+    harness's API on the card. Every ``kernel`` record launched its kernel
+    and is within phase 2's gate of ``plain`` at its shape (K1 and K3 by
+    the absolute error, B6 relative to the plain result's magnitude);
+    each line prints phase 2's time beside the suite's at the path shape
+    (phase 2: device time of a CUDA graph of calls; the suite: wall-clock
+    per call, the card synchronised)."""
+    from repro_torch.bench import BenchRunner, ListSink, select
+    from repro_torch.bench.__main__ import with_device
+    from repro_torch.bench.suites.kernels import KERNEL_OF
+
+    sink = ListSink()
+    out = BenchRunner(sinks=[sink]).run(
+        [with_device(sc, "cuda") for sc in select(only="kernels")])
+    problems = [f"{n}: {e}" for n, e in out.failures]
+    for rec in sink.records:
+        d = rec.derived
+        kernel = KERNEL_OF[rec.scenario]
+        line = {"phase": "12a", "record": rec.name,
+                "us_per_call": float(rec.us_per_call),
+                "p50_us": rec.p50_us, "max_abs_err": d.get("max_abs_err"),
+                "rel_err": d.get("rel_err"), "flops": d["flops"],
+                "bytes": d["bytes"]}
+        if "_kernel_" in rec.name:
+            err = d.get("rel_err" if kernel == "wkv6" else "max_abs_err")
+            line.update(launches=d.get("launches"), tol=TOL["float32"])
+            if not d.get("launches") or err is None or err > TOL["float32"]:
+                problems.append(f"{rec.name}: launches {d.get('launches')}, "
+                                f"error {err}")
+            if rec.name.endswith("_path") and kernel in summary:
+                line.update(phase2_shape=summary[kernel]["shape"],
+                            phase2_kernel_ms=summary[kernel]["kernel_ms"],
+                            phase2_call_ms=summary[kernel].get(
+                                "kernel_call_ms"))
+        if "not_run" in d or rec.status != "ok":
+            problems.append(f"{rec.name}: {rec.status} {d.get('not_run')}")
+        emit(line)
+    if problems or len(sink.records) != 18:
+        raise AssertionError(f"phase 12a failed ({len(sink.records)} "
+                             f"records): {problems}")
+
+
+def _knobs(scen, **knobs):
+    """``scen`` with ``knobs`` added to each of its workloads."""
+    return dataclasses.replace(scen, workloads=tuple(
+        dataclasses.replace(wl, knobs={**wl.knobs, **knobs})
+        for wl in scen.workloads))
+
+
+def _sharded_steps(dev, mesh, use_reduced: bool) -> dict:
+    """12b: granite-3-8b at full width, SHARDED["layers"] layers, f32,
+    SyntheticLM(batch=2, seq=4096) (reduced: the reference's reduced
+    granite at seq 128): SHARDED["steps"] steps of the unsharded port
+    step, then of the sharded step over the (1, 1) mesh in the resident
+    and the streaming mode, each from the same seeded params and batches.
+    Each step's loss and grad norm within TRAIN_TOL (relative) of the
+    unsharded step's; the sharded step's time beside it. Then every
+    collective wrapper once on the device's tensors. Returns the sharded
+    runs' launch counts."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build_trainer
+
+    seq = REDUCED_TRAIN_SEQ if use_reduced else SHARDED["seq"]
+    kw = dict(steps=SHARDED["steps"], batch=SHARDED["batch"], seq=seq,
+              use_reduced=use_reduced,
+              num_layers=0 if use_reduced else SHARDED["layers"],
+              device=dev)
+    runs, launches = {}, {}
+    for mode in ("unsharded", "resident", "streaming"):
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        extra = {} if mode == "unsharded" else dict(mesh=mesh,
+                                                    exec_mode=mode)
+        step, params, opt_state, data, rcfg = build_trainer(
+            SHARDED["arch"], **kw, **extra)
+        ops.reset_launches()
+        metrics = []
+        for i in range(SHARDED["steps"]):
+            batch = data.batch_at(i)
+            _sync(dev)
+            t0 = time.perf_counter()
+            _, _, m = step(params, opt_state, batch)
+            _sync(dev)
+            metrics.append({"loss": float(m["loss"]),
+                            "grad_norm": float(m["grad_norm"]),
+                            "step_s": time.perf_counter() - t0})
+        if mode != "unsharded":
+            launches[f"train:12b-{mode}"] = dict(ops.LAUNCHES)
+        runs[mode] = metrics
+        del step, params, opt_state, data
+    worst = {}
+    for mode in ("resident", "streaming"):
+        for a, b in zip(runs[mode], runs["unsharded"]):
+            for k in TRAIN_TOL:
+                rel = abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                worst[f"{mode}:{k}"] = max(worst.get(f"{mode}:{k}", 0.0), rel)
+    cfg = rcfg.model
+    line = {"phase": "12b", "arch": SHARDED["arch"],
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "batch": SHARDED["batch"], "seq": seq, "dtype": "float32",
+            "mesh": [1, 1], "steps": runs, "max_rel_diff": worst,
+            "tol": TRAIN_TOL}
+    line["collectives"] = _collective_wrappers(dev, mesh)
+    line["ok"] = (all(v <= TRAIN_TOL[k.split(":")[1]]
+                      for k, v in worst.items())
+                  and all(line["collectives"].values()))
+    emit(line)
+    if not line["ok"]:
+        raise AssertionError(f"phase 12b failed: {worst}, "
+                             f"{line['collectives']}")
+    return launches
+
+
+def _collective_wrappers(dev, mesh) -> dict:
+    """Every collective wrapper of ``parallel/collectives.py`` once on the
+    device's tensors over the one-rank mesh, forward and (for the
+    autograd regions) backward, each equal to what one rank gives: the
+    identity, the int8 all-reduce within half a quantisation step."""
+    import torch
+
+    from repro_torch.parallel import collectives as coll
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn((8, 64), generator=g, device=dev)
+    ok = {}
+    for name, fn in (("all_reduce", lambda t: coll.all_reduce(t, mesh,
+                                                              "data")),
+                     ("all_gather", lambda t: coll.all_gather(t, mesh,
+                                                              "model", 1)),
+                     ("reduce_scatter", lambda t: coll.reduce_scatter(
+                         t, mesh, "data", 0))):
+        ok[name] = bool(torch.equal(fn(x), x))
+    for name, fn in (("copy_to", coll.copy_to),
+                     ("reduce_from", coll.reduce_from),
+                     ("gather_data", lambda t, m: coll.gather_data(
+                         t, m, "data", 1)),
+                     ("gather_model", coll.gather_model),
+                     ("mean_over", lambda t, m: coll.mean_over(t, m,
+                                                               "data"))):
+        t = x.clone().requires_grad_()
+        y = fn(t, mesh)
+        (y * x).sum().backward()
+        ok[name] = bool(torch.equal(y.detach(), x)
+                        and torch.equal(t.grad, x))
+    out, res = coll.compressed_psum_grads({"w": x}, {"w": torch.zeros(
+        x.numel(), device=dev)}, mesh, ("data",))
+    step = float(x.abs().max()) / 127
+    ok["compressed_psum_grads"] = bool(
+        (out["w"] - x).abs().max() <= step
+        and (out["w"].reshape(-1) + res["w"] - x.reshape(-1)).abs().max()
+        <= 1e-5)
+    return ok
+
+
+def _decode_shards(dev, mesh, use_reduced: bool) -> dict:
+    """12c: decode attention at qwen1.5-110b's heads (Hq64 Hkv8 D128), B4,
+    f32, over a cache of 32,768 tokens cut into P = 1, 2, 4, 8 sequence
+    shards in this process (``decode_partials`` per shard, then
+    ``combine_partials``), at cache_len 32,768 and at per-row lengths
+    (32,768, 20,000, 37, 5): within 1e-5 (absolute) of the plain
+    unsharded decode, with each P's time a call (the card's, by CUDA
+    events; on the CPU the host's clock). The same over the one-rank mesh
+    (``partitioned_decode_attention``). Against kernel K2 at 4,096
+    tokens in 16-token pages: P = 8 shards of those tokens within phase
+    2's f32 gate. Returns K2's launch counts."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.parallel import collectives as coll
+
+    d = dict(DECODE, S=256, K2_S=128, Hq=8, Hkv=2, D=32) if use_reduced \
+        else DECODE
+    B, S, Hq, Hkv, D = d["B"], d["S"], d["Hq"], d["Hkv"], d["D"]
+    g = torch.Generator(device=dev).manual_seed(12)
+    q = torch.randn((B, 1, Hq, D), generator=g, device=dev)
+    k = torch.randn((B, S, Hkv, D), generator=g, device=dev)
+    v = torch.randn((B, S, Hkv, D), generator=g, device=dev)
+    rows = torch.tensor([min(n, S) for n in DECODE_ROWS] if not use_reduced
+                        else [S, S * 5 // 8, 37, 5], device=dev)
+
+    def sharded(n_shards, lens, q=q, k=k, v=v):
+        n = k.shape[1] // n_shards
+        return coll.combine_partials([coll.decode_partials(
+            q, k[:, i * n:(i + 1) * n], v[:, i * n:(i + 1) * n], lens,
+            i * n) for i in range(n_shards)])
+
+    line = {"phase": "12c", "B": B, "Hq": Hq, "Hkv": Hkv, "D": D,
+            "cached": S, "dtype": "float32", "tol": 1e-5, "errors": {},
+            "ms": {}, "timer": ("CUDA events" if dev.type == "cuda"
+                                else "host clock")}
+    for label, lens in (("full", S), ("rows", rows)):
+        want = ref.decode_attention_simple(q, k, v, lens)
+        for n_shards in DECODE_SHARDS:
+            err = float((sharded(n_shards, lens) - want).abs().max())
+            line["errors"][f"{label}:P{n_shards}"] = err
+            if label == "full":
+                line["ms"][f"P{n_shards}"] = _decode_ms(
+                    dev, lambda n_shards=n_shards: sharded(n_shards, lens))
+        err = float((coll.partitioned_decode_attention(
+            q, k, v, lens, mesh, "model") - want).abs().max())
+        line["errors"][f"{label}:mesh"] = err
+    line["plain_ms"] = _decode_ms(
+        dev, lambda: ref.decode_attention_simple(q, k, v, S))
+    # K2 over the first K2_S tokens in pages of ps, tables in order
+    n2, ps = d["K2_S"], d["ps"]
+    kp, vp = (torch.cat([t.new_zeros((1, ps, Hkv, D)), t[:, :n2].reshape(
+        B * (n2 // ps), ps, Hkv, D)]) for t in (k, v))
+    bt = (1 + torch.arange(B * (n2 // ps), device=dev, dtype=torch.int32)
+          ).reshape(B, n2 // ps)
+    lens2 = torch.full((B,), n2, dtype=torch.int32, device=dev)
+    ops.reset_launches()
+    k2 = ops.paged_attention(q, kp, vp, bt, lens2)
+    launches = {"12c": dict(ops.LAUNCHES)}
+    line["k2_err"] = float((sharded(8, n2, k=k[:, :n2], v=v[:, :n2])
+                            - k2).abs().max())
+    line["k2_tol"] = TOL["float32"]
+    line["ok"] = (max(line["errors"].values()) <= 1e-5
+                  and line["k2_err"] <= TOL["float32"])
+    emit(line)
+    if not line["ok"]:
+        raise AssertionError(f"phase 12c failed: {line}")
+    return launches
+
+
+def _decode_ms(dev, fn) -> float:
+    """ms a call: CUDA events around 5 calls after a warm one on the
+    card, the host's clock on the CPU."""
+    import torch
+    fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        return _events_ms(fn, 5)
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _moe_ep(dev, mesh, use_reduced: bool) -> dict:
+    """12d: the reference's reduced arctic-480b's ``moe_ffn_shardmap``
+    over the one-rank mesh on the device, against the same function on
+    the CPU with no mesh, from the same CPU-seeded params and input:
+    outputs within 1e-5, ``expert_load`` equal."""
+    import torch
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Runtime
+
+    cfg = reduced(get_arch("arctic-480b"), experts=8)
+    g = torch.Generator().manual_seed(12)
+    p = moe.moe_init(g, cfg, torch.float32)
+    x = torch.randn((8, 16, cfg.d_model), generator=g) * 0.5
+    on_dev = Runtime(mesh_batch_axes=("data",), moe_shardmap=True,
+                     mesh=mesh)
+    with torch.no_grad():
+        y, aux = moe.moe_ffn({n: t.to(dev) if not isinstance(t, dict) else
+                              {m: u.to(dev) for m, u in t.items()}
+                              for n, t in p.items()}, x.to(dev), cfg, on_dev)
+        y_cpu, aux_cpu = moe.moe_ffn(p, x, cfg, Runtime(moe_shardmap=True))
+    line = {"phase": "12d", "arch": cfg.name, "experts": 8,
+            "tokens": x.shape[0] * x.shape[1],
+            "max_abs_err": float((y.cpu() - y_cpu).abs().max()),
+            "tol": 1e-5, "expert_load": aux["expert_load"].tolist(),
+            "loads_equal": bool(torch.equal(aux["expert_load"].cpu(),
+                                            aux_cpu["expert_load"])),
+            "capacity": aux["capacity"]}
+    line["ok"] = line["max_abs_err"] <= 1e-5 and line["loads_equal"]
+    emit(line)
+    if not line["ok"]:
+        raise AssertionError(f"phase 12d failed: {line}")
+    return {}
+
+
+def _scalability_suite() -> None:
+    """12e: ``python -m repro_torch.bench --only scalability`` on the
+    card: the points whose ranks this machine's cards hold run (over
+    NCCL, a fresh process a rank), every other point's record names it as
+    not run for want of cards."""
+    import torch
+
+    from repro_torch.bench import BenchRunner, ListSink, select
+    from repro_torch.bench.__main__ import with_device
+    import repro_torch.bench.suites  # noqa: F401  (registers them)
+
+    sink = ListSink()
+    out = BenchRunner(sinks=[sink]).run([_knobs(
+        with_device(sc, "cuda"), timeout=SCAL_TIMEOUT)
+        for sc in select(only="scalability")])
+    cards = torch.cuda.device_count()
+    problems = [f"{n}: {e}" for n, e in out.failures]
+    for rec in sink.records:
+        d = rec.derived
+        emit({"phase": "12e", "record": rec.name, "status": rec.status,
+              "us_per_call": float(rec.us_per_call), **d})
+        runs = d.get("ranks", 0) <= cards
+        if runs and not (rec.us_per_call > 0 and d.get("backend") == "nccl"):
+            problems.append(f"{rec.name} did not run: {d}")
+        if not runs and "not_run" not in d:
+            problems.append(f"{rec.name} ran without its cards: {d}")
+    if problems or not any(r.us_per_call > 0 for r in sink.records):
+        raise AssertionError(f"phase 12e failed: {problems}")
 
 
 def _deploy_problems(records: list, failures: list, launches: dict,

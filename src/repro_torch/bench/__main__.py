@@ -36,6 +36,8 @@ samples, :mod:`repro_torch.bench.compare`), appends a point to
 | suites.roofline       | roofline        | Fig. 10 (measured step)   |
 | suites.serving        | serving         | Tier-2 (serving, 9 scen.) |
 | suites.batch_precision| deploy          | Fig. 12 / Table IV        |
+| suites.kernels        | kernels         | kernel micro-benchmarks   |
+| suites.scalability    | scalability     | Fig. 11 / Table III       |
 """
 from __future__ import annotations
 

@@ -6,3 +6,5 @@ from repro_torch.bench.suites import efficiency  # noqa: F401
 from repro_torch.bench.suites import roofline  # noqa: F401
 from repro_torch.bench.suites import serving  # noqa: F401
 from repro_torch.bench.suites import batch_precision  # noqa: F401
+from repro_torch.bench.suites import kernels  # noqa: F401
+from repro_torch.bench.suites import scalability  # noqa: F401

@@ -28,7 +28,8 @@ from repro_torch.kernels.ref import (NEG_INF, decode_attention_simple,
 from repro_torch.models.layers import normal
 
 __all__ = ["NEG_INF", "attention", "attn_init", "decode_attention_simple",
-           "dense_attention", "paged_decode_attention_ref", "project_qkv"]
+           "dense_attention", "local_heads", "paged_decode_attention_ref",
+           "project_qkv"]
 
 
 def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
@@ -47,17 +48,26 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     return p
 
 
-def project_qkv(p, xq, xkv, cfg: ModelConfig):
-    """Returns q:(B,S,Hq,D), k,v:(B,Sk,Hkv,D)."""
+def local_heads(p, cfg: ModelConfig) -> tuple:
+    """(query heads, key/value heads) the projections ``p`` hold: all of
+    them, or under tensor parallelism this rank's Hq/m and Hkv/m."""
     hd = cfg.resolved_head_dim
+    return p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
+
+
+def project_qkv(p, xq, xkv, cfg: ModelConfig):
+    """Returns q:(B,S,Hq,D), k,v:(B,Sk,Hkv,D), with the head counts of the
+    projections' (possibly tensor-parallel) shards."""
+    hd = cfg.resolved_head_dim
+    hq, hkv = local_heads(p, cfg)
     q = xq @ p["wq"]
     k = xkv @ p["wk"]
     v = xkv @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(*q.shape[:-1], cfg.num_heads, hd)
-    k = k.reshape(*k.shape[:-1], cfg.num_kv_heads, hd)
-    v = v.reshape(*v.shape[:-1], cfg.num_kv_heads, hd)
+    q = q.reshape(*q.shape[:-1], hq, hd)
+    k = k.reshape(*k.shape[:-1], hkv, hd)
+    v = v.reshape(*v.shape[:-1], hkv, hd)
     return q, k, v
 
 

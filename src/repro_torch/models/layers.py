@@ -25,7 +25,10 @@ MROPE_SECTIONS = (16, 24, 24)
 
 
 def normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
-    """N(0, std^2) samples drawn in f32 on the generator's device."""
+    """N(0, std^2) samples drawn in f32 on the generator's device (on the
+    ``meta`` device, the shape alone)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     return t.normal_(generator=gen).mul_(std).to(dtype)
 
@@ -151,6 +154,17 @@ def apply_mlp(p, x, activation: str):
     else:
         raise ValueError(activation)
     return h @ p["w_out"]
+
+
+def apply_mlp_tp(p, x, activation: str, full_ff: int, mesh):
+    """:func:`apply_mlp`, tensor-parallel where the hidden dim (``full_ff``
+    wide) is sharded over the mesh's ``model`` axis: ``x`` enters through
+    the copy region, the partial products leave through the reduce
+    region."""
+    if mesh is None or p["w_in"].shape[-1] == full_ff:
+        return apply_mlp(p, x, activation)
+    from repro_torch.parallel.collectives import copy_to, reduce_from
+    return reduce_from(apply_mlp(p, copy_to(x, mesh), activation), mesh)
 
 
 # ---------------------------------------------------------------- embedding

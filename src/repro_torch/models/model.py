@@ -26,6 +26,7 @@ from repro_torch.models.layers import (apply_norm, embed_tokens,
                                        embedding_init, lm_logits, norm_init,
                                        sinusoidal_at, sinusoidal_positions)
 from repro_torch.models.transformer import Runtime
+from repro_torch.parallel.layout import full_tree
 
 
 def resolve_device(device) -> torch.device:
@@ -78,6 +79,32 @@ def _per_layer(layers) -> list:
 PORTED_FAMILIES = ("dense", "moe", "audio", "vlm", "ssm", "hybrid")
 
 
+def _init_tree(gen, cfg: ModelConfig, param_dtype) -> dict:
+    device = gen.device
+    p = {"embed": embedding_init(gen, cfg, param_dtype),
+         "layers": tfm.stack_init(gen, cfg, cfg.num_layers, param_dtype,
+                                  cross=cfg.is_enc_dec),
+         "final_norm": norm_init(cfg.d_model, cfg.norm, device)}
+    if cfg.is_enc_dec:
+        p["enc_layers"] = tfm.stack_init(gen, cfg, cfg.encoder_layers,
+                                         param_dtype)
+        p["enc_norm"] = norm_init(cfg.d_model, cfg.norm, device)
+    return p
+
+
+class _ShapeOnly:
+    """Stands for a generator in :func:`abstract_params`: the init draws
+    nothing on the ``meta`` device."""
+    device = torch.device("meta")
+
+
+def abstract_params(cfg: ModelConfig, param_dtype=torch.float32) -> dict:
+    """The parameter tree of ``cfg`` as ``meta`` tensors: shapes and
+    dtypes, no memory (what the sharding rules read, as the reference
+    reads ``jax.eval_shape``)."""
+    return _init_tree(_ShapeOnly(), cfg, param_dtype)
+
+
 def build(cfg: ModelConfig, rt: Runtime = Runtime(),
           param_dtype=torch.float32, device="cuda") -> Model:
     if cfg.family not in PORTED_FAMILIES:
@@ -90,15 +117,22 @@ def build(cfg: ModelConfig, rt: Runtime = Runtime(),
         ``torch.Generator`` on the model's device)."""
         if gen.device != device:
             raise ValueError(f"generator on {gen.device}, model on {device}")
-        p = {"embed": embedding_init(gen, cfg, param_dtype),
-             "layers": tfm.stack_init(gen, cfg, cfg.num_layers, param_dtype,
-                                      cross=cfg.is_enc_dec),
-             "final_norm": norm_init(cfg.d_model, cfg.norm, device)}
-        if cfg.is_enc_dec:
-            p["enc_layers"] = tfm.stack_init(gen, cfg, cfg.encoder_layers,
-                                             param_dtype)
-            p["enc_norm"] = norm_init(cfg.d_model, cfg.norm, device)
-        return p
+        return _init_tree(gen, cfg, param_dtype)
+
+    def _full_embed(params):
+        """Under a mesh the embedding tables are sharded by vocabulary
+        (and under streaming by width): each rank gathers them whole at
+        use, and its gradient goes back to its shards."""
+        if rt.mesh is None or rt.param_specs is None:
+            return params
+        return {**params, "embed": full_tree(
+            params["embed"], rt.param_specs["embed"], rt.mesh)}
+
+    def _one_device(what: str):
+        if rt.mesh is not None:
+            raise NotImplementedError(
+                f"{what} runs on one device: the paged pools have no "
+                "sharded layout")
 
     def _sinusoidal(n: int, dev) -> torch.Tensor:
         return torch.from_numpy(sinusoidal_positions(n, cfg.d_model)).to(dev)
@@ -134,7 +168,7 @@ def build(cfg: ModelConfig, rt: Runtime = Runtime(),
         x = x + _sinusoidal(x.shape[1], x.device).to(x.dtype)
         x, _ = tfm.stack_apply(_per_layer(params["enc_layers"]), x, cfg, rt,
                                torch.arange(x.shape[1], device=x.device)[None],
-                               causal=False)
+                               causal=False, stack="enc_layers")
         return apply_norm(params["enc_norm"], x, cfg.norm)
 
     def _head(params, x_last):
@@ -154,7 +188,10 @@ def build(cfg: ModelConfig, rt: Runtime = Runtime(),
         without one), ``expert_load`` (L, E) for the moe family.
         ``params["layers"]`` (and ``"enc_layers"``) is the stacked tree or
         a list of per-layer trees (the training step's leaves, see
-        :func:`repro_torch.runtime.steps.build_train_step`)."""
+        :func:`repro_torch.runtime.steps.build_train_step`). Under a
+        mesh: this rank's rows of the batch and its shards of the
+        params; the loss is its rows' mean."""
+        params = _full_embed(params)
         enc_out = _encode(params, batch) if cfg.is_enc_dec else None
         x, positions = _embed_inputs(params, batch)
         x, aux = tfm.stack_apply(_per_layer(params["layers"]), x, cfg, rt,
@@ -174,6 +211,7 @@ def build(cfg: ModelConfig, rt: Runtime = Runtime(),
         to ``cache_span``; for an encoder-decoder model also
         ``caches["cross"]``, the cross attention's K/V over the encoder
         output."""
+        params = _full_embed(params)
         enc_out = _encode(params, batch) if cfg.is_enc_dec else None
         x, positions = _embed_inputs(params, batch)
         x, layer_caches = tfm.stack_prefill(params["layers"], x, cfg, rt,
@@ -198,6 +236,7 @@ def build(cfg: ModelConfig, rt: Runtime = Runtime(),
     def decode_step(params, caches, token, pos):
         """token: (B,1); pos: an int (next position to write) or a (B,)
         tensor of per-row positions. Updates ``caches`` IN PLACE."""
+        params = _full_embed(params)
         x = _embed_at(params, token, pos)
         x, _ = tfm.stack_decode(params["layers"], x, caches["layers"], pos,
                                 cfg, rt, cross_caches=caches.get("cross"))
@@ -209,6 +248,7 @@ def build(cfg: ModelConfig, rt: Runtime = Runtime(),
         ``paged_cache_init``, written IN PLACE; block_tables: (B, n_pages)
         int32. Returns the chunk's LAST-position logits ((B, 1, V)) and
         the pools."""
+        _one_device("chunked prefill")
         start_pos = int(start_pos)
         x = _embed_at(params, tokens, torch.arange(
             start_pos, start_pos + tokens.shape[1]))
@@ -219,6 +259,7 @@ def build(cfg: ModelConfig, rt: Runtime = Runtime(),
     def decode_step_paged(params, caches, token, pos, block_tables):
         """token: (B,1); pos: (B,) int32 next position per row;
         block_tables: (B, n_pages) int32. Updates the pools IN PLACE."""
+        _one_device("paged decode")
         x = _embed_at(params, token, pos)
         x, _ = tfm.stack_decode_paged(params["layers"], x, caches["layers"],
                                       pos, block_tables, cfg, rt)

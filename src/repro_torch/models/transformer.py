@@ -6,17 +6,27 @@ the training forward (``stack_apply``, with remat), prefill, decode and
 the paged-KV serving triple (full-attention decoder-only models, as in
 the reference).
 
-The PyTorch counterpart of ``repro/models/transformer.py`` on one device
-(its sharding constraints and expert-parallel dispatch wait for the
-port's ``parallel/``). Parameters keep the JAX layout: a leading
-stacked-layer axis on every leaf, and the JAX ``lax.scan`` over that
-axis becomes a Python loop. Caches and paged pools are updated IN PLACE
-(the JAX functions return new arrays); each function that writes says
-so, and returns the same cache objects it was given.
+The PyTorch counterpart of ``repro/models/transformer.py``. Parameters
+keep the JAX layout: a leading stacked-layer axis on every leaf, and the
+JAX ``lax.scan`` over that axis becomes a Python loop. Caches and paged
+pools are updated IN PLACE (the JAX functions return new arrays); each
+function that writes says so, and returns the same cache objects it was
+given.
+
+Under a mesh (``Runtime.mesh``, a ``DeviceMesh`` with ``data`` and
+``model`` axes) each rank holds its shards of the parameters
+(:func:`repro_torch.parallel.sharding.param_pspecs`) and computes on its
+rows of the batch: each layer first puts its weights together where it
+needs them (:func:`repro_torch.parallel.layout.local_layer`), attention
+and the MLP run tensor-parallel on their ``model`` shards (entering
+through the copy region, leaving through the reduce region), and the
+MoE runs expert-parallel (``moe_shardmap``). The decode caches follow
+``cache_pspecs``: all key/value heads, the batch over the data axes and,
+under ``decode_partitioned``, the sequence over ``model``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 import torch.nn.functional as F
@@ -28,8 +38,11 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (apply_mlp, apply_mrope, apply_norm,
-                                       apply_rope, mlp_init, norm_init)
+from repro_torch.models.layers import (apply_mlp_tp, apply_mrope,
+                                       apply_norm, apply_rope, mlp_init,
+                                       norm_init)
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import layout
 
 
 @dataclass(frozen=True)
@@ -53,12 +66,27 @@ class Runtime:
     ``remat`` recomputes each layer (or block of ``layers_per_block``
     layers, when that divides the depth) in the backward of
     :func:`stack_apply` instead of keeping its activations, as the JAX
-    package's ``jax.checkpoint`` over its layer scan."""
+    package's ``jax.checkpoint`` over its layer scan.
+
+    The mesh fields, as the reference's: ``decode_partitioned`` (decode
+    attention over a sequence-sharded cache, combined across ``model``),
+    ``mesh_batch_axes`` (the axes the batch shards over) and ``dp_size``
+    (their product), ``moe_shardmap`` (expert-parallel MoE dispatch) over
+    ``ep_axes``. ``mesh``: the ``DeviceMesh`` whose groups the
+    collectives run over (None: one device); ``param_specs``: the spec
+    tree of the parameters' shards, which says what each layer gathers."""
     attention_backend: str = "kernel"
     ssm_backend: str = "kernel"
     ssm_factored: bool = False
     remat: bool = True
     layers_per_block: int = 1
+    decode_partitioned: bool = False
+    mesh_batch_axes: tuple = ()
+    dp_size: int = 1
+    moe_shardmap: bool = False
+    ep_axes: tuple = ("model",)
+    mesh: object = field(default=None, compare=False)
+    param_specs: object = field(default=None, compare=False)
 
 
 def _rope_q_k(cfg: ModelConfig, q, k, positions):
@@ -82,15 +110,58 @@ def _streams(cfg: ModelConfig, pos):
     return pos
 
 
-def _ffn(p, x, cfg: ModelConfig):
+def _ffn(p, x, cfg: ModelConfig, rt: Runtime):
     """The MLP, or the MoE FFN, on x's second pre-norm, added to x.
     Returns (x, aux): the MoE's ``aux_loss``, ``expert_load`` and
     ``capacity``, or {} for an MLP."""
     h_in = apply_norm(p["norm2"], x, cfg.norm)
     if cfg.moe is not None:
-        h, aux = moe_mod.moe_ffn(p["moe"], h_in, cfg)
+        h, aux = moe_mod.moe_ffn(p["moe"], h_in, cfg, rt)
         return x + h, aux
-    return x + apply_mlp(p["mlp"], h_in, cfg.activation), {}
+    return x + apply_mlp_tp(p["mlp"], h_in, cfg.activation, cfg.d_ff,
+                            rt.mesh), {}
+
+
+# ============================================================ mesh helpers
+def local_layer(p, cfg: ModelConfig, rt: Runtime, stack: str = "layers"):
+    """Layer ``p`` (this rank's shards) as it computes on them: the
+    weights of ``stack`` gathered where the layer needs them whole
+    (:func:`repro_torch.parallel.layout.local_layer`); ``p`` itself on
+    one device."""
+    if rt.mesh is None or rt.param_specs is None:
+        return p
+    specs = layout.layer_specs(rt.param_specs[stack])
+    return layout.local_layer(p, specs, cfg, rt.mesh)
+
+
+def _attn_tp(pa, cfg: ModelConfig) -> bool:
+    """Attention runs tensor-parallel: the projections hold a share of
+    the heads."""
+    return pa["wq"].shape[-1] != cfg.num_heads * cfg.resolved_head_dim
+
+
+def _heads_all(t, rt: Runtime, tp: bool):
+    """(B,S,H_loc,D) -> every rank's heads (B,S,H,D): the cache layout of
+    ``cache_pspecs`` keeps all key/value heads."""
+    return coll.all_gather(t, rt.mesh, "model", dim=2) if tp else t
+
+
+def _head_slice(t, rt: Runtime, n: int):
+    """This rank's ``n`` heads of (B,S,H,D)."""
+    i = coll.axis_index(rt.mesh, "model")
+    return t[:, :, i * n:(i + 1) * n]
+
+
+def _seq_shard(t, rt: Runtime):
+    """This rank's block of the sequence dim (1) over ``model``: the
+    cache layout under ``decode_partitioned``."""
+    m = coll.axis_size(rt.mesh, "model")
+    if t.shape[1] % m:
+        raise ValueError(f"a cache of {t.shape[1]} positions does not "
+                         f"shard over {m} model ranks")
+    n = t.shape[1] // m
+    i = coll.axis_index(rt.mesh, "model")
+    return t[:, i * n:(i + 1) * n].contiguous()
 
 
 # ===================================================================== init
@@ -177,14 +248,19 @@ def layer_apply(p, x, cfg: ModelConfig, rt: Runtime, positions,
         return x + h, {}, entry
 
     h_in = apply_norm(p["norm1"], x, cfg.norm)
-    q, k, v = attn_mod.project_qkv(p["attn"], h_in, h_in, cfg)
+    tp = _attn_tp(p["attn"], cfg)
+    a_in = coll.copy_to(h_in, rt.mesh) if tp else h_in
+    q, k, v = attn_mod.project_qkv(p["attn"], a_in, a_in, cfg)
     q, k = _rope_q_k(cfg, q, k, positions)
     window = cfg.window if cfg.attention_kind == "sliding" else 0
     o = attn_mod.attention(q, k, v, backend=rt.attention_backend,
                            causal=causal, window=window)
     h = o.reshape(*x.shape[:-1], -1) @ p["attn"]["wo"]
+    if tp:
+        h = coll.reduce_from(h, rt.mesh)
     entry = None
     if return_cache:
+        k, v = _heads_all(k, rt, tp), _heads_all(v, rt, tp)
         if cfg.attention_kind == "sliding":
             span = min(cache_span, window) if window else cache_span
             entry = {"k": _ring_from_prefill(k, span),
@@ -192,6 +268,8 @@ def layer_apply(p, x, cfg: ModelConfig, rt: Runtime, positions,
         else:
             pad = (0, 0, 0, 0, 0, cache_span - k.shape[1])
             entry = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+            if rt.decode_partitioned and cfg.attention_kind == "full":
+                entry = {n: _seq_shard(t, rt) for n, t in entry.items()}
     if cfg.family == "hybrid":
         h_ssm, ssd_state = ssm_mod.ssd_mix(p["ssm"], h_in, cfg,
                                            backend=rt.ssm_backend,
@@ -202,18 +280,26 @@ def layer_apply(p, x, cfg: ModelConfig, rt: Runtime, positions,
     x = x + h
     if enc_out is not None:          # cross attention (whisper's decoder)
         h_in = apply_norm(p["norm_cross"], x, cfg.norm)
+        tp = _attn_tp(p["cross_attn"], cfg)
+        if tp:
+            h_in = coll.copy_to(h_in, rt.mesh)
+            enc_out = coll.copy_to(enc_out, rt.mesh)
         q, ck, cv = attn_mod.project_qkv(p["cross_attn"], h_in, enc_out, cfg)
         o = attn_mod.attention(q, ck, cv, backend=rt.attention_backend,
                                causal=False)
-        x = x + o.reshape(*x.shape[:-1], -1) @ p["cross_attn"]["wo"]
+        h = o.reshape(*x.shape[:-1], -1) @ p["cross_attn"]["wo"]
+        x = x + (coll.reduce_from(h, rt.mesh) if tp else h)
         if return_cache:
+            ck, cv = _heads_all(ck, rt, tp), _heads_all(cv, rt, tp)
+            if rt.decode_partitioned:
+                ck, cv = _seq_shard(ck, rt), _seq_shard(cv, rt)
             entry["ck"], entry["cv"] = ck, cv
-    x, aux = _ffn(p, x, cfg)
+    x, aux = _ffn(p, x, cfg, rt)
     return x, aux, entry
 
 
 def stack_apply(layers: list, x, cfg: ModelConfig, rt: Runtime, positions,
-                enc_out=None, *, causal: bool = True):
+                enc_out=None, *, causal: bool = True, stack: str = "layers"):
     """The layer stack's forward, for the loss, over ``layers``, a list of
     per-layer trees (:func:`~repro_torch._tree.layer_at` of the stacked
     tree, or the training step's per-layer leaves). Returns (x, aux): aux
@@ -223,7 +309,9 @@ def stack_apply(layers: list, x, cfg: ModelConfig, rt: Runtime, positions,
     With ``rt.remat`` and autograd recording, each block of
     ``rt.layers_per_block`` layers (one layer when that does not divide
     the depth) runs under ``torch.utils.checkpoint``: only block inputs
-    are kept, and the block's forward runs again in the backward."""
+    are kept, and the block's forward runs again in the backward (under
+    a mesh, its weight gathers too). ``stack`` names the parameters'
+    stack (``"layers"`` or ``"enc_layers"``) for their specs."""
     L = len(layers)
     k = max(1, rt.layers_per_block)
     if L % k:
@@ -233,8 +321,8 @@ def stack_apply(layers: list, x, cfg: ModelConfig, rt: Runtime, positions,
     def block(x, lo: int, enc_out):
         aux_loss, loads = zero, []
         for p in layers[lo:lo + k]:
-            x, aux, _ = layer_apply(p, x, cfg, rt, positions, enc_out,
-                                    causal=causal)
+            x, aux, _ = layer_apply(local_layer(p, cfg, rt, stack), x, cfg,
+                                    rt, positions, enc_out, causal=causal)
             if aux:
                 aux_loss = aux_loss + aux["aux_loss"]
                 loads.append(aux["expert_load"])
@@ -266,9 +354,9 @@ def stack_prefill(stacked, x, cfg: ModelConfig, rt: Runtime, positions,
     L = num_layers_of(stacked)
     caches = None
     for i in range(L):
-        x, _, entry = layer_apply(layer_at(stacked, i), x, cfg, rt,
-                                  positions, enc_out, return_cache=True,
-                                  cache_span=cache_span)
+        x, _, entry = layer_apply(local_layer(layer_at(stacked, i), cfg, rt),
+                                  x, cfg, rt, positions, enc_out,
+                                  return_cache=True, cache_span=cache_span)
         if caches is None:
             caches = {n: t.new_empty((L, *t.shape)) for n, t in entry.items()}
         for n, t in entry.items():
@@ -380,21 +468,71 @@ def _ssd_decode(sp, h_in, state, cfg: ModelConfig):
     return (o.reshape(B, H * hs).to(h_in.dtype) * z) @ sp["wo"]
 
 
-def _cross_decode(p, x, cross_cache, cfg: ModelConfig):
+def _decode_attend(q, k_cache, v_cache, cache_len, cfg: ModelConfig,
+                   rt: Runtime, tp: bool, partitioned: bool):
+    """Decode attention of q (B,1,Hq_loc,D), this rank's query heads,
+    against a cache holding every key/value head: over the whole cache
+    (this rank's key/value heads of it under tensor parallelism), or
+    with ``partitioned`` over this rank's slice of a sequence-sharded
+    cache, all query heads gathered and the partials combined across
+    ``model`` (then this rank's heads of the output taken back)."""
+    if partitioned:
+        hq = q.shape[2]
+        q_all = _heads_all(q, rt, tp)
+        o = coll.partitioned_decode_attention(q_all, k_cache, v_cache,
+                                              cache_len, rt.mesh, "model")
+        return _head_slice(o, rt, hq) if tp else o
+    if tp:
+        hkv = k_cache.shape[2] // coll.axis_size(rt.mesh, "model")
+        k_cache = _head_slice(k_cache, rt, hkv)
+        v_cache = _head_slice(v_cache, rt, hkv)
+    return attn_mod.decode_attention_simple(q, k_cache, v_cache, cache_len)
+
+
+def _cross_decode(p, x, cross_cache, cfg: ModelConfig, rt: Runtime):
     """One token's cross attention over an encoder-decoder's cross cache
     (this layer's ``ck``, ``cv``: (B, enc_len, Hkv, D)), every encoder
     position valid, through the plain decode attention as in the
-    reference (no kernel). Returns the residual sum."""
+    reference (no kernel); under ``decode_partitioned`` over the
+    sequence-sharded cross cache. Returns the residual sum."""
     h_in = apply_norm(p["norm_cross"], x, cfg.norm)
     ca = p["cross_attn"]
+    tp = _attn_tp(ca, cfg)
     q = h_in @ ca["wq"]
     if cfg.qkv_bias:
         q = q + ca["bq"]
-    q = q.reshape(x.shape[0], 1, cfg.num_heads, cfg.resolved_head_dim)
-    o = attn_mod.decode_attention_simple(q, cross_cache["ck"],
-                                         cross_cache["cv"],
-                                         cross_cache["ck"].shape[1])
-    return x + o.reshape(*x.shape[:-1], -1) @ ca["wo"]
+    q = q.reshape(x.shape[0], 1, attn_mod.local_heads(ca, cfg)[0],
+                  cfg.resolved_head_dim)
+    enc_len = cross_cache["ck"].shape[1]
+    if rt.decode_partitioned:
+        enc_len *= coll.axis_size(rt.mesh, "model")
+    o = _decode_attend(q, cross_cache["ck"], cross_cache["cv"], enc_len,
+                       cfg, rt, tp, rt.decode_partitioned)
+    h = o.reshape(*x.shape[:-1], -1) @ ca["wo"]
+    return x + (coll.reduce_from(h, rt.mesh) if tp else h)
+
+
+def _write_kv(cache, k, v, pos, span: int, sliding: bool, offset: int):
+    """Write one token's k, v (B,Hkv,D) at ``pos`` (an int, or (B,) per
+    row) into this rank's cache slice, which holds positions ``offset ..
+    offset + S_loc - 1`` (a sliding ring: slot ``pos % span``); a row
+    whose slot lies in another rank's slice writes nothing here."""
+    s_loc = cache["k"].shape[1]
+    if isinstance(pos, torch.Tensor):
+        slot = ((pos % span if sliding else pos) - offset).long()
+        if s_loc == span:                    # the whole cache: every row
+            rows = torch.arange(k.shape[0], device=k.device)
+            cache["k"][rows, slot] = k
+            cache["v"][rows, slot] = v
+            return
+        rows = torch.nonzero((slot >= 0) & (slot < s_loc)).reshape(-1)
+        cache["k"][rows, slot[rows]] = k[rows]
+        cache["v"][rows, slot[rows]] = v[rows]
+    else:
+        slot = (pos % span if sliding else pos) - offset
+        if 0 <= slot < s_loc:
+            cache["k"][:, slot] = k
+            cache["v"][:, slot] = v
 
 
 def layer_decode(p, x, cache, pos, cfg: ModelConfig, rt: Runtime,
@@ -412,33 +550,37 @@ def layer_decode(p, x, cache, pos, cfg: ModelConfig, rt: Runtime,
     if cfg.family == "ssm":
         return _rwkv6_decode(p, x, cache, cfg), cache
     B = x.shape[0]
-    span = cache["k"].shape[1]
     sliding = cfg.attention_kind == "sliding"
+    partitioned = rt.decode_partitioned and cfg.attention_kind == "full"
+    # under ``partitioned`` this rank holds positions offset.. of the cache
+    s_loc = cache["k"].shape[1]
+    shards = coll.axis_size(rt.mesh, "model") if partitioned else 1
+    span = s_loc * shards
+    offset = coll.axis_index(rt.mesh, "model") * s_loc if partitioned else 0
     h_in = apply_norm(p["norm1"], x, cfg.norm)
+    tp = _attn_tp(p["attn"], cfg)
     q, k, v = attn_mod.project_qkv(p["attn"], h_in, h_in, cfg)
     if isinstance(pos, torch.Tensor):
         q, k = _rope_q_k(cfg, q, k, _streams(cfg, pos.reshape(-1, 1)))
-        bidx = torch.arange(B, device=x.device)
-        slot = (pos % span if sliding else pos).long()
-        cache["k"][bidx, slot] = k[:, 0]
-        cache["v"][bidx, slot] = v[:, 0]
         cache_len = torch.clamp(pos + 1, max=span)
     else:
         q, k = _rope_q_k(cfg, q, k, _streams(
             cfg, torch.full((B, 1), pos, device=x.device)))
-        slot = pos % span if sliding else pos
-        cache["k"][:, slot] = k[:, 0]
-        cache["v"][:, slot] = v[:, 0]
         cache_len = min(pos + 1, span)
-    o = attn_mod.decode_attention_simple(q, cache["k"], cache["v"], cache_len)
+    _write_kv(cache, _heads_all(k, rt, tp)[:, 0], _heads_all(v, rt, tp)[:, 0],
+              pos, span, sliding, offset)
+    o = _decode_attend(q, cache["k"], cache["v"], cache_len, cfg, rt, tp,
+                       partitioned)
     h = o.reshape(*x.shape[:-1], -1) @ p["attn"]["wo"]
+    if tp:
+        h = coll.reduce_from(h, rt.mesh)
     if cfg.family == "hybrid":
         h_ssm = _ssd_decode(p["ssm"], h_in, cache["ssd_state"], cfg)
         h = (h + h_ssm[:, None]) * 0.5
     x = x + h
     if cross_cache is not None:
-        x = _cross_decode(p, x, cross_cache, cfg)
-    return _ffn(p, x, cfg)[0], cache
+        x = _cross_decode(p, x, cross_cache, cfg, rt)
+    return _ffn(p, x, cfg, rt)[0], cache
 
 
 def stack_decode(stacked, x, caches, pos, cfg: ModelConfig, rt: Runtime,
@@ -448,8 +590,9 @@ def stack_decode(stacked, x, caches, pos, cfg: ModelConfig, rt: Runtime,
     attention K/V of an encoder-decoder model, read only."""
     for i in range(num_layers_of(stacked)):
         cross = None if cross_caches is None else layer_at(cross_caches, i)
-        x, _ = layer_decode(layer_at(stacked, i), x, layer_at(caches, i),
-                            pos, cfg, rt, cross_cache=cross)
+        x, _ = layer_decode(local_layer(layer_at(stacked, i), cfg, rt), x,
+                            layer_at(caches, i), pos, cfg, rt,
+                            cross_cache=cross)
     return x, caches
 
 
@@ -491,7 +634,7 @@ def layer_decode_paged(p, x, cache, pos, block_tables, cfg: ModelConfig,
     o = _paged_attend(q, cache["k"], cache["v"], block_tables,
                       (pos + 1).to(torch.int32), rt)
     x = x + o.reshape(*x.shape[:-1], -1) @ p["attn"]["wo"]
-    return _ffn(p, x, cfg)[0], cache
+    return _ffn(p, x, cfg, rt)[0], cache
 
 
 def stack_decode_paged(stacked, x, caches, pos, block_tables,
@@ -534,7 +677,7 @@ def layer_prefill_chunk(p, x, cache, block_tables, start_pos: int,
     o = attn_mod.dense_attention(q, k_all, v_all, causal=True,
                                  q_offset=start_pos)
     x = x + o.reshape(*x.shape[:-1], -1) @ p["attn"]["wo"]
-    return _ffn(p, x, cfg)[0], cache
+    return _ffn(p, x, cfg, rt)[0], cache
 
 
 def stack_prefill_chunk(stacked, x, caches, block_tables, start_pos: int,

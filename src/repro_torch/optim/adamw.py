@@ -131,14 +131,17 @@ class AdamW:
         return AdamWState(step=0, master=master, m=zeros(), v=zeros())
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state: AdamWState, params, gnorm=None):
         """One step. Updates ``params`` and ``state`` IN PLACE and returns
         (params, state, {"grad_norm", "lr"}); grad_norm is a device scalar,
-        measured before clipping."""
+        measured before clipping: :func:`global_norm` of ``grads``, or
+        ``gnorm`` where the caller gives it (the norm over every rank's
+        shards of a sharded step)."""
         state.step += 1
         step = state.step
         lr = float(self.lr_fn(step))
-        gnorm = global_norm(grads)
+        if gnorm is None:
+            gnorm = global_norm(grads)
         clip = (torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-8),
                             max=1.0) if self.grad_clip else 1.0)
         bc1 = 1 - self.b1 ** step

@@ -1,32 +1,75 @@
 """Step builders: the training step (microbatched gradient accumulation +
-AdamW), the PyTorch counterpart of ``repro/runtime/steps.py`` for what the
-port has (one device, no mesh).
+AdamW) and the decode step, the PyTorch counterpart of
+``repro/runtime/steps.py``, on one device or over a mesh.
+
+Over a mesh (``mesh=``, a ``DeviceMesh`` of ``rcfg.mesh``; see
+:mod:`repro_torch.launch.mesh`) each rank holds its shards of the params
+and of the AdamW state (:func:`repro_torch.parallel.sharding.shard_tree`
+of ``param_pspecs``) and takes the whole global batch, of which it
+computes its rows. The step's metrics equal the one-device step's.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
+
 import torch
+import torch.distributed as dist
 
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.configs.base import RunConfig
 from repro_torch.models import Runtime, build
+from repro_torch.models.model import abstract_params
 from repro_torch.models.transformer import num_layers_of
 from repro_torch.optim.adamw import AdamW, warmup_cosine
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import sharding as shd
 from repro_torch.runtime.train_loop import UpdateFailed
 
 
-def make_runtime(rcfg: RunConfig) -> Runtime:
+def make_runtime(rcfg: RunConfig, *, for_decode: bool = False,
+                 mesh=None) -> Runtime:
     """The knobs of ``rcfg`` the port has: the attention backend
     ('kernel' or 'dense'), remat and its block size, and ``ssm_factored``.
     The ssm backend is pinned to the plain ``chunked`` form, as the
-    reference's training step pins it: kernel B6 has no backward."""
-    return Runtime(attention_backend=rcfg.attention_backend,
-                   ssm_backend="chunked", ssm_factored=rcfg.ssm_factored,
-                   remat=rcfg.remat,
-                   layers_per_block=rcfg.layers_per_block)
+    reference's training step pins it: kernel B6 has no backward.
+
+    With ``mesh``: the mesh fields as the reference sets them (the batch
+    axes of a microbatch, their size, expert parallelism over ``model``
+    or ``(pod, model)`` where the MoE meets more than one device), the
+    mesh itself and the parameters' specs."""
+    rt = Runtime(attention_backend=rcfg.attention_backend,
+                 ssm_backend="chunked", ssm_factored=rcfg.ssm_factored,
+                 remat=rcfg.remat, layers_per_block=rcfg.layers_per_block)
+    if mesh is None:
+        return rt
+    if (tuple(mesh.shape), tuple(mesh.mesh_dim_names)) != (
+            tuple(rcfg.mesh.shape), tuple(rcfg.mesh.axes)):
+        raise ValueError(f"the mesh {tuple(mesh.shape)} over "
+                         f"{tuple(mesh.mesh_dim_names)} is not the run's "
+                         f"{rcfg.mesh}: the specs follow the run's")
+    gb = rcfg.shape.global_batch
+    mb = (max(1, gb // max(rcfg.microbatches, 1))
+          if rcfg.shape.kind == "train" and not for_decode else gb)
+    excl = ("pod",) if rcfg.ep_over_pod else ()
+    bspec = shd.batch_spec(rcfg.mesh, mb, excl) or ()
+    sizes = shd.axis_sizes(rcfg.mesh)
+    specs = shd.param_pspecs(
+        abstract_params(rcfg.model, getattr(torch, rcfg.param_dtype)),
+        rcfg.model, rcfg)
+    return dataclasses.replace(
+        rt, mesh_batch_axes=tuple(bspec),
+        dp_size=math.prod(sizes[a] for a in bspec),
+        moe_shardmap=(rcfg.model.moe is not None
+                      and rcfg.mesh.num_devices > 1),
+        ep_axes=("pod", "model") if rcfg.ep_over_pod else ("model",),
+        mesh=mesh, param_specs=specs)
 
 
-def make_model(rcfg: RunConfig, *, device="cuda"):
-    return build(rcfg.model, make_runtime(rcfg),
+def make_model(rcfg: RunConfig, *, device="cuda", mesh=None,
+               for_decode: bool = False):
+    return build(rcfg.model, make_runtime(rcfg, for_decode=for_decode,
+                                          mesh=mesh),
                  param_dtype=getattr(torch, rcfg.param_dtype),
                  device=device)
 
@@ -111,8 +154,51 @@ def accumulate_grads(model, params, batch, microbatches: int,
     return gsum, torch.stack(losses).mean(), stats
 
 
+def local_rows(batch: dict, microbatches: int, mesh, axes) -> dict:
+    """This rank's rows of the global ``batch``: of each of its
+    ``microbatches`` consecutive microbatches, the block of the batch
+    shard it holds over ``axes`` (its index over them, the first axis
+    outermost), concatenated, so that :func:`accumulate_grads` splits
+    them into the same microbatches."""
+    gb = batch["labels"].shape[0]
+    mb = gb // microbatches
+    n, idx = coll.axis_size(mesh, axes), coll.axis_index(mesh, axes)
+    rows = mb // n
+    picks = [slice(i * mb + idx * rows, i * mb + (idx + 1) * rows)
+             for i in range(microbatches)]
+    return {k: torch.cat([v[s] for s in picks]) for k, v in batch.items()}
+
+
+def average_over_data(grads, specs, mesh, data_axes) -> None:
+    """Turn each rank's gradients of its rows into the mean over every
+    data shard, IN PLACE: a leaf sums over the data axes its shard does
+    not split (a leaf split over ``data`` was summed over it by its
+    gather's reduce-scatter), then divides by their product."""
+    n = coll.axis_size(mesh, data_axes)
+    for g, spec in shd.leaf_specs(grads, specs):
+        axes = tuple(a for a in data_axes if a not in spec.axes())
+        group = coll.group_of(mesh, axes)
+        if group is not None:
+            dist.all_reduce(g, group=group)
+        g.div_(n)
+
+
+def sharded_global_norm(grads, specs, mesh) -> torch.Tensor:
+    """The global norm of gradients held as shards: each leaf's sum of
+    squares summed over the axes its shard splits (its replicas over the
+    others count once), in f32."""
+    by_axes: dict = {}
+    for g, spec in shd.leaf_specs(grads, specs):
+        axes = tuple(a for a in mesh.mesh_dim_names if a in spec.axes())
+        sq = torch.sum(torch.square(g.float()))
+        by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
+    total = sum(coll.all_reduce(sq, mesh, axes) if axes else sq
+                for axes, sq in by_axes.items())
+    return torch.sqrt(total)
+
+
 def build_train_step(rcfg: RunConfig, total_steps: int = 10000, *,
-                     device="cuda"):
+                     device="cuda", mesh=None):
     """Returns (train_step, model, optimizer). train_step signature:
     (params, opt_state, batch) -> (params, opt_state, metrics).
 
@@ -131,20 +217,41 @@ def build_train_step(rcfg: RunConfig, total_steps: int = 10000, *,
     loss is not finite skips its update. It returns once the device has
     finished the step, as reading the reference's jitted step's loss
     does, so a host clock around it times the whole step.
+
+    With ``mesh``, params and opt_state are this rank's shards, and the
+    batch the whole global batch: the rank computes its rows of each
+    microbatch (the batch axes of ``batch_spec``), the gradients are
+    averaged over the data axes (under ``exec_mode="streaming"`` those of
+    the data-sharded weights come reduce-scattered from their gathers),
+    the loss is averaged, the gradient norm is taken over the shards, and
+    AdamW updates the local shards only.
     """
-    model = make_model(rcfg, device=device)
+    model = make_model(rcfg, device=device, mesh=mesh)
     opt = make_optimizer(rcfg, total_steps)
     n_mb = max(1, rcfg.microbatches)
     acc_dt = getattr(torch, rcfg.grad_accum_dtype)
+    rt = model.rt
+    data_axes = rcfg.mesh.data_axes
 
     def train_step(params, opt_state, batch):
-        gsum, loss, stats = accumulate_grads(model, params, batch, n_mb,
-                                             acc_dt)
+        gnorm = None
+        if mesh is None:
+            gsum, loss, stats = accumulate_grads(model, params, batch, n_mb,
+                                                 acc_dt)
+        else:
+            batch = local_rows(batch, n_mb, mesh, rt.mesh_batch_axes)
+            gsum, loss, stats = accumulate_grads(model, params, batch, n_mb,
+                                                 acc_dt)
+            average_over_data(gsum, rt.param_specs, mesh, data_axes)
+            loss = coll.all_reduce(loss, mesh, data_axes) / \
+                coll.axis_size(mesh, data_axes)
+            gnorm = sharded_global_norm(gsum, rt.param_specs, mesh)
         metrics = {"loss": loss, **stats}
         if not torch.isfinite(loss):       # the loop skips this step
             return params, opt_state, metrics
         try:
-            params, opt_state, m = opt.update(gsum, opt_state, params)
+            params, opt_state, m = opt.update(gsum, opt_state, params,
+                                              gnorm=gnorm)
             # inside the try: an asynchronous error of the update's
             # kernels shows here, after its first in-place write
             if loss.is_cuda:
@@ -155,3 +262,21 @@ def build_train_step(rcfg: RunConfig, total_steps: int = 10000, *,
         return params, opt_state, metrics
 
     return train_step, model, opt
+
+
+def build_decode_step(rcfg: RunConfig, *, device="cuda", mesh=None):
+    """Returns (decode_step, model). The decode attention is partitioned
+    (over a sequence-sharded cache, combined across ``model``) where the
+    reference partitions it: ``decode_attention="partitioned"``, full
+    attention, and a sequence length the model axis divides. The model's
+    prefill lays its caches out for this decode step."""
+    part = (rcfg.decode_attention == "partitioned"
+            and rcfg.model.attention_kind == "full"
+            and rcfg.shape.seq_len % rcfg.mesh.model_size == 0)
+    bspec = shd.batch_spec(rcfg.mesh, rcfg.shape.global_batch) or ()
+    rt = dataclasses.replace(make_runtime(rcfg, for_decode=True, mesh=mesh),
+                             decode_partitioned=part,
+                             mesh_batch_axes=tuple(bspec))
+    model = build(rcfg.model, rt, param_dtype=getattr(torch, rcfg.param_dtype),
+                  device=device)
+    return model.decode_step, model

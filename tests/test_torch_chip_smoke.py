@@ -323,7 +323,8 @@ def _launches(smoke):
         f"{a}:{e}" for a in smoke.SSM_ARCHS for e in ("static",
                                                         "continuous")] + [
         f"serving:{s}" for s in smoke.SERVING_SCENARIOS] + list(
-        smoke.FAMILY_PATHS) + list(smoke.BF16_PATHS)
+        smoke.FAMILY_PATHS) + list(smoke.BF16_PATHS) + list(
+        smoke.PHASE12_PATHS)
     return {p: dict.fromkeys(smoke.KERNELS, 1) for p in paths}
 
 
@@ -899,3 +900,64 @@ def test_phase2_holds_every_shape_phase11_gives(smoke, phase11_on_the_cpu):
     # every batch the suite runs, in each dtype it runs it in
     assert {(b, dt) for b, _, _, _, dt in seen["B2-B4"]} == {
         *((b, "float32") for b in smoke.DEPLOY_BATCHES), (8, "bfloat16")}
+
+
+def test_phase12_is_wired(smoke):
+    """Phase 12 runs after phase 11 and before phase 8, its paths' launches
+    are required by the kernels line's check, and each of 12a's scenarios
+    names the kernel whose records it holds."""
+    src = (REPO / "chip_smoke.py").read_text()
+    main = src[src.index("def main()"):src.index("def _missing(")]
+    assert main.index("_bf16_phases(dev)") < main.index(
+        "_inter_chip(dev, summary)") < main.index("_bench(dev, tier1)")
+    assert "PHASE12_PATHS" in src[src.index("def _missing("):]
+    from repro_torch.bench import select
+    from repro_torch.bench.suites import kernels
+    from repro_torch.kernels import ops
+    assert set(kernels.KERNEL_OF) == {s.name for s in select(
+        only="kernels")}
+    assert set(kernels.KERNEL_OF.values()) <= set(ops.KERNELS)
+
+
+@pytest.fixture(scope="module")
+def phase12_on_the_cpu(smoke):
+    """Phases 12b-12d on the reference's reduced configs and small
+    shapes over a world-size-1 gloo group on the CPU (their gates raise
+    on failure); 12a and 12e run only on the card."""
+    torch.set_num_threads(2)
+    return smoke._inter_chip(torch.device("cpu"), use_reduced=True)
+
+
+def test_phase12_runs_on_the_cpu(smoke, phase12_on_the_cpu):
+    launches = phase12_on_the_cpu
+    assert set(launches) == set(smoke.PHASE12_PATHS)
+    assert all(n == 0 for c in launches.values() for n in c.values())
+    import torch.distributed as dist
+    assert not dist.is_initialized()      # the phase's group is gone
+
+
+def test_phase12_gates_trip(smoke, monkeypatch):
+    """12c's gate catches partials that are combined wrongly, and 12b's
+    wrapper check a collective that is not the identity over one rank."""
+    from repro_torch.parallel import collectives as coll
+    combine = coll.combine_partials
+    monkeypatch.setattr(coll, "combine_partials", lambda parts, *a, **k: (
+        combine(parts[:1] if isinstance(parts, list) else parts, *a, **k)))
+    from repro_torch.configs import MeshConfig
+    from repro_torch.launch.mesh import init_world, make_mesh
+    import tempfile
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as d:
+        init_world("cpu", store_dir=d, rank=0, world_size=1)
+        try:
+            mesh = make_mesh(MeshConfig(shape=(1, 1),
+                                        axes=("data", "model")), "cpu")
+            with pytest.raises(AssertionError, match="12c"):
+                smoke._decode_shards(torch.device("cpu"), mesh, True)
+            monkeypatch.setattr(coll, "combine_partials", combine)
+            monkeypatch.setattr(coll, "all_reduce",
+                                lambda t, *a, **k: t * 2)
+            ok = smoke._collective_wrappers(torch.device("cpu"), mesh)
+            assert not ok["all_reduce"] and not ok["copy_to"]
+        finally:
+            dist.destroy_process_group()

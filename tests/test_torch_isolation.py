@@ -75,6 +75,37 @@ def test_launcher_import_pulls_in_no_jax():
     assert out.stdout.strip() == "[]"
 
 
+def test_inter_chip_modules_pull_in_no_jax():
+    """The distribution layer, the Tier-2 analysis and their suites import
+    nothing of JAX or the JAX package either."""
+    code = ("import sys, repro_torch.launch.mesh, "
+            "repro_torch.parallel.sharding, repro_torch.parallel.collectives, "
+            "repro_torch.parallel.layout, repro_torch.parallel.pipeline, "
+            "repro_torch.core.scalability, repro_torch.core.mesh_advisor, "
+            "repro_torch.runtime.elastic, repro_torch.runtime.steps, "
+            "repro_torch.bench.suites.kernels, "
+            "repro_torch.bench.suites.scalability; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == "[]"
+
+
+def test_a_mesh_on_the_card_never_falls_back_to_gloo():
+    """``make_mesh`` on ``cuda`` wants NCCL and a card: without a card it
+    raises (setting the card fails) rather than building a gloo mesh."""
+    from repro_torch.configs import MeshConfig
+    from repro_torch.launch.mesh import backend_for, make_mesh
+    assert backend_for("cpu") == "gloo"
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises((RuntimeError, AssertionError)):
+        make_mesh(MeshConfig(shape=(1, 1), axes=("data", "model")), "cuda")
+
+
 def test_default_device_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
