@@ -85,10 +85,9 @@ Phases, one JSON line each:
 4. parity: per-request greedy tokens of the two engines are identical;
    full-width prefill logits through the kernels agree with the plain
    attention path;
-5. profile: each engine serves the workload's first four requests again
-   under ``torch.profiler`` (``repro_torch.core.profile``): launches per
-   forward pass, the device's busy share, device time by kernel group,
-   copies and synchronisations;
+5. (no longer run: the two engines' profiles under ``torch.profiler``
+   went to keep the script inside its time limit; phases 3b, 3c and 6
+   still profile their engines and steps);
 3b/3c. serving at full width and full depth: rwkv6-3b (32 layers,
    d_model 2560, 40 heads of 64, LayerNorm) and hymba-1.5b (32 layers,
    d_model 1600, GQA 25:5, sliding window 1024, SSD heads with N=16),
@@ -265,6 +264,40 @@ Phases, one JSON line each:
 12e. the scalability suite (``scalability/*``) on the card: its one-rank
    point (dp1) runs over NCCL in a fresh process, every other point is
    recorded as not run for want of cards;
+13a. (phases 13a-13c run after 12e, before 8) the dry run on the card's
+   machine: ``launch/dryrun.py``'s ``run_cell`` for granite-3-8b
+   ``train_4k`` on (16, 16) and arctic-480b ``decode_32k`` on (2, 16, 16),
+   on ``meta`` over fake ranks (per-device flops, dot flops and bytes,
+   collective bytes by opcode, the peak against 80 GB, the dominant
+   roofline term, the count's seconds); then its gate: 12b's step
+   (granite-3-8b at full width, 2 layers, f32, batch 2 x 4096, the
+   resident sharded step on a (1, 1) mesh) counted on ``meta`` by the
+   dry run and on the card's real tensors by ``count_cost``: flops, dot
+   flops, bytes and collective bytes within COUNT_TOL relative, the
+   kernels' calls equal (and equal to their launches), the dry run's
+   peak within PEAK_TOL of the card's (``max_memory_allocated`` over the
+   step above what the process held before its inputs);
+13b. remesh on the card, over a world-size-1 NCCL group: 12b's step 4
+   steps unbroken (twice), then 2 steps saving a sharded checkpoint,
+   ``remesh`` onto a fresh (1, 1) mesh and 2 more: losses, grad norms and
+   the final params equal bit for bit (or within the unbroken runs'
+   difference, as 11d); then, in processes of their own,
+   ``launch/train.py`` under one ``torchrun`` rank with
+   ``--ckpt-dir`` (the reduced granite), 2 steps and then on to 4: the
+   second launch prints ``resumed_from=1`` (the last step the first
+   saved);
+13c. ``python -m repro_torch.bench --only scaling_matrix,trace_replay``
+   through the harness's API on the card: the one-card points run (dp1,
+   over NCCL in a fresh process, granite-3-8b at full width, 2 layers,
+   8 x 1024 tokens), the others are named as not run; the 1x1 trace's
+   identity replay within TRACE_GATE of its measured median (it is scaled
+   to it) and its calibration ratio (that median over the roofline's
+   longest lane) inside CALIBRATION_BAND; halving its compute lane
+   predicts no longer a step; ``trace_replay/serve`` (the
+   paged engine of full-width granite-3-8b, 8-token prompts, under
+   ``TracingClock(WallClock)``) replays to the engine's busy time within
+   1e-9; the trace's counted collective bytes printed (no link bytes at
+   one rank);
 7. the ``kernels`` summary line, with the launch counts of the serving
    (phases 3, 3b, 3c, 9, 10a-c, 11c), training (phases 6, 6b, 6c, 6d,
    10a, 10d, 11a, 11d, 12b) and bench (phases 8, 11b) runs; fails unless
@@ -275,7 +308,8 @@ Phases, one JSON line each:
    decoder layer and its training B2-B4 likewise, 10b's and 10c's
    engines launched K1, K2 and K3, 11a's and 11b's steps B2, B3, B4 and
    K3, llama4's engines K1, K2 and K3, 12b's sharded steps B2, B3, B4
-   and K3, and 12c K2.
+   and K3, 12c K2, 13a's and 13b's steps B2, B3, B4 and K3, and 13c's
+   served engines K2 and K3.
 
 Any failure raises and exits non-zero. Without a CUDA device, or outside a
 checkout, it exits non-zero before printing any result. The last line of
@@ -496,6 +530,26 @@ PHASE12_PATHS = {
        for m in ("resident", "streaming")},
     "12c": ("paged_attention",)}
 SCAL_TIMEOUT = 300      # 12e: seconds a point's ranks may take
+# phase 13: the dry run's cells (arch, shape, multi-pod) on the card's
+# machine (13a); its gate on 12b's step counted on meta and on the card
+# (flops, dot flops, bytes, collective bytes relative; peaks relative);
+# remesh's unbroken steps and the step it saves after (13b); the 1x1
+# trace's identity replay against its measured median (13c, the
+# reference's trace-replay-error bound); the kernels each path launches
+DRYRUN_CELLS = (("granite-3-8b", "train_4k", False),
+                ("arctic-480b", "decode_32k", True))
+COUNT_TOL, PEAK_TOL = 1e-9, 0.10
+REMESH_STEPS, REMESH_SPLIT = 4, 2
+TRACE_GATE = 0.25
+# 13c: the 1x1 trace's measured step over its roofline's longest lane (f32
+# at the FMA units' peak, HBM at its rate): below 1 the card beat its
+# roofline, so the count or the rates are wrong; above 2 the step lost more
+# than half its time to what no lane holds (1.43 on the H100, PERF.md)
+CALIBRATION_BAND = (1.0, 2.0)
+PHASE13_PATHS = {
+    **{f"train:13{p}": ("flash_attention_lse", "flash_attention_dq",
+                        "flash_attention_dkv", "rmsnorm") for p in "ab"},
+    "13c": ("paged_attention", "rmsnorm")}
 CKPT_STEPS, CKPT_EVERY = 4, 2   # phase 11d: the unbroken run, the save
 # phase 10: whisper's served requests, and the depth qwen2-vl and arctic
 # are cut to (f32 params of 80 and 35 layers exceed one 80 GB card); and
@@ -865,6 +919,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------ 13 dry run
+    launches.update(_dry_run(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- 8 bench
     ops.reset_launches()
     _bench(dev, tier1)
@@ -902,8 +961,8 @@ def _missing(launches: dict) -> list:
     counts (``launches``: path -> kernel -> launches): the serving phases'
     (3, 3b, 3c), the training phases' (6, 6b), phase 8's (BENCH_KERNELS),
     every scenario of phase 9's (SERVING_SCENARIOS), phase 10's paths
-    (FAMILY_PATHS), phase 11's (BF16_PATHS) and phase 12's
-    (PHASE12_PATHS)."""
+    (FAMILY_PATHS), phase 11's (BF16_PATHS), phase 12's (PHASE12_PATHS)
+    and phase 13's (PHASE13_PATHS)."""
     need = {"flash_attention": launches["continuous"]["flash_attention"],
             "paged_attention": launches["paged"]["paged_attention"],
             **{k: min(launches[e][k] for e in ("train:6", "train:6b"))
@@ -921,13 +980,14 @@ def _missing(launches: dict) -> list:
         for k in kernels if launches[f"serving:{scen}"][k] <= 0] + [
         f"{k} in {path}" for path, kernels in {**FAMILY_PATHS,
                                                **BF16_PATHS,
-                                               **PHASE12_PATHS}.items()
+                                               **PHASE12_PATHS,
+                                               **PHASE13_PATHS}.items()
         for k in kernels if launches[path][k] <= 0]
 
 
 def _serve(dev) -> dict:
-    """Phases 3 to 5: serve full-width granite-3-8b through the continuous
-    and the paged engine, check parity, profile. Returns each engine's
+    """Phases 3 and 4: serve full-width granite-3-8b through the
+    continuous and the paged engine, check parity. Returns each engine's
     launch counts; the model, engines and caches go with its frame."""
     import torch
 
@@ -1016,14 +1076,6 @@ def _serve(dev) -> dict:
         raise AssertionError(f"greedy tokens differ between engines: {parity}")
     if not parity["prefill_logits_finite"] or logit_err > parity["tol"]:
         raise AssertionError(f"full-width prefill check failed: {parity}")
-
-    # ----------------------------------------------------------- 5 profile
-    # the first four requests, as phases 3b and 3c profile: reading the
-    # whole mix's trace took 166 s of 885 on the H100 (PERF.md, PR 20)
-    from repro_torch.core.profile import profile_run
-    for name, eng in engines.items():
-        emit({"phase": "profile", "requests": 4,
-              **profile_run(eng, reqs[:4])})
     return launches
 
 
@@ -1936,6 +1988,413 @@ def _scalability_suite() -> None:
             problems.append(f"{rec.name} ran without its cards: {d}")
     if problems or not any(r.us_per_call > 0 for r in sink.records):
         raise AssertionError(f"phase 12e failed: {problems}")
+
+
+# ------------------------------------------------------------ phase 13
+def count_problems(meta: dict, real: dict, tol: float = COUNT_TOL) -> list:
+    """What disagrees between two counts of one step (``flops``,
+    ``dot_flops``, ``bytes``, ``collectives`` by opcode, ``kernels``
+    calls): the totals and collective bytes beyond ``tol`` relative, a
+    kernel's calls at all."""
+    out = []
+
+    def off(a, b):
+        return abs(a - b) > tol * max(abs(a), abs(b))
+
+    for key in ("flops", "dot_flops", "bytes"):
+        if off(meta[key], real[key]):
+            out.append(f"{key}: {meta[key]} vs {real[key]}")
+    for op in sorted(set(meta["collectives"]) | set(real["collectives"])):
+        a, b = meta["collectives"].get(op, 0.0), real["collectives"].get(
+            op, 0.0)
+        if off(a, b):
+            out.append(f"{op} bytes: {a} vs {b}")
+    if meta["kernels"] != real["kernels"]:
+        out.append(f"kernel calls: {meta['kernels']} vs {real['kernels']}")
+    return out
+
+
+def resume_problems(unbroken: list, again: list, resumed: list,
+                    split: int, params_diff: float = 0.0,
+                    params_noise: float = 0.0) -> list:
+    """What differs between a run resumed after ``split`` steps and the
+    unbroken run it continues, as phase 11d holds a resume: each later
+    step's (loss, grad norm) bit for bit, or, where two unbroken runs
+    (``unbroken``, ``again``) differ, within their difference; as many
+    steps; the final params' largest difference within the two unbroken
+    runs' (``params_noise``: 0 on a deterministic device)."""
+    out = []
+    want, twice = unbroken[split:], again[split:]
+    noise = max((abs(a - b) for x, y in zip(want, twice)
+                 for a, b in zip(x, y)), default=0.0)
+    if len(resumed) != len(want):
+        out.append(f"{len(resumed)} resumed steps, {len(want)} wanted")
+    for i, (a, b) in enumerate(zip(resumed, want)):
+        if max(abs(x - y) for x, y in zip(a, b)) > noise:
+            out.append(f"step {split + i}: {a} vs {b} (noise {noise})")
+    if params_diff > params_noise:
+        out.append(f"final params differ by {params_diff} (noise "
+                   f"{params_noise})")
+    return out
+
+
+def _count_summary(report) -> dict:
+    return {"flops": report.flops, "dot_flops": report.dot_flops,
+            "bytes": report.bytes,
+            "collectives": report.collective_summary(),
+            "kernels": {k: v["calls"] for k, v in report.kernels.items()}}
+
+
+def _gate_config(dev, use_reduced: bool = False):
+    """13a/13b's step: 12b's (granite-3-8b at full width, 2 layers, f32,
+    batch 2 x 4096; reduced: the reference's reduced granite at
+    REDUCED_TRAIN_SEQ), the resident sharded step over a (1, 1) mesh,
+    through the kernels."""
+    import dataclasses
+
+    from repro_torch.configs import (MeshConfig, RunConfig, ShapeConfig,
+                                     get_arch, reduced)
+    cfg = get_arch(SHARDED["arch"])
+    cfg = (reduced(cfg) if use_reduced
+           else dataclasses.replace(cfg, num_layers=SHARDED["layers"]))
+    seq = REDUCED_TRAIN_SEQ if use_reduced else SHARDED["seq"]
+    return RunConfig(model=cfg, shape=ShapeConfig(
+        "gate", "train", seq, SHARDED["batch"]),
+        mesh=MeshConfig(shape=(1, 1), axes=("data", "model")),
+        param_dtype="float32", attention_backend="kernel",
+        exec_mode="resident", warmup_steps=10)
+
+
+def _gate_state(rcfg, dev, mesh, seed: int = 0):
+    """(step, opt, params, opt state, data) of the gate's run on
+    ``mesh``, params from a seeded generator."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.parallel.sharding import shard_tree
+    from repro_torch.runtime.steps import build_train_step
+
+    step, model, opt = build_train_step(rcfg, total_steps=REMESH_STEPS,
+                                        device=dev, mesh=mesh)
+    params = shard_tree(model.init_params(torch.Generator(
+        device=dev).manual_seed(seed)), model.rt.param_specs, mesh)
+    data = SyntheticLM(rcfg.model, rcfg.shape.global_batch,
+                       rcfg.shape.seq_len, seed=0, device=str(dev))
+    return step, opt, params, opt.init(params), data
+
+
+def _dry_run(dev, use_reduced: bool = False) -> dict:
+    """Phase 13, one part after another: 13a the dry run's cells (the
+    card's machine only) and its gate, 13b remesh and (the card only) the
+    launcher, 13c the scaling matrix and the traces (the card only). 13a's
+    real count and 13b run over a world-size-1 process group (NCCL on the
+    card, gloo on the CPU where the tests run it). Returns the launch
+    counts of 13a's real step, 13b's resumed steps and 13c."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_world, make_mesh
+
+    on_card = dev.type == "cuda"
+    launches = {}
+    if not use_reduced:
+        _dry_run_cells()
+    rcfg = _gate_config(dev, use_reduced)
+    t0 = time.perf_counter()
+    meta = _gate_on_meta(rcfg)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix=".dist-",
+                                     dir=ROOT / "build") as store:
+        init_world(dev.type, store_dir=store, rank=0, world_size=1)
+        try:
+            mesh = make_mesh(rcfg.mesh, dev.type)
+            launches["train:13a"] = _gate_on_device(rcfg, dev, mesh, meta,
+                                                    t0)
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            launches["train:13b"] = _remesh_phase(rcfg, dev, mesh, store)
+        finally:
+            dist.destroy_process_group()
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            line = {"phase": "13b",
+                    "launcher": _launcher_resume(Path(store) / "launcher")}
+            emit(line)
+            if line["launcher"]["resumed_from"] != REMESH_SPLIT - 1:
+                raise AssertionError(f"phase 13b's launcher failed: {line}")
+        emit({"phase": "13b", "seconds": time.perf_counter() - t0})
+    if on_card:
+        t0 = time.perf_counter()
+        launches["13c"] = _matrix_and_traces()
+        emit({"phase": "13c", "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def _dry_run_cells() -> None:
+    """13a's cells: ``launch/dryrun.py``'s ``run_cell`` on ``meta`` over
+    fake ranks, for DRYRUN_CELLS; each line: per-device flops, dot flops
+    and bytes, collective bytes by opcode, the peak against the card's
+    memory, the dominant roofline term and the count's seconds. The
+    fake world is torn down after the last."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, multi_pod=multi_pod, save=False)
+        h = rec["hlo"]
+        emit({"phase": "13a", "arch": arch, "shape": shape,
+              "mesh": rec["mesh"], "devices": rec["devices"],
+              "counts_of": rec["counts_of"],
+              "flops_per_device": h["flops_per_device"],
+              "dot_flops_per_device": h["dot_flops_per_device"],
+              "bytes_per_device": h["bytes_per_device"],
+              "collective_bytes": h["collective_breakdown"],
+              "peak_gb": rec["memory"]["peak_gb"],
+              "hbm_gb": rec["memory"]["hbm_gb"],
+              "dominant": rec["roofline"]["dominant"],
+              "count_s": rec["count_s"],
+              "seconds": time.perf_counter() - t0})
+    dist.destroy_process_group()
+
+
+def _gate_on_meta(rcfg) -> dict:
+    """The gate's step counted by the dry run on ``meta`` over a fake
+    world of one rank: its count, its peak and seconds."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    mesh = dryrun.fake_mesh(rcfg.mesh)
+    try:
+        _, report, mem, count_s = dryrun.count_cell(rcfg, mesh)
+    finally:
+        dist.destroy_process_group()
+    return {"count": _count_summary(report), "peak_gb": mem.peak_bytes / 1e9,
+            "count_s": count_s}
+
+
+def _gate_on_device(rcfg, dev, mesh, meta: dict, t0: float) -> dict:
+    """13a's gate: the same step on the device's real tensors, counted by
+    ``count_cost`` (the real ``train_step``); flops, dot flops, bytes and
+    collective bytes within COUNT_TOL of the dry run's, kernel calls
+    equal (and, on the card, equal to the launches); the dry run's peak
+    within PEAK_TOL of the device's peak over the step (its bytes
+    allocated above what the process held before the step's inputs).
+    Returns the step's launches."""
+    import torch
+
+    from repro_torch.core.cost import count_cost
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import warm_constants
+
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev) if on_card else 0
+    step, _, params, state, data = _gate_state(rcfg, dev, mesh)
+    batch = data.batch_at(0)
+    warm_constants(rcfg.model, dev)
+    _sync(dev)                   # also resets the peak
+    ops.reset_launches()
+    _, report = count_cost(step, params, state, batch)
+    counts = dict(ops.LAUNCHES)
+    real_peak = (_peak(dev) - base) / 1e9 if on_card else None
+    real = _count_summary(report)
+    problems = count_problems(meta["count"], real)
+    if on_card:
+        launched = {k: n for k, n in counts.items() if n}
+        if launched != real["kernels"]:
+            problems.append(f"launches {launched} vs counted calls "
+                            f"{real['kernels']}")
+        rel = abs(meta["peak_gb"] - real_peak) / real_peak
+        if rel > PEAK_TOL:
+            problems.append(f"peak {meta['peak_gb']} GB vs "
+                            f"{real_peak} GB on the card")
+    emit({"phase": "13a", "gate": "meta against the device",
+          "arch": rcfg.model.name, "layers": rcfg.model.num_layers,
+          "batch": rcfg.shape.global_batch, "seq": rcfg.shape.seq_len,
+          "mesh": list(rcfg.mesh.shape), "meta": meta["count"],
+          "device": real, "count_tol": COUNT_TOL,
+          "meta_peak_gb": meta["peak_gb"], "device_peak_gb": real_peak,
+          "peak_tol": PEAK_TOL, "meta_count_s": meta["count_s"],
+          "launches": counts, "problems": problems,
+          "seconds": time.perf_counter() - t0})
+    del step, params, state
+    if problems:
+        raise AssertionError(f"phase 13a failed: {problems}")
+    return counts
+
+
+def _remesh_phase(rcfg, dev, mesh, where) -> dict:
+    """13b: REMESH_STEPS steps of the gate's step unbroken, twice (is the
+    step deterministic?); then REMESH_SPLIT steps saving a sharded
+    checkpoint (``train_loop.run`` with ``sharding``), ``remesh`` onto a
+    fresh (1, 1) mesh, and the rest from the restored shards; losses,
+    grad norms and the final params equal bit for bit (or within the two
+    unbroken runs' difference, :func:`resume_problems`). Returns the
+    resumed steps' launches."""
+    import torch
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import train_loop
+    from repro_torch.runtime.elastic import remesh, train_state_specs
+    from repro_torch.runtime.steps import build_train_step
+
+    def run(step, params, state, data, steps):
+        out = []
+        for i in steps:
+            _, _, m = step(params, state, data.batch_at(i))
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        return out
+
+    def max_diff(a, b):
+        return max(float((x.cpu().double() - y.double()).abs().max())
+                   for x, y in zip(a, b))
+
+    unbroken, finals = [], []
+    for _ in range(2):          # twice: is the step deterministic here?
+        step, _, params, state, data = _gate_state(rcfg, dev, mesh)
+        unbroken.append(run(step, params, state, data, range(REMESH_STEPS)))
+        finals.append([t.detach().cpu() for t in tree_leaves(params)])
+        del step, params, state
+        gc.collect()
+    params_noise = max_diff(finals[1], finals[0])
+    specs, template = train_state_specs(rcfg)
+    ckpt_dir = Path(where) / "ckpt"
+    step, _, params, state, data = _gate_state(rcfg, dev, mesh)
+    t0 = time.perf_counter()
+    first = train_loop.run(step, params, state, data.batch_at,
+                           total_steps=REMESH_SPLIT, ckpt_dir=str(ckpt_dir),
+                           ckpt_every=REMESH_STEPS, sharding=(specs, mesh))
+    first_s = time.perf_counter() - t0
+    before = [(m["loss"], m["grad_norm"]) for m in first.metrics]
+    del step, params, state
+    gc.collect()
+    t0 = time.perf_counter()
+    mesh2, out = remesh(str(ckpt_dir), template, rcfg.mesh, specs,
+                        device=dev.type)
+    restore_s = time.perf_counter() - t0
+    step, _, _ = build_train_step(rcfg, total_steps=REMESH_STEPS, device=dev,
+                                  mesh=mesh2)
+    params, state = out["tree"]["params"], out["tree"]["opt"]
+    ops.reset_launches()
+    resumed = run(step, params, state, data,
+                  range(REMESH_SPLIT, REMESH_STEPS))
+    counts = dict(ops.LAUNCHES)
+    got = tree_leaves(params)
+    params_diff = (max_diff(got, finals[0]) if len(got) == len(finals[0])
+                   else float("inf"))
+    problems = resume_problems(unbroken[0], unbroken[1], before + resumed,
+                               0, params_diff, params_noise)
+    nbytes = sum(f.stat().st_size for f in ckpt_dir.rglob("*.npy"))
+    line = {"phase": "13b", "arch": rcfg.model.name,
+            "layers": rcfg.model.num_layers, "mesh": list(rcfg.mesh.shape),
+            "restored_step": out["step"], "saved_steps": first.checkpoints,
+            "unbroken": unbroken[0], "unbroken_again": unbroken[1],
+            "resumed": before + resumed,
+            "step_deterministic": unbroken[0] == unbroken[1],
+            "params_max_diff": params_diff,
+            "params_max_diff_unbroken_runs": params_noise,
+            "checkpoint_bytes": nbytes,
+            "steps_and_save_s": first_s, "restore_s": restore_s,
+            "launches": counts,
+            "problems": problems}
+    if out["step"] != REMESH_SPLIT - 1:
+        problems.append(f"restored step {out['step']}")
+    del step, params, state, out
+    gc.collect()
+    emit(line)
+    if problems:
+        raise AssertionError(f"phase 13b failed: {problems}")
+    return counts
+
+
+def _launcher_resume(ckpt_dir: Path) -> dict:
+    """``launch/train.py`` under one ``torchrun`` rank with ``--ckpt-dir``
+    (the reduced granite): REMESH_SPLIT steps, then a second launch on to
+    REMESH_STEPS, which resumes; its ``resumed_from`` and losses."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = {}
+    t0 = time.perf_counter()
+    for steps in (REMESH_SPLIT, REMESH_STEPS):
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
+             "--arch", SHARDED["arch"], "--batch", "2", "--seq", "128",
+             "--steps", str(steps), "--ckpt-dir", str(ckpt_dir),
+             "--ckpt-every", "100", "--log-every", "1"],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        if proc.returncode:
+            raise AssertionError(f"13b launcher failed: {proc.stderr[-2000:]}")
+        out[steps] = proc.stdout
+    final = re.search(r"resumed_from=(\S+)", out[REMESH_STEPS]).group(1)
+    return {"resumed_from": None if final == "None" else int(final),
+            "last_line": out[REMESH_STEPS].strip().splitlines()[-1],
+            "seconds": time.perf_counter() - t0}
+
+
+def _matrix_and_traces() -> dict:
+    """13c: ``python -m repro_torch.bench --only scaling_matrix,
+    trace_replay`` through the harness's API on the card. The 1x1 train
+    trace's identity replay within TRACE_GATE of its measured median, its
+    calibration ratio inside CALIBRATION_BAND; halving the compute lane predicts no longer a step; the served
+    burst's trace replays to the engine's busy time within 1e-9; the
+    points wider than the machine's cards named as not run. Returns the
+    launches in this process (the served engines')."""
+    from repro_torch.bench import BenchRunner, ListSink, select
+    from repro_torch.bench.__main__ import with_device
+    from repro_torch.bench.suites import scaling_matrix as sm
+    from repro_torch.bench.suites import serving
+    from repro_torch.kernels import ops
+    from repro_torch.trace import replay, scale_kind
+    import repro_torch.bench.suites  # noqa: F401  (registers them)
+
+    sink = ListSink()
+    ops.reset_launches()
+    out = BenchRunner(sinks=[sink]).run(
+        [with_device(sc, "cuda") for sc in
+         select(only="scaling_matrix,trace_replay")])
+    counts = dict(ops.LAUNCHES)
+    problems = [f"{n}: {e}" for n, e in out.failures]
+    recs = {r.name: r for r in sink.records}
+    for rec in sink.records:
+        emit({"phase": "13c", "record": rec.name, "status": rec.status,
+              "us_per_call": float(rec.us_per_call), "derived": rec.derived})
+    one = sm.mesh_traces(1, "cuda")["1x1"]
+    base = replay(one).predicted_s
+    halved = replay(one, edits=[scale_kind("compute", 0.5)]).predicted_s
+    cell = recs.get("trace_replay/dp1")
+    serve = recs.get("trace_replay/serve_paged")
+    if cell is None or cell.derived["rel_err"] > TRACE_GATE:
+        problems.append(f"trace_replay/dp1: {cell and cell.derived}")
+    ratio = one.meta["calibration_ratio"]
+    if not CALIBRATION_BAND[0] <= ratio <= CALIBRATION_BAND[1]:
+        problems.append(f"calibration ratio {ratio} outside "
+                        f"{CALIBRATION_BAND}")
+    if halved > base:
+        problems.append(f"halved compute predicts {halved} > {base}")
+    if serve is None or serve.derived["rel_err"] > 1e-9:
+        problems.append(f"serve_paged: {serve and serve.derived}")
+    if not counts["paged_attention"] or not counts["rmsnorm"]:
+        problems.append(f"the served engines launched {counts}")
+    emit({"phase": "13c", "trace": one.name,
+          "measured_s": one.measured_step_s, "identity_s": base,
+          "compute_halved_s": halved, "calibration_ratio": ratio,
+          "calibration_band": CALIBRATION_BAND,
+          "collective_bytes": one.meta.get("collective_bytes"),
+          "collective_ici_bytes": one.meta.get("ici_bytes"),
+          "kernels": one.meta.get("kernels"),
+          "records": len(sink.records), "problems": problems})
+    serving._params.cache_clear()      # phase 9 builds its own again
+    if problems:
+        raise AssertionError(f"phase 13c failed: {problems}")
+    return counts
 
 
 def _deploy_problems(records: list, failures: list, launches: dict,

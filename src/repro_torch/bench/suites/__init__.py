@@ -8,3 +8,5 @@ from repro_torch.bench.suites import serving  # noqa: F401
 from repro_torch.bench.suites import batch_precision  # noqa: F401
 from repro_torch.bench.suites import kernels  # noqa: F401
 from repro_torch.bench.suites import scalability  # noqa: F401
+from repro_torch.bench.suites import scaling_matrix  # noqa: F401
+from repro_torch.bench.suites import trace  # noqa: F401

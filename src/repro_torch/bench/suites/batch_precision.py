@@ -18,8 +18,9 @@ tokens over the mean call.
 
 The knobs: the reference's (``batch``, ``dtype``), ``device`` (``cuda``
 unless the caller asks for ``cpu``) and ``reduced``.
-``deploy/precision_fullscale`` reads the reference's dry-run records,
-which wait for the port's dry run, and is not registered.
+``deploy/precision_fullscale`` reads the dry run's record of granite-3-8b's
+bf16 ``train_4k`` cell (``results/dryrun_torch/``): the full-scale step's
+memory term on H100s.
 """
 from __future__ import annotations
 
@@ -109,3 +110,28 @@ def deploy_precision(wl: Workload):
     us, derived = _measure(wl, dt, 8)
     yield BenchRecord(name=f"deploy/precision_{dt}", us_per_call=us,
                       derived=derived)
+
+
+@scenario(
+    "deploy/precision_fullscale", tags=("projected", "table4"),
+    paper_ref="Table IV (full-scale projection)",
+    workloads=[Workload(label="bf16", arch="granite-3-8b")])
+def deploy_precision_fullscale(wl: Workload):
+    """Full-scale precision effect from the dry run's roofline memory
+    term."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.bench.suites.efficiency import DRYRUN_DIR, NO_DRYRUN
+
+    f = Path(wl.knobs.get("dir", DRYRUN_DIR)) / \
+        "granite-3-8b_train_4k_16x16.json"
+    if not f.exists():
+        yield BenchRecord(name="deploy/no_dryrun_artifacts",
+                          derived={"note": NO_DRYRUN})
+        return
+    rl = json.loads(f.read_text())["roofline"]
+    yield BenchRecord(
+        name="deploy/precision_fullscale_bf16",
+        derived={"memory_s": round(rl["memory_s"], 2),
+                 "note": "f32_would_be~2x_memory_term"})

@@ -6,6 +6,11 @@ layers, one row of 4096 tokens, f32, through the port's kernels (B2, B3,
 B4, K3), with remat as the training step runs it. Derived: GFLOP/s of
 ``6 x param_count x tokens`` over the measured call.
 
+``efficiency/projected`` reads the dry run's records
+(``results/dryrun_torch/*_train_4k_16x16.json``, written by
+``python -m repro_torch.launch.dryrun --all``): TFLOP/s per arch at the
+roofline step time of the full-scale step on H100s.
+
 The workload's knobs: ``num_layers``, ``batch``, ``seq``; ``device``
 (``cuda`` unless the caller asks for ``cpu``, as ``--device cpu`` does);
 ``reduced`` (the reference's reduced widths at that depth, for tests on
@@ -15,8 +20,10 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.bench import BenchRecord, Workload, scenario, timeit_us
+from repro_torch.launch.dryrun import RESULTS_DIR as DRYRUN_DIR
 
 TRAIN_BATCH, TRAIN_SEQ = 1, 4096
+NO_DRYRUN = "run launch/dryrun.py first"
 
 
 def loss_step(wl: Workload):
@@ -70,3 +77,28 @@ def efficiency_measured(wl: Workload):
     yield BenchRecord(
         name=f"efficiency/{wl.label}/measured", us_per_call=us,
         derived={"gflops_s": round(flops / (us * 1e-6) / 1e9, 2)})
+
+
+@scenario(
+    "efficiency/projected", tags=("projected", "fig9"),
+    paper_ref="Fig. 9 (full-scale projection)",
+    workloads=[Workload(label="train_4k_16x16",
+                        knobs={"shape": "train_4k", "mesh": "16x16"})])
+def efficiency_projected(wl: Workload):
+    """Full-scale roofline-step-time TFLOP/s per arch from the dry run's
+    records (when present)."""
+    from repro_torch.core.report import load_dryrun_records
+
+    recs = [r for r in load_dryrun_records(
+        wl.knobs.get("dir", DRYRUN_DIR), wl.knobs["mesh"])
+        if r["shape"] == wl.knobs["shape"]]
+    for rec in recs:
+        rl = rec["roofline"]
+        tf = rl["model_flops"] / max(rl["step_time_s"], 1e-12) / 1e12
+        yield BenchRecord(
+            name=f"efficiency/{rec['arch']}/projected",
+            arch=rec["arch"], shape=rec["shape"], mesh=rec["mesh"],
+            derived={"tflops": round(tf, 1), "mfu": round(rl["mfu"], 3)})
+    if not recs:
+        yield BenchRecord(name="efficiency/no_dryrun_artifacts",
+                          derived={"note": NO_DRYRUN})

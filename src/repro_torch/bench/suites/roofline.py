@@ -8,11 +8,17 @@ against the f32 peak and Eq. 5, under the JAX keys (``dom``,
 measured ``step_s``, ``mfu_measured`` and the useful share of the counted
 FLOPs. The step's hand-written kernels are held to their launches: each
 of B2, B3, B4 and K3 counted as many times as it launched (on the card),
-each call at its per-call work."""
+each call at its per-call work.
+
+``roofline/dryrun`` is the reference's Fig. 10 over every dry-run cell
+(``results/dryrun_torch/*_16x16.json``): the three roofline terms on H100s
+and Eq. 5's arithmetic intensity, each cell classed compute-, memory- or
+collective-bound."""
 from __future__ import annotations
 
 from repro_torch.bench import BenchRecord, Workload, scenario, timeit_us
-from repro_torch.bench.suites.efficiency import (TRAIN_BATCH, TRAIN_SEQ,
+from repro_torch.bench.suites.efficiency import (DRYRUN_DIR, NO_DRYRUN,
+                                                 TRAIN_BATCH, TRAIN_SEQ,
                                                  loss_step)
 
 # the step's kernels, as kernels/ops.py names them
@@ -115,3 +121,45 @@ def roofline_measured(wl: Workload):
                  "kernels": {n: {"calls": k["calls"],
                                  "launches": k["launches"]}
                              for n, k in kernels.items()}})
+
+
+@scenario(
+    "roofline/dryrun", tags=("projected", "fig10"),
+    paper_ref="Fig. 10",
+    workloads=[Workload(label="16x16", knobs={"mesh": "16x16"})])
+def roofline_dryrun(wl: Workload):
+    """Roofline terms and AI for every dry-run cell on the mesh."""
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.core import metrics
+    from repro_torch.core.report import load_dryrun_records
+
+    emitted = False
+    for rec in load_dryrun_records(wl.knobs.get("dir", DRYRUN_DIR),
+                                   wl.knobs["mesh"]):
+        rl = rec.get("roofline")
+        if not rl:
+            continue
+        arch = ARCHS.get(rec["arch"])
+        shape = SHAPES.get(rec["shape"])
+        ai = 0.0
+        if arch and shape:
+            act = metrics.activation_bytes_estimate(
+                arch.num_layers + arch.encoder_layers, shape.global_batch,
+                shape.seq_len, arch.d_model)
+            ai = metrics.arithmetic_intensity(
+                arch.active_param_count(), shape.global_batch,
+                shape.seq_len, act)
+        emitted = True
+        yield BenchRecord(
+            name=f"roofline/{rec['arch']}/{rec['shape']}",
+            arch=rec["arch"], shape=rec["shape"], mesh=rec["mesh"],
+            derived={"dom": rl["dominant"],
+                     "compute_s": rl["compute_s"],
+                     "memory_s": rl["memory_s"],
+                     "collective_s": rl["collective_s"],
+                     "AI": round(ai, 1),
+                     "mfu": round(rl.get("mfu") or 0.0, 3),
+                     "peak_gb": rec["memory"]["peak_gb"]})
+    if not emitted:
+        yield BenchRecord(name="roofline/no_dryrun_artifacts",
+                          derived={"note": NO_DRYRUN})

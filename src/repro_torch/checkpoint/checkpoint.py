@@ -24,6 +24,20 @@ Deliberate differences from the reference:
   target (shape, saved dtype, a readable file) before the first copy, so
   a corrupt step, or one saved in another dtype (an f32 run's into a bf16
   run's state), leaves the target as it was.
+
+A sharded run (``specs`` and ``mesh`` given: the spec tree of the saved
+tree and the ``DeviceMesh`` its shards lie on) saves the same layout:
+full logical leaves, gathered one leaf at a time and written by rank 0
+alone from the host; every rank returns once the step is committed. Its
+restore copies into this rank's shards: each rank memory-maps each
+``leaf_<i>.npy``, slices its own block on the host and copies that, so a
+full tree never sits on a card, and a step saved on one mesh restores
+onto any other (:func:`repro_torch.runtime.elastic.remesh`). Such a
+restore also reads a step the reference wrote (``meta.msgpack`` in place
+of ``meta.json``): its leaves' shapes and dtypes then come from the
+``.npy`` headers, checked against the target's full shapes. The
+reference's ``restore`` reads only the ``.npy`` files and ``_COMMITTED``,
+so it reads the port's steps.
 """
 from __future__ import annotations
 
@@ -95,42 +109,73 @@ def _to_host(leaf) -> np.ndarray:
     return t.numpy()
 
 
+def _gathered(leaves, specs, mesh) -> list:
+    """Rank 0's host copies of the full leaves of a sharded tree, each
+    gathered on its own (None on every other rank)."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel.sharding import gather_tree
+
+    rank0 = dist.get_rank() == 0
+    out = []
+    for leaf, spec in zip(leaves, specs):
+        full = leaf if isinstance(leaf, int) else gather_tree(leaf, spec,
+                                                              mesh)
+        out.append(_to_host(full) if rank0 else None)
+        del full
+    return out
+
+
 def save(ckpt_dir: str | os.PathLike, step: int, tree,
-         *, blocking: bool = True) -> threading.Thread | None:
+         *, blocking: bool = True, specs=None,
+         mesh=None) -> threading.Thread | None:
     """Save a tree of tensors (nested dicts, ``AdamWState`` and ``Q8``
     leaves). Every host copy is taken before this returns, also with
     ``blocking=False``, where a thread then writes the files and is
-    returned."""
+    returned. With ``specs`` and ``mesh`` the tree is this rank's shards
+    of a sharded run: the full leaves are gathered, rank 0 writes them,
+    and every rank returns after the commit (a sharded save blocks)."""
     leaves = _leaves(tree)
-    host = [_to_host(x) for x in leaves]
     dtypes = [_dtype_name(x) for x in leaves]
     structure = _structure(tree)
+    if mesh is not None:
+        import torch.distributed as dist
 
-    def _write():
-        base = Path(ckpt_dir)
-        tmp = base / f".tmp_step_{step}"
-        final = base / f"step_{step}"
-        if tmp.exists():
-            shutil.rmtree(tmp)
-        tmp.mkdir(parents=True)
-        manifest = []
-        for i, (arr, dt) in enumerate(zip(host, dtypes)):
-            np.save(tmp / f"leaf_{i}.npy", arr)
-            manifest.append({"i": i, "shape": list(arr.shape), "dtype": dt})
-        meta = {"step": step, "n_leaves": len(host), "treedef": structure,
-                "manifest": manifest}
-        (tmp / "meta.json").write_text(json.dumps(meta))
-        (tmp / "_COMMITTED").write_bytes(b"ok")
-        if final.exists():
-            shutil.rmtree(final)
-        os.replace(tmp, final)
+        host = _gathered(leaves, _leaves(specs), mesh)
+        if dist.get_rank() == 0:
+            _write_step(ckpt_dir, step, host, dtypes, structure)
+        dist.barrier()
+        return None
+    host = [_to_host(x) for x in leaves]
 
     if blocking:
-        _write()
+        _write_step(ckpt_dir, step, host, dtypes, structure)
         return None
-    t = threading.Thread(target=_write, daemon=True)
+    t = threading.Thread(target=_write_step, daemon=True,
+                         args=(ckpt_dir, step, host, dtypes, structure))
     t.start()
     return t
+
+
+def _write_step(ckpt_dir, step: int, host: list, dtypes: list,
+                structure) -> None:
+    base = Path(ckpt_dir)
+    tmp = base / f".tmp_step_{step}"
+    final = base / f"step_{step}"
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+    manifest = []
+    for i, (arr, dt) in enumerate(zip(host, dtypes)):
+        np.save(tmp / f"leaf_{i}.npy", arr)
+        manifest.append({"i": i, "shape": list(arr.shape), "dtype": dt})
+    meta = {"step": step, "n_leaves": len(host), "treedef": structure,
+            "manifest": manifest}
+    (tmp / "meta.json").write_text(json.dumps(meta))
+    (tmp / "_COMMITTED").write_bytes(b"ok")
+    if final.exists():
+        shutil.rmtree(final)
+    os.replace(tmp, final)
 
 
 def available_steps(ckpt_dir: str | os.PathLike) -> list[int]:
@@ -155,14 +200,88 @@ def _load(path: Path, entry: dict) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(ckpt_dir: str | os.PathLike, step: int, target_tree):
+def _saved_dtype(arr: np.ndarray) -> str:
+    """The dtype name of a leaf the reference saved (no manifest): numpy's
+    own, or bf16 for two-byte raw elements (its ``ml_dtypes`` type)."""
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return BF16
+    return str(arr.dtype)
+
+
+def _block(mesh, spec, shape) -> tuple:
+    """This rank's block of a full leaf of ``shape`` under ``spec``: one
+    slice a dimension."""
+    from repro_torch.parallel.sharding import _entry_shards
+
+    out = []
+    for dim, size in enumerate(shape):
+        entry = spec[dim] if dim < len(spec) else None
+        n, idx = _entry_shards(mesh, entry)
+        step = size // n
+        out.append(slice(idx * step, (idx + 1) * step))
+    return tuple(out)
+
+
+def _restore_sharded(base: Path, target_tree, specs, mesh):
+    """:func:`restore` into this rank's shards (see the module's notes)."""
+    leaves = _leaves(target_tree)
+    spec_leaves = _leaves(specs)
+    meta_path = base / "meta.json"
+    manifest = None
+    if meta_path.exists():
+        meta = json.loads(meta_path.read_text())
+        if meta["treedef"] != _structure(target_tree):
+            raise ValueError(f"{base}: the saved tree differs from the "
+                             "target's")
+        manifest = meta["manifest"]
+        if len(manifest) != len(leaves):
+            raise ValueError(f"{base}: {len(manifest)} leaves saved, the "
+                             f"target has {len(leaves)}")
+    elif len(list(base.glob("leaf_*.npy"))) != len(leaves):
+        raise ValueError(f"{base}: the saved leaves are not the target's")
+    plan = []
+    for i, (tgt, spec) in enumerate(zip(leaves, spec_leaves)):
+        path = base / f"leaf_{i}.npy"
+        arr = np.load(path, mmap_mode="r")
+        dt = manifest[i]["dtype"] if manifest else _saved_dtype(arr)
+        if dt != _dtype_name(tgt):
+            raise ValueError(f"{path}: saved as {dt}, target "
+                             f"{_dtype_name(tgt)}")
+        if isinstance(tgt, int):
+            plan.append((arr, None, dt))
+            continue
+        block = _block(mesh, spec, arr.shape)
+        local = tuple(s.stop - s.start for s in block)
+        if local != tuple(tgt.shape) or (manifest and list(arr.shape)
+                                         != manifest[i]["shape"]):
+            raise ValueError(f"{path}: shape {arr.shape} gives this rank "
+                             f"{local}, its shard is {tuple(tgt.shape)}")
+        plan.append((arr, block, dt))
+    states = iter(_states(target_tree))
+    for (arr, block, dt), tgt in zip(plan, leaves):
+        if block is None:
+            next(states).step = int(np.asarray(arr))
+            continue
+        host = np.array(arr[block])        # this rank's block, read now
+        src = (torch.from_numpy(host.view(np.int16)).view(torch.bfloat16)
+               if dt == BF16 else torch.from_numpy(host))
+        with torch.no_grad():
+            tgt.copy_(src)
+    return target_tree
+
+
+def restore(ckpt_dir: str | os.PathLike, step: int, target_tree, *,
+            specs=None, mesh=None):
     """Copy step ``step``'s leaves into ``target_tree`` (see the module's
     notes) and return it. Raises, with the target untouched, when the
     step is not committed or does not match the target's structure,
-    shapes and dtypes."""
+    shapes and dtypes. With ``specs`` and ``mesh``: into this rank's
+    shards of them."""
     base = Path(ckpt_dir) / f"step_{step}"
     if not (base / "_COMMITTED").exists():
         raise FileNotFoundError(f"no committed checkpoint at {base}")
+    if mesh is not None:
+        return _restore_sharded(base, target_tree, specs, mesh)
     meta = json.loads((base / "meta.json").read_text())
     if meta["treedef"] != _structure(target_tree):
         raise ValueError(f"{base}: the saved tree differs from the target's")
@@ -194,12 +313,15 @@ def restore(ckpt_dir: str | os.PathLike, step: int, target_tree):
     return target_tree
 
 
-def restore_latest(ckpt_dir, target_tree) -> Tuple[Optional[int], Any]:
+def restore_latest(ckpt_dir, target_tree, *, specs=None,
+                   mesh=None) -> Tuple[Optional[int], Any]:
     """(step, tree) from the newest committed checkpoint that restores,
-    else (None, target). Corrupt newest checkpoints are skipped."""
+    else (None, target). Corrupt newest checkpoints are skipped. With
+    ``specs`` and ``mesh``: into this rank's shards."""
     for step in reversed(available_steps(ckpt_dir)):
         try:
-            return step, restore(ckpt_dir, step, target_tree)
+            return step, restore(ckpt_dir, step, target_tree, specs=specs,
+                                 mesh=mesh)
         except Exception:
             continue
     return None, target_tree

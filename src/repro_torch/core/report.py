@@ -1,9 +1,11 @@
-"""Rendering helpers: turn the port's BenchRecord JSONL and Tier-1 reports
-into markdown tables, as ``repro/core/report.py`` does for the JAX
-package. Derived metrics are read from each record's dict, never parsed
-from strings."""
+"""Rendering helpers: turn the port's BenchRecord JSONL, its dry run's
+records (:mod:`repro_torch.launch.dryrun`) and Tier-1 reports into
+markdown tables, as ``repro/core/report.py`` does for the JAX package.
+Derived metrics are read from each record's dict, never parsed from
+strings."""
 from __future__ import annotations
 
+import json
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
@@ -26,6 +28,37 @@ def fmt_s(x: Optional[float]) -> str:
     if x >= 1e-3:
         return f"{x * 1e3:.1f}ms"
     return f"{x * 1e6:.0f}us"
+
+
+def fmt_gb(x: Optional[float]) -> str:
+    return "-" if x is None else f"{x:.2f}"
+
+
+def load_dryrun_records(results_dir: Path, mesh: str = "16x16") -> list:
+    """The dry run's records of one mesh (``results/dryrun_torch``), in
+    file-name order; [] where there are none."""
+    return [json.loads(f.read_text())
+            for f in sorted(Path(results_dir).glob(f"*_{mesh}.json"))]
+
+
+def dryrun_table(recs: list) -> str:
+    """One row per dry-run record: the reference's roofline columns, with
+    the eager peak against the card's memory in place of its adjusted
+    peak."""
+    headers = ["arch", "shape", "mesh", "compute", "memory", "collective",
+               "dominant", "MFU", "useful", "peak GB (of 80)"]
+    rows = []
+    for r in recs:
+        rl = r.get("roofline", {})
+        rows.append([
+            r["arch"], r["shape"], r["mesh"],
+            fmt_s(rl.get("compute_s")), fmt_s(rl.get("memory_s")),
+            fmt_s(rl.get("collective_s")), rl.get("dominant", "-"),
+            f"{rl.get('mfu') or 0:.3f}",
+            f"{rl.get('useful_flops_ratio') or 0:.2f}",
+            fmt_gb(r.get("memory", {}).get("peak_gb")),
+        ])
+    return md_table(headers, rows)
 
 
 # ----------------------------------------------------- BenchRecord tables

@@ -44,13 +44,14 @@ def reset_launches() -> None:
 
 
 def _on_cuda(what: str, *tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU ones; raises on a mix or on
-    any other device."""
+    """True for CUDA tensors, False for CPU ones and for ``meta`` ones
+    (shapes only: the dry run counts a kernel's work there, and its plain
+    version computes nothing); raises on a mix or on any other device."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{what}: tensors on several devices {devices}")
     dev = devices.pop()
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{what}: unsupported device {dev}")
     return dev.type == "cuda"
 
@@ -72,6 +73,13 @@ def _require_aligned16(what: str, **tensors: torch.Tensor) -> None:
     for name, t in tensors.items():
         _require(t.data_ptr() % 16 == 0, what,
                  f"{name} must start on a 16-byte boundary")
+
+
+def _dense(*tensors: torch.Tensor) -> tuple:
+    """A plain version's outputs laid out as its kernel writes them
+    (contiguous), so that what follows a wrapper runs, and counts, alike
+    on every device."""
+    return tuple(t.contiguous() for t in tensors)
 
 
 def _needs_grad(*tensors: torch.Tensor) -> bool:
@@ -97,7 +105,7 @@ class _FlashAttention(torch.autograd.Function):
                 if o.numel():
                     LAUNCHES["flash_attention_lse"] += 1
             else:
-                o, lse = ref.flash_attention_lse_ref(q, k, v, **kw)
+                o, lse = _dense(*ref.flash_attention_lse_ref(q, k, v, **kw))
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
         return o
@@ -122,7 +130,8 @@ class _FlashAttention(torch.autograd.Function):
                 if dq.numel():
                     LAUNCHES["flash_attention_dq"] += 1
             else:
-                dq = ref.flash_attention_dq_ref(q, k, v, do, lse, delta, **kw)
+                dq, = _dense(ref.flash_attention_dq_ref(q, k, v, do, lse,
+                                                        delta, **kw))
         with work.kernel("flash_attention_dkv",
                          lambda: work.flash_dkv(q, k, **kw)):
             if cuda:
@@ -131,8 +140,8 @@ class _FlashAttention(torch.autograd.Function):
                 if dk.numel():
                     LAUNCHES["flash_attention_dkv"] += 1
             else:
-                dk, dv = ref.flash_attention_dkv_ref(q, k, v, do, lse, delta,
-                                                     **kw)
+                dk, dv = _dense(*ref.flash_attention_dkv_ref(
+                    q, k, v, do, lse, delta, **kw))
         return dq, dk, dv, None, None
 
 
@@ -165,7 +174,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with work.kernel("flash_attention",
                      lambda: work.flash_forward(q, k, **kw)):
         if not cuda:
-            return ref.flash_attention_ref(q, k, v, **kw)
+            return _dense(ref.flash_attention_ref(q, k, v, **kw))[0]
         from repro_torch.kernels.flash_attention import flash_attention_cuda
         out = flash_attention_cuda(q, k, v, **kw)
         if out.numel():     # the C entry launches nothing for an empty output
@@ -201,8 +210,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         q, k_pages, lengths, k_pages.shape[1]))
     if not cuda:
         with counted:
-            return ref.paged_decode_attention_ref(q, k_pages, v_pages,
-                                                  block_tables, lengths)
+            return _dense(ref.paged_decode_attention_ref(
+                q, k_pages, v_pages, block_tables, lengths))[0]
     from repro_torch.kernels.paged_attention import (VEC,
                                                      paged_attention_cuda)
     _require(D % VEC == 0 and D <= 1024, what,
@@ -225,7 +234,7 @@ def _rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
     with work.kernel("rmsnorm", lambda: work.rmsnorm(
             x.numel() // max(d, 1), d, x.element_size())):
         if not x.is_cuda:
-            return ref.rmsnorm_ref(x, scale, eps)
+            return _dense(ref.rmsnorm_ref(x, scale, eps))[0]
         from repro_torch.kernels.rmsnorm import rmsnorm_cuda
         out = rmsnorm_cuda(x.view(-1, d), scale, eps)
         if out.numel():
@@ -303,7 +312,8 @@ def wkv6(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor,
     counted = work.kernel("wkv6", lambda: work.wkv6(q, v, ld, u))
     if not cuda:
         with counted:
-            return ref.wkv6_chunked_ref(q, k, v, ld, u, initial_state)
+            return _dense(*ref.wkv6_chunked_ref(q, k, v, ld, u,
+                                                initial_state))
     _require(not _needs_grad(*tensors), what,
              "no backward kernel: the reference has none, and an output "
              "without a grad_fn would drop the gradient; use the chunked "

@@ -17,6 +17,7 @@ count the same thing.
 """
 from __future__ import annotations
 
+import functools
 import threading
 from contextlib import contextmanager
 from typing import Callable, List, NamedTuple
@@ -36,6 +37,25 @@ _REGION = threading.local()
 def inside_kernel() -> bool:
     """True while this thread runs a wrapper's kernel or plain version."""
     return getattr(_REGION, "depth", 0) > 0
+
+
+def inside_collective() -> bool:
+    """True while this thread runs a ``torch.distributed`` call
+    (:func:`collective`)."""
+    return getattr(_REGION, "collective", 0) > 0
+
+
+@contextmanager
+def collective():
+    """Run one ``torch.distributed`` call inside: a counter counts its
+    ``c10d`` operation, and not the aten operations its backend runs
+    around it (gloo's copies as it waits; NCCL and the dry run's ``fake``
+    group run none), so every backend counts alike."""
+    _REGION.collective = getattr(_REGION, "collective", 0) + 1
+    try:
+        yield
+    finally:
+        _REGION.collective -= 1
 
 
 @contextmanager
@@ -59,6 +79,7 @@ def kernel(name: str, work: Callable[[], Work]):
 
 
 # ------------------------------------------------------------ attention
+@functools.lru_cache(maxsize=None)
 def attention_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     """The (query, key) pairs the mask keeps, per batch row and head: key j
     for query i where j <= i (causal) and i - j < window (window > 0),
@@ -136,12 +157,15 @@ WKV6_RANGE = 30.0    # a chunk past this decay range takes the per-pair path
 def wkv6_rescaled(ld, T: int):
     """(B, chunks, H) 1.0 where B6 computes a chunk's scores as a rescaled
     product, 0.0 where it takes the exact per-pair path (decay range past
-    ``WKV6_RANGE``)."""
+    ``WKV6_RANGE``). On ``meta`` (the dry run: no decays to read) every
+    chunk counts as rescaled, the branch of the fewer operations."""
     import torch
     import torch.nn.functional as F
     B, _, H, K = ld.shape
     c = WKV6_CHUNK
     nc = -(-T // c)
+    if ld.device.type == "meta":
+        return torch.ones((B, nc, H))
     p = torch.cumsum(F.pad(ld.float(), (0, 0, 0, 0, 0, nc * c - T))
                      .reshape(B, nc, c, H, K), dim=2)
     return (-p.amin(dim=(2, 4)) < WKV6_RANGE).float()

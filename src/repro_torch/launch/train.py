@@ -25,7 +25,10 @@ rank a card, NCCL)::
         --num-layers 8 --batch 8 --seq 4096 --steps 3
 
 Each rank holds its shards of the params and the AdamW state; only rank
-0 prints.
+0 prints. ``--ckpt-dir`` saves the full logical leaves (rank 0 writes)
+and resumes each rank's shards from them, on whatever mesh the new world
+gets (:func:`repro_torch.runtime.elastic.remesh`'s restore).
+``--device cpu`` runs the ranks on gloo (tests).
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.models import resolve_device
 from repro_torch.parallel.sharding import shard_tree
 from repro_torch.runtime import train_loop
-from repro_torch.runtime.elastic import choose_mesh
+from repro_torch.runtime.elastic import choose_mesh, train_state_specs
 from repro_torch.runtime.steps import build_train_step
 
 
@@ -110,6 +113,7 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
@@ -118,21 +122,21 @@ def main(argv=None):
         import torch.distributed as dist
 
         from repro_torch.launch.mesh import init_world, make_mesh
-        if args.ckpt_dir:
-            raise NotImplementedError(
-                "checkpoints of a sharded run wait for remesh")
-        init_world("cuda")
+        init_world(args.device)
         rank = dist.get_rank()
-        mesh = make_mesh(choose_mesh(dist.get_world_size()), "cuda")
-    step_fn, params, opt_state, data, _ = build_trainer(
+        mesh = make_mesh(choose_mesh(dist.get_world_size()), args.device)
+    step_fn, params, opt_state, data, rcfg = build_trainer(
         args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
         use_reduced=args.reduced,
         reduce_kw=dict(layers=args.layers, d_model=args.d_model),
         num_layers=args.num_layers, microbatches=args.microbatches,
-        lr=args.lr, mesh=mesh)
+        lr=args.lr, mesh=mesh, device=args.device)
+    sharding = None
+    if mesh is not None and args.ckpt_dir:
+        sharding = (train_state_specs(rcfg)[0], mesh)
     result = train_loop.run(step_fn, params, opt_state, data.batch_at,
                             total_steps=args.steps, ckpt_dir=args.ckpt_dir,
-                            ckpt_every=args.ckpt_every)
+                            ckpt_every=args.ckpt_every, sharding=sharding)
     if rank:
         return result
     for i, m in enumerate(result.metrics):

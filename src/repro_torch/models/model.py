@@ -33,7 +33,9 @@ def resolve_device(device) -> torch.device:
     """The device a model or engine runs on. CUDA is the default of every
     entry point and never falls back: without a card it raises. On CUDA
     the f32 matrix products are pinned to full f32 (no TF32), as the
-    reference computes them."""
+    reference computes them. ``meta`` is taken as a shape-only device:
+    nothing computes there (the dry run's, :mod:`repro_torch.launch.
+    dryrun`), and the kernels' wrappers take their plain versions on it."""
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -45,7 +47,7 @@ def resolve_device(device) -> torch.device:
             device = torch.device("cuda", torch.cuda.current_device())
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif device.type != "cpu":
+    elif device.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {device}")
     return device
 

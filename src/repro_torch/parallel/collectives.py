@@ -31,12 +31,14 @@ lays such axes out.
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.kernels import work
 from repro_torch.kernels.ref import NEG_INF
 
 Axes = Union[str, Sequence[str]]
@@ -57,9 +59,11 @@ def group_of(mesh, axes: Axes):
     if len(axes) == 1:
         return mesh.get_group(axes[0])
     key = (id(mesh), axes)
-    if key not in _FLAT:
-        _FLAT[key] = mesh[axes]._flatten("_".join(axes))
-    return _FLAT[key].get_group()
+    # the weak reference tells a live mesh from a dead one whose id a
+    # later mesh (of another world) took
+    if key not in _FLAT or _FLAT[key][0]() is not mesh:
+        _FLAT[key] = (weakref.ref(mesh), mesh[axes]._flatten("_".join(axes)))
+    return _FLAT[key][1].get_group()
 
 
 def axis_size(mesh, axes: Axes) -> int:
@@ -89,6 +93,14 @@ _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
     dist.reduce_scatter_tensor
 
 
+def call(fn, *args, **kwargs):
+    """One ``torch.distributed`` call, inside
+    :func:`repro_torch.kernels.work.collective`: a cost counter counts its
+    collective and not its backend's copies."""
+    with work.collective():
+        return fn(*args, **kwargs)
+
+
 def _runs(mesh, axes: Axes) -> bool:
     return group_of(mesh, axes) is not None
 
@@ -98,7 +110,7 @@ def all_reduce(x: torch.Tensor, mesh, axes: Axes,
     """A reduced copy of ``x`` (``x`` itself is left alone)."""
     out = x.detach().clone(memory_format=torch.contiguous_format)
     if _runs(mesh, axes):
-        dist.all_reduce(out, op=op, group=group_of(mesh, axes))
+        call(dist.all_reduce, out, op=op, group=group_of(mesh, axes))
     return out
 
 
@@ -109,7 +121,7 @@ def all_gather(x: torch.Tensor, mesh, axes: Axes, dim: int = 0):
     n = axis_size(mesh, axes)
     xm = x.detach().movedim(dim, 0).contiguous()
     out = xm.new_empty((n * xm.shape[0], *xm.shape[1:]))
-    _ALL_GATHER(out, xm, group=group_of(mesh, axes))
+    call(_ALL_GATHER, out, xm, group=group_of(mesh, axes))
     return out.movedim(0, dim)
 
 
@@ -120,7 +132,7 @@ def reduce_scatter(x: torch.Tensor, mesh, axes: Axes, dim: int = 0):
     n = axis_size(mesh, axes)
     xm = x.detach().movedim(dim, 0).contiguous()
     out = xm.new_empty((xm.shape[0] // n, *xm.shape[1:]))
-    _REDUCE_SCATTER(out, xm, group=group_of(mesh, axes))
+    call(_REDUCE_SCATTER, out, xm, group=group_of(mesh, axes))
     return out.movedim(0, dim)
 
 
@@ -310,8 +322,8 @@ def compressed_psum_grads(grads, residuals, mesh,
         q, scale = _q8_rows(chunks)
         qs, ss = torch.empty_like(q), torch.empty_like(scale)
         if mesh is not None:
-            dist.all_to_all_single(qs, q, group=group)
-            dist.all_to_all_single(ss, scale, group=group)
+            call(dist.all_to_all_single, qs, q, group=group)
+            call(dist.all_to_all_single, ss, scale, group=group)
         else:
             qs.copy_(q)
             ss.copy_(scale)

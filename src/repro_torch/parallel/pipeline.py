@@ -20,7 +20,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch._tree import tree_leaves, tree_map
-from repro_torch.parallel.collectives import axis_index, axis_size, group_of
+from repro_torch.parallel.collectives import (axis_index, axis_size, call,
+                                              group_of)
 
 
 def stage_layout(num_layers: int, stage_layers: Sequence[int]):
@@ -91,13 +92,13 @@ def pipeline_forward(stage_params, stage_mask, mbs, layer_fn, mesh,
             x = mbs[mb]
         else:
             x = torch.empty_like(mbs[0])
-            dist.recv(x, src=ranks[s - 1], group=group)
+            call(dist.recv, x, src=ranks[s - 1], group=group)
         y = run_stage(x)
         if s < S - 1:
-            dist.send(y.contiguous(), dst=ranks[s + 1], group=group)
+            call(dist.send, y.contiguous(), dst=ranks[s + 1], group=group)
         else:
             outs[mb] = y
-    dist.broadcast(outs, src=ranks[S - 1], group=group)
+    call(dist.broadcast, outs, src=ranks[S - 1], group=group)
     return outs
 
 

@@ -305,6 +305,8 @@ def gather_tree(tree, specs, mesh):
     checkpoints."""
     import torch.distributed as dist
 
+    from repro_torch.parallel.collectives import call
+
     if isinstance(tree, dict):
         return {k: gather_tree(v, specs[k], mesh) for k, v in tree.items()}
     x = tree
@@ -318,6 +320,6 @@ def gather_tree(tree, specs, mesh):
             if n == 1:
                 continue
             parts = [torch.empty_like(x) for _ in range(n)]
-            dist.all_gather(parts, x.contiguous(), group=group)
+            call(dist.all_gather, parts, x.contiguous(), group=group)
             x = torch.cat(parts, dim=dim)
     return x

@@ -179,7 +179,7 @@ def average_over_data(grads, specs, mesh, data_axes) -> None:
         axes = tuple(a for a in data_axes if a not in spec.axes())
         group = coll.group_of(mesh, axes)
         if group is not None:
-            dist.all_reduce(g, group=group)
+            coll.call(dist.all_reduce, g, group=group)
         g.div_(n)
 
 
@@ -233,7 +233,9 @@ def build_train_step(rcfg: RunConfig, total_steps: int = 10000, *,
     rt = model.rt
     data_axes = rcfg.mesh.data_axes
 
-    def train_step(params, opt_state, batch):
+    def gradients(params, batch):
+        """The step up to its update: (gradients, loss, router stats,
+        the sharded gradient norm or None)."""
         gnorm = None
         if mesh is None:
             gsum, loss, stats = accumulate_grads(model, params, batch, n_mb,
@@ -246,6 +248,10 @@ def build_train_step(rcfg: RunConfig, total_steps: int = 10000, *,
             loss = coll.all_reduce(loss, mesh, data_axes) / \
                 coll.axis_size(mesh, data_axes)
             gnorm = sharded_global_norm(gsum, rt.param_specs, mesh)
+        return gsum, loss, stats, gnorm
+
+    def train_step(params, opt_state, batch):
+        gsum, loss, stats, gnorm = gradients(params, batch)
         metrics = {"loss": loss, **stats}
         if not torch.isfinite(loss):       # the loop skips this step
             return params, opt_state, metrics
@@ -261,22 +267,28 @@ def build_train_step(rcfg: RunConfig, total_steps: int = 10000, *,
         metrics.update(m)
         return params, opt_state, metrics
 
+    # the part before the update, for a count without the host's reads
+    # of the device (the dry run on ``meta``)
+    train_step.gradients = gradients
     return train_step, model, opt
 
 
-def build_decode_step(rcfg: RunConfig, *, device="cuda", mesh=None):
+def build_decode_step(rcfg: RunConfig, *, device="cuda", mesh=None,
+                      ssm_backend: str = "chunked"):
     """Returns (decode_step, model). The decode attention is partitioned
     (over a sequence-sharded cache, combined across ``model``) where the
     reference partitions it: ``decode_attention="partitioned"``, full
     attention, and a sequence length the model axis divides. The model's
-    prefill lays its caches out for this decode step."""
+    prefill lays its caches out for this decode step, its ssm mixes in
+    the ``ssm_backend`` form ("kernel": B6)."""
     part = (rcfg.decode_attention == "partitioned"
             and rcfg.model.attention_kind == "full"
             and rcfg.shape.seq_len % rcfg.mesh.model_size == 0)
     bspec = shd.batch_spec(rcfg.mesh, rcfg.shape.global_batch) or ()
     rt = dataclasses.replace(make_runtime(rcfg, for_decode=True, mesh=mesh),
                              decode_partitioned=part,
-                             mesh_batch_axes=tuple(bspec))
+                             mesh_batch_axes=tuple(bspec),
+                             ssm_backend=ssm_backend)
     model = build(rcfg.model, rt, param_dtype=getattr(torch, rcfg.param_dtype),
                   device=device)
     return model.decode_step, model

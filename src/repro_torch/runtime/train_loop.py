@@ -79,8 +79,8 @@ def run(train_step: Callable, params, opt_state, data_iter_fn: Callable,
         *, total_steps: int, ckpt_dir: Optional[str] = None,
         ckpt_every: int = 50, max_retries: int = 3,
         watchdog: Optional[StragglerWatchdog] = None,
-        fail_injector: Optional[Callable[[int], None]] = None
-        ) -> TrainLoopResult:
+        fail_injector: Optional[Callable[[int], None]] = None,
+        sharding: Optional[tuple] = None) -> TrainLoopResult:
     """data_iter_fn(step) -> batch (deterministic => retry-safe).
     fail_injector(step) may raise to simulate node failures (tests).
     ``train_step(params, opt_state, batch) -> (params, opt_state,
@@ -91,13 +91,18 @@ def run(train_step: Callable, params, opt_state, data_iter_fn: Callable,
     With ``ckpt_dir`` the loop starts after the newest committed step
     there (``resumed_from``), restored into ``params`` and ``opt_state``,
     saves every ``ckpt_every`` committed steps and after the last step,
-    and lists the saved steps in ``checkpoints``."""
+    and lists the saved steps in ``checkpoints``. ``sharding``: (the spec
+    tree of ``{"params", "opt"}``, the ``DeviceMesh``) of a sharded run,
+    whose checkpoints hold the full leaves and restore into this rank's
+    shards (every rank calls; the saves block)."""
+    specs, mesh = sharding if sharding is not None else (None, None)
     watchdog = watchdog or StragglerWatchdog()
     resumed_from = None
     start = 0
     if ckpt_dir:
         step0, _ = ckpt.restore_latest(ckpt_dir,
-                                       {"params": params, "opt": opt_state})
+                                       {"params": params, "opt": opt_state},
+                                       specs=specs, mesh=mesh)
         if step0 is not None:
             start = step0 + 1
             resumed_from = step0
@@ -144,14 +149,16 @@ def run(train_step: Callable, params, opt_state, data_iter_fn: Callable,
                     pending_save.join()
                 pending_save = ckpt.save(ckpt_dir, step,
                                          {"params": params, "opt": opt_state},
-                                         blocking=False)
+                                         blocking=mesh is not None,
+                                         specs=specs, mesh=mesh)
                 saves.append(step)
             step += 1
     finally:     # a save in flight is finished, also when a step raises
         if pending_save is not None:
             pending_save.join()
     if ckpt_dir and (not saves or saves[-1] != step - 1) and step > start:
-        ckpt.save(ckpt_dir, step - 1, {"params": params, "opt": opt_state})
+        ckpt.save(ckpt_dir, step - 1, {"params": params, "opt": opt_state},
+                  specs=specs, mesh=mesh)
         saves.append(step - 1)
     return TrainLoopResult(final_step=step, losses=losses,
                            resumed_from=resumed_from, retries=retries,

@@ -214,3 +214,84 @@ def serve_rank(rank, n, arch, decode_attention, kind="cpu"):
             seen.append(logits[rows] if name == "one" else logits)
             out[name] = [t.cpu().numpy() for t in seen]
     return out
+
+
+def count_step_rank(rank, n, rcfg):
+    """One rank of a real sharded training step of ``rcfg`` on gloo,
+    counted (``count_cost``): its flops, matrix-product flops, bytes,
+    collective bytes by opcode with their groups' sizes, and kernel
+    calls."""
+    from repro_torch.core.cost import count_cost
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.runtime.steps import build_train_step
+
+    mesh = make_mesh(rcfg.mesh, "cpu")
+    step, model, opt = build_train_step(rcfg, device="cpu", mesh=mesh)
+    params = shd.shard_tree(model.init_params(
+        torch.Generator().manual_seed(0)), model.rt.param_specs, mesh)
+    state = opt.init(params)
+    batch = SyntheticLM(rcfg.model, rcfg.shape.global_batch,
+                        rcfg.shape.seq_len, seed=0,
+                        device="cpu").batch_at(0)
+    _, report = count_cost(step, params, state, batch)
+    return {"flops": report.flops, "dot_flops": report.dot_flops,
+            "bytes": report.bytes,
+            "collectives": report.collective_summary(),
+            "groups": sorted({(c.opcode, c.group_size)
+                              for c in report.collectives}),
+            "kernels": {k: v["calls"] for k, v in report.kernels.items()}}
+
+
+def remesh_rank(rank, n, ckpt_in, ckpt_out, step_out, full, model_axis=2,
+                save=True, kind="cpu"):
+    """One rank of an elastic hop: restore the newest checkpoint of
+    ``ckpt_in`` (None: start from ``full``) onto ``choose_mesh(n)`` as
+    this rank's shards of ``{"w": (8, 8)}`` under P("data", "model"),
+    then (``save``) save them sharded to ``ckpt_out`` at ``step_out``.
+    Returns (restored step, this rank's shard, the shard ``full`` gives
+    it)."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import P, local_shard
+    from repro_torch.runtime.elastic import choose_mesh, remesh
+
+    cfg = choose_mesh(n, prefer_model=model_axis)
+    specs = {"w": P("data", "model")}
+    want = torch.from_numpy(np.asarray(full))
+    dev = _device(kind)
+    if ckpt_in is None:
+        mesh = make_mesh(cfg, kind)
+        step, tree = None, {"w": local_shard(want, specs["w"], mesh).to(dev)}
+    else:
+        template = {"w": torch.empty(want.shape, dtype=want.dtype,
+                                     device="meta")}
+        mesh, out = remesh(ckpt_in, template, cfg, specs, device=kind)
+        step, tree = out["step"], out["tree"]
+    assert tree["w"].device == dev
+    if save:
+        ckpt.save(ckpt_out, step_out, tree, specs=specs, mesh=mesh)
+    return (step, tree["w"].cpu().numpy(),
+            local_shard(want, specs["w"], mesh).numpy(),
+            tuple(mesh.shape))
+
+
+def launcher_rank(rank, n, ckpt_a, ckpt_b, argv):
+    """One rank of the training launcher under a 2-rank gloo world (the
+    environment ``torchrun`` would set): 4 steps unbroken into
+    ``ckpt_a``; then 2 steps into ``ckpt_b`` and a second launch that
+    resumes there to step 4. Returns both runs' per-step metrics and the
+    resumed run's ``resumed_from``."""
+    import os
+
+    from repro_torch.launch import train
+
+    os.environ["WORLD_SIZE"] = str(n)
+    base = [*argv, "--device", "cpu", "--ckpt-every", "100"]
+    whole = train.main([*base, "--steps", "4", "--ckpt-dir", ckpt_a])
+    train.main([*base, "--steps", "2", "--ckpt-dir", ckpt_b])
+    resumed = train.main([*base, "--steps", "4", "--ckpt-dir", ckpt_b])
+    return {"whole": whole.metrics, "resumed": resumed.metrics,
+            "resumed_from": resumed.resumed_from,
+            "checkpoints": resumed.checkpoints}

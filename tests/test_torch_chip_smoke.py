@@ -324,7 +324,7 @@ def _launches(smoke):
                                                         "continuous")] + [
         f"serving:{s}" for s in smoke.SERVING_SCENARIOS] + list(
         smoke.FAMILY_PATHS) + list(smoke.BF16_PATHS) + list(
-        smoke.PHASE12_PATHS)
+        smoke.PHASE12_PATHS) + list(smoke.PHASE13_PATHS)
     return {p: dict.fromkeys(smoke.KERNELS, 1) for p in paths}
 
 
@@ -961,3 +961,77 @@ def test_phase12_gates_trip(smoke, monkeypatch):
             assert not ok["all_reduce"] and not ok["copy_to"]
         finally:
             dist.destroy_process_group()
+
+
+# ------------------------------------------------------------- phase 13
+def _count(**kw):
+    base = {"flops": 1e12, "dot_flops": 8e11, "bytes": 3e10,
+            "collectives": {"all-reduce": 4e6, "all-gather": 2e6},
+            "kernels": {"rmsnorm": 9, "flash_attention_lse": 4}}
+    return {**base, **kw}
+
+
+def test_count_problems(smoke):
+    """13a's rule: totals and collective bytes within COUNT_TOL relative,
+    kernel calls exactly."""
+    assert smoke.count_problems(_count(), _count()) == []
+    assert smoke.count_problems(_count(), _count(flops=1e12 * (1 + 5e-10))) \
+        == []
+    (p,) = smoke.count_problems(_count(), _count(bytes=3e10 * (1 + 2e-9)))
+    assert p.startswith("bytes:")
+    (p,) = smoke.count_problems(_count(), _count(collectives={
+        "all-reduce": 4e6, "all-gather": 2e6, "reduce-scatter": 1.0}))
+    assert p.startswith("reduce-scatter bytes")
+    (p,) = smoke.count_problems(_count(), _count(kernels={
+        "rmsnorm": 9, "flash_attention_lse": 5}))
+    assert p.startswith("kernel calls")
+    assert smoke.COUNT_TOL == 1e-9 and smoke.PEAK_TOL == 0.10
+
+
+def test_resume_problems(smoke):
+    """13b's rule, phase 11d's: every later step's loss and grad norm bit
+    for bit, or within two unbroken runs' difference; as many steps; the
+    final params likewise."""
+    run = [(2.5, 1.0), (2.4, 0.9), (2.3, 0.8), (2.2, 0.7)]
+    assert smoke.resume_problems(run, run, run[2:], 2) == []
+    assert smoke.resume_problems(run, run, run, 0) == []
+    off = [(2.3, 0.8), (2.2, 0.7000001)]
+    (p,) = smoke.resume_problems(run, run, off, 2)
+    assert p.startswith("step 3:")
+    noisy = run[:3] + [(2.2, 0.7000002)]
+    assert smoke.resume_problems(run, noisy, off, 2) == []
+    (p,) = smoke.resume_problems(run, run, run[2:3], 2)
+    assert "resumed steps" in p
+    (p,) = smoke.resume_problems(run, run, run[2:], 2, 1e-7, 0.0)
+    assert p.startswith("final params differ")
+    assert smoke.resume_problems(run, run, run[2:], 2, 1e-7, 2e-7) == []
+
+
+def test_phase13_is_wired(smoke):
+    """Phase 13 runs after phase 12 and before phase 8, and its paths'
+    launches are required by the kernels line's check."""
+    src = (REPO / "chip_smoke.py").read_text()
+    main = src[src.index("def main()"):src.index("def _missing(")]
+    assert main.index("_inter_chip(dev, summary)") < main.index(
+        "_dry_run(dev)") < main.index("_bench(dev, tier1)")
+    assert "PHASE13_PATHS" in src[src.index("def _missing("):]
+    assert smoke.DRYRUN_CELLS == (("granite-3-8b", "train_4k", False),
+                                  ("arctic-480b", "decode_32k", True))
+
+
+def test_phase13_runs_on_the_cpu(smoke):
+    """13a's gate and 13b's remesh on the reduced granite over a
+    world-size-1 gloo group on the CPU (their gates raise on failure;
+    the dry run's cells, the launcher and 13c run only on the card)."""
+    import torch.distributed as dist
+    # one thread: the CPU's threaded reductions are not deterministic from
+    # run to run, and 13b holds a resumed run bit for bit
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches = smoke._dry_run(torch.device("cpu"), use_reduced=True)
+    finally:
+        torch.set_num_threads(threads)
+    assert set(launches) == {"train:13a", "train:13b"}
+    assert all(n == 0 for c in launches.values() for n in c.values())
+    assert not dist.is_initialized()

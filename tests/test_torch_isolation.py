@@ -135,3 +135,32 @@ def test_ab_attention_refuses_to_run_without_a_card():
                           str(REPO)], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode != 0 and '"ms_' not in out.stdout
+
+
+def test_only_the_dry_run_uses_the_fake_backend():
+    """The ``fake`` process group of ``torch.testing`` is the dry run's
+    alone: no other file of the port names it, and the backend chooser
+    never picks it."""
+    from repro_torch.launch.mesh import backend_for
+    users = sorted(str(p.relative_to(REPO)) for p in PORT_FILES
+                   if "fake_pg" in p.read_text()
+                   or '"fake"' in p.read_text())
+    assert users == ["src/repro_torch/launch/dryrun.py"]
+    assert {backend_for("cpu")} == {"gloo"}
+    with pytest.raises(ValueError):
+        backend_for("meta")
+
+
+def test_dry_run_trace_and_elastic_modules_pull_in_no_jax():
+    code = ("import sys, repro_torch.launch.dryrun, repro_torch.launch.cells, "
+            "repro_torch.launch.trace, repro_torch.trace, "
+            "repro_torch.runtime.elastic, repro_torch.core.report, "
+            "repro_torch.bench.suites.scaling_matrix, "
+            "repro_torch.bench.suites.trace; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == "[]"
