@@ -298,6 +298,29 @@ Phases, one JSON line each:
    ``TracingClock(WallClock)``) replays to the engine's busy time within
    1e-9; the trace's counted collective bytes printed (no link bytes at
    one rank);
+14. (after phase 9, before the kernels line; no earlier phase sees a
+   tuned cache) the launch parameters and the static analysis. 14a: the
+   H100 launch limits of ``core/roofline.py`` (shared memory a block and an
+   SM, threads a block, grid, warp, SMs, the runtime's reserve) equal the
+   card's ``cudaDeviceGetAttribute`` and ``get_device_properties``, K2
+   takes a cluster of 8; at every launch phases 2-13 made (each distinct
+   kernel, shape and launch parameter, ``LaunchRecorder``) the wrapper
+   passed the heuristic's Python mirror and the C plan query of today's
+   launch (the parameter 0) equals ``analysis/kernel_lint.py``'s plan
+   field by field; ``check_defaults`` clean. 14b: K2 at every split
+   count, B6 at every V slice and K3 at every thread count their
+   ``bench/tune.py`` candidates give at the path shapes (granite's
+   decode B4 ctx160 Hq32 Hkv8 D128; rwkv6-3b's layer T128 H40 K64 V64
+   with u; 128 x 4096), f32 and bf16: phase 2's gates against the plain
+   version, two calls the same bits, the plan query equal to the lint's,
+   device ms (a CUDA graph of calls) and the bound. 14c: ``tune/*``
+   through the harness with ``REPRO_TUNED_DIR`` a fresh directory
+   (removed, and the variable reset, after): each winner resolved and
+   launched once by an ``ops`` call at its shape (the launcher's argument,
+   the plan query and the counter show it) within phase 2's gates,
+   ``check_all`` clean on the new cache, the resolvers' warm cost per
+   call over 10,000 calls. 14d: ``graph_audit.audit_all`` on CUDA tensors
+   clean. Phase 14 prints its own seconds (target: under 60);
 7. the ``kernels`` summary line, with the launch counts of the serving
    (phases 3, 3b, 3c, 9, 10a-c, 11c), training (phases 6, 6b, 6c, 6d,
    10a, 10d, 11a, 11d, 12b) and bench (phases 8, 11b) runs; fails unless
@@ -719,6 +742,7 @@ def main() -> int:
 
     summary = {}   # kernel -> its f32 line at the serving path's shape
     failures = []
+    recorder = LaunchRecorder().install()   # phases 2-13's launches (14a)
 
     def record(line, main_path):
         # phase 2's bf16 lines are held in units of bf16 rounding
@@ -933,6 +957,11 @@ def main() -> int:
 
     # ----------------------------------------------------------- 9 serving
     launches.update(_serve_suite(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- 14 tuning and the analysis
+    _tuning_and_analysis(dev, recorder)
 
     # ----------------------------------------------------------- 7 kernels
     total = {k: sum(launches[e][k] for e in launches) for k in KERNELS}
@@ -4156,6 +4185,537 @@ def _named_leaves(tree, prefix: str = "") -> list:
     else:
         return [(prefix[:-1], tree)]
     return [kv for k, v in items for kv in _named_leaves(v, f"{prefix}{k}.")]
+
+
+# ======================================================= 14 tuning, analysis
+# phase 14: the card's attributes that core/roofline.py's H100 limits hold
+# (cudaDeviceGetAttribute: MaxThreadsPerBlock, MaxGridDimX/Y/Z, WarpSize,
+# MultiProcessorCount, MaxSharedMemoryPerMultiprocessor,
+# MaxSharedMemoryPerBlockOptin, ReservedSharedMemoryPerBlock), and the
+# fields of torch.cuda.get_device_properties that hold some of them where
+# this torch has them
+DEVICE_ATTRS = {"threads_per_block": (1,), "grid_x": (5,),
+                "grid_yz": (6, 7), "warp": (10,), "sms": (16,),
+                "smem_per_sm": (81,), "smem_per_block": (97,),
+                "smem_reserved": (111,)}
+DEVICE_PROPS = {"sms": "multi_processor_count",
+                "threads_per_block": "max_threads_per_block",
+                "smem_per_block": "shared_memory_per_block_optin",
+                "smem_per_sm": "shared_memory_per_multiprocessor",
+                "warp": "warp_size"}
+# 14b's sweep shapes, the serving path's at full width: K2 at granite's
+# decode (B, ctx, ps, Hq, Hkv, D, table pages), B6 at rwkv6-3b's layer
+# (B, T, H, K, V, with u), K3 at 128 x 4096 (rows, d)
+SWEEP_K2 = (4, 160, 16, 32, 8, 128, 10)
+SWEEP_B6 = (1, 128, 40, 64, 64, True)
+SWEEP_K3 = (128, 4096)
+RESOLVE_CALLS = 10000       # 14c: warm resolver calls timed
+PHASE14_S = 60              # 14's own time limit, in seconds
+
+
+class LaunchRecorder:
+    """What the launchers of ``kernels/*`` were called with, once per
+    distinct (kernel, dims, launch parameter), recorded from the start of
+    phase 2 to phase 14a: the shapes phases 2-13 launch each kernel at in
+    this process. It wraps the launcher modules' functions, which the
+    wrappers of ``kernels/ops.py`` look up at each call."""
+
+    def __init__(self):
+        self.seen = set()
+        self._saved = []
+
+    def _wrap(self, module, name, key):
+        real = getattr(module, name)
+
+        def launcher(*args, **kwargs):
+            self.seen.add(key(*args, **kwargs))
+            return real(*args, **kwargs)
+        self._saved.append((module, name, real))
+        setattr(module, name, launcher)
+
+    def install(self):
+        from repro_torch.kernels import (flash_attention, paged_attention,
+                                         rmsnorm, wkv6)
+
+        def attn(q, k, *rest, **kw):
+            B, Sq, Hq, D = q.shape
+            return ("flash_attention", (("B", B), ("Sq", Sq),
+                                        ("Sk", k.shape[1]), ("Hq", Hq),
+                                        ("Hkv", k.shape[2]), ("D", D),
+                                        ("dtype", _dname(q))), None)
+
+        def paged(q, kp, vp, bt, lens, splits=0):
+            B, _, Hq, D = q.shape
+            P, ps, Hkv, _ = kp.shape
+            return ("paged_attention_fwd", (
+                ("B", B), ("Hq", Hq), ("Hkv", Hkv), ("D", D), ("P", P),
+                ("ps", ps), ("npag", bt.shape[1]), ("dtype", _dname(q))),
+                ("splits", int(splits)))
+
+        def wkv(q, k, v, ld, u, v_slice=0):
+            B, T, H, K = q.shape
+            return ("wkv6_fwd", (("B", B), ("T", T), ("H", H), ("K", K),
+                                 ("V", v.shape[-1]), ("dtype", _dname(q)),
+                                 ("ld", _dname(ld))),
+                    ("v_slice", int(v_slice)))
+
+        def norm(x2d, scale, eps, threads=0):
+            rows, d = x2d.shape
+            aligned = int((x2d.data_ptr() | scale.data_ptr()) % 16 == 0)
+            return ("rmsnorm_fwd", (("rows", rows), ("d", d),
+                                    ("dtype", _dname(x2d)),
+                                    ("aligned", aligned)),
+                    ("threads", int(threads)))
+
+        for name in ("flash_attention_cuda", "flash_attention_lse_cuda",
+                     "flash_attention_dq_cuda", "flash_attention_dkv_cuda"):
+            self._wrap(flash_attention, name, attn)
+        self._wrap(paged_attention, "paged_attention_cuda", paged)
+        self._wrap(wkv6, "wkv6_cuda", wkv)
+        self._wrap(rmsnorm, "rmsnorm_cuda", norm)
+        return self
+
+    def remove(self):
+        for module, name, real in reversed(self._saved):
+            setattr(module, name, real)
+        self._saved.clear()
+
+
+def _dname(t) -> str:
+    return str(t.dtype).split(".")[1]
+
+
+def limits_problems(limits, attrs: dict, props: dict,
+                    max_cluster: int) -> list:
+    """Where ``core/roofline.py``'s H100 launch limits differ from the
+    card's attributes (``DEVICE_ATTRS`` -> values), from its
+    ``get_device_properties`` fields (``DEVICE_PROPS``, those this torch
+    has) or from the largest portable cluster K2 takes."""
+    out = []
+    for field, values in attrs.items():
+        want = getattr(limits, field)
+        if any(v != want for v in values):
+            out.append(f"{field}: H100 {want}, attribute {values}")
+    for field, value in props.items():
+        if value != getattr(limits, field):
+            out.append(f"{field}: H100 {getattr(limits, field)}, "
+                       f"get_device_properties {value}")
+    if max_cluster < limits.cluster:
+        out.append(f"cluster: H100 {limits.cluster}, K2's largest "
+                   f"{max_cluster}")
+    return out
+
+
+def plan_problems(records, query) -> tuple:
+    """(problems, plans checked): at each recorded launch (kernel, dims,
+    launch parameter), the lint's plan with the heuristic's mirror equals
+    the C plan query of the launch of today (the parameter 0: the C
+    heuristic) field by field, the wrapper passed the mirror's value (no
+    tuned cache), and the lint finds nothing. ``query(name, *args)`` is the
+    C plan query (``_build.plan``)."""
+    from repro_torch.analysis import kernel_lint
+
+    problems, n = [], 0
+    for kernel, dims, passed in sorted(records, key=repr):
+        dims = dict(dims)
+        config = kernel_lint.default_config(kernel, dims)
+        if passed is not None and config != dict([passed]):
+            problems.append(f"{kernel} {dims}: passed {passed}, the "
+                            f"heuristic's mirror {config}")
+        for p in kernel_lint.plans(kernel, dims, config):
+            n += 1
+            args = p.query_args
+            if kernel != "flash_attention":
+                args = args[:-1] + (0,)
+            c_plan = query(p.query, *args)
+            if c_plan != p.launch():
+                problems.append(f"{p.kernel} {dims}: C {c_plan}, lint "
+                                f"{p.launch()}")
+        findings = kernel_lint.check_config(kernel, dims, config)
+        problems += [str(f) for f in findings]
+    return problems, n
+
+
+def _tuning_and_analysis(dev, recorder) -> None:
+    """Phase 14 (after phase 9, before the kernels line; no earlier phase
+    sees a tuned cache). 14a: the H100 launch limits against the card;
+    at every launch phases 2-13 made (``recorder``) the C plan query of
+    today's launch equals the lint's plan with the heuristic's mirror, and
+    ``check_defaults`` is clean. 14b: K2 at every split count, B6 at every
+    V slice, K3 at every thread count their ``*_candidates`` give at the
+    path shapes (``SWEEP_*``), f32 and bf16, each held to its plain version
+    by phase 2's gates, deterministic, its plan query equal to the lint's,
+    with its device ms and bound. 14c: ``tune/*`` through the harness
+    with ``REPRO_TUNED_DIR`` a fresh directory (cleared and reset after),
+    each winner resolved, launched once by an ``ops`` call at its shape
+    (the launcher's argument, the plan query and a counter) and equal to
+    the plain version, ``check_all`` clean on the new cache, the
+    resolvers' warm cost per call. 14d: ``graph_audit`` on CUDA tensors
+    clean."""
+    import ctypes
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.analysis import graph_audit, kernel_lint
+    from repro_torch.kernels import _build, tuning
+    from repro_torch.core.roofline import H100
+
+    t_phase = time.perf_counter()
+    lim = H100.limits
+    # ---------------------------------------------------------------- 14a
+    attrs = {}
+    for field, codes in DEVICE_ATTRS.items():
+        values = []
+        for code in codes:
+            v = ctypes.c_int(0)
+            _build.check(_build.library().repro_device_attribute(
+                code, ctypes.byref(v)), "device attribute")
+            values.append(v.value)
+        attrs[field] = tuple(values)
+    props_obj = torch.cuda.get_device_properties(dev)
+    props = {f: getattr(props_obj, name)
+             for f, name in DEVICE_PROPS.items() if hasattr(props_obj, name)}
+    clusters = _k2_clusters(8)
+    problems = limits_problems(lim, attrs, props, clusters[1])
+    if clusters[0] <= 0:
+        problems.append(f"K2 at 8 splits: no cluster resident ({clusters})")
+    recorder.remove()
+    plan_bad, n_plans = plan_problems(recorder.seen, _build.plan)
+    static = kernel_lint._build_static()
+    defaults = [str(f) for f in kernel_lint.check_defaults()]
+    line = {"phase": "14a", "attributes": attrs, "properties": props,
+            "k2_clusters_at_8": clusters, "limits_problems": problems,
+            "launch_shapes": len(recorder.seen), "plans_checked": n_plans,
+            "plan_problems": plan_bad[:20], "n_plan_problems": len(plan_bad),
+            "static_smem": {f"{k} {d}": v for (k, d), v in static.items()},
+            "check_defaults": defaults}
+    emit(line)
+    if problems or plan_bad or defaults:
+        raise AssertionError(f"phase 14a failed: {line}")
+
+    # ---------------------------------------------------------------- 14b
+    _sweep_lines(dev)
+
+    # ---------------------------------------------------------------- 14c
+    saved = os.environ.get(tuning.ENV_VAR)
+    tdir = Path(tempfile.mkdtemp(prefix=".tune-", dir=ROOT / "build"))
+    os.environ[tuning.ENV_VAR] = str(tdir)
+    tuning.clear_cache()
+    try:
+        _tuned_winners(dev)
+    finally:
+        if saved is None:
+            os.environ.pop(tuning.ENV_VAR, None)
+        else:
+            os.environ[tuning.ENV_VAR] = saved
+        tuning.clear_cache()
+        shutil.rmtree(tdir, ignore_errors=True)
+
+    # ---------------------------------------------------------------- 14d
+    t0 = time.perf_counter()
+    findings = graph_audit.audit_all(device=dev)
+    # the audit sees this process's CUDA operations: a planted host read
+    # and a planted copy to the host are flagged
+    x = torch.ones(4, device=dev)
+    planted = {rule: sorted({f.rule for f in graph_audit.audit_function(
+        "planted", fn, x)}) for rule, fn in (
+            ("RG001", lambda t: t * float(t.sum().item())),
+            ("RG005", lambda t: t.cpu() + t.sum().to("cpu")))}
+    line = {"phase": "14d", "findings": [str(f) for f in findings],
+            "planted": planted, "seconds": time.perf_counter() - t0}
+    emit(line)
+    if findings or planted != {"RG001": ["RG001"], "RG005": ["RG005"]}:
+        raise AssertionError(f"phase 14d failed: {line}")
+    emit({"phase": "14", "seconds": time.perf_counter() - t_phase,
+          "limit_s": PHASE14_S})
+
+
+def _k2_clusters(splits: int) -> tuple:
+    """(clusters of ``splits`` blocks resident at once, K2's largest
+    portable cluster) at 14b's K2 shape in f32."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    B, ctx, ps, Hq, Hkv, D, npag = SWEEP_K2
+    out = (ctypes.c_int64 * 2)()
+    _build.check(_build.library().repro_paged_attention_clusters(
+        B, B * npag + 1, ps, Hq, Hkv, D, npag, 0, splits,
+        ctypes.addressof(out)), "paged_attention clusters")
+    return int(out[0]), int(out[1])
+
+
+def _sweep_inputs(kernel: str, dtype, dev, dims: dict):
+    """Seeded inputs of one kernel at ``dims`` on ``dev``: the arguments
+    of its ``ops`` wrapper."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(14)
+
+    def rand(*shape, dt=dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dt)
+
+    if kernel == "paged_attention_fwd":
+        B, P, ps, npag = dims["B"], dims["P"], dims["ps"], dims["npag"]
+        q = rand(B, 1, dims["Hq"], dims["D"])
+        kp, vp = (rand(P, ps, dims["Hkv"], dims["D"]) for _ in range(2))
+        if B * npag <= P - 1:      # each row its own pages
+            bt = (torch.randperm(P - 1, generator=g, device=dev) + 1)[
+                :B * npag].reshape(B, npag)
+        else:                      # the reference's table: any pages
+            bt = torch.randint(1, P, (B, npag), generator=g, device=dev)
+        bt = bt.to(torch.int32).contiguous()
+        ctx = dims.get("ctx", npag * ps)
+        lens = torch.tensor([max(1, ctx - i) for i in (0, 1, 5, 15)][:B]
+                            + [ctx] * max(0, B - 4), dtype=torch.int32,
+                            device=dev)
+        return (q, kp, vp, bt, lens)
+    if kernel == "wkv6_fwd":
+        B, T, H, K, V = (dims[k] for k in ("B", "T", "H", "K", "V"))
+        q, k = rand(B, T, H, K), rand(B, T, H, K)
+        v = rand(B, T, H, V)
+        # rwkv6's init (phase 2c's "mild" decay): w0 = -6, |ld| ~ 0.0025
+        ld = -torch.exp(-6.0 + 0.5 * rand(B, T, H, K, dt=torch.float32))
+        ld = ld.clamp(-12.0, -1e-4)
+        u = 0.1 * rand(H, K, dt=torch.float32) if dims.get("u") else None
+        return (q, k, v, ld.to(getattr(torch, dims.get("ld", "float32"))),
+                u)
+    return (rand(dims["rows"], dims["d"]),
+            rand(dims["d"], dt=torch.float32))
+
+
+def _plain(kernel: str, args):
+    """The plain version of a kernel's wrapper on ``args`` (in f32 for
+    bf16 inputs, as phase 2's gates take it) and its call."""
+    from repro_torch.kernels import ref
+    if kernel == "paged_attention_fwd":
+        q, kp, vp, bt, lens = args
+        return (ref.paged_decode_attention_ref(q.float(), kp.float(),
+                                               vp.float(), bt, lens),
+                lambda: ref.paged_decode_attention_ref(*args))
+    if kernel == "wkv6_fwd":
+        return (ref.wkv6_chunked_ref(*args),
+                lambda: ref.wkv6_chunked_ref(*args))
+    x, scale = args
+    return (ref.rmsnorm_ref(x.float(), scale),
+            lambda: ref.rmsnorm_ref(x, scale))
+
+
+def _call(kernel: str, args, value=None):
+    from repro_torch.kernels import ops
+    if kernel == "paged_attention_fwd":
+        return ops.paged_attention(*args, splits=value)
+    if kernel == "wkv6_fwd":
+        return ops.wkv6(*args, v_slice=value)
+    return ops.rmsnorm(*args, threads=value)
+
+
+_OPS_NAME = {"paged_attention_fwd": "paged_attention", "wkv6_fwd": "wkv6",
+             "rmsnorm_fwd": "rmsnorm"}
+
+
+def _held_line(kernel: str, out, want, dname: str) -> dict:
+    """Phase 2's gate of a kernel's output: B6 by its error over the plain
+    result's largest magnitude (output and state), K2 and K3 by
+    ``_held``; with "ok"."""
+    if kernel == "wkv6_fwd":
+        errs = [_err(g, w) for g, w in zip(out, want)]
+        rel = max(e / max(float(w.float().abs().max()), 1e-30)
+                  for e, w in zip(errs, want))
+        return {"max_abs_err": max(errs), "rel_err": rel,
+                "tol": TOL[dname], "ok": rel <= TOL[dname]}
+    line = _held(out, want, dname)
+    ok = (line["max_ulp_err"] <= line["ulp_tol"] if "max_ulp_err" in line
+          else line["max_abs_err"] <= line["tol"])
+    return {**line, "ok": ok}
+
+
+def _same(a, b) -> bool:
+    import torch
+    if isinstance(a, tuple):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def _sweep_dims(dname: str) -> dict:
+    B, ctx, ps, Hq, Hkv, D, npag = SWEEP_K2
+    Bw, T, H, K, V, u = SWEEP_B6
+    rows, d = SWEEP_K3
+    return {
+        "paged_attention_fwd": dict(B=B, Hq=Hq, Hkv=Hkv, D=D, P=B * npag + 1,
+                                    ps=ps, npag=npag, ctx=ctx, dtype=dname),
+        "wkv6_fwd": dict(B=Bw, T=T, H=H, K=K, V=V, u=int(u), dtype=dname,
+                         ld="float32"),
+        "rmsnorm_fwd": dict(rows=rows, d=d, dtype=dname)}
+
+
+def _candidates_at(kernel: str, dims: dict):
+    from repro_torch.bench import tune
+    if kernel == "paged_attention_fwd":
+        return tune.paged_candidates(dims["B"], dims["Hq"], dims["Hkv"],
+                                     dims["D"], dims["P"], dims["ps"],
+                                     dims["npag"], dims["dtype"])
+    if kernel == "wkv6_fwd":
+        return tune.wkv6_candidates(dims["B"], dims["T"], dims["H"],
+                                    dims["K"], dims["V"], dims["dtype"],
+                                    dims["ld"])
+    return tune.rmsnorm_candidates(dims["rows"], dims["d"], dims["dtype"])
+
+
+def _sweep_lines(dev) -> None:
+    """14b: each candidate of each kernel at the path shape, in f32 and
+    bf16, against the plain version, twice (the same bits), with its plan
+    query against the lint's plan, its device ms and its bound."""
+    import torch
+
+    from repro_torch.analysis import kernel_lint
+    from repro_torch.kernels import _build, ops, tuning, work
+
+    failures = []
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        for kernel, dims in _sweep_dims(dname).items():
+            args = _sweep_inputs(kernel, dtype, dev, dims)
+            want, plain = _plain(kernel, args)
+            plain_ms = _time_ms(plain)[0]
+            if kernel == "paged_attention_fwd":
+                flops, nbytes = work.paged_decode(args[0], args[1], args[4],
+                                                  dims["ps"])
+            elif kernel == "wkv6_fwd":
+                flops, nbytes = work.wkv6(args[0], args[2], args[3], args[4])
+            else:
+                flops, nbytes = work.rmsnorm(dims["rows"], dims["d"],
+                                             args[0].element_size())
+            b_ms, b_by = bound(flops, nbytes, dname)
+            cands, rejected, dflt = _candidates_at(kernel, dims)
+            param = tuning.PARAMS[kernel]
+            for cfg in cands:
+                value = cfg[param]
+                before = ops.LAUNCHES[_OPS_NAME[kernel]]
+                out = _call(kernel, args, value)
+                again = _call(kernel, args, value)
+                launched = ops.LAUNCHES[_OPS_NAME[kernel]] - before
+                plan = kernel_lint.plans(kernel, dims, cfg)[0]
+                c_plan = _build.plan(plan.query, *plan.query_args)
+                line = {"phase": "14b", "kernel": _OPS_NAME[kernel],
+                        "shape": {k: v for k, v in dims.items()
+                                  if k != "dtype"},
+                        "dtype": dname, param: value,
+                        "heuristic": cfg == dflt,
+                        **_held_line(kernel, out, want, dname),
+                        "deterministic": _same(out, again),
+                        "launches": launched, "plan": c_plan,
+                        "plan_held": c_plan == plan.launch(),
+                        "ms": _time_ms(lambda: _call(kernel, args,
+                                                     value))[0],
+                        "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "rejected": rejected}
+                line["ok"] = (line["ok"] and line["deterministic"]
+                              and line["plan_held"] and launched == 2)
+                emit(line)
+                if not line["ok"]:
+                    failures.append(line)
+            del args, want
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"phase 14b failed: {failures}")
+
+
+def _tuned_winners(dev) -> None:
+    """14c: ``tune/*`` through the harness's runner on the card, then each
+    winner resolved and launched at its shape, ``check_all`` on the new
+    cache, and the resolvers' warm cost."""
+    import torch
+
+    import repro_torch.bench.suites  # noqa: F401  (registers the scenarios)
+    from repro_torch.analysis import kernel_lint
+    from repro_torch.bench import BenchRunner, ListSink, env_fingerprint, select
+    from repro_torch.bench.__main__ import with_device
+    from repro_torch.kernels import _build, ops, tuning
+
+    t0 = time.perf_counter()
+    sink = ListSink()
+    summary = BenchRunner(sinks=[sink], env=env_fingerprint("cuda")).run(
+        [with_device(s, "cuda") for s in select(only="tune/")])
+    problems = [f"{n}: {e}" for n, e in summary.failures]
+    if not tuning.cache_path().is_file():
+        problems.append("the sweeps wrote no cache")
+    recorder = LaunchRecorder().install()
+    winners = []
+    try:
+        for rec in sink.records:
+            d = rec.derived
+            kernel = {v: k for k, v in _OPS_NAME.items()}[
+                rec.name.split("/")[1]]
+            dims = kernel_lint.sig_dims(kernel, d["signature"])
+            param = tuning.PARAMS[kernel]
+            winner = rec.knobs[param]
+            dtype = getattr(torch, dims["dtype"])
+            args = _sweep_inputs(kernel, dtype, dev, dims)
+            resolved = _resolve(kernel, dims, args)
+            recorder.seen.clear()
+            before = ops.LAUNCHES[_OPS_NAME[kernel]]
+            out = _call(kernel, args)
+            launched = ops.LAUNCHES[_OPS_NAME[kernel]] - before
+            passed = [p for _, _, p in recorder.seen]
+            plan = kernel_lint.plans(kernel, dims, {param: winner})[0]
+            c_plan = _build.plan(plan.query, *plan.query_args)
+            want, _ = _plain(kernel, args)
+            line = {"phase": "14c", "record": rec.name, param: winner,
+                    "tuned_us": d["tuned_us"], "default_us": d["default_us"],
+                    "speedup": d["speedup"], "timings": d["timings"],
+                    "n_candidates": d["n_candidates"],
+                    "rejected_smem": d["rejected_smem"],
+                    "resolved": resolved, "passed": passed,
+                    "launches": launched, "plan": c_plan,
+                    "plan_held": c_plan == plan.launch(),
+                    **_held_line(kernel, out, want, dims["dtype"])}
+            line["ok"] = (line["ok"] and resolved == winner
+                          and passed == [(param, winner)] and launched == 1
+                          and line["plan_held"])
+            emit(line)
+            if not line["ok"]:
+                problems.append(line)
+            winners.append((rec.name, kernel, dims, args))
+    finally:
+        recorder.remove()
+    findings = [str(f) for f in kernel_lint.check_all()]
+    us = {}
+    for name, kernel, dims, args in winners:
+        tuning.clear_cache()
+        _resolve(kernel, dims, args)            # cold: loads the cache
+        t1 = time.perf_counter()
+        for _ in range(RESOLVE_CALLS):
+            _resolve(kernel, dims, args)
+        us[name] = (time.perf_counter() - t1) / RESOLVE_CALLS * 1e6
+    line = {"phase": "14c", "records": len(sink.records),
+            "cache_entries": len(json.loads(tuning.cache_path().read_text())
+                                 ["entries"]) if tuning.cache_path().is_file()
+            else 0,
+            "check_all": findings, "resolve_us_per_call": us,
+            "resolve_calls": RESOLVE_CALLS,
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    if problems or findings or len(sink.records) != 7:
+        raise AssertionError(f"phase 14c failed: {problems} {line}")
+
+
+def _resolve(kernel: str, dims: dict, args) -> int:
+    """What the wrapper resolves at ``args`` with no explicit value."""
+    from repro_torch.kernels import tuning
+    if kernel == "paged_attention_fwd":
+        q, kp, _, bt, _ = args
+        return tuning.resolve_paged_splits(
+            None, q_shape=q.shape, pages_shape=kp.shape,
+            n_pages=bt.shape[1], dtype=q.dtype)
+    if kernel == "wkv6_fwd":
+        q, _, v, ld, u = args
+        return tuning.resolve_wkv_v_slice(
+            None, q_shape=q.shape, v_head=v.shape[-1], dtype=q.dtype,
+            use_u=u is not None, ld_dtype=ld.dtype)
+    x, _ = args
+    return tuning.resolve_rmsnorm_threads(None, rows=x.shape[0],
+                                          d=x.shape[-1], dtype=x.dtype)
 
 
 def _eager_ms(fn, iters: int = 5) -> float:

@@ -2,7 +2,7 @@
 ``python -m benchmarks.run``:
 
     PYTHONPATH=src python -m repro_torch.bench [--only <name-or-substr>[,..]]
-                                               [--tags tag1,tag2]
+                                               [--tags tag1,tag2] [--tune]
                                                [--device cuda|cpu]
                                                [--compare [--bless]]
                                                [--compare-only]
@@ -15,6 +15,10 @@ stdout and writes BenchRecord JSONL (default
 workload raises. ``--only`` takes a comma-separated list; a term that
 exactly names a registered scenario selects just that scenario, anything
 else is a substring filter over names and groups.
+
+``--tune`` runs the launch-parameter sweeps (scenarios tagged ``tune``,
+left out of every other run; alone it selects only them), whose winners
+persist to ``results/tuned/cuda.json`` (:mod:`repro_torch.kernels.tuning`).
 
 It runs on the card: without one it raises unless ``--device cpu``
 asks for the CPU, where the measured suites run the kernels' plain
@@ -38,6 +42,7 @@ samples, :mod:`repro_torch.bench.compare`), appends a point to
 | suites.batch_precision| deploy          | Fig. 12 / Table IV        |
 | suites.kernels        | kernels         | kernel micro-benchmarks   |
 | suites.scalability    | scalability     | Fig. 11 / Table III       |
+| suites.tune           | tune (--tune)   | guidance for perf opts    |
 """
 from __future__ import annotations
 
@@ -116,6 +121,10 @@ def main(argv: list[str] | None = None) -> int:
                          "name > substring on scenario/group name")
     ap.add_argument("--tags", default=None,
                     help="comma-separated tag filter (any-of)")
+    ap.add_argument("--tune", action="store_true",
+                    help="run the launch-parameter sweeps (scenarios "
+                         "tagged `tune`, left out of other runs); winners "
+                         "persist to results/tuned/cuda.json")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the measured suites run (default: the "
                          "card; without one the harness raises)")
@@ -161,6 +170,12 @@ def main(argv: list[str] | None = None) -> int:
     resolve_device(args.device)     # raises without a card: no fallback
     selected = [with_device(s, args.device)
                 for s in select(only=args.only, tags=tags)]
+    # the sweeps are opt-in: left out unless --tune; a bare --tune (no
+    # other filter) runs only them
+    if not args.tune:
+        selected = [s for s in selected if "tune" not in s.tags]
+    elif not args.only and not tags:
+        selected = [s for s in selected if "tune" in s.tags]
     if args.list:
         for scen in selected:
             print(f"{scen.name:32s} tags={','.join(scen.tags):40s} "

@@ -10,3 +10,4 @@ from repro_torch.bench.suites import kernels  # noqa: F401
 from repro_torch.bench.suites import scalability  # noqa: F401
 from repro_torch.bench.suites import scaling_matrix  # noqa: F401
 from repro_torch.bench.suites import trace  # noqa: F401
+from repro_torch.bench.suites import tune  # noqa: F401

@@ -50,6 +50,14 @@ import numpy as np
 from repro_torch.bench import BenchRecord, Workload, scenario
 from repro_torch.bench.runner import TimingStats
 
+
+def _require(ok: bool, message: str) -> None:
+    """A scenario's own gate: raises AssertionError, also under
+    ``python -O``, so the runner records the workload as failed."""
+    if not ok:
+        raise AssertionError(message)
+
+
 ARCH = "granite-3-8b"
 PROMPT = 8
 SLOTS = 4
@@ -307,9 +315,11 @@ def prefix_shared_burst(wl: Workload):
     pc = wl.knobs["prefix_cache"]
     eng, cfg = _prefix_engine(pc, BURST_SPAN, BURST_PAGES, *_cell(wl))
     report = eng.run(_shared_burst(cfg))
-    assert report.completed == N_REQ
+    _require(report.completed == N_REQ,
+             f"{report.completed}/{N_REQ} completed")
     if pc:
-        assert report.prefill_tokens_saved > 0, "cache on but nothing saved"
+        _require(report.prefill_tokens_saved > 0,
+                 "cache on but nothing saved")
     yield _record(f"serving/prefix_burst_{'on' if pc else 'off'}", report)
 
 
@@ -329,14 +339,15 @@ def multi_turn_replay(wl: Workload):
     eng, cfg = _prefix_engine(pc, REPLAY_SPAN, REPLAY_PAGES, *_cell(wl))
     reqs = _replay_sessions(cfg)
     report = eng.run(reqs)
-    assert report.completed == len(reqs)
+    _require(report.completed == len(reqs),
+             f"{report.completed}/{len(reqs)} completed")
     if pc:
         warm, cold = (report.ttft_warm_samples_s(),
                       report.ttft_cold_samples_s())
-        assert warm and cold, "replay produced no warm/cold split"
-        assert max(warm) < min(cold), (
-            f"warm TTFT {warm} not strictly below cold TTFT {cold}")
-        assert report.prefix_hit_rate > 0
+        _require(bool(warm and cold), "replay produced no warm/cold split")
+        _require(max(warm) < min(cold),
+                 f"warm TTFT {warm} not strictly below cold TTFT {cold}")
+        _require(report.prefix_hit_rate > 0, "no prefix hits")
     yield _record(f"serving/replay_{'on' if pc else 'off'}", report)
 
 
@@ -396,13 +407,14 @@ def chaos_soak(wl: Workload):
         report = eng.run(_slo_burst(cfg))
     finally:
         eng.fault_plan = None
-    assert report.pages_leaked == 0, (
-        f"{report.pages_leaked} pages leaked (faults={faulted})")
+    _require(report.pages_leaked == 0,
+             f"{report.pages_leaked} pages leaked (faults={faulted})")
     s = report.summary()
     if faulted:
-        assert s["faults_injected"] > 0, "fault plan injected nothing"
-        assert s["fault_recoveries"] == s["faults_injected"], (
-            f"unrecovered: {s['fault_recoveries']}/{s['faults_injected']}")
+        _require(s["faults_injected"] > 0, "fault plan injected nothing")
+        _require(s["fault_recoveries"] == s["faults_injected"],
+                 f"unrecovered: {s['fault_recoveries']}/"
+                 f"{s['faults_injected']}")
     rec = _record(f"serving/chaos_{'on' if faulted else 'off'}", report)
     yield _stamp(rec, s, _ROBUST_KEYS)  # faults_* absent on the baseline
 
@@ -459,8 +471,8 @@ def pd_disaggregation(wl: Workload):
     sched = wl.knobs["scheduler"]
     eng, cfg = _pd_engine(sched, *_cell(wl))
     report = eng.run(_pd_stream(cfg))
-    assert report.completed == len(report.metrics), (
-        f"{sched}: {report.completed}/{len(report.metrics)} completed")
+    _require(report.completed == len(report.metrics),
+             f"{sched}: {report.completed}/{len(report.metrics)} completed")
     rec = _record(f"serving/pd_{wl.label}", report)
     yield _stamp(rec, report.summary(), _PD_KEYS)
 

@@ -197,9 +197,12 @@ class RunConfig:
     remat: bool = True
     attention_backend: str = "chunked"  # dense | chunked | pallas
     attention_chunk: int = 1024
-    # Pallas tile overrides (backend='pallas' only). None = auto: the
-    # kernels resolve tiles from the tuned-config cache written by
-    # `python -m benchmarks.run --tune` (see repro.kernels.tuning).
+    # The reference's Pallas tile overrides, kept so configs round-trip;
+    # the port reads none of them: its attention tiles are compiled in.
+    # Its tunables are K2's split count, B6's V slice and K3's threads, as
+    # the ``splits``, ``v_slice`` and ``threads`` of ``kernels/ops.py``
+    # (explicit > the cache of ``python -m repro_torch.bench --tune`` >
+    # the heuristic; see repro_torch.kernels.tuning).
     attn_block_q: Optional[int] = None
     attn_block_k: Optional[int] = None
     ssm_chunk: Optional[int] = None

@@ -7,7 +7,8 @@
 The counts come from one real call of the program on one device
 (:func:`repro_torch.core.cost.count_cost`), so they are per-device
 already. Every function that reads a peak takes a :class:`Chip`, by
-default :data:`H100`; nothing else in the port holds a hardware constant.
+default :data:`H100`; nothing else in the port holds a hardware constant
+(the card's launch limits too: :class:`LaunchLimits`).
 """
 from __future__ import annotations
 
@@ -16,6 +17,22 @@ from typing import TYPE_CHECKING, Dict, Mapping, Optional, Tuple
 
 if TYPE_CHECKING:
     from repro_torch.core.cost import CostReport
+
+
+@dataclass(frozen=True)
+class LaunchLimits:
+    """What one kernel launch may ask of the card: the limits that
+    ``analysis/kernel_lint.py`` holds every kernel's launch plan to and
+    that ``kernels/tuning.py`` reads through ``capabilities()``."""
+    smem_per_block: int           # dynamic shared memory a block, opted in
+    smem_per_sm: int              # shared memory of one SM
+    threads_per_block: int
+    cluster: int                  # portable thread-block cluster size
+    sms: int
+    grid_yz: int                  # largest grid y and z
+    grid_x: int = 2 ** 31 - 1
+    warp: int = 32
+    smem_reserved: int = 1024     # shared memory the runtime keeps a block
 
 
 @dataclass(frozen=True)
@@ -28,6 +45,7 @@ class Chip:
     hbm_bytes: float
     link_bw: float                # bytes/s one way, for the collective term
     mma_tiles: Mapping[str, Tuple[int, ...]] = field(default_factory=dict)
+    limits: Optional[LaunchLimits] = None
 
     def peak(self, dtype: str) -> float:
         if dtype not in self.peak_flops:
@@ -57,6 +75,12 @@ H100 = Chip(
     # kernels run as 3xTF32, and m16n8k16 for bf16
     mma_tiles={"float32": (16, 8, 8), "tf32": (16, 8, 8),
                "bfloat16": (16, 8, 16)},
+    # CUDA C Programming Guide, compute capability 9.0, and the H100
+    # SXM5's 132 SMs; chip_smoke.py holds each against the card
+    # (torch.cuda.get_device_properties, cudaDeviceGetAttribute)
+    limits=LaunchLimits(smem_per_block=232448, smem_per_sm=233472,
+                        threads_per_block=1024, cluster=8, sms=132,
+                        grid_yz=65535),
 )
 
 

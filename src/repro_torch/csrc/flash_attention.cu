@@ -329,6 +329,9 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 }
 
+// A block per (BQ q rows, q head, row).
+dim3 fwd_grid(int B, int Sq, int Hq) { return dim3((Sq + BQ - 1) / BQ, Hq, B); }
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                    int Sq, int Sk, int Hq, int Hkv, int causal, int window, float scale,
@@ -338,8 +341,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   static SmemOptIn opt_in;  // one per kernel instance
   cudaError_t err = opt_in_smem(opt_in, attn_fwd_kernel<T, D>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  attn_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  attn_fwd_kernel<T, D><<<fwd_grid(B, Sq, Hq), THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, Sq, Sk, Hq, Hkv, causal, window, scale);
   return cudaGetLastError();
@@ -361,6 +363,24 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, flo
     default: return cudaErrorInvalidValue;
   }
 #undef REPRO_FWD_CASE
+}
+
+// The launch of K1/B2 for these sizes: grid, threads, shared bytes.
+template <typename T>
+int fwd_plan(int B, int Sq, int Hq, int D, int64_t* out) {
+  size_t smem = 0;
+  switch (D) {  // HEAD_DIMS of kernels/flash_attention.py
+    case 16: smem = Layout<T, 16>::bytes; break;
+    case 32: smem = Layout<T, 32>::bytes; break;
+    case 64: smem = Layout<T, 64>::bytes; break;
+    case 128: smem = Layout<T, 128>::bytes; break;
+    case 160: smem = Layout<T, 160>::bytes; break;
+    default: return cudaErrorInvalidValue;
+  }
+  const dim3 g = fwd_grid(B, Sq, Hq);
+  const int64_t v[6] = {g.x, g.y, g.z, THREADS, int64_t(smem), 1};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return cudaSuccess;
 }
 
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
@@ -400,4 +420,16 @@ extern "C" int repro_flash_attention_fwd_lse(const void* q, const void* k, const
                                              int dtype, void* stream) {
   return static_cast<int>(fwd(q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, Hq, Hkv, D, causal,
                               window, scale, dtype, stream));
+}
+
+// The launch repro_flash_attention_fwd(_lse) makes for these sizes, by the
+// same fwd_grid and Layout: out = grid x, y, z, threads, dynamic shared
+// bytes, cluster x. Launches nothing.
+extern "C" int repro_flash_attention_fwd_plan(int B, int Sq, int Sk, int Hq, int Hkv, int D,
+                                              int dtype, int64_t* out) {
+  (void)Sk;
+  if (B <= 0 || Sq <= 0 || Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+  return dtype == 0 ? fwd_plan<float>(B, Sq, Hq, D, out)
+         : dtype == 1 ? fwd_plan<bf16>(B, Sq, Hq, D, out)
+                      : cudaErrorInvalidValue;
 }

@@ -432,15 +432,28 @@ struct Args {
   cudaStream_t stream;
 };
 
+// B3: a block per (ROWS q rows, q head, row); B4: per (ROWS key rows, kv
+// head, row).
+dim3 dq_grid(int B, int Sq, int Hq) { return dim3((Sq + ROWS - 1) / ROWS, Hq, B); }
+dim3 dkv_grid(int B, int Sk, int Hkv) { return dim3((Sk + ROWS - 1) / ROWS, Hkv, B); }
+
+template <typename T, int D>
+constexpr size_t dq_smem() {
+  return Layout<T, D, Tile<T>::template NS_DQ<D>>::dq_bytes;
+}
+template <typename T, int D>
+constexpr size_t dkv_smem() {
+  return Layout<T, D, Tile<T>::NS_DKV>::dkv_bytes;
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a) {
-  constexpr size_t smem = Layout<T, D, Tile<T>::template NS_DQ<D>>::dq_bytes;
+  constexpr size_t smem = dq_smem<T, D>();
   static_assert(smem <= kMaxSmem, "B3's tiles exceed the shared memory of a block");
   static SmemOptIn opt_in;  // one per kernel instance
   cudaError_t err = opt_in_smem(opt_in, attn_dq_kernel<T, D>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.Sq + ROWS - 1) / ROWS, a.Hq, a.B);
-  attn_dq_kernel<T, D><<<grid, THREADS, smem, a.stream>>>(
+  attn_dq_kernel<T, D><<<dq_grid(a.B, a.Sq, a.Hq), THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.dq), a.Sq, a.Sk, a.Hq,
       a.Hkv, a.causal, a.window, a.scale);
@@ -449,13 +462,12 @@ cudaError_t launch_dq(const Args& a) {
 
 template <typename T, int D>
 cudaError_t launch_dkv(const Args& a) {
-  constexpr size_t smem = Layout<T, D, Tile<T>::NS_DKV>::dkv_bytes;
+  constexpr size_t smem = dkv_smem<T, D>();
   static_assert(smem <= kMaxSmem, "B4's tiles exceed the shared memory of a block");
   static SmemOptIn opt_in;  // one per kernel instance
   cudaError_t err = opt_in_smem(opt_in, attn_dkv_kernel<T, D>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.Sk + ROWS - 1) / ROWS, a.Hkv, a.B);
-  attn_dkv_kernel<T, D><<<grid, THREADS, smem, a.stream>>>(
+  attn_dkv_kernel<T, D><<<dkv_grid(a.B, a.Sk, a.Hkv), THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.dk),
       static_cast<T*>(a.dv), a.Sq, a.Sk, a.Hq, a.Hkv, a.causal, a.window, a.scale);
@@ -475,6 +487,35 @@ cudaError_t dispatch(const Args& a, int D, bool dkv) {
     default: return cudaErrorInvalidValue;
   }
 #undef REPRO_BWD_CASE
+}
+
+// The launch of B3 (dkv false) or B4 for these sizes: grid, threads,
+// shared bytes.
+template <typename T>
+int bwd_plan(int B, int Sq, int Sk, int Hq, int Hkv, int D, bool dkv, int64_t* out) {
+  size_t smem = 0;
+#define REPRO_BWD_PLAN(DIM) \
+  case DIM: smem = dkv ? dkv_smem<T, DIM>() : dq_smem<T, DIM>(); break;
+  switch (D) {
+    REPRO_BWD_PLAN(16)
+    REPRO_BWD_PLAN(32)
+    REPRO_BWD_PLAN(64)
+    REPRO_BWD_PLAN(128)
+    REPRO_BWD_PLAN(160)
+    default: return cudaErrorInvalidValue;
+  }
+#undef REPRO_BWD_PLAN
+  const dim3 g = dkv ? dkv_grid(B, Sk, Hkv) : dq_grid(B, Sq, Hq);
+  const int64_t v[6] = {g.x, g.y, g.z, THREADS, int64_t(smem), 1};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return cudaSuccess;
+}
+
+int plan(int B, int Sq, int Sk, int Hq, int Hkv, int D, int dtype, bool dkv, int64_t* out) {
+  if (B <= 0 || (dkv ? Sk : Sq) <= 0 || Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+  return dtype == 0   ? bwd_plan<float>(B, Sq, Sk, Hq, Hkv, D, dkv, out)
+         : dtype == 1 ? bwd_plan<bf16>(B, Sq, Sk, Hq, Hkv, D, dkv, out)
+                      : cudaErrorInvalidValue;
 }
 
 int run(const Args& a, int D, int dtype, bool dkv) {
@@ -519,4 +560,17 @@ extern "C" int repro_flash_attention_dkv(const void* q, const void* k, const voi
          nullptr, dk, dv, B, Sq, Sk, Hq, Hkv, causal, window, scale,
          static_cast<cudaStream_t>(stream)};
   return run(a, D, dtype, true);
+}
+
+// The launches repro_flash_attention_dq and repro_flash_attention_dkv make
+// for these sizes, by the same grids and Layouts: out = grid x, y, z,
+// threads, dynamic shared bytes, cluster x. Launch nothing.
+extern "C" int repro_flash_attention_dq_plan(int B, int Sq, int Sk, int Hq, int Hkv, int D,
+                                             int dtype, int64_t* out) {
+  return plan(B, Sq, Sk, Hq, Hkv, D, dtype, false, out);
+}
+
+extern "C" int repro_flash_attention_dkv_plan(int B, int Sq, int Sk, int Hq, int Hkv, int D,
+                                              int dtype, int64_t* out) {
+  return plan(B, Sq, Sk, Hq, Hkv, D, dtype, true, out);
 }

@@ -23,7 +23,8 @@
 // share of the ceil(len / page_size) live pages, so the table's width (the
 // engine's cache span) costs nothing and the host never learns the lengths.
 // The launcher picks nsplit (at most 8, the portable cluster size) so that
-// the grid fills the SMs: 4 at granite's decode batch of 4, 8 at batch 1.
+// the grid fills the SMs: 4 at granite's decode batch of 4, 8 at batch 1;
+// a caller may ask for another (kernels/tuning.py).
 // Inside a block the keys and values stream through a three-stage ring of
 // TK-token tiles, one copy-engine (bulk) copy per K or V row completing on
 // the stage's mbarrier (8-byte cp.async where the pool is only 8-byte
@@ -49,6 +50,7 @@
 // lengths (B,) int32; out (B, 1, Hq, D); all contiguous.
 
 #include <algorithm>
+#include <mutex>
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -376,39 +378,97 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-template <typename T, int NC>
-cudaError_t launch(const void* q, const void* kp, const void* vp, const int* btab,
-                   const int* lengths, void* o, int B, int P, int ps, int Hq, int Hkv, int D,
-                   int npag, float scale, bool bulk, cudaStream_t stream) {
-  using S = Shape<NC>;
-  const int g = Hq / Hkv;
-  const int ngroups = (g + S::GH - 1) / S::GH;
-  const size_t ring = std::max(ring_bytes(NC, D, sizeof(T)), partial_bytes(S::GH, D));
-  const size_t smem = bar_offset(ring, S::GH, D) + sizeof(uint64_t) * NSTAGE;
-  static SmemOptIn opt_in;  // one per kernel instance
-  cudaError_t err = opt_in_smem(opt_in, paged_decode_kernel<T, NC>, smem);
-  if (err != cudaSuccess) return err;
+// The launch of one call: the column bucket NC (4-element columns per
+// lane, D <= 128 NC), grid (nsplit, Hkv x head groups, B), threads,
+// dynamic shared memory (the ring, or the warps' partials that reuse it,
+// then the block's (m, l, acc) and the stages' mbarriers) and the cluster
+// (the nsplit blocks of one row and kv head). ``splits`` = 0 is the
+// heuristic: at most MAX_SPLIT (the portable cluster size) and the live
+// pages' bound npag, so that the grid fills the SMs; an explicit count is
+// clamped to npag, as the reference clamps its pages_per_block. Returns
+// false for a split count outside [0, MAX_SPLIT].
+struct Plan {
+  int nc, gh, ngroups, nsplit;
+  size_t ring, smem;
+};
+
+int column_bucket(int D) {
+  const int nc = (D / VEC + 31) / 32;
+  return nc <= 1 ? 1 : nc <= 2 ? 2 : nc <= 4 ? 4 : 8;
+}
+
+int default_splits(long pairs, int npag, int sms) {
+  return int(std::max(1L, std::min<long>({long(MAX_SPLIT), long(npag), sms / pairs})));
+}
+
+int sm_count() {
   int sms = 132, dev = 0;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long pairs = long(B) * Hkv * ngroups;
-  const int nsplit = int(std::max(1L, std::min<long>({long(MAX_SPLIT), long(npag), sms / pairs})));
+  return sms;
+}
+
+bool make_plan(int B, int Hq, int Hkv, int D, int npag, int es, int splits, Plan& p) {
+  if (splits < 0 || splits > MAX_SPLIT) return false;
+  p.nc = column_bucket(D);
+  p.gh = p.nc <= 2 ? 4 : 8 / p.nc;  // Shape<NC>::GH
+  const int g = Hq / Hkv;
+  p.ngroups = (g + p.gh - 1) / p.gh;
+  p.ring = std::max(ring_bytes(p.nc, D, es), partial_bytes(p.gh, D));
+  p.smem = bar_offset(p.ring, p.gh, D) + sizeof(uint64_t) * NSTAGE;
+  p.nsplit = splits > 0 ? std::min(splits, npag)
+                        : default_splits(long(B) * Hkv * p.ngroups, npag, sm_count());
+  return true;
+}
+
+// Whether clusters of nsplit blocks of this kernel, each with smem bytes of
+// shared memory, can be resident at all (cudaOccupancyMaxActiveClusters >
+// 0), asked once per (kernel instance, nsplit, size).
+struct ClusterFit {
+  std::mutex mu;
+  size_t fits[MAX_SPLIT + 1] = {};  // largest size known to fit, per nsplit
+};
+
+template <typename Kernel>
+cudaError_t check_cluster(ClusterFit& state, Kernel kernel, const cudaLaunchConfig_t& cfg,
+                          int nsplit, size_t smem) {
+  std::lock_guard<std::mutex> lock(state.mu);
+  if (smem <= state.fits[nsplit]) return cudaSuccess;
+  int n = 0;
+  cudaError_t err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (n <= 0) return cudaErrorInvalidConfiguration;
+  state.fits[nsplit] = smem;
+  return cudaSuccess;
+}
+
+template <typename T, int NC>
+cudaError_t launch(const void* q, const void* kp, const void* vp, const int* btab,
+                   const int* lengths, void* o, int B, int P, int ps, int Hq, int Hkv, int D,
+                   int npag, float scale, bool bulk, const Plan& p, cudaStream_t stream) {
+  static SmemOptIn opt_in;  // one per kernel instance
+  static ClusterFit fit;
+  if (p.gh != Shape<NC>::GH) return cudaErrorInvalidValue;
+  cudaError_t err = opt_in_smem(opt_in, paged_decode_kernel<T, NC>, p.smem);
+  if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(nsplit, Hkv * ngroups, B);
+  cfg.gridDim = dim3(p.nsplit, Hkv * p.ngroups, B);
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
+  cfg.dynamicSmemBytes = p.smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = nsplit;
+  attr[0].val.clusterDim.x = p.nsplit;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  err = check_cluster(fit, paged_decode_kernel<T, NC>, cfg, p.nsplit, p.smem);
+  if (err != cudaSuccess) return err;
   err = cudaLaunchKernelEx(&cfg, paged_decode_kernel<T, NC>, static_cast<const T*>(q),
                            static_cast<const T*>(kp), static_cast<const T*>(vp), btab, lengths,
-                           static_cast<T*>(o), P, ps, Hq, Hkv, D, npag, ngroups, scale,
-                           int(bulk), ring);
+                           static_cast<T*>(o), P, ps, Hq, Hkv, D, npag, p.ngroups, scale,
+                           int(bulk), p.ring);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -416,31 +476,82 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const int* bta
 template <typename T>
 cudaError_t dispatch_nc(const void* q, const void* kp, const void* vp, const int* btab,
                         const int* lengths, void* o, int B, int P, int ps, int Hq, int Hkv, int D,
-                        int npag, float scale, bool bulk, cudaStream_t s) {
-  const int nc = (D / VEC + 31) / 32;
-  if (nc <= 1)
-    return launch<T, 1>(q, kp, vp, btab, lengths, o, B, P, ps, Hq, Hkv, D, npag, scale, bulk, s);
-  if (nc <= 2)
-    return launch<T, 2>(q, kp, vp, btab, lengths, o, B, P, ps, Hq, Hkv, D, npag, scale, bulk, s);
-  if (nc <= 4)
-    return launch<T, 4>(q, kp, vp, btab, lengths, o, B, P, ps, Hq, Hkv, D, npag, scale, bulk, s);
-  return launch<T, 8>(q, kp, vp, btab, lengths, o, B, P, ps, Hq, Hkv, D, npag, scale, bulk, s);
+                        int npag, float scale, bool bulk, const Plan& p, cudaStream_t s) {
+  if (p.nc == 1)
+    return launch<T, 1>(q, kp, vp, btab, lengths, o, B, P, ps, Hq, Hkv, D, npag, scale, bulk, p, s);
+  if (p.nc == 2)
+    return launch<T, 2>(q, kp, vp, btab, lengths, o, B, P, ps, Hq, Hkv, D, npag, scale, bulk, p, s);
+  if (p.nc == 4)
+    return launch<T, 4>(q, kp, vp, btab, lengths, o, B, P, ps, Hq, Hkv, D, npag, scale, bulk, p, s);
+  return launch<T, 8>(q, kp, vp, btab, lengths, o, B, P, ps, Hq, Hkv, D, npag, scale, bulk, p, s);
+}
+
+// The sizes every entry point takes: whole 4-element columns of at most
+// 32 x 8 per lane.
+bool valid_dims(int Hq, int Hkv, int ps, int npag, int D) {
+  return Hkv > 0 && Hq % Hkv == 0 && ps > 0 && npag > 0 && D > 0 && D % VEC == 0 &&
+         D / VEC <= 32 * 8;
+}
+
+// What the card makes of the launch repro_paged_attention_fwd would make
+// for these sizes and split count: out[0] = cudaOccupancyMaxActiveClusters
+// (clusters of nsplit blocks resident at once; 0: none fits), out[1] =
+// cudaOccupancyMaxPotentialClusterSize (the largest cluster of this
+// kernel, portable sizes only). Launches nothing.
+template <typename T, int NC>
+int cluster_report(int B, int Hkv, const Plan& p, int64_t* out) {
+  static SmemOptIn opt_in;
+  cudaError_t err = opt_in_smem(opt_in, paged_decode_kernel<T, NC>, p.smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.nsplit, Hkv * p.ngroups, B);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = p.smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.nsplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int active = 0, size = 0;
+  err = cudaOccupancyMaxActiveClusters(&active, paged_decode_kernel<T, NC>, &cfg);
+  if (err != cudaSuccess) return err;
+  cfg.numAttrs = 0;
+  err = cudaOccupancyMaxPotentialClusterSize(&size, paged_decode_kernel<T, NC>, &cfg);
+  if (err != cudaSuccess) return err;
+  out[0] = active;
+  out[1] = size;
+  return cudaSuccess;
+}
+
+template <typename T>
+int cluster_report_nc(int B, int Hkv, const Plan& p, int64_t* out) {
+  if (p.nc == 1) return cluster_report<T, 1>(B, Hkv, p, out);
+  if (p.nc == 2) return cluster_report<T, 2>(B, Hkv, p, out);
+  if (p.nc == 4) return cluster_report<T, 4>(B, Hkv, p, out);
+  return cluster_report<T, 8>(B, Hkv, p, out);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16; splits: the split count (the cluster
+// size), 1 to 8, or 0 for the heuristic. Returns the launch's
+// cudaGetLastError() (cudaErrorInvalidConfiguration where a cluster of
+// that many blocks cannot be resident).
 extern "C" int repro_paged_attention_fwd(const void* q, const void* k_pages, const void* v_pages,
                                          const void* block_tables, const void* lengths, void* o,
                                          int B, int P, int ps, int Hq, int Hkv, int D, int npag,
-                                         float scale, int dtype, void* stream) {
+                                         float scale, int dtype, int splits, void* stream) {
   if (B <= 0) return cudaSuccess;
-  if (Hkv <= 0 || Hq % Hkv != 0 || ps <= 0 || npag <= 0 || D <= 0) return cudaErrorInvalidValue;
-  // whole 4-element columns of at most 32 x 8 per lane, on 4-element boundaries
+  if (!valid_dims(Hq, Hkv, ps, npag, D) || (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
+  // on 4-element boundaries
   const size_t esize = dtype == 1 ? 2 : 4;
   const uintptr_t bases = reinterpret_cast<uintptr_t>(k_pages) | reinterpret_cast<uintptr_t>(v_pages);
-  if (D % VEC != 0 || D / VEC > 32 * 8 || bases % (VEC * esize) != 0)
-    return cudaErrorInvalidValue;
+  if (bases % (VEC * esize) != 0) return cudaErrorInvalidValue;
+  Plan p;
+  if (!make_plan(B, Hq, Hkv, D, npag, int(esize), splits, p)) return cudaErrorInvalidValue;
   // bulk copies where every row starts on a 16-byte boundary and is a
   // multiple of 16 bytes long, 8-byte cp.async otherwise
   const bool bulk = bases % 16 == 0 && (D * esize) % 16 == 0;
@@ -449,9 +560,34 @@ extern "C" int repro_paged_attention_fwd(const void* q, const void* k_pages, con
   const int* ln = static_cast<const int*>(lengths);
   cudaError_t err =
       dtype == 0 ? dispatch_nc<float>(q, k_pages, v_pages, bt, ln, o, B, P, ps, Hq, Hkv, D, npag,
-                                      scale, bulk, s)
-      : dtype == 1 ? dispatch_nc<__nv_bfloat16>(q, k_pages, v_pages, bt, ln, o, B, P, ps, Hq, Hkv,
-                                                D, npag, scale, bulk, s)
-                   : cudaErrorInvalidValue;
+                                      scale, bulk, p, s)
+                 : dispatch_nc<__nv_bfloat16>(q, k_pages, v_pages, bt, ln, o, B, P, ps, Hq, Hkv,
+                                              D, npag, scale, bulk, p, s);
   return static_cast<int>(err);
+}
+
+// The launch repro_paged_attention_fwd makes for these sizes and split
+// count, computed by the same make_plan: out = grid x, y, z, threads,
+// dynamic shared bytes, cluster x. Launches nothing.
+extern "C" int repro_paged_attention_plan(int B, int P, int ps, int Hq, int Hkv, int D, int npag,
+                                          int dtype, int splits, int64_t* out) {
+  (void)P;
+  Plan p;
+  if (B <= 0 || !valid_dims(Hq, Hkv, ps, npag, D) || (dtype != 0 && dtype != 1) ||
+      !make_plan(B, Hq, Hkv, D, npag, dtype == 1 ? 2 : 4, splits, p))
+    return cudaErrorInvalidValue;
+  const int64_t v[6] = {p.nsplit, int64_t(Hkv) * p.ngroups, B, THREADS, int64_t(p.smem), p.nsplit};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return cudaSuccess;
+}
+
+extern "C" int repro_paged_attention_clusters(int B, int P, int ps, int Hq, int Hkv, int D,
+                                              int npag, int dtype, int splits, int64_t* out) {
+  (void)P;
+  Plan p;
+  if (B <= 0 || !valid_dims(Hq, Hkv, ps, npag, D) || (dtype != 0 && dtype != 1) ||
+      !make_plan(B, Hq, Hkv, D, npag, dtype == 1 ? 2 : 4, splits, p))
+    return cudaErrorInvalidValue;
+  return dtype == 0 ? cluster_report_nc<float>(B, Hkv, p, out)
+                    : cluster_report_nc<__nv_bfloat16>(B, Hkv, p, out);
 }

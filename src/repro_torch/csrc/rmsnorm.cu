@@ -9,8 +9,8 @@
 // row read once and written once, scale read once) over 3.35 TB/s, and at
 // decode's few rows the launch and one DRAM round trip.
 //
-// Design: one block per row, sized so that a thread holds ELEMS elements
-// of the row in 16-byte vectors (plain element loads where the row is not
+// Design: one block per row, by default sized so that a thread holds ELEMS
+// elements of the row in 16-byte vectors (plain element loads where the row is not
 // 16-byte aligned). A thread issues every load it needs at once, its
 // slice of x (kept as loaded: bf16 stays packed, which keeps the kernel
 // at 56-64 registers) and of scale (as f32), so the row costs one memory
@@ -206,23 +206,36 @@ __global__ void __launch_bounds__(MAX_THREADS) rmsnorm_kernel(Args a) {
 
 // The vector width (16 bytes, or 1 element where x, out or scale is not on
 // a 16-byte boundary or d is not whole vectors) and the block's threads:
-// enough for ELEMS elements each, in whole warps, at most MAX_THREADS.
+// ``threads`` where the caller gives it (whole warps, 32 to MAX_THREADS:
+// the kernel loops over whatever part of the row its registers do not
+// hold, so any such count computes the whole row), else enough for ELEMS
+// elements each, in whole warps, at most MAX_THREADS. Returns false for an
+// illegal thread count.
 struct Plan {
   int vec, threads;
 };
 
-Plan make_plan(const void* x, const void* scale, const void* out, int d, int V) {
-  const uintptr_t bases = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(scale) |
-                          reinterpret_cast<uintptr_t>(out);
-  const int vec = bases % 16 == 0 && d % V == 0 ? V : 1;
+bool valid_threads(int threads) {
+  return threads == 0 || (threads % 32 == 0 && threads >= 32 && threads <= MAX_THREADS);
+}
+
+Plan make_plan(bool aligned16, int d, int V, int threads) {
+  const int vec = aligned16 && d % V == 0 ? V : 1;
   const int nreg = ELEMS / vec;
   const int per_thread = (d / vec + nreg - 1) / nreg;
-  return {vec, std::min(MAX_THREADS, std::max(32, (per_thread + 31) / 32 * 32))};
+  const int pick = std::min(MAX_THREADS, std::max(32, (per_thread + 31) / 32 * 32));
+  return {vec, threads > 0 ? threads : pick};
+}
+
+bool aligned16(const void* x, const void* scale, const void* out) {
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(scale) |
+                          reinterpret_cast<uintptr_t>(out);
+  return bases % 16 == 0;
 }
 
 template <typename T>
-cudaError_t launch(const Args& a, int rows, cudaStream_t stream) {
-  const Plan p = make_plan(a.x, a.scale, a.out, a.d, Pack<T>::N);
+cudaError_t launch(const Args& a, int rows, int threads, cudaStream_t stream) {
+  const Plan p = make_plan(aligned16(a.x, a.scale, a.out), a.d, Pack<T>::N, threads);
   if (p.vec == 1)
     rmsnorm_kernel<T, 1><<<rows, p.threads, 0, stream>>>(a);
   else
@@ -232,14 +245,32 @@ cudaError_t launch(const Args& a, int rows, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16; threads: a block's threads (whole
+// warps, 32 to 512) or 0 for the heuristic. Returns the launch's
+// cudaGetLastError().
 extern "C" int repro_rmsnorm_fwd(const void* x, const void* scale, void* out, int rows, int d,
-                                 float eps, int dtype, void* stream) {
+                                 float eps, int dtype, int threads, void* stream) {
+  if (!valid_threads(threads)) return cudaErrorInvalidValue;
   if (rows <= 0 || d <= 0) return cudaSuccess;
   const Args a = {x, static_cast<const float*>(scale), out, d, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0   ? launch<float>(a, rows, s)
-                    : dtype == 1 ? launch<__nv_bfloat16>(a, rows, s)
+  cudaError_t err = dtype == 0   ? launch<float>(a, rows, threads, s)
+                    : dtype == 1 ? launch<__nv_bfloat16>(a, rows, threads, s)
                                  : cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+// The launch repro_rmsnorm_fwd makes for these sizes (x, scale and out on
+// 16-byte boundaries or not) and thread count, by the same make_plan: out
+// = grid x, y, z, threads, dynamic shared bytes, cluster x. Launches
+// nothing.
+extern "C" int repro_rmsnorm_plan(int rows, int d, int dtype, int aligned, int threads,
+                                  int64_t* out) {
+  if (!valid_threads(threads) || rows <= 0 || d <= 0 || (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
+  const Plan p = make_plan(aligned != 0, d, dtype == 0 ? Pack<float>::N : Pack<__nv_bfloat16>::N,
+                           threads);
+  const int64_t v[6] = {rows, 1, 1, p.threads, 0, 1};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return cudaSuccess;
 }

@@ -65,7 +65,8 @@
 // (the 8 diagonal n-tiles one per warp, the 12 off-diagonal ones spread);
 // stage C: A v for the warp's output tile, o = (q e^w) S + A v + bonus, and
 // the new state into shared memory. The launcher picks VS in {16, 32, 64}
-// from B * H and the shared memory a block needs: the narrowest whose
+// (unless the caller gives one, kernels/tuning.py) from B * H and the
+// shared memory a block needs: the narrowest whose
 // blocks are all resident at once (rwkv6-3b and hymba-1.5b at batch 1: 32
 // and 16; 64 and 16 were slower for rwkv6, 32 and 64 for hymba, PERF.md),
 // though the scores are recomputed in every slice. Inputs are read in their (B, T, H, *)
@@ -619,6 +620,9 @@ int copy_mode(const void* base, const Strides& s, int es, int row) {
   return COPY_SYNC;
 }
 
+// A block per (slice of vs columns of V, head, row).
+dim3 grid_of(int B, int H, int V, int vs) { return dim3((V + vs - 1) / vs, H, B); }
+
 template <typename T, typename TL, int NV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* ld, const float* u,
                    void* o, float* state, Strides sq, Strides sk, Strides sv, Strides sl, int B,
@@ -628,8 +632,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ld, 
   if (err != cudaSuccess) return err;
   const int4 modes{copy_mode(q, sq, sizeof(T), K), copy_mode(k, sk, sizeof(T), K),
                    copy_mode(v, sv, sizeof(T), V), copy_mode(ld, sl, sizeof(TL), K)};
-  dim3 grid((V + 8 * NV - 1) / (8 * NV), H, B);
-  wkv6_kernel<T, TL, NV><<<grid, THREADS, L.bytes, stream>>>(
+  wkv6_kernel<T, TL, NV><<<grid_of(B, H, V, 8 * NV), THREADS, L.bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const TL*>(ld), u, static_cast<T*>(o), state, sq, sk, sv, sl, modes, T_len, H,
       K, V, L);
@@ -640,11 +643,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ld, 
 // card at once (several per SM where shared memory allows), else the
 // widest that fits one block per SM; recomputing the scores in more slices
 // costs less than a block left for a second wave.
-int choose_vs(int B, int H, int K, int V, int es, int esl) {
-  int sms = 132;
-  int dev = 0;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+int choose_vs(int B, int H, int K, int V, int es, int esl, int sms) {
   int widest = 0;
   for (int vs = 16; vs <= 64; vs *= 2) {
     const int bytes = make_layout(K, vs, es, esl).bytes;
@@ -657,13 +656,29 @@ int choose_vs(int B, int H, int K, int V, int es, int esl) {
   return widest;
 }
 
+int sm_count() {
+  int sms = 132, dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// The V slice of a call: ``v_slice`` where the caller gives one (16, 32 or
+// 64, the widths the kernel is instantiated for, whose layout fits a
+// block's shared memory), else choose_vs. 0 for an illegal request.
+int plan_vs(int B, int H, int K, int V, int es, int esl, int v_slice) {
+  if (v_slice == 0) return choose_vs(B, H, K, V, es, esl, sm_count());
+  if (v_slice != 16 && v_slice != 32 && v_slice != 64) return 0;
+  return size_t(make_layout(K, v_slice, es, esl).bytes) <= kMaxSmem ? v_slice : 0;
+}
+
 template <typename T, typename TL>
 cudaError_t dispatch_vs(const void* q, const void* k, const void* v, const void* ld,
                         const float* u, void* o, float* state, Strides sq, Strides sk,
                         Strides sv, Strides sl, int B, int T_len, int H, int K, int V,
-                        cudaStream_t s) {
-  const int vs = choose_vs(B, H, K, V, sizeof(T), sizeof(TL));
-  if (vs == 0) return cudaErrorInvalidConfiguration;
+                        int v_slice, cudaStream_t s) {
+  const int vs = plan_vs(B, H, K, V, sizeof(T), sizeof(TL), v_slice);
+  if (vs == 0) return v_slice ? cudaErrorInvalidValue : cudaErrorInvalidConfiguration;
   const Layout L = make_layout(K, vs, sizeof(T), sizeof(TL));
   if (vs == 16) return launch<T, TL, 2>(q, k, v, ld, u, o, state, sq, sk, sv, sl, B, T_len, H, K, V, L, s);
   if (vs == 32) return launch<T, TL, 4>(q, k, v, ld, u, o, state, sq, sk, sv, sl, B, T_len, H, K, V, L, s);
@@ -674,11 +689,11 @@ template <typename T>
 cudaError_t dispatch_ld(const void* q, const void* k, const void* v, const void* ld,
                         const float* u, void* o, float* state, Strides sq, Strides sk,
                         Strides sv, Strides sl, int B, int T_len, int H, int K, int V,
-                        int ld_dtype, cudaStream_t s) {
+                        int ld_dtype, int v_slice, cudaStream_t s) {
   return ld_dtype == 0 ? dispatch_vs<T, float>(q, k, v, ld, u, o, state, sq, sk, sv, sl, B, T_len,
-                                               H, K, V, s)
+                                               H, K, V, v_slice, s)
          : ld_dtype == 1 ? dispatch_vs<T, __nv_bfloat16>(q, k, v, ld, u, o, state, sq, sk, sv, sl,
-                                                         B, T_len, H, K, V, s)
+                                                         B, T_len, H, K, V, v_slice, s)
                          : cudaErrorInvalidValue;
 }
 
@@ -688,11 +703,13 @@ cudaError_t dispatch_ld(const void* q, const void* k, const void* v, const void*
 // strides (the four of each: b, t, h, last); u (H, K) f32 contiguous, or
 // null for SSD mode; o (B, T, H, V) contiguous in q's type; state (B, H, K,
 // V) f32 contiguous, written whole. dtype (of q, k, v, o) and ld_dtype: 0 =
-// float32, 1 = bfloat16. Returns the launch's cudaGetLastError(); with an
-// empty grid it launches nothing and returns 0 (the caller fills the state).
+// float32, 1 = bfloat16; v_slice: V columns a block (16, 32 or 64), or 0
+// for the heuristic (choose_vs). Returns the launch's cudaGetLastError();
+// with an empty grid it launches nothing and returns 0 (the caller fills
+// the state).
 extern "C" int repro_wkv6_fwd(const void* q, const void* k, const void* v, const void* ld,
                               const void* u, void* o, void* state, const int64_t* strides, int B,
-                              int T_len, int H, int K, int V, int dtype, int ld_dtype,
+                              int T_len, int H, int K, int V, int dtype, int ld_dtype, int v_slice,
                               void* stream) {
   if (B <= 0 || H <= 0 || T_len <= 0) return 0;
   if (K <= 0 || K > KMAX || V <= 0 || V > KMAX) return static_cast<int>(cudaErrorInvalidValue);
@@ -705,9 +722,27 @@ extern "C" int repro_wkv6_fwd(const void* q, const void* k, const void* v, const
   float* st = static_cast<float*>(state);
   cudaError_t err =
       dtype == 0 ? dispatch_ld<float>(q, k, v, ld, uf, o, st, sq, sk, sv, sl, B, T_len, H, K, V,
-                                      ld_dtype, s)
+                                      ld_dtype, v_slice, s)
       : dtype == 1 ? dispatch_ld<__nv_bfloat16>(q, k, v, ld, uf, o, st, sq, sk, sv, sl, B, T_len,
-                                                H, K, V, ld_dtype, s)
+                                                H, K, V, ld_dtype, v_slice, s)
                    : cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+// The launch repro_wkv6_fwd makes for these sizes, types and V slice, by
+// the same plan_vs, grid_of and make_layout: out = grid x, y, z, threads,
+// dynamic shared bytes, cluster x. Launches nothing.
+extern "C" int repro_wkv6_plan(int B, int T_len, int H, int K, int V, int dtype, int ld_dtype,
+                               int v_slice, int64_t* out) {
+  (void)T_len;
+  if (B <= 0 || H <= 0 || K <= 0 || K > KMAX || V <= 0 || V > KMAX || (dtype != 0 && dtype != 1) ||
+      (ld_dtype != 0 && ld_dtype != 1))
+    return cudaErrorInvalidValue;
+  const int es = dtype == 1 ? 2 : 4, esl = ld_dtype == 1 ? 2 : 4;
+  const int vs = plan_vs(B, H, K, V, es, esl, v_slice);
+  if (vs == 0) return cudaErrorInvalidValue;
+  const dim3 g = grid_of(B, H, V, vs);
+  const int64_t v6[6] = {g.x, g.y, g.z, THREADS, make_layout(K, vs, es, esl).bytes, 1};
+  for (int i = 0; i < 6; ++i) out[i] = v6[i];
+  return cudaSuccess;
 }

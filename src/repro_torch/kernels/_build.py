@@ -47,14 +47,38 @@ SIGNATURES = {
     "repro_flash_attention_dkv": [_VP] * 8 + [_INT] * 8
     + [_FLOAT, _INT, _VP],
     # q, k_pages, v_pages, block_tables, lengths, o,
-    # B, P, ps, Hq, Hkv, D, npag, scale, dtype, stream
-    "repro_paged_attention_fwd": [_VP] * 6 + [_INT] * 7 + [_FLOAT, _INT, _VP],
+    # B, P, ps, Hq, Hkv, D, npag, scale, dtype, splits, stream
+    "repro_paged_attention_fwd": [_VP] * 6 + [_INT] * 7
+    + [_FLOAT, _INT, _INT, _VP],
     # q, k, v, ld, u, o, state, strides (16 int64), B, T, H, K, V, dtype,
-    # ld_dtype, stream
-    "repro_wkv6_fwd": [_VP] * 8 + [_INT] * 7 + [_VP],
-    # x, scale, out, rows, d, eps, dtype, stream
-    "repro_rmsnorm_fwd": [_VP] * 3 + [_INT] * 2 + [_FLOAT, _INT, _VP],
+    # ld_dtype, v_slice, stream
+    "repro_wkv6_fwd": [_VP] * 8 + [_INT] * 8 + [_VP],
+    # x, scale, out, rows, d, eps, dtype, threads, stream
+    "repro_rmsnorm_fwd": [_VP] * 3 + [_INT] * 2 + [_FLOAT, _INT, _INT, _VP],
+    # the plan queries: the launch the entry point above makes for these
+    # sizes and launch parameter, written to out (6 int64: grid x, y, z,
+    # threads, dynamic shared bytes, cluster x); they launch nothing.
+    # B, Sq, Sk, Hq, Hkv, D, dtype, out
+    "repro_flash_attention_fwd_plan": [_INT] * 7 + [_VP],
+    "repro_flash_attention_dq_plan": [_INT] * 7 + [_VP],
+    "repro_flash_attention_dkv_plan": [_INT] * 7 + [_VP],
+    # B, P, ps, Hq, Hkv, D, npag, dtype, splits, out
+    "repro_paged_attention_plan": [_INT] * 9 + [_VP],
+    # B, T, H, K, V, dtype, ld_dtype, v_slice, out
+    "repro_wkv6_plan": [_INT] * 8 + [_VP],
+    # rows, d, dtype, aligned (x, scale, out on 16-byte boundaries), threads,
+    # out
+    "repro_rmsnorm_plan": [_INT] * 5 + [_VP],
+    # what the card makes of a K2 launch (clusters resident at once, K2's
+    # largest portable cluster), written to out (2 int64); launches
+    # nothing: B, P, ps, Hq, Hkv, D, npag, dtype, splits, out
+    "repro_paged_attention_clusters": [_INT] * 9 + [_VP],
+    # attr, value (int*): cudaDeviceGetAttribute of the current device
+    "repro_device_attribute": [_INT, _VP],
 }
+PLAN_FIELDS = ("grid_x", "grid_y", "grid_z", "threads", "smem", "cluster")
+# what the library did in this process: built from source, loaded
+BUILDS = {"built": 0, "loaded": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -124,6 +148,7 @@ def build_library() -> Path:
             raise RuntimeError("linking the kernel library failed:\n"
                                + "\n".join(log))
         (out_dir / "build.log").write_text("\n".join(log))
+        BUILDS["built"] += 1
         # rename is atomic: a concurrent build finds a whole library or none
         os.replace(tmp / LIB_NAME, lib)
     finally:
@@ -145,10 +170,23 @@ def library() -> ctypes.CDLL:
                     continue
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            BUILDS["loaded"] += 1
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def plan(name: str, *args: int) -> dict:
+    """The launch ``repro_<name>_plan`` reports for ``args`` (the plan
+    query of an entry point, computed by the functions its launcher
+    calls): {grid_x, grid_y, grid_z, threads, smem, cluster}. Raises
+    where the C code refuses the sizes or the launch parameter."""
+    out = (ctypes.c_int64 * len(PLAN_FIELDS))()
+    err = getattr(library(), f"repro_{name}_plan")(
+        *args, ctypes.addressof(out))
+    check(err, f"{name} plan")
+    return dict(zip(PLAN_FIELDS, (int(v) for v in out)))
 
 
 def check(err: int, what: str) -> None:

@@ -17,6 +17,13 @@ backward kernel. Without a gradient, attention runs K1.
 backward kernel for it: on CUDA tensors that require a gradient it
 raises rather than return an output without a ``grad_fn``.
 
+``paged_attention``, ``wkv6`` and ``rmsnorm`` take the launch parameter
+their kernel opens (K2's ``splits``, B6's ``v_slice``, K3's ``threads``):
+on a CUDA tensor it is resolved by :mod:`repro_torch.kernels.tuning`
+(explicit > tuned cache > the heuristic's mirror) and passed to the C
+launcher; an illegal explicit value raises ``ValueError``. On CPU tensors
+the plain version runs and an explicit value is only validated.
+
 ``LAUNCHES`` counts kernel launches per kernel. A wrapper adds one where
 it launches its kernel and nowhere else, so a run that resets the counts
 before and reads them after shows which kernels its path went through.
@@ -30,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ref, work
+from repro_torch.kernels import ref, tuning, work
 
 KERNELS = ("flash_attention", "flash_attention_lse", "flash_attention_dq",
            "flash_attention_dkv", "paged_attention", "rmsnorm", "wkv6")
@@ -184,10 +191,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_tables: torch.Tensor,
-                    lengths: torch.Tensor) -> torch.Tensor:
+                    lengths: torch.Tensor, *,
+                    splits=None) -> torch.Tensor:
     """Kernel K2. q (B,1,Hq,D); pools (P,ps,Hkv,D) of q's dtype;
     block_tables (B,n_pages) int32 physical page ids in logical order,
-    padded with the null page 0; lengths (B,) int32 -> (B,1,Hq,D)."""
+    padded with the null page 0; lengths (B,) int32 -> (B,1,Hq,D).
+    ``splits``: the blocks (a thread-block cluster) sharing a row's live
+    pages, 1 to 8, clamped to n_pages; None resolves it
+    (:func:`tuning.resolve_paged_splits`)."""
     what = "paged_attention"
     cuda = _on_cuda(what, q, k_pages, v_pages, block_tables, lengths)
     _require(q.dim() == 4 and q.shape[1] == 1, what,
@@ -208,6 +219,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
              what, "block_tables and lengths must be int32")
     counted = work.kernel("paged_attention", lambda: work.paged_decode(
         q, k_pages, lengths, k_pages.shape[1]))
+    if splits is not None:
+        tuning.check_splits(splits)
     if not cuda:
         with counted:
             return _dense(ref.paged_decode_attention_ref(
@@ -221,22 +234,29 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     _require(all(t.data_ptr() % (VEC * t.element_size()) == 0
                  for t in (k_pages, v_pages)), what,
              f"pools must start on a {VEC}-element boundary")
+    splits = tuning.resolve_paged_splits(
+        splits, q_shape=q.shape, pages_shape=k_pages.shape,
+        n_pages=block_tables.shape[1], dtype=q.dtype)
     with counted:
-        out = paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths)
+        out = paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
+                                   splits)
         if out.numel():
             LAUNCHES["paged_attention"] += 1
     return out
 
 
-def _rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
-                 eps: float) -> torch.Tensor:
+def _rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float,
+                 threads=None) -> torch.Tensor:
     d = x.shape[-1]
+    rows = x.numel() // max(d, 1)
     with work.kernel("rmsnorm", lambda: work.rmsnorm(
-            x.numel() // max(d, 1), d, x.element_size())):
+            rows, d, x.element_size())):
         if not x.is_cuda:
             return _dense(ref.rmsnorm_ref(x, scale, eps))[0]
         from repro_torch.kernels.rmsnorm import rmsnorm_cuda
-        out = rmsnorm_cuda(x.view(-1, d), scale, eps)
+        threads = tuning.resolve_rmsnorm_threads(threads, rows=rows, d=d,
+                                                 dtype=x.dtype)
+        out = rmsnorm_cuda(x.view(-1, d), scale, eps, threads)
         if out.numel():
             LAUNCHES["rmsnorm"] += 1
         return out.view(x.shape)
@@ -247,36 +267,40 @@ class _RMSNorm(torch.autograd.Function):
     in plain PyTorch from the saved input (:func:`ref.rmsnorm_bwd_ref`)."""
 
     @staticmethod
-    def forward(ctx, x, scale, eps):
+    def forward(ctx, x, scale, eps, threads):
         ctx.save_for_backward(x, scale)
         ctx.eps = eps
-        return _rmsnorm_fwd(x, scale, eps)
+        return _rmsnorm_fwd(x, scale, eps, threads)
 
     @staticmethod
     def backward(ctx, dy):
         x, scale = ctx.saved_tensors
-        return (*ref.rmsnorm_bwd_ref(x, scale, dy, ctx.eps), None)
+        return (*ref.rmsnorm_bwd_ref(x, scale, dy, ctx.eps), None, None)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
-            eps: float = 1e-5) -> torch.Tensor:
+            eps: float = 1e-5, threads=None) -> torch.Tensor:
     """Kernel K3, differentiable in x and scale. x (..., d) f32 or bf16;
-    scale (d,) f32 -> x's shape and dtype."""
+    scale (d,) f32 -> x's shape and dtype. ``threads``: a row's block,
+    whole warps from 32 to 512; None resolves it
+    (:func:`tuning.resolve_rmsnorm_threads`)."""
     what = "rmsnorm"
     cuda = _on_cuda(what, x, scale)
     _require(x.dim() >= 1 and scale.shape == (x.shape[-1],), what,
              f"scale{tuple(scale.shape)} does not match x{tuple(x.shape)}")
     _require(x.dtype in _DTYPES and scale.dtype == torch.float32, what,
              f"dtypes x {x.dtype} / scale {scale.dtype}")
+    if threads is not None:
+        tuning.check_threads(threads)
     if cuda:
         _require_contiguous(what, x=x, scale=scale)
     if _needs_grad(x, scale):
-        return _RMSNorm.apply(x, scale, eps)
-    return _rmsnorm_fwd(x, scale, eps)
+        return _RMSNorm.apply(x, scale, eps, threads)
+    return _rmsnorm_fwd(x, scale, eps, threads)
 
 
 def wkv6(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor,
-         u=None, initial_state=None) -> tuple:
+         u=None, initial_state=None, *, v_slice=None) -> tuple:
     """Kernel B6, the chunked WKV6 (decayed linear attention with a carried
     state), chunks of 64 tokens. q, k, ld (B,T,H,K), any strides; v
     (B,T,H,V); q, k, v one dtype (f32 or bf16), ld f32 or bf16; u (H,K)
@@ -285,6 +309,8 @@ def wkv6(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor,
     dtype, state (B,H,K,V) f32), the contract of the reference's
     ``ops.wkv6``. A nonzero initial_state is folded in outside the kernel
     (:func:`ref.wkv6_fold_initial_state`), as the reference does.
+    ``v_slice``: the V columns a block computes, 16, 32 or 64; None
+    resolves it (:func:`tuning.resolve_wkv_v_slice`).
 
     Forward only: on CUDA tensors that require a gradient it raises (the
     reference has no backward kernel; train through the model's
@@ -310,6 +336,9 @@ def wkv6(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor,
                  and initial_state.dtype == torch.float32), what,
              "initial_state must be (B, H, K, V) float32 or None")
     counted = work.kernel("wkv6", lambda: work.wkv6(q, v, ld, u))
+    if v_slice is not None:
+        tuning.check_v_slice(v_slice, K, q.element_size(),
+                             ld.element_size())
     if not cuda:
         with counted:
             return _dense(*ref.wkv6_chunked_ref(q, k, v, ld, u,
@@ -329,7 +358,10 @@ def wkv6(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor,
             state = torch.zeros((B, H, K, V), dtype=torch.float32,
                                 device=q.device)
         else:
-            o, state = wkv6_cuda(q, k, v, ld, u)
+            v_slice = tuning.resolve_wkv_v_slice(
+                v_slice, q_shape=q.shape, v_head=V, dtype=q.dtype,
+                use_u=u is not None, ld_dtype=ld.dtype)
+            o, state = wkv6_cuda(q, k, v, ld, u, v_slice)
             LAUNCHES["wkv6"] += 1
         if initial_state is not None:
             o, state = ref.wkv6_fold_initial_state(o, state, q, ld, u,

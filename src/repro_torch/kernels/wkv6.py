@@ -15,10 +15,12 @@ MAX_DIM = 64    # largest K and V the kernel takes (csrc: KMAX)
 
 
 def wkv6_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              ld: torch.Tensor, u) -> tuple:
+              ld: torch.Tensor, u, v_slice: int = 0) -> tuple:
     """q, k, ld (B,T,H,K), v (B,T,H,V) CUDA tensors of any strides; u (H,K)
     f32 contiguous or None (validated by the caller) -> (o (B,T,H,V) in
-    q's dtype, state (B,H,K,V) f32), from a zero initial state."""
+    q's dtype, state (B,H,K,V) f32), from a zero initial state.
+    ``v_slice``: V columns a block (16, 32 or 64), 0 for the C
+    heuristic."""
     B, T, H, K = q.shape
     V = v.shape[-1]
     o = torch.empty((B, T, H, V), dtype=q.dtype, device=q.device)
@@ -30,6 +32,6 @@ def wkv6_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         None if u is None else u.data_ptr(), o.data_ptr(), state.data_ptr(),
         ctypes.addressof(strides), B, T, H, K, V,
         _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[ld.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        int(v_slice), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "wkv6")
     return o, state

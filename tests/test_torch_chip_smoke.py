@@ -1035,3 +1035,142 @@ def test_phase13_runs_on_the_cpu(smoke):
     assert set(launches) == {"train:13a", "train:13b"}
     assert all(n == 0 for c in launches.values() for n in c.values())
     assert not dist.is_initialized()
+
+
+def test_phase14_is_wired(smoke):
+    """Phase 14 runs after phase 9 and before the kernels line, so no
+    earlier phase sees its tuned cache; the launch recorder is installed
+    before phase 2's first line."""
+    src = (REPO / "chip_smoke.py").read_text()
+    main = src[src.index("def main()"):src.index("def _missing(")]
+    assert main.index("LaunchRecorder().install()") < main.index(
+        "for dname, dtype in") < main.index("_serve_suite(dev)") < \
+        main.index("_tuning_and_analysis(dev, recorder)") < main.index(
+            'line = {"kernels": [')
+    assert smoke.PHASE14_S == 60 and smoke.RESOLVE_CALLS == 10000
+
+
+def test_limits_problems(smoke):
+    from repro_torch.core.roofline import H100
+    lim = H100.limits
+    attrs = {f: tuple(getattr(lim, f) for _ in codes)
+             for f, codes in smoke.DEVICE_ATTRS.items()}
+    props = {f: getattr(lim, f) for f in smoke.DEVICE_PROPS}
+    assert smoke.limits_problems(lim, attrs, props, 8) == []
+    assert len(smoke.limits_problems(
+        lim, {**attrs, "grid_yz": (65535, 1024)}, {**props, "sms": 114},
+        4)) == 3
+
+
+def _lint_query(name, *args):
+    """The lint's own plan where the card answers the C plan query."""
+    from repro_torch.analysis import kernel_lint
+    kernel = {"flash_attention_fwd": "flash_attention",
+              "flash_attention_dq": "flash_attention",
+              "flash_attention_dkv": "flash_attention",
+              "paged_attention": "paged_attention_fwd", "wkv6": "wkv6_fwd",
+              "rmsnorm": "rmsnorm_fwd"}[name]
+    for dims in kernel_lint.CANONICAL_DIMS[kernel]:
+        for p in kernel_lint.plans(kernel, dims, kernel_lint.default_config(
+                kernel, dims)):
+            # the parameter (last) is 0 in the query: the C heuristic
+            same = (p.query_args == args if kernel == "flash_attention"
+                    else p.query_args[:-1] == args[:-1])
+            if p.query == name and same:
+                return p.launch()
+    raise KeyError((name, args))
+
+
+def _records():
+    from repro_torch.analysis import kernel_lint
+    out = set()
+    for kernel, shapes in kernel_lint.CANONICAL_DIMS.items():
+        for dims in shapes:
+            cfg = kernel_lint.default_config(kernel, dims)
+            passed = next(iter(cfg.items())) if cfg else None
+            if kernel == "rmsnorm_fwd":
+                dims = {**dims, "aligned": 1}
+            out.add((kernel, tuple(dims.items()), passed))
+    return out
+
+
+def test_plan_problems_hold_each_launch(smoke):
+    problems, n = smoke.plan_problems(_records(), _lint_query)
+    assert problems == [] and n == 3 * 8 + 6 + 4 + 6
+
+    def off(name, *args):
+        plan = dict(_lint_query(name, *args))
+        if name == "wkv6":
+            plan["smem"] += 16
+        return plan
+    problems, _ = smoke.plan_problems(_records(), off)
+    assert len(problems) == 4 and all("B6" in p for p in problems)
+    records = {(k, d, ("splits", 8) if p and p[0] == "splits" else p)
+               for k, d, p in _records()}
+    problems, _ = smoke.plan_problems(records, _lint_query)
+    # 8 is the heuristic's own pick at batch 1: the other 4 K2 records
+    assert sum("passed ('splits', 8)" in p for p in problems) == 4
+
+
+def test_the_launch_recorder_keys_and_restores(smoke, monkeypatch):
+    from repro_torch.kernels import (flash_attention, paged_attention,
+                                     rmsnorm, wkv6)
+    for module, name in ((flash_attention, "flash_attention_cuda"),
+                         (paged_attention, "paged_attention_cuda"),
+                         (wkv6, "wkv6_cuda"), (rmsnorm, "rmsnorm_cuda")):
+        monkeypatch.setattr(module, name, lambda *a, **k: "ran")
+    fakes = {n: getattr(m, n) for m, n in (
+        (flash_attention, "flash_attention_cuda"),
+        (rmsnorm, "rmsnorm_cuda"))}
+    rec = smoke.LaunchRecorder().install()
+    try:
+        q = torch.zeros(1, 8, 4, 64)
+        assert flash_attention.flash_attention_cuda(
+            q, q[:, :, :2], q[:, :, :2], causal=True, window=0) == "ran"
+        x = torch.zeros(4, 64)
+        rmsnorm.rmsnorm_cuda(x, torch.ones(64), 1e-5, 96)
+        pq = torch.zeros(2, 1, 4, 64)
+        pool = torch.zeros(9, 16, 2, 64)
+        bt = torch.ones(2, 4, dtype=torch.int32)
+        paged_attention.paged_attention_cuda(pq, pool, pool, bt, bt[:, 0], 2)
+        wq = torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16)
+        wkv6.wkv6_cuda(wq, wq, wq, torch.zeros(1, 8, 2, 16), None, 16)
+    finally:
+        rec.remove()
+    assert flash_attention.flash_attention_cuda is \
+        fakes["flash_attention_cuda"]
+    assert rmsnorm.rmsnorm_cuda is fakes["rmsnorm_cuda"]
+    keys = {(k, dict(d).get("dtype"), p) for k, d, p in rec.seen}
+    assert keys == {("flash_attention", "float32", None),
+                    ("rmsnorm_fwd", "float32", ("threads", 96)),
+                    ("paged_attention_fwd", "float32", ("splits", 2)),
+                    ("wkv6_fwd", "bfloat16", ("v_slice", 16))}
+
+
+@pytest.mark.parametrize("kernel", ["paged_attention_fwd", "wkv6_fwd",
+                                    "rmsnorm_fwd"])
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_phase14_sweep_helpers_on_the_cpu(smoke, kernel, dname):
+    """14b's inputs, plain versions, calls and gates at small shapes on
+    the CPU (the wrappers run their plain versions), and 14c's
+    resolution with no cache: the heuristic."""
+    from repro_torch.kernels import tuning
+    dims = {"paged_attention_fwd": dict(B=4, Hq=4, Hkv=2, D=64, P=64,
+                                        ps=16, npag=16, dtype=dname),
+            "wkv6_fwd": dict(B=1, T=70, H=2, K=16, V=16, u=1, dtype=dname,
+                             ld="float32"),
+            "rmsnorm_fwd": dict(rows=5, d=96, dtype=dname)}[kernel]
+    args = smoke._sweep_inputs(kernel, getattr(torch, dname),
+                               torch.device("cpu"), dims)
+    want, plain = smoke._plain(kernel, args)
+    cands, _, dflt = smoke._candidates_at(kernel, dims)
+    for cfg in cands:
+        out = smoke._call(kernel, args, cfg[tuning.PARAMS[kernel]])
+        line = smoke._held_line(kernel, out, want, dname)
+        # the CPU's plain versions round in bf16, where the kernels keep
+        # f32: the one-unit gate is the card's
+        assert line["ok"] or dname == "bfloat16"
+        assert smoke._same(out, smoke._call(kernel, args))
+    assert smoke._resolve(kernel, dims, args) == \
+        dflt[tuning.PARAMS[kernel]]
+    plain()

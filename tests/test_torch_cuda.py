@@ -526,3 +526,151 @@ def test_reduced_ssm_engines_agree_through_the_kernels(dev, arch):
         assert ops.LAUNCHES["wkv6"] == 2 * rep.prefills
         toks[sched] = {m.rid: m.tokens.tolist() for m in rep.metrics}
     assert toks["static"] == toks["continuous"]
+
+
+# ----------------------------------------- launch parameters (tuning)
+def _candidate_plans():
+    """Every plan the lint makes at its canonical shapes, with each
+    launch parameter's candidates at those shapes too."""
+    from repro_torch.analysis import kernel_lint
+    from repro_torch.bench import tune
+    plans = kernel_lint.all_plans()
+    for dims in kernel_lint.CANONICAL_DIMS["paged_attention_fwd"]:
+        cands = tune.paged_candidates(dims["B"], dims["Hq"], dims["Hkv"],
+                                      dims["D"], dims["P"], dims["ps"],
+                                      dims["npag"], dims["dtype"])[0]
+        for cfg in cands:
+            plans += kernel_lint.plans("paged_attention_fwd", dims, cfg)
+    for dims in kernel_lint.CANONICAL_DIMS["wkv6_fwd"]:
+        cands = tune.wkv6_candidates(dims["B"], dims["T"], dims["H"],
+                                     dims["K"], dims["V"], dims["dtype"])[0]
+        for cfg in cands:
+            plans += kernel_lint.plans("wkv6_fwd", dims, cfg)
+    for dims in kernel_lint.CANONICAL_DIMS["rmsnorm_fwd"]:
+        for cfg in tune.rmsnorm_candidates(dims["rows"], dims["d"],
+                                           dims["dtype"])[0]:
+            plans += kernel_lint.plans("rmsnorm_fwd", dims, cfg)
+    return plans
+
+
+def test_each_plan_query_is_the_lints_plan(dev):
+    """The C plan query (computed by the functions the launcher calls)
+    equals the lint's plan field by field, for every kernel at the
+    canonical shapes and every candidate; the heuristic (0) equals its
+    Python mirror."""
+    from repro_torch.analysis import kernel_lint
+    from repro_torch.kernels import _build
+    for p in _candidate_plans():
+        assert _build.plan(p.query, *p.query_args) == p.launch(), p
+    for p in kernel_lint.all_plans():
+        if p.query in ("paged_attention", "wkv6", "rmsnorm"):
+            heuristic = _build.plan(p.query, *p.query_args[:-1], 0)
+            assert heuristic == p.launch(), p
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 8])
+def test_paged_kernel_at_each_split_count(dev, dtype, splits):
+    """K2 at every split count, granite's decode (B4 ctx160 Hq32 Hkv8
+    D128, 10 pages) and a wide table whose live pages leave splits empty:
+    held to the plain version, and two calls give the same bits."""
+    for layout in ("mixed", "b1_wide"):
+        rng = np.random.default_rng(splits)
+        args = _paged_inputs(rng, dtype, dev, 32, 8, 128, 16, layout)
+        before = ops.LAUNCHES["paged_attention"]
+        a = ops.paged_attention(*args, splits=splits)
+        b = ops.paged_attention(*args, splits=splits)
+        assert ops.LAUNCHES["paged_attention"] == before + 2
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        _close(a, ref.paged_decode_attention_ref(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("v_slice", [16, 32, 64])
+@pytest.mark.parametrize("mode,K,V", [("rwkv6", 64, 64), ("ssd", 16, 64),
+                                      ("rwkv6", 32, 48)])
+def test_wkv6_kernel_at_each_v_slice(dev, dtype, v_slice, mode, K, V):
+    """B6 at every V slice whose layout fits: held to the plain version
+    (relative to its largest magnitude), deterministic; a slice that does
+    not fit raises."""
+    from repro_torch.kernels import tuning
+    rng = np.random.default_rng(v_slice + K)
+    q, k = (_rand(rng, (1, 130, 4, K), dtype, dev) for _ in range(2))
+    v = _rand(rng, (1, 130, 4, V), dtype, dev)
+    ld = -torch.exp(_rand(rng, (1, 130, 4, K), F32, dev) - 3.0)
+    u = 0.1 * _rand(rng, (4, K), F32, dev) if mode == "rwkv6" else None
+    try:
+        tuning.check_v_slice(v_slice, K, q.element_size(), 4)
+    except ValueError:
+        with pytest.raises(ValueError, match="opt-in limit"):
+            ops.wkv6(q, k, v, ld, u, v_slice=v_slice)
+        return
+    o1, s1 = ops.wkv6(q, k, v, ld, u, v_slice=v_slice)
+    o2, s2 = ops.wkv6(q, k, v, ld, u, v_slice=v_slice)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(s1, s2)
+    for got, want in zip((o1, s1), ref.wkv6_chunked_ref(q, k, v, ld, u)):
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= TOL[dtype] * max(float(want.float().abs().max()),
+                                       1e-30)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("threads", [32, 64, 128, 256, 512, 96])
+@pytest.mark.parametrize("rows,d", [(128, 4096), (4, 1600), (7, 100),
+                                    (3, 40000)])
+def test_rmsnorm_kernel_at_each_thread_count(dev, dtype, threads, rows, d):
+    """K3 at thread counts below and above the heuristic's pick: the
+    kernel loops over what its registers do not hold, so every count
+    computes the whole row (40,000 elements on 32 threads too)."""
+    rng = np.random.default_rng(threads + d)
+    x = _rand(rng, (rows, d), dtype, dev)
+    scale = _rand(rng, (d,), F32, dev)
+    a = ops.rmsnorm(x, scale, threads=threads)
+    b = ops.rmsnorm(x, scale, threads=threads)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _close(a, ref.rmsnorm_ref(x, scale), dtype)
+
+
+def test_illegal_launch_parameters_raise_on_the_card(dev):
+    rng = np.random.default_rng(0)
+    args = _paged_inputs(rng, F32, dev, 32, 8, 128, 16, "mixed")
+    with pytest.raises(ValueError, match="cluster"):
+        ops.paged_attention(*args, splits=16)
+    x = torch.ones(4, 64, device=dev)
+    with pytest.raises(ValueError, match="launch bound"):
+        ops.rmsnorm(x, torch.ones(64, device=dev), threads=1024)
+    q = torch.ones(1, 8, 2, 64, device=dev)
+    with pytest.raises(ValueError, match="V slices"):
+        ops.wkv6(q, q, q, -q, v_slice=128)
+    # the C entry points refuse them too, whatever the caller passes
+    from repro_torch.kernels import _build
+    with pytest.raises(RuntimeError):
+        _build.plan("paged_attention", 4, 41, 16, 32, 8, 128, 10, 0, 9)
+    with pytest.raises(RuntimeError):
+        _build.plan("rmsnorm", 4, 64, 0, 1, 48)
+    with pytest.raises(RuntimeError):
+        _build.plan("wkv6", 1, 8, 2, 64, 64, 0, 0, 128)
+
+
+def test_the_step_audit_is_clean_on_the_card(dev):
+    from repro_torch.analysis import graph_audit
+    findings = graph_audit.audit_all(device=dev)
+    assert findings == [], [str(f) for f in findings]
+
+
+def test_a_transfer_inside_a_step_is_flagged_on_the_card(dev):
+    from repro_torch.analysis import graph_audit
+
+    def step(x):
+        return x.cpu().sum() + x.sum().to("cpu")
+
+    def read(x):
+        return x * len(x.tolist())
+
+    for fn in (step, read):
+        rules = {f.rule for f in graph_audit.audit_function(
+            "planted", fn, torch.ones(4, device=dev))}
+        assert rules == {"RG005"}, fn

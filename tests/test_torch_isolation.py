@@ -94,6 +94,23 @@ def test_inter_chip_modules_pull_in_no_jax():
     assert out.stdout.strip() == "[]"
 
 
+def test_analysis_and_tuner_pull_in_no_jax():
+    """The static analysis, the tuned cache and the sweeps import nothing
+    of JAX or the JAX package: they keep their own copies of the
+    reference's findings and tuning."""
+    code = ("import sys, repro_torch.analysis.__main__, "
+            "repro_torch.analysis.seams, repro_torch.analysis.kernel_lint, "
+            "repro_torch.analysis.graph_audit, repro_torch.kernels.tuning, "
+            "repro_torch.bench.tune, repro_torch.bench.suites.tune; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == "[]"
+
+
 def test_a_mesh_on_the_card_never_falls_back_to_gloo():
     """``make_mesh`` on ``cuda`` wants NCCL and a card: without a card it
     raises (setting the card fails) rather than building a gloo mesh."""
