@@ -11,17 +11,20 @@ built from each OTHER's ``src/repro_torch/csrc`` and from this checkout's
 called through this checkout's launchers, so the C entry points must match
 (their signatures are in ``kernels/_build.py``). Cases, in f32 and bf16, one
 JSON line each: K1 and B2 at the shapes of ``chip_smoke.py`` phases 2 and
-2b, B3 and B4 at the training shape, B6 at phase 2c's shapes, K2 and K3 at
+2b (K1 also at whisper's non-causal encoder and llama4's prefills), B3
+and B4 at the training shape, B6 at phase 2c's shapes, K2 and K3 at
 phase 2's; ``--kernels`` keeps a subset. Each line has the device ms of
 every library (a CUDA graph of back-to-back calls, ``chip_smoke._time_ms``)
-in the turns A B .. B A, twice each, and each output's error against the
-plain version (relative to its max magnitude; K1 and K3 in bf16 also in
-units of bf16 rounding, ``chip_smoke._ulp_err``). Where an OTHER's K3 is
-its Triton kernel (``kernels/rmsnorm.py::rmsnorm_triton``, before it was
-rewritten in CUDA C++), that kernel runs in its turns; K3's lines also
-time ``F.rms_norm`` and a one-element in-place add (the floor under any
-one-kernel call), twice each, after the turns. The first line is the
-card's name and power limit. Exits non-zero without a card.
+and the eager call's ms (``call_ms_<tag>``: the host's cost per call where
+it exceeds the device's) in the turns A B .. B A, twice each, and each
+output's error against the plain version (relative to its max magnitude; K1
+and K3 in bf16 also in units of bf16 rounding, ``chip_smoke._ulp_err``).
+Where an OTHER's K3 is its Triton kernel
+(``kernels/rmsnorm.py::rmsnorm_triton``, before it was rewritten in CUDA
+C++), that kernel runs in its turns; K3's lines also time ``F.rms_norm`` and
+a one-element in-place add (the floor under any one-kernel call), twice
+each, after the turns. The first line is the card's name and power limit.
+Exits non-zero without a card.
 """
 from __future__ import annotations
 
@@ -83,7 +86,9 @@ def main(argv: list[str]) -> int:
                     for g, w in zip(got, want))
                 if fn in ("K1", "K3") and dname == "bfloat16":
                     line[f"max_ulp_err_{tag}"] = c._ulp_err(got[0], want[0])
-                line.setdefault(f"ms_{tag}", []).append(c._time_ms(call)[0])
+                dev_ms, call_ms = c._time_ms(call)
+                line.setdefault(f"ms_{tag}", []).append(dev_ms)
+                line.setdefault(f"call_ms_{tag}", []).append(call_ms)
             _build._lib, TURN[0] = libs[tags[-1]], tags[-1]
             if fn == "K3":
                 x, scale = call.inputs
@@ -144,17 +149,27 @@ def _cases(kernels, dtype, dev, gen):
         x = torch.randn(shape, generator=gen, device=dev)
         return x if f32 else x.to(dtype)
 
-    flash = [("B2", 4096, 32, 8, 128, 0), ("B2", 4000, 32, 8, 128, 0),
-             ("K1", 128, 32, 8, 128, 0), ("K1", 125, 32, 8, 128, 0),
-             ("K1", 2048, 32, 8, 128, 0), ("K1", 128, 25, 5, 64, 1024),
-             ("K1", 1100, 25, 5, 64, 1024), ("B3", 4096, 32, 8, 128, 0),
-             ("B4", 4096, 32, 8, 128, 0)]
-    for fn, S, Hq, Hkv, D, W in flash:
+    # (kernel, S, Hq, Hkv, D, window, causal): phase 2b's B2, phase 2's K1
+    # (granite, hymba; whisper's encoder, non-causal; llama4's prefills),
+    # B3 and B4 at the training shape
+    flash = [("B2", 4096, 32, 8, 128, 0, True),
+             ("B2", 4000, 32, 8, 128, 0, True),
+             ("K1", 128, 32, 8, 128, 0, True),
+             ("K1", 125, 32, 8, 128, 0, True),
+             ("K1", 2048, 32, 8, 128, 0, True),
+             ("K1", 128, 25, 5, 64, 1024, True),
+             ("K1", 1100, 25, 5, 64, 1024, True),
+             ("K1", 1500, 20, 20, 64, 0, False),
+             ("K1", 128, 40, 8, 128, 0, True),
+             ("K1", 125, 40, 8, 128, 0, True),
+             ("B3", 4096, 32, 8, 128, 0, True),
+             ("B4", 4096, 32, 8, 128, 0, True)]
+    for fn, S, Hq, Hkv, D, W, causal in flash:
         if fn not in kernels:
             continue
         q, do = rand(1, S, Hq, D), rand(1, S, Hq, D)
         k, v = rand(1, S, Hkv, D), rand(1, S, Hkv, D)
-        kw = dict(causal=True, window=W)
+        kw = dict(causal=causal, window=W)
         o_ref, lse_ref = ref.flash_attention_lse_ref(q, k, v, **kw)
         delta = ref.attention_delta(o_ref, do)
         args = (q, k, v, do, lse_ref, delta)
@@ -169,7 +184,8 @@ def _cases(kernels, dtype, dev, gen):
             "B4": (lambda: flash_attention_dkv_cuda(*args, **kw),
                    lambda: ref.flash_attention_dkv_ref(*args, **kw)),
         }[fn]
-        yield (fn, f"B1 S{S} Hq{Hq} Hkv{Hkv} D{D} causal"
+        yield (fn, f"B1 S{S} Hq{Hq} Hkv{Hkv} D{D} "
+               + ("causal" if causal else "non-causal")
                + (f" window{W}" if W else ""), call, want())
     if "B6" in kernels:
         # phase 2c's cases: (mode, T, H, K, decay)

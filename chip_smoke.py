@@ -686,13 +686,20 @@ def main() -> int:
           "cuda_library_build_s": build_s, "ptxas": ptxas,
           "attention_sass": attn})
     # the flash-attention kernels run on the tensor cores without spilling
-    # at the serving and training paths' head dim, in both dtypes
-    short = [f"{b} {dt} D128" for b in ("K1/B2", "B3", "B4")
-             for dt in ("float32", "bfloat16")
+    # at the serving and training paths' head dim, in both dtypes: B3, B4
+    # and K1/B2 in f32 on mma.sync (HMMA), K1/B2 in bf16 at D64 and D128
+    # on wgmma fed by TMA (_wgmma_problems)
+    short = [f"{b} {dt} D128" for b, dt in (
+                 ("K1/B2", "float32"), ("B3", "float32"),
+                 ("B3", "bfloat16"), ("B4", "float32"), ("B4", "bfloat16"))
              if attn.get(f"{b} {dt} D128", {}).get("hmma", 0) <= 0
              or attn[f"{b} {dt} D128"].get("spill_bytes", 1) != 0]
     if short:
         raise AssertionError(f"no HMMA or spills in {short}: {attn}")
+    short = _wgmma_problems(attn)
+    if short:
+        raise AssertionError(f"the bf16 forward's wgmma instances: {short}: "
+                             f"{attn}")
     # B6 runs on the tensor cores, and neither B6 nor K2 spills, in every
     # instance the launchers can pick
     b6 = [n for n in attn if n.startswith("B6 ")]
@@ -4858,6 +4865,9 @@ def _ptxas_summary(log: Path) -> list:
 ATTN_INSTANCE = re.compile(
     r"attn_(fwd|dq|dkv)_kernelI(f|13__nv_bfloat16)Li(\d+)E")
 ATTN_KERNEL = {"fwd": "K1/B2", "dq": "B3", "dkv": "B4"}
+# K1/B2 in bf16 at D64/D128: head dim, consumer warpgroups (64 q rows each)
+WGMMA_INSTANCE = re.compile(r"attn_fwd_kernel_wgmmaILi(\d+)ELi(\d+)E")
+WGMMA_DIMS = (64, 128)
 # the decay type mangles as a substitution (S<n>_) when it repeats the input's
 WKV6_INSTANCE = re.compile(
     r"wkv6_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)Li(\d+)E")
@@ -4872,14 +4882,20 @@ def _dtype_name(mangled_type: str) -> str:
 def _attn_instance(mangled: str):
     """The kernel instance a mangled name stands for, else None: 'B3
     float32 D128' (or 'K1/B2 ...', 'B4 ...') for the flash-attention
-    kernels, 'B6 float32 ld float32 VS32' for B6 (input and decay types,
-    V columns per block), 'K2 bfloat16 D<=128' for K2 (the head dims the
-    instance takes), 'K3 bfloat16 vec8' for K3 (elements a load: 16
-    bytes' worth, or 1 for rows not on a 16-byte boundary)."""
+    kernels, 'K1/B2 bfloat16 D128 BQ128' for the bf16 forward's wgmma
+    kernel (q rows a block), 'B6 float32 ld float32 VS32' for B6 (input
+    and decay types, V columns per block), 'K2 bfloat16 D<=128' for K2
+    (the head dims the instance takes), 'K3 bfloat16 vec8' for K3
+    (elements a load: 16 bytes' worth, or 1 for rows not on a 16-byte
+    boundary)."""
     m = ATTN_INSTANCE.search(mangled)
     if m:
         kernel, dtype, d = m.groups()
         return f"{ATTN_KERNEL[kernel]} {_dtype_name(dtype)} D{d}"
+    m = WGMMA_INSTANCE.search(mangled)
+    if m:
+        d, nc = m.groups()
+        return f"K1/B2 bfloat16 D{d} BQ{64 * int(nc)}"
     m = WKV6_INSTANCE.search(mangled)
     if m:
         dtype, ld_dtype, nv = m.groups()
@@ -4906,21 +4922,59 @@ def _cuobjdump() -> str:
     return str(path)
 
 
-def _attn_build_report(lib: Path) -> dict:
-    """Per instance of K1/B2, B3, B4, B6, K2 and K3 (``_attn_instance``): HMMA
-    instructions in the library's SASS (``cuobjdump -sass``), and
-    registers and spilled bytes from the build's ``-Xptxas -v`` report."""
-    sass = subprocess.run([_cuobjdump(), "-sass", str(lib)],
-                          capture_output=True, text=True, check=True).stdout
+# SASS opcodes phase 1 counts per instance, by lower-case name: warp-level
+# mma.sync (HMMA), warpgroup wgmma (HGMMA), TMA tensor loads (UTMALDG) and
+# cp.async (LDGSTS)
+SASS_COUNTS = ("HMMA", "HGMMA", "UTMALDG", "LDGSTS")
+
+
+def _count_sass(sass: str) -> dict:
+    """Per instance (``_attn_instance``) of a ``cuobjdump -sass`` listing:
+    the count of each opcode of SASS_COUNTS, keyed in lower case."""
     report, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = _attn_instance(m.group(1))
             if name:
-                report[name] = {"hmma": 0}
-        elif name and "HMMA" in line:
-            report[name]["hmma"] += 1
+                report[name] = {op.lower(): 0 for op in SASS_COUNTS}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"\b(HMMA|HGMMA|UTMALDG|LDGSTS)\b", line)
+        if m:
+            report[name][m.group(1).lower()] += 1
+    return report
+
+
+def _wgmma_problems(attn: dict) -> list:
+    """What phase 1 finds wrong with the bf16 forward's wgmma instances
+    (K1/B2 bf16 at D64 and D128, each block size): missing, no HGMMA, no
+    TMA loads, any HMMA or cp.async left, or spills."""
+    out = []
+    for d in WGMMA_DIMS:
+        names = [n for n in attn if n.startswith(f"K1/B2 bfloat16 D{d} ")]
+        if not names:
+            out.append(f"no K1/B2 bfloat16 D{d} instance")
+        for n in names:
+            r = attn[n]
+            if r.get("hgmma", 0) <= 0 or r.get("utmaldg", 0) <= 0:
+                out.append(f"{n}: no HGMMA or no TMA load")
+            if r.get("hmma", 0) or r.get("ldgsts", 0):
+                out.append(f"{n}: HMMA or cp.async left")
+            if r.get("spill_bytes", 1) != 0:
+                out.append(f"{n}: spills")
+    return out
+
+
+def _attn_build_report(lib: Path) -> dict:
+    """Per instance of K1/B2, B3, B4, B6, K2 and K3 (``_attn_instance``): the
+    HMMA, HGMMA, UTMALDG and LDGSTS instructions in the library's SASS
+    (``cuobjdump -sass``, ``_count_sass``), and registers and spilled bytes
+    from the build's ``-Xptxas -v`` report."""
+    sass = subprocess.run([_cuobjdump(), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    report = _count_sass(sass)
     log = lib.parent / "build.log"
     name = None
     for line in log.read_text().splitlines():

@@ -6,9 +6,9 @@ rules; here a :class:`Plan` re-derives each CUDA launch from a (dims,
 config) pair without touching the card: grid, threads, dynamic shared
 bytes, the cluster, what the grid must cover and the operands each block
 reads. The arithmetic mirrors the C launchers (``csrc/*.cu``:
-``flash_attention.cu``'s ``Layout<T, D>``, the backward kernels'
-``Layout``, K2's ``make_plan``, B6's ``make_layout``, K3's
-``make_plan``; the mirrors of K2, B6 and K3 live in
+``flash_attention.cu``'s ``Layout<T, D>`` and ``WgLayout<D, NC>``, the
+backward kernels' ``Layout``, K2's ``make_plan``, B6's ``make_layout``,
+K3's ``make_plan``; the mirrors of K2, B6 and K3 live in
 :mod:`repro_torch.kernels.tuning`), and ``chip_smoke.py`` phase 14a holds
 every plan to the C code's own plan query, field by field. The rules,
 against :func:`repro_torch.kernels.tuning.capabilities`:
@@ -52,6 +52,12 @@ DTYPES = ("float32", "bfloat16")
 # flash attention's compiled tiles (csrc/flash_attention*.cu)
 FWD_BQ, FWD_THREADS = 64, 128
 FWD_TILE = {"float32": (4, 32), "bfloat16": (8, 64)}    # (PAD, BK)
+# bf16 at these head dims runs the wgmma kernel (``WgLayout<D, NC>``): NC
+# consumer warpgroups of 64 q rows and a producer (a warpgroup with two
+# consumer warpgroups, a warp with one); per head dim, (key rows a tile,
+# stages)
+FWD_WG_TILE = {64: (128, 2), 128: (64, 3)}
+FWD_WG_DIMS = tuple(FWD_WG_TILE)
 BWD_ROWS, BWD_THREADS = 64, 256
 BWD_PAD = {"float32": 4, "bfloat16": 8}
 
@@ -103,12 +109,34 @@ def _static(kernel: str, dtype: str, static_smem: Optional[Dict]) -> int:
 
 
 # ------------------------------------------------------------ plan builders
-def fwd_smem(D: int, dtype: str) -> int:
-    """K1/B2: the q tile and a two-stage ring of (k, v) tiles
-    (``Layout<T, D>::bytes``)."""
+def fwd_wgmma(D: int, dtype: str) -> bool:
+    """Whether K1/B2 runs the wgmma kernel: the (dtype, D) rule of
+    ``flash_attention.cu``."""
+    return dtype == "bfloat16" and D in FWD_WG_DIMS
+
+
+def fwd_groups(B: int, Sq: int, Hq: int, sms: Optional[int] = None) -> int:
+    """The wgmma kernel's consumer warpgroups (``fwd_groups``): 2 when the
+    grid of 128-row tiles fills the SMs, else 1."""
+    sms = tuning.capabilities().sms if sms is None else sms
+    return 2 if B * Hq * _cdiv(Sq, 128) >= sms else 1
+
+
+def fwd_launch(B: int, Sq: int, Hq: int, D: int, dtype: str):
+    """K1/B2's (q rows a block, threads, dynamic shared bytes, key rows a
+    tile): the wgmma kernel's ``WgLayout<D, NC>`` (the q tile, the stages'
+    K and V, 1024 bytes of alignment and the 1 + 3 STAGES mbarriers) or
+    the mma.sync kernel's ``Layout<T, D>`` (the q tile and a two-stage ring
+    of (k, v) tiles, rows padded)."""
+    if fwd_wgmma(D, dtype):
+        nc = fwd_groups(B, Sq, Hq)
+        bq, (bk, stages) = 64 * nc, FWD_WG_TILE[D]
+        smem = 1024 + (bq + stages * 2 * bk) * D * 2 + 8 * (1 + 3 * stages)
+        return bq, 384 if nc == 2 else 160, smem, bk
     pad, bk = FWD_TILE.get(dtype, FWD_TILE["float32"])
     ld = D + pad
-    return (FWD_BQ * ld + 2 * 2 * bk * ld) * tuning.itemsize(dtype)
+    smem = (FWD_BQ * ld + 2 * 2 * bk * ld) * tuning.itemsize(dtype)
+    return FWD_BQ, FWD_THREADS, smem, bk
 
 
 def bwd_smem(D: int, dtype: str, dkv: bool) -> int:
@@ -138,13 +166,13 @@ def plan_flash_attention(dims: Dims, config: Dict[str, int],
     if Hkv <= 0 or Hq % Hkv:
         bad.append(f"Hq={Hq} not a multiple of Hkv={Hkv}")
     args = (B, Sq, Sk, Hq, Hkv, D, _code(dt))
-    fwd_bk = FWD_TILE.get(dt, FWD_TILE["float32"])[1]
+    fwd_bq, fwd_threads, fwd_bytes, fwd_bk = fwd_launch(B, Sq, Hq, D, dt)
     fwd = Plan(
         kernel="K1/B2", path=f"{CSRC}/flash_attention.cu", dtype=dt,
-        grid=(_cdiv(Sq, FWD_BQ), Hq, B), threads=FWD_THREADS,
-        smem=fwd_smem(D, dt),
+        grid=(_cdiv(Sq, fwd_bq), Hq, B), threads=fwd_threads,
+        smem=fwd_bytes, max_threads=fwd_threads,
         static_smem=_static("K1/B2", dt, static_smem),
-        covers=[("q rows", Sq, FWD_BQ, _cdiv(Sq, FWD_BQ)),
+        covers=[("q rows", Sq, fwd_bq, _cdiv(Sq, fwd_bq)),
                 ("q heads", Hq, 1, Hq), ("batch rows", B, 1, B),
                 ("key tiles", Sk, fwd_bk, _cdiv(Sk, fwd_bk))],
         reads=("q tile", "k, v of its kv head", "lse out (B2)"),
@@ -371,6 +399,8 @@ def check_config(kernel: str, dims: Dims, config: Dict[str, int],
 # the kernel names of the build's -Xptxas -v report (mangled)
 _INSTANCE = (
     (re.compile(r"attn_fwd_kernelI(f|13__nv_bfloat16)"), "K1/B2"),
+    # bf16 only: the type is not a template argument
+    (re.compile(r"attn_fwd_kernel_wgmma()I"), "K1/B2"),
     (re.compile(r"attn_dq_kernelI(f|13__nv_bfloat16)"), "B3"),
     (re.compile(r"attn_dkv_kernelI(f|13__nv_bfloat16)"), "B4"),
     (re.compile(r"paged_decode_kernelI(f|13__nv_bfloat16)"), "K2"),

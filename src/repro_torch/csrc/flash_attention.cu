@@ -1,86 +1,108 @@
 // Causal / sliding-window GQA flash-attention forward on Hopper's tensor
 // cores: kernel K1 and, with an lse output, kernel B2.
 //
-// Replaces the TPU kernels src/repro/kernels/flash_attention.py::_attn_kernel
-// (K1, the serving path's prefill) and ::_attn_kernel_lse (B2, the training
-// forward, which also writes the logsumexp rows the backward kernels of
-// flash_attention_bwd.cu read). Both run this one kernel: B2 passes an lse
-// pointer, K1 passes null. Same function: online softmax over key tiles,
-// -1e30 for masked scores, the row sum l clamped at 1e-30, lse = m +
-// log(l), P V with P in f32 (the reference casts v to f32, so its
-// p.astype(v.dtype) keeps p in f32), and the output in q's type. With
-// causal=0 a nonzero window is one-sided (only qpos - kpos < window), as in
-// the TPU kernel and dense_attention.
+// Replaces the TPU kernels src/repro/kernels/flash_attention.py:40
+// _attn_kernel (K1, the serving path's prefill) and :97 _attn_kernel_lse
+// (B2, the training forward, which also writes the logsumexp rows the
+// backward kernels of flash_attention_bwd.cu read). Both run one kernel: B2
+// passes an lse pointer, K1 passes null. Same function: online softmax over
+// key tiles, -1e30 for masked scores, the row sum l clamped at 1e-30, lse =
+// m + log(l) in f32 as (B, Hq, Sq), P V with P in f32 (the reference casts v
+// to f32, so its p.astype(v.dtype) keeps p in f32), and the output in q's
+// type. With causal=0 a nonzero window is one-sided (only qpos - kpos <
+// window), as in the TPU kernel and dense_attention. Any Sq and Sk (Sq != Sk
+// too: whisper's cross attention); q head h reads kv head h / (Hq / Hkv).
 //
-// What bounds it on the H100: at the training shape (S 4096, D 128) each
-// (q tile, key tile) pair is two 64 x BK x 128 products, ~S/2 multiply-adds
-// per loaded byte, so arithmetic bounds it: on the tensor cores, not the
-// f32 FMA units (67 TFLOP/s) that the first version of this kernel used.
-// Every product is a warp-level mma.sync (mma.cuh):
-//  - f32: 3xTF32, m16n8k8 on each operand split as hi = tf32(x), lo =
-//    tf32(x - hi): lo*hi + hi*lo, then hi*hi (495 TFLOP/s a pass, three
-//    passes keep f32 accuracy), for Q K^T and for P V.
-//  - bf16: m16n8k16 for Q K^T (products of bf16 values are exact in f32).
-//    P V keeps P to ~2^-17 relative in two bf16 terms, p_hi = bf16(p) and
-//    p_lo = bf16(p - p_hi), as two products on the exact bf16 V: p rounded
-//    once to bf16 would move the output by about a unit of bf16 rounding
-//    where the reference keeps p in f32 (tests/test_torch_tf32x3.py shows
-//    it), and the bf16 output is held to one unit (chip_smoke.py phase 2).
+// What bounds it on the H100: at the shapes the card runs (S 128 to 4096, D
+// 64 and 128) each (q tile, key tile) pair is two 64 x BK x D products,
+// ~S/2 multiply-adds per loaded byte, so tensor-core operations bound it.
 // q enters the score product unscaled and the scale goes on s, folded with
 // log2(e) into exp2 (q * scale is not representable in bf16), as in B3/B4.
-//
-// Accumulation: each key tile's P V sums in a fresh accumulator and is
-// folded into the running output with f32 operations, acc = acc * corr +
-// tile. The mma's own accumulation is not an IEEE f32 sum; over the
+// P V keeps P to ~2^-17 relative: in bf16 as two bf16 terms, p_hi = bf16(p)
+// and p_lo = bf16(p - p_hi), two products on the exact bf16 V (p rounded
+// once to bf16 moves the output by about a unit of bf16 rounding where the
+// reference keeps p in f32, tests/test_torch_tf32x3.py shows it, and the
+// bf16 output is held to one unit, chip_smoke.py phase 2); in f32 by
+// 3xTF32. Each key tile's P V sums in a fresh accumulator and is folded into
+// the running output with f32 operations, acc = acc * corr + tile: the
+// tensor cores' own accumulation is not an IEEE f32 sum, and over the
 // thousands of keys of a training row it drifts (as B4's dk/dv did,
-// PERF.md).
+// PERF.md). No atomics: two runs give the same bits.
 //
-// Design: one block per (batch row, q head, 64-row q tile), heaviest
-// causal tiles first; 4 warps, each owning 16 q rows across the whole key
-// tile (FlashAttention-2's layout), so a row's max and sum reduce over a
-// quad with two shuffles and P goes from the score's C fragments to the
-// A fragments of P V in registers, never through shared memory (bf16: the
-// fragments line up; tf32: logical k t and t+4 read at physical columns 2t
-// and 2t+1, with V's B fragment read at rows 2t and 2t+1, mma.cuh). P V
-// runs over 64-column slices of D, each in its own fresh 32-register
-// accumulator, so the fold costs no second 64-register accumulator. Q
-// stays in shared memory and each warp splits (f32) or reads its fragments
-// per k step; K and V tiles stream through a two-stage ring filled by
-// 16-byte cp.async, so the next tile's copy overlaps the current tile's
-// products. Key tiles: 32 rows in f32 (Q 33 KiB + two stages of K and V
-// 66 KiB at D=128: two blocks per SM), 64 in bf16 (87 KiB: two blocks per
-// SM). The key loop runs from the window bound to the causal bound, so
-// fully masked tiles are never loaded (the TPU kernel's pl.when skip), and
-// only tiles that straddle the causal, window or Sk edge of a warp's rows
-// apply the mask. Unlike the TPU kernel, which raises when the blocks do
-// not tile the sequence, any Sq/Sk is taken: keys past Sk are zero-filled
-// by the copy and masked, query rows past Sq are not stored. No atomics:
-// two runs give the same bits.
+// Which kernel runs is a fixed rule on (dtype, D), in fwd() and fwd_plan():
+//  - bf16 at D 64 and 128 (every bf16 attention the card runs: granite,
+//    qwen2.5, qwen2-vl, arctic and llama4 at D128, whisper and hymba at
+//    D64): attn_fwd_kernel_wgmma, Hopper's warpgroup products fed by TMA;
+//  - f32 at any D, and bf16 at D 16, 32 and 160 (no configuration runs
+//    these in bf16 on the card): attn_fwd_kernel, warp-level mma.sync. TF32
+//    wgmma needs both operands K-major, so P V would need V transposed, and
+//    3xTF32 three passes of it: the f32 path stays on mma.sync.
+// A launch error raises in the wrapper; nothing falls back to another
+// kernel.
 //
-// Why this layout (H100 80GB HBM3 at 700 W, chip_smoke.py phase 1 and
-// PERF.md): at D=128, f32 takes 225 registers and 240 HMMA, bf16 244 and
-// 160, neither spills, and both fit two blocks of 4 warps per SM. Each
-// warp splits the K and V values it reads into TF32 hi/lo itself; a
-// variant that split each tile once per block, shared by 8 warps in
-// 8-byte pairs, ran B2 slower (3.35 against 3.25 ms in f32): with the
-// integer split of mma.cuh the split no longer sets the time, and the
-// extra barrier and the pairs' shared-memory traffic cost more.
+// attn_fwd_kernel_wgmma (bf16, D 64/128): a block per (batch row, q head,
+// BQ-row q tile), heaviest causal tiles first; NC consumer warpgroups of 64
+// q rows each (BQ = 64 NC), then a producer. One producer thread loads the
+// q tile once and streams the K and V tiles through a ring by TMA
+// (cp.async.bulk.tensor from 4-D tensor maps over (D, H, S, B), encoded on
+// the host per call, boxes of 64 columns, 128-byte swizzle; keys past Sk
+// are zero-filled by the hardware and never read the next batch row), each
+// stage with a full mbarrier for K, one for V and an empty one that every
+// consumer warp releases. Each consumer warpgroup: S = Q K^T by wgmma
+// m64nBKk16 with both operands from the swizzled tiles; the online softmax
+// on the accumulator fragments (a row's max and sum reduce over a quad);
+// then P V by wgmma m64n64k16 per 64 columns of D, with P's two bf16 terms
+// as the A operand in registers (the score fragments are its A fragments)
+// and V as the B operand from shared memory with the transpose bit, both
+// terms into one fresh accumulator, folded in f32 (the fold kept: 5% faster
+// at S4096 than accumulating into the output directly, PERF.md). The key
+// loop runs from the window bound to the causal bound, so fully masked
+// tiles are never loaded (the TPU kernel's pl.when skip); only tiles that
+// straddle the causal, window or Sk edge of a warp's rows apply the mask.
+// Rows past Sq are not stored. Tiles (WgLayout): D64 128 keys in two
+// stages, D128 64 keys in three (128-key tiles at D128 left ptxas spilling
+// the two-warpgroup consumers and ran B2 7% slower at S4096). NC is 2 when
+// the grid of 128-row tiles fills the SMs, else 1 (fwd_groups): llama4's
+// S128 has 40 tiles of 128 rows for 132 SMs, and 80 blocks of 64 rows
+// finish sooner. With two consumer warpgroups the producer is a warpgroup
+// whose registers setmaxnreg moves to the consumers (ptxas gives 384
+// threads 168 registers each; the consumers then run at up to 240); with
+// one it is a single warp. Registers, spills and the HGMMA and UTMALDG
+// counts per instance are read by chip_smoke.py phase 1.
+//
+// attn_fwd_kernel (f32; bf16 at D 16/32/160): one block per (batch row, q
+// head, 64-row q tile); 4 warps, each owning 16 q rows across the whole key
+// tile (FlashAttention-2's layout), every product a warp-level mma.sync
+// (mma.cuh): f32 as 3xTF32 m16n8k8 on each operand split as hi = tf32(x),
+// lo = tf32(x - hi): lo*hi + hi*lo, then hi*hi (495 TFLOP/s a pass, three
+// passes keep f32 accuracy); bf16 as m16n8k16. P goes from the score's C
+// fragments to the A fragments of P V in registers (tf32: logical k t and
+// t+4 read at physical columns 2t and 2t+1, with V's B fragment read at
+// rows 2t and 2t+1, mma.cuh). P V runs over 64-column slices of D, each in
+// its own fresh 32-register accumulator. Q stays in shared memory; K and V
+// tiles stream through a two-stage ring filled by 16-byte cp.async. Key
+// tiles: 32 rows in f32 (Q 33 KiB + two stages of K and V 66 KiB at D=128:
+// two blocks per SM), 64 in bf16. At D=128 f32 takes 225 registers and 240
+// HMMA and does not spill (H100 80GB HBM3 at 700 W, PERF.md). Each warp
+// splits the K and V values it reads into TF32 hi/lo itself; a variant that
+// split each tile once per block ran B2 slower (3.35 against 3.25 ms).
 //
 // Layouts: q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), out like q, all
-// contiguous and 16-byte aligned (the copies are 16 bytes); q head h reads
-// kv head h / (Hq / Hkv). lse (B, Hq, Sq) f32. Registers, spills and the
-// HMMA count per instance are read by chip_smoke.py phase 1.
+// contiguous and 16-byte aligned (the copies are 16 bytes, TMA's bases 16
+// bytes); lse (B, Hq, Sq) f32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "attn_tile.cuh"
 #include "mma.cuh"
 #include "smem_opt_in.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -347,6 +369,311 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   return cudaGetLastError();
 }
 
+// ------------------------------------------- bf16 at D 64/128: wgmma fed by TMA
+
+// The wgmma kernel's tiles: NC consumer warpgroups of 64 q rows each, then
+// the producer; key tiles of BK rows in a ring of STAGES. Shared memory: the
+// q tile (D / 64 swizzled tiles of BQ x 64), then per stage K's and V's
+// (D / 64 tiles of BK x 64 each), then the mbarriers, after up to 1024
+// bytes that align the base for the swizzle. D128 takes 64-key tiles in
+// three stages: 128-key tiles ran B2 7% slower at S4096 and left the
+// consumers spilling (PERF.md).
+template <int D, int NC>
+struct WgLayout {
+  static constexpr int BQ = 64 * NC;
+  static constexpr int BK = D == 128 ? 64 : 128;
+  static constexpr int STAGES = D == 128 ? 3 : 2;
+  // one block an SM. With one consumer warpgroup the producer is a warp,
+  // and the launch bound leaves every thread up to 255 registers; with two
+  // it is a warpgroup (ptxas allocates registers by warpgroup: 168 a thread
+  // for 288 or 384 threads), whose registers setmaxnreg moves to the
+  // consumers: 24 a producer thread, 240 a consumer thread, 168 x 384 in all
+  static constexpr int THREADS = NC == 2 ? 384 : 160;
+  static constexpr uint32_t q = uint32_t(BQ) * D * 2;
+  static constexpr uint32_t kv = uint32_t(BK) * D * 2;  // K or V of one stage
+  static constexpr uint32_t bars = q + STAGES * 2 * kv;
+  static constexpr int NBAR = 1 + 3 * STAGES;  // q full; per stage K full, V full, empty
+  static constexpr size_t bytes = 1024 + bars + 8 * NBAR;
+};
+
+// What the producer and the consumers of one block share: shared-memory
+// addresses of the q tile, the ring (stage s: K at ring + 2 s kv, V after
+// it) and the mbarriers (q full, then per stage K full, V full, and empty:
+// 4 NC arrivals, lane 0 of each consumer warp), and the block's tiles.
+struct WgBlock {
+  uint32_t qs, ring, bar;
+  int q0, t_begin, steps, h, b;
+};
+
+template <int ST>
+__device__ __forceinline__ uint32_t bar_k(const WgBlock& blk, int s) {
+  return blk.bar + 8 * (1 + s);
+}
+template <int ST>
+__device__ __forceinline__ uint32_t bar_v(const WgBlock& blk, int s) {
+  return blk.bar + 8 * (1 + ST + s);
+}
+template <int ST>
+__device__ __forceinline__ uint32_t bar_empty(const WgBlock& blk, int s) {
+  return blk.bar + 8 * (1 + 2 * ST + s);
+}
+
+// The producer's one thread: the q tile once, then K and V of each key
+// tile into its stage once every consumer warp has released it.
+template <int D, int NC>
+__device__ __forceinline__ void wg_produce(const WgBlock& blk, const CUtensorMap* tq,
+                                           const CUtensorMap* tk, const CUtensorMap* tv, int hk) {
+  using L = WgLayout<D, NC>;
+  constexpr int BQ = L::BQ, BK = L::BK, ST = L::STAGES;
+  wg::mbar_arrive_expect(blk.bar, L::q);
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    wg::tma_load_4d(blk.qs + c * BQ * 128, tq, blk.bar, 64 * c, blk.h, blk.q0, blk.b);
+  for (int i = 0; i < blk.steps; ++i) {
+    const int s = i % ST;
+    if (i >= ST) wg::mbar_wait(bar_empty<ST>(blk, s), ((i / ST) - 1) & 1);
+    const int k0 = (blk.t_begin + i) * BK;
+    const uint32_t ks = blk.ring + 2 * s * L::kv, vs = ks + L::kv;
+    wg::mbar_arrive_expect(bar_k<ST>(blk, s), L::kv);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+      wg::tma_load_4d(ks + c * BK * 128, tk, bar_k<ST>(blk, s), 64 * c, hk, k0, blk.b);
+    wg::mbar_arrive_expect(bar_v<ST>(blk, s), L::kv);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+      wg::tma_load_4d(vs + c * BK * 128, tv, bar_v<ST>(blk, s), 64 * c, hk, k0, blk.b);
+  }
+}
+
+// Consumer warpgroup w: q rows q0 + 64 w .. q0 + 64 w + 63, over every key
+// tile of the block, then its output rows (and lse rows when asked).
+template <int D, int NC>
+__device__ __forceinline__ void wg_consume(const WgBlock& blk, int w, bf16* __restrict__ o,
+                                           float* __restrict__ lse, int Sq, int Sk, int Hq,
+                                           int causal, int window, float scale) {
+  using L = WgLayout<D, NC>;
+  constexpr int BQ = L::BQ, BK = L::BK, ST = L::STAGES;
+  constexpr int NS = BK / 8;  // 8-column tiles of a warp's scores
+  constexpr int NO = D / 8;   // 8-column tiles of a warp's output
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq4 = lane & 3;
+  const int rw = blk.q0 + 64 * w + 16 * warp;  // the warp's first row
+  const uint32_t q_desc = wg::desc_lo(blk.qs + w * 64 * 128, 16);  // the warpgroup's rows
+
+  // rows g and g + 8 of the warp's 16: running max (log2 units) and this
+  // thread's share of the row sum (the quad's shares are added at the end)
+  float m2[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const float scale2 = scale * kLog2e;  // exp(x) = exp2(x log2(e))
+  if (blk.steps > 0) wg::mbar_wait(blk.bar, 0);
+  for (int i = 0; i < blk.steps; ++i) {
+    const int s = i % ST;
+    const uint32_t phase = (i / ST) & 1;
+    const int k0 = (blk.t_begin + i) * BK;
+    const uint32_t ks = blk.ring + 2 * s * L::kv, vs = ks + L::kv;
+
+    // s = Q K^T: D / 16 k steps, each 32 bytes further along the rows (the
+    // next 64 columns in the next swizzled tile)
+    float sc[BK / 2];
+    const uint32_t k_desc = wg::desc_lo(ks, 16);
+    wg::mbar_wait(bar_k<ST>(blk, s), phase);
+    wg::fence();
+    wg::static_for<0, D / 16>([&](auto kk) {
+      constexpr int K = decltype(kk)::value, c = K / 4, step = 2 * (K % 4);  // 16-byte units
+      wg::mma_ss<c * BQ * 8 + step, c * BK * 8 + step, (K > 0)>(sc, q_desc, k_desc);
+    });
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(sc);
+
+    auto scale_mask = [&](auto whole) {  // scaled scores in log2 units
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qp = rw + g + 8 * (e >> 1);
+          const int kp = k0 + 8 * j + 2 * tq4 + (e & 1);
+          sc[4 * j + e] = (decltype(whole)::value || visible(qp, kp, Sk, causal, window))
+                              ? sc[4 * j + e] * scale2
+                              : kMasked;
+        }
+    };
+    // a key tile that every row of the warp sees skips the mask
+    if (k0 + BK <= Sk && (!causal || k0 + BK - 1 <= rw) &&
+        (window <= 0 || rw + 15 - k0 < window))
+      scale_mask(std::true_type{});
+    else
+      scale_mask(std::false_type{});
+
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m2[r];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      corr[r] = exp2f(m2[r] - mx);
+      m2[r] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p = exp2f(sc[4 * j + 2 * r + c] - mx);
+          sc[4 * j + 2 * r + c] = p;
+          sum += p;
+        }
+      l[r] = fmaf(l[r], corr[r], sum);
+    }
+
+    // P in two bf16 terms, as the A operand of k step j (keys 16j ..
+    // 16j + 15: score tiles 2j and 2j + 1)
+    uint32_t phi[BK / 16][4], plo[BK / 16][4];
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j)
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        split_bf16(sc[8 * j + 2 * a], sc[8 * j + 2 * a + 1], phi[j][a], plo[j][a]);
+
+    // the tile's P V per 64 columns of D, each in a fresh accumulator (p_lo
+    // V, then p_hi V, per k step of 16 keys: 2048 bytes of V), folded
+    const uint32_t v_desc = wg::desc_lo(vs, BK * 128);
+    wg::mbar_wait(bar_v<ST>(blk, s), phase);
+    wg::static_for<0, D / 64>([&](auto cc) {
+      constexpr int c = decltype(cc)::value;
+      float part[32];
+      wg::fence();
+      wg::static_for<0, BK / 16>([&](auto jj) {
+        constexpr int j = decltype(jj)::value;
+        wg::mma_rs<c * BK * 8 + j * 128, (j > 0)>(part, plo[j], v_desc);
+        wg::mma_rs<c * BK * 8 + j * 128, 1>(part, phi[j], v_desc);
+      });
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_operand(part);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[32 * c + 4 * j + e] = fmaf(acc[32 * c + 4 * j + e], corr[e >> 1], part[4 * j + e]);
+    });
+    if (lane == 0) wg::mbar_arrive(bar_empty<ST>(blk, s));  // this warp is done with the stage
+  }
+
+  bf16* oh = o + (size_t(blk.b) * Sq * Hq + blk.h) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int qp = rw + g + 8 * r;
+    if (qp >= Sq) continue;
+    const float denom = fmaxf(sum, 1e-30f);
+    if (lse != nullptr && tq4 == 0)
+      lse[(size_t(blk.b) * Hq + blk.h) * Sq + qp] = fmaf(m2[r], kLn2, logf(denom));
+    const float inv = __fdividef(1.f, denom);
+    bf16* row = oh + size_t(qp) * Hq * D + 2 * tq4;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      mma::store_pair(row + 8 * j, acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+  }
+}
+
+template <int D, int NC>
+__global__ void __launch_bounds__(WgLayout<D, NC>::THREADS, 1)
+attn_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                      float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int causal,
+                      int window, float scale) {
+  using L = WgLayout<D, NC>;
+  constexpr int BQ = L::BQ, BK = L::BK, ST = L::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = mma::smem_addr(smem_raw);
+  WgBlock blk;
+  blk.qs = raw + (1024 - raw % 1024) % 1024;
+  blk.ring = blk.qs + L::q;
+  blk.bar = blk.qs + L::bars;
+  blk.h = blockIdx.y;
+  blk.b = blockIdx.z;
+  blk.q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest causal tiles first
+  const int k_end = causal ? min(Sk, blk.q0 + BQ) : Sk;
+  const int k_begin = (causal && window > 0) ? max(0, blk.q0 - window + 1) : 0;
+  blk.t_begin = k_begin / BK;
+  blk.steps = k_end > k_begin ? (k_end + BK - 1) / BK - blk.t_begin : 0;
+
+  if (threadIdx.x == 0) {
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw + (blk.bar - raw));
+    for (int i = 0; i < L::NBAR; ++i) mma::mbar_init(bars + i, i < 1 + 2 * ST ? 1 : 4 * NC);
+    mma::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the thread's warpgroup, read from lane 0 so that the compiler sees it
+  // uniform across each warp: consumers 0 .. NC - 1, then the producer
+  const int role = __shfl_sync(0xffffffffu, int(threadIdx.x) >> 7, 0);
+  if (role == NC) {
+    if constexpr (NC == 2) wg::regs_dec<24>();
+    if (threadIdx.x == 128 * NC && blk.steps > 0)
+      wg_produce<D, NC>(blk, &tq, &tk, &tv, blk.h / (Hq / Hkv));
+  } else {
+    if constexpr (NC == 2) wg::regs_inc<240>();
+    wg_consume<D, NC>(blk, role, o, lse, Sq, Sk, Hq, causal, window, scale);
+  }
+}
+
+int sm_count() {
+  int sms = 132, dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// Consumer warpgroups a block of the wgmma kernel: 2 (128 q rows) when the
+// grid of 128-row tiles fills the SMs, else 1 (64 rows, twice the blocks).
+int fwd_groups(int B, int Sq, int Hq) {
+  return long(B) * Hq * ((Sq + 127) / 128) >= sm_count() ? 2 : 1;
+}
+
+dim3 wgmma_grid(int B, int Sq, int Hq, int NC) {
+  return dim3((Sq + 64 * NC - 1) / (64 * NC), Hq, B);
+}
+
+template <int D, int NC>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                         int Sq, int Sk, int Hq, int Hkv, int causal, int window, float scale,
+                         cudaStream_t stream) {
+  using L = WgLayout<D, NC>;
+  static_assert(L::bytes <= kMaxSmem, "the forward's tiles exceed the shared memory of a block");
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = wg::map_rows(&tq, q, B, Sq, Hq, D, L::BQ);
+  if (err == cudaSuccess) err = wg::map_rows(&tk, k, B, std::max(Sk, 1), Hkv, D, L::BK);
+  if (err == cudaSuccess) err = wg::map_rows(&tv, v, B, std::max(Sk, 1), Hkv, D, L::BK);
+  if (err != cudaSuccess) return err;
+  static SmemOptIn opt_in;  // one per kernel instance
+  err = opt_in_smem(opt_in, attn_fwd_kernel_wgmma<D, NC>, L::bytes);
+  if (err != cudaSuccess) return err;
+  attn_fwd_kernel_wgmma<D, NC><<<wgmma_grid(B, Sq, Hq, NC), L::THREADS, L::bytes, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), lse, Sq, Sk, Hq, Hkv, causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_wgmma_d(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                         int Sq, int Sk, int Hq, int Hkv, int causal, int window, float scale,
+                         cudaStream_t stream) {
+  return fwd_groups(B, Sq, Hq) == 2
+             ? launch_wgmma<D, 2>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, causal, window, scale,
+                                  stream)
+             : launch_wgmma<D, 1>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, causal, window, scale,
+                                  stream);
+}
+
+// The (dtype, D) rule of the header: bf16 at D 64 and 128 runs the wgmma
+// kernel, everything else the mma.sync one.
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                        int Sq, int Sk, int Hq, int Hkv, int D, int causal, int window,
@@ -354,14 +681,22 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, flo
 #define REPRO_FWD_CASE(DIM) \
   case DIM:                 \
     return launch<T, DIM>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, causal, window, scale, stream);
+#define REPRO_FWD_WGMMA_CASE(DIM)                                                                \
+  case DIM:                                                                                      \
+    if constexpr (std::is_same<T, bf16>::value)                                                  \
+      return launch_wgmma_d<DIM>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, causal, window, scale,     \
+                                 stream);                                                        \
+    else                                                                                         \
+      return launch<T, DIM>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, causal, window, scale, stream);
   switch (D) {  // HEAD_DIMS of kernels/flash_attention.py
     REPRO_FWD_CASE(16)
     REPRO_FWD_CASE(32)
-    REPRO_FWD_CASE(64)
-    REPRO_FWD_CASE(128)
+    REPRO_FWD_WGMMA_CASE(64)
+    REPRO_FWD_WGMMA_CASE(128)
     REPRO_FWD_CASE(160)
     default: return cudaErrorInvalidValue;
   }
+#undef REPRO_FWD_WGMMA_CASE
 #undef REPRO_FWD_CASE
 }
 
@@ -369,16 +704,25 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, flo
 template <typename T>
 int fwd_plan(int B, int Sq, int Hq, int D, int64_t* out) {
   size_t smem = 0;
-  switch (D) {  // HEAD_DIMS of kernels/flash_attention.py
-    case 16: smem = Layout<T, 16>::bytes; break;
-    case 32: smem = Layout<T, 32>::bytes; break;
-    case 64: smem = Layout<T, 64>::bytes; break;
-    case 128: smem = Layout<T, 128>::bytes; break;
-    case 160: smem = Layout<T, 160>::bytes; break;
-    default: return cudaErrorInvalidValue;
+  dim3 g = fwd_grid(B, Sq, Hq);
+  int threads = THREADS;
+  if (std::is_same<T, bf16>::value && (D == 64 || D == 128)) {
+    const int nc = fwd_groups(B, Sq, Hq);
+    g = wgmma_grid(B, Sq, Hq, nc);
+    threads = nc == 2 ? WgLayout<64, 2>::THREADS : WgLayout<64, 1>::THREADS;
+    smem = D == 64 ? (nc == 2 ? WgLayout<64, 2>::bytes : WgLayout<64, 1>::bytes)
+                   : (nc == 2 ? WgLayout<128, 2>::bytes : WgLayout<128, 1>::bytes);
+  } else {
+    switch (D) {  // HEAD_DIMS of kernels/flash_attention.py
+      case 16: smem = Layout<T, 16>::bytes; break;
+      case 32: smem = Layout<T, 32>::bytes; break;
+      case 64: smem = Layout<T, 64>::bytes; break;
+      case 128: smem = Layout<T, 128>::bytes; break;
+      case 160: smem = Layout<T, 160>::bytes; break;
+      default: return cudaErrorInvalidValue;
+    }
   }
-  const dim3 g = fwd_grid(B, Sq, Hq);
-  const int64_t v[6] = {g.x, g.y, g.z, THREADS, int64_t(smem), 1};
+  const int64_t v[6] = {g.x, g.y, g.z, threads, int64_t(smem), 1};
   for (int i = 0; i < 6; ++i) out[i] = v[i];
   return cudaSuccess;
 }
@@ -388,7 +732,7 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, float* lse
                 void* stream) {
   if (Sq <= 0 || B <= 0) return cudaSuccess;
   if (Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
-  // 16-byte copies of q, k, v; paired stores of o
+  // 16-byte copies (and TMA's 16-byte bases) of q, k, v; paired stores of o
   if (!aligned(q, 16) || !aligned(k, 16) || !aligned(v, 16) || !aligned(o, 8) ||
       !aligned(lse, 4))
     return cudaErrorMisalignedAddress;

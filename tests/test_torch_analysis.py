@@ -251,6 +251,52 @@ def test_default_plans_are_the_c_launchers():
         grid_x=2, grid_y=32, grid_z=1, threads=128, smem=101376, cluster=1)
 
 
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,launch", [
+    # llama4-like S128 (32 tiles of 128 rows < 132 SMs): one consumer
+    # warpgroup, 64-row blocks, D128's 64-key tiles in three stages
+    (1, 128, 128, 32, 8, 128, dict(grid_x=2, grid_y=32, grid_z=1,
+                                   threads=160, smem=115792, cluster=1)),
+    # granite's training S4096: two consumer warpgroups
+    (1, 4096, 4096, 32, 8, 128, dict(grid_x=32, grid_y=32, grid_z=1,
+                                     threads=384, smem=132176, cluster=1)),
+    # whisper's encoder (240 tiles): two, D64's 128-key tiles in two stages
+    (1, 1500, 1500, 20, 20, 64, dict(grid_x=12, grid_y=20, grid_z=1,
+                                     threads=384, smem=83000, cluster=1)),
+    # whisper's cross attention, Sq4 against Sk1500: one
+    (4, 4, 1500, 20, 20, 64, dict(grid_x=1, grid_y=20, grid_z=4,
+                                  threads=160, smem=74808, cluster=1)),
+])
+def test_the_bf16_forward_plans_are_the_wgmma_launches(B, Sq, Sk, Hq, Hkv,
+                                                       D, launch):
+    """K1/B2 in bf16 at D64/D128 plan the wgmma kernel (``WgLayout<D,
+    NC>``): consumer warpgroups by whether 128-row tiles fill the 132 SMs,
+    1024 bytes of alignment, the q tile, the stages' K and V and 1 + 3
+    STAGES mbarriers; the same shape in f32 keeps the mma.sync kernel's
+    plan (64 rows, 128 threads)."""
+    dims = dict(B=B, Sq=Sq, Sk=Sk, Hq=Hq, Hkv=Hkv, D=D)
+    fwd = kernel_lint.plan_flash_attention({**dims, "dtype": "bfloat16"},
+                                           {})[0]
+    assert fwd.launch() == launch
+    assert kernel_lint.check_plan(fwd) == []
+    f32 = kernel_lint.plan_flash_attention({**dims, "dtype": "float32"},
+                                           {})[0]
+    assert (f32.grid[0], f32.threads) == (-(-Sq // 64), 128)
+
+
+def test_static_shared_memory_of_the_wgmma_instances(tmp_path):
+    """The wgmma kernel's mangled name (no type argument) counts as K1/B2
+    in bf16."""
+    log = tmp_path / "build.log"
+    log.write_text(
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121attn_"
+        "fwd_kernel_wgmmaILi128ELi2EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16"
+        "Pfiiiiiif' for 'sm_90a'\n"
+        "ptxas info    : Used 168 registers, 16 bytes smem, 400 bytes "
+        "cmem[0]\n")
+    assert kernel_lint.static_smem_from_log(log) == {
+        ("K1/B2", "bfloat16"): 16}
+
+
 @pytest.fixture
 def tuned_dir(tmp_path, monkeypatch):
     monkeypatch.setenv(tuning.ENV_VAR, str(tmp_path))

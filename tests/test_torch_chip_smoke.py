@@ -90,9 +90,88 @@ def test_held_fields_by_dtype(smoke):
     ("_ZN43_GLOBAL__N__a6db163e_10_rmsnorm_cu_7175708d14rmsnorm_kernelI13__nv"
      "_bfloat16Li8EEEvNS_4ArgsE", "K3 bfloat16 vec8"),
     ("_ZN12_GLOBAL__N_117layer_norm_kernelIfEEvPKT_", None),
+    ("_ZN51_GLOBAL__N__04cf38d3_18_flash_attention_cu_a939580c21attn_fwd_"
+     "kernel_wgmmaILi128ELi2EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16"
+     "Pfiiiiiif", "K1/B2 bfloat16 D128 BQ128"),
+    ("_ZN51_GLOBAL__N__04cf38d3_18_flash_attention_cu_a939580c21attn_fwd_"
+     "kernel_wgmmaILi64ELi1EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16"
+     "Pfiiiiiif", "K1/B2 bfloat16 D64 BQ64"),
 ])
 def test_attn_instance_names(smoke, mangled, name):
     assert smoke._attn_instance(mangled) == name
+
+
+def _sass(body: dict) -> str:
+    """A ``cuobjdump -sass`` listing of the bf16 forward's four wgmma
+    instances, each function's body the lines ``body`` gives its name."""
+    out = ["\tcode for sm_90a"]
+    for d, nc in ((64, 1), (64, 2), (128, 1), (128, 2)):
+        out.append(f"\t\tFunction : _ZN12_GLOBAL__N_121attn_fwd_kernel_"
+                   f"wgmmaILi{d}ELi{nc}EEEv14CUtensorMap_stS1_S1_P13__nv_"
+                   f"bfloat16Pfiiiiiif")
+        out.append('\t.headerflags\t@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"')
+        for i, line in enumerate(body[f"D{d} BQ{64 * nc}"]):
+            out.append(f"        /*{16 * i:04x}*/                   {line} ;")
+    return "\n".join(out) + "\n"
+
+
+WGMMA_BODY = ["LDC R1, c[0x0][0x28]", "UTMALDG.4D [UR8], [UR4]",
+              "SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR4], R3",
+              "HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT",
+              "HGMMA.64x64x16.F32.BF16 R24, R152, gdesc[UR8], R24, gsb0",
+              "EXIT"]
+
+
+@pytest.mark.parametrize("change,problem", [
+    (None, None),
+    ("no_hgmma", "no HGMMA or no TMA load"),
+    ("no_tma", "no HGMMA or no TMA load"),
+    ("hmma", "HMMA or cp.async left"),
+    ("cp_async", "HMMA or cp.async left"),
+    ("spills", "spills"),
+])
+def test_phase1_holds_the_wgmma_instances(smoke, change, problem):
+    """Phase 1's check of the bf16 forward's wgmma instances, on SASS
+    listings: HGMMA and UTMALDG (TMA loads) in each, no HMMA, no LDGSTS
+    (cp.async) and no spills pass; a listing without HGMMA or TMA loads, or
+    with HMMA or cp.async left in one instance, or spilling, fails and
+    names that instance."""
+    body = {n: list(WGMMA_BODY) for n in ("D64 BQ64", "D64 BQ128",
+                                          "D128 BQ64", "D128 BQ128")}
+    edit = {"no_hgmma": lambda b: [x for x in b if "HGMMA" not in x],
+            "no_tma": lambda b: [x for x in b if "UTMALDG" not in x],
+            "hmma": lambda b: b + ["HMMA.16816.F32.BF16 R4, R8, R12, R4"],
+            "cp_async": lambda b: b + ["LDGSTS.E.BYPASS.LTC128B.128 [R3], "
+                                       "desc[UR6][R4.64]"]}
+    if change in edit:
+        body["D128 BQ128"] = edit[change](body["D128 BQ128"])
+    report = smoke._count_sass(_sass(body))
+    assert sorted(report) == ["K1/B2 bfloat16 D128 BQ128",
+                              "K1/B2 bfloat16 D128 BQ64",
+                              "K1/B2 bfloat16 D64 BQ128",
+                              "K1/B2 bfloat16 D64 BQ64"]
+    for name, counts in report.items():
+        counts["spill_bytes"] = 0
+    if change == "spills":
+        report["K1/B2 bfloat16 D128 BQ128"]["spill_bytes"] = 8
+    if change is None:
+        assert report["K1/B2 bfloat16 D64 BQ64"] == {
+            "hmma": 0, "hgmma": 2, "utmaldg": 1, "ldgsts": 0, "spill_bytes": 0}
+    found = smoke._wgmma_problems(report)
+    if problem is None:
+        assert found == []
+    else:
+        assert found == [f"K1/B2 bfloat16 D128 BQ128: {problem}"]
+
+
+def test_phase1_wants_every_wgmma_head_dim(smoke):
+    """A build without the D64 instances (or any wgmma instance) fails."""
+    report = {"K1/B2 bfloat16 D128 BQ128": {"hmma": 0, "hgmma": 24,
+                                            "utmaldg": 6, "ldgsts": 0,
+                                            "spill_bytes": 0}}
+    assert smoke._wgmma_problems(report) == [
+        "no K1/B2 bfloat16 D64 instance"]
+    assert len(smoke._wgmma_problems({})) == 2
 
 
 def test_profile_groups_name_the_kernels():

@@ -55,6 +55,12 @@ def _close(out, want, dtype):
     (100, 100, 4, 2, 64, False, 96),     # one-sided window, non-causal
     (50, 77, 8, 2, 160, True, 0),        # Sq < Sk
     (1100, 1100, 25, 5, 64, True, 1024),  # hymba-1.5b's long prefill
+    # bf16 runs these on wgmma (D64/D128), f32 on mma.sync
+    (1500, 1500, 20, 20, 64, False, 0),  # whisper's encoder, two warpgroups
+    (4, 1500, 20, 20, 64, False, 0),     # its cross attention, Sq4 Sk1500
+    (300, 259, 8, 2, 128, False, 0),     # ragged Sk, non-causal, one group
+    (600, 600, 32, 8, 128, True, 0),     # D128, two warpgroups, ragged
+    (600, 700, 16, 4, 128, True, 256),   # Sq < Sk with a window
 ])
 def test_flash_kernel_matches_plain(dev, dtype, sq, sk, hq, hkv, d, causal,
                                     window):
@@ -127,6 +133,48 @@ def test_forward_is_deterministic(dev, dtype):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# (B, Sq, Sk, Hq, Hkv, D, causal): one shape per instance of the bf16
+# forward's wgmma kernel, (D, consumer warpgroups) = (64, 2), (64, 1),
+# (128, 2), (128, 1), by whether 128-row tiles fill the card's SMs
+WGMMA_SHAPES = [(1, 1500, 1500, 20, 20, 64, False),
+                (4, 4, 1500, 20, 20, 64, False),
+                (2, 1000, 1000, 16, 2, 128, True),
+                (1, 128, 128, 40, 8, 128, True)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal", WGMMA_SHAPES)
+def test_forward_wgmma_instances_are_deterministic(dev, B, Sq, Sk, Hq, Hkv,
+                                                   D, causal):
+    """The wgmma instances of K1/B2 in bf16 use no atomics: two launches on
+    the same inputs give the same bits, output and lse."""
+    from repro_torch.kernels.flash_attention import flash_attention_lse_cuda
+    rng = np.random.default_rng(Sq + Sk + D)
+    q = _rand(rng, (B, Sq, Hq, D), BF16, dev)
+    k, v = (_rand(rng, (B, Sk, Hkv, D), BF16, dev) for _ in range(2))
+    first = flash_attention_lse_cuda(q, k, v, causal=causal, window=0)
+    second = flash_attention_lse_cuda(q, k, v, causal=causal, window=0)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal", WGMMA_SHAPES)
+def test_wgmma_plan_query_is_the_lints_plan(dev, B, Sq, Sk, Hq, Hkv, D,
+                                            causal):
+    """The C plan query of K1/B2 in bf16 at each wgmma instance equals the
+    lint's mirror (``kernel_lint.fwd_launch``): grid, threads (384 with two
+    consumer warpgroups, 160 with one) and shared bytes."""
+    from repro_torch.analysis import kernel_lint
+    from repro_torch.kernels import _build
+    dims = dict(B=B, Sq=Sq, Sk=Sk, Hq=Hq, Hkv=Hkv, D=D, dtype="bfloat16")
+    fwd = kernel_lint.plan_flash_attention(dims, {})[0]
+    assert fwd.query_args == (B, Sq, Sk, Hq, Hkv, D, 1)
+    assert _build.plan(fwd.query, *fwd.query_args) == fwd.launch()
+    nc = kernel_lint.fwd_groups(B, Sq, Hq, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    assert fwd.threads == (384 if nc == 2 else 160)
 
 
 def test_flash_attention_refuses_unaligned_rows(dev):

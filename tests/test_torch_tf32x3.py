@@ -233,3 +233,31 @@ def test_forward_bf16_needs_p_in_two_terms(one_head, pv, held):
                 pv=pv, bk=64)
     err = smoke._ulp_err(o.to(torch.bfloat16), o_want)
     assert (err <= smoke.ULP_TOL) == held, err
+
+
+@pytest.fixture(scope="module")
+def one_head_d64():
+    """q, k, v of one head at S4096 D64 (the wgmma kernel's 128-key tiles),
+    seeded."""
+    rng = np.random.default_rng(64)
+    return tuple(_rand(rng, (1, 4096, 1, 64)) for _ in range(3))
+
+
+@pytest.mark.parametrize("d,bk", [(128, 64), (64, 128)])
+@pytest.mark.parametrize("pv,held", [(pv_bf16_two_terms, True),
+                                     (pv_bf16_one_term, False)])
+def test_forward_bf16_wgmma_tiles_need_p_in_two_terms(one_head, one_head_d64,
+                                                      d, bk, pv, held):
+    """The bf16 forward on wgmma (``attn_fwd_kernel_wgmma``) at its key
+    tiles: 64 keys at D128, 128 at D64, each tile's P V in a fresh
+    accumulator folded in f32 (per 64 columns of D: the same sums, column
+    by column). At S4096, one head, the output rounded to bf16 is within
+    one unit of bf16 rounding of the plain forward in f32 with P as two
+    bf16 terms, and not with P rounded once."""
+    smoke = _smoke()
+    q, k, v = (_bf16(t) for t in (one_head if d == 128 else one_head_d64))
+    o_want, _ = _want(q, k, v)
+    o, _ = _fwd(q[0, :, 0], k[0, :, 0], v[0, :, 0], mm_s=torch.matmul,
+                pv=pv, bk=bk)
+    err = smoke._ulp_err(o.to(torch.bfloat16), o_want)
+    assert (err <= smoke.ULP_TOL) == held, err
