@@ -12,8 +12,8 @@ called through this checkout's launchers, so the C entry points must match
 (their signatures are in ``kernels/_build.py``). Cases, in f32 and bf16, one
 JSON line each: K1 and B2 at the shapes of ``chip_smoke.py`` phases 2 and
 2b (K1 also at whisper's non-causal encoder and llama4's prefills), B3
-and B4 at the training shape, B6 at phase 2c's shapes, K2 and K3 at
-phase 2's; ``--kernels`` keeps a subset. Each line has the device ms of
+and B4 at the training shape, whisper's encoder and phase 11b's B8 S128
+microbatch, B6 at phase 2c's shapes, K2 and K3 at phase 2's; ``--kernels`` keeps a subset. Each line has the device ms of
 every library (a CUDA graph of back-to-back calls, ``chip_smoke._time_ms``)
 and the eager call's ms (``call_ms_<tag>``: the host's cost per call where
 it exceeds the device's) in the turns A B .. B A, twice each, and each
@@ -149,26 +149,31 @@ def _cases(kernels, dtype, dev, gen):
         x = torch.randn(shape, generator=gen, device=dev)
         return x if f32 else x.to(dtype)
 
-    # (kernel, S, Hq, Hkv, D, window, causal): phase 2b's B2, phase 2's K1
-    # (granite, hymba; whisper's encoder, non-causal; llama4's prefills),
-    # B3 and B4 at the training shape
-    flash = [("B2", 4096, 32, 8, 128, 0, True),
-             ("B2", 4000, 32, 8, 128, 0, True),
-             ("K1", 128, 32, 8, 128, 0, True),
-             ("K1", 125, 32, 8, 128, 0, True),
-             ("K1", 2048, 32, 8, 128, 0, True),
-             ("K1", 128, 25, 5, 64, 1024, True),
-             ("K1", 1100, 25, 5, 64, 1024, True),
-             ("K1", 1500, 20, 20, 64, 0, False),
-             ("K1", 128, 40, 8, 128, 0, True),
-             ("K1", 125, 40, 8, 128, 0, True),
-             ("B3", 4096, 32, 8, 128, 0, True),
-             ("B4", 4096, 32, 8, 128, 0, True)]
-    for fn, S, Hq, Hkv, D, W, causal in flash:
+    # (kernel, B, S, Hq, Hkv, D, window, causal): phase 2b's B2, phase 2's
+    # K1 (granite, hymba; whisper's encoder, non-causal; llama4's
+    # prefills), B3 and B4 at the training shape, whisper's encoder and
+    # phase 11b's B8 S128 microbatch (qwen2.5's GQA 40:8)
+    flash = [("B2", 1, 4096, 32, 8, 128, 0, True),
+             ("B2", 1, 4000, 32, 8, 128, 0, True),
+             ("K1", 1, 128, 32, 8, 128, 0, True),
+             ("K1", 1, 125, 32, 8, 128, 0, True),
+             ("K1", 1, 2048, 32, 8, 128, 0, True),
+             ("K1", 1, 128, 25, 5, 64, 1024, True),
+             ("K1", 1, 1100, 25, 5, 64, 1024, True),
+             ("K1", 1, 1500, 20, 20, 64, 0, False),
+             ("K1", 1, 128, 40, 8, 128, 0, True),
+             ("K1", 1, 125, 40, 8, 128, 0, True),
+             ("B3", 1, 4096, 32, 8, 128, 0, True),
+             ("B3", 1, 1500, 20, 20, 64, 0, False),
+             ("B3", 8, 128, 40, 8, 128, 0, True),
+             ("B4", 1, 4096, 32, 8, 128, 0, True),
+             ("B4", 1, 1500, 20, 20, 64, 0, False),
+             ("B4", 8, 128, 40, 8, 128, 0, True)]
+    for fn, B, S, Hq, Hkv, D, W, causal in flash:
         if fn not in kernels:
             continue
-        q, do = rand(1, S, Hq, D), rand(1, S, Hq, D)
-        k, v = rand(1, S, Hkv, D), rand(1, S, Hkv, D)
+        q, do = rand(B, S, Hq, D), rand(B, S, Hq, D)
+        k, v = rand(B, S, Hkv, D), rand(B, S, Hkv, D)
         kw = dict(causal=causal, window=W)
         o_ref, lse_ref = ref.flash_attention_lse_ref(q, k, v, **kw)
         delta = ref.attention_delta(o_ref, do)
@@ -184,7 +189,7 @@ def _cases(kernels, dtype, dev, gen):
             "B4": (lambda: flash_attention_dkv_cuda(*args, **kw),
                    lambda: ref.flash_attention_dkv_ref(*args, **kw)),
         }[fn]
-        yield (fn, f"B1 S{S} Hq{Hq} Hkv{Hkv} D{D} "
+        yield (fn, f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} "
                + ("causal" if causal else "non-causal")
                + (f" window{W}" if W else ""), call, want())
     if "B6" in kernels:

@@ -11,9 +11,11 @@ Phases, one JSON line each:
    time of the CUDA library, and per instance of the flash-attention
    kernels (K1/B2, B3, B4), of B6, K2 and K3 the HMMA (tensor-core)
    instructions in the library's SASS (``cuobjdump -sass``) and its
-   registers and spills (``-Xptxas -v``): fails unless every
-   flash-attention instance at D=128 and every B6 instance has HMMA, and
-   none of those and no K2 or K3 instance spills;
+   registers and spills (``-Xptxas -v``): fails unless every f32
+   flash-attention instance at D=128 and every B6 instance has HMMA, every
+   bf16 K1/B2, B3 and B4 instance at D64 and D128 has HGMMA and TMA loads
+   and no HMMA or cp.async, and none of those and no K2 or K3 instance
+   spills;
 2. kernels against their plain PyTorch versions at the shapes of the
    serving path (K1 and K3 at granite-3-8b's and at hymba-1.5b's, K1 with
    hymba's 1024-token window at S128 and S1100; K2 at the paged engine's
@@ -686,20 +688,18 @@ def main() -> int:
           "cuda_library_build_s": build_s, "ptxas": ptxas,
           "attention_sass": attn})
     # the flash-attention kernels run on the tensor cores without spilling
-    # at the serving and training paths' head dim, in both dtypes: B3, B4
-    # and K1/B2 in f32 on mma.sync (HMMA), K1/B2 in bf16 at D64 and D128
-    # on wgmma fed by TMA (_wgmma_problems)
-    short = [f"{b} {dt} D128" for b, dt in (
-                 ("K1/B2", "float32"), ("B3", "float32"),
-                 ("B3", "bfloat16"), ("B4", "float32"), ("B4", "bfloat16"))
-             if attn.get(f"{b} {dt} D128", {}).get("hmma", 0) <= 0
-             or attn[f"{b} {dt} D128"].get("spill_bytes", 1) != 0]
+    # at the serving and training paths' head dim, in both dtypes: K1/B2,
+    # B3 and B4 in f32 on mma.sync (HMMA), and in bf16 at D64 and D128 on
+    # wgmma fed by TMA (_wgmma_problems)
+    short = [f"{b} float32 D128" for b in ("K1/B2", "B3", "B4")
+             if attn.get(f"{b} float32 D128", {}).get("hmma", 0) <= 0
+             or attn[f"{b} float32 D128"].get("spill_bytes", 1) != 0]
     if short:
         raise AssertionError(f"no HMMA or spills in {short}: {attn}")
-    short = _wgmma_problems(attn)
+    short = [p for kernel in WGMMA_KERNELS
+             for p in _wgmma_problems(attn, kernel)]
     if short:
-        raise AssertionError(f"the bf16 forward's wgmma instances: {short}: "
-                             f"{attn}")
+        raise AssertionError(f"the bf16 wgmma instances: {short}: {attn}")
     # B6 runs on the tensor cores, and neither B6 nor K2 spills, in every
     # instance the launchers can pick
     b6 = [n for n in attn if n.startswith("B6 ")]
@@ -4865,9 +4865,12 @@ def _ptxas_summary(log: Path) -> list:
 ATTN_INSTANCE = re.compile(
     r"attn_(fwd|dq|dkv)_kernelI(f|13__nv_bfloat16)Li(\d+)E")
 ATTN_KERNEL = {"fwd": "K1/B2", "dq": "B3", "dkv": "B4"}
-# K1/B2 in bf16 at D64/D128: head dim, consumer warpgroups (64 q rows each)
-WGMMA_INSTANCE = re.compile(r"attn_fwd_kernel_wgmmaILi(\d+)ELi(\d+)E")
+# K1/B2, B3 and B4 in bf16 at D64/D128: kernel, head dim, consumer
+# warpgroups (64 rows each: q rows of K1/B2 and B3, key rows of B4)
+WGMMA_INSTANCE = re.compile(r"attn_(fwd|dq|dkv)_kernel_wgmmaILi(\d+)ELi(\d+)E")
+WGMMA_ROWS = {"fwd": "BQ", "dq": "BQ", "dkv": "BK"}
 WGMMA_DIMS = (64, 128)
+WGMMA_KERNELS = ("K1/B2", "B3", "B4")
 # the decay type mangles as a substitution (S<n>_) when it repeats the input's
 WKV6_INSTANCE = re.compile(
     r"wkv6_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)Li(\d+)E")
@@ -4882,8 +4885,9 @@ def _dtype_name(mangled_type: str) -> str:
 def _attn_instance(mangled: str):
     """The kernel instance a mangled name stands for, else None: 'B3
     float32 D128' (or 'K1/B2 ...', 'B4 ...') for the flash-attention
-    kernels, 'K1/B2 bfloat16 D128 BQ128' for the bf16 forward's wgmma
-    kernel (q rows a block), 'B6 float32 ld float32 VS32' for B6 (input
+    kernels, 'K1/B2 bfloat16 D128 BQ128', 'B3 bfloat16 D128 BQ128' and
+    'B4 bfloat16 D64 BK64' for their bf16 wgmma kernels (q rows a block,
+    or key rows for B4), 'B6 float32 ld float32 VS32' for B6 (input
     and decay types, V columns per block), 'K2 bfloat16 D<=128' for K2
     (the head dims the instance takes), 'K3 bfloat16 vec8' for K3
     (elements a load: 16 bytes' worth, or 1 for rows not on a 16-byte
@@ -4894,8 +4898,9 @@ def _attn_instance(mangled: str):
         return f"{ATTN_KERNEL[kernel]} {_dtype_name(dtype)} D{d}"
     m = WGMMA_INSTANCE.search(mangled)
     if m:
-        d, nc = m.groups()
-        return f"K1/B2 bfloat16 D{d} BQ{64 * int(nc)}"
+        kernel, d, nc = m.groups()
+        return (f"{ATTN_KERNEL[kernel]} bfloat16 D{d} "
+                f"{WGMMA_ROWS[kernel]}{64 * int(nc)}")
     m = WKV6_INSTANCE.search(mangled)
     if m:
         dtype, ld_dtype, nv = m.groups()
@@ -4947,15 +4952,16 @@ def _count_sass(sass: str) -> dict:
     return report
 
 
-def _wgmma_problems(attn: dict) -> list:
-    """What phase 1 finds wrong with the bf16 forward's wgmma instances
-    (K1/B2 bf16 at D64 and D128, each block size): missing, no HGMMA, no
-    TMA loads, any HMMA or cp.async left, or spills."""
+def _wgmma_problems(attn: dict, kernel: str = "K1/B2") -> list:
+    """What phase 1 finds wrong with one kernel's bf16 wgmma instances
+    (``kernel`` of WGMMA_KERNELS: the forward K1/B2 by default, or B3, B4;
+    bf16 at D64 and D128, each block size): missing, no HGMMA, no TMA
+    loads, any HMMA or cp.async left, or spills."""
     out = []
     for d in WGMMA_DIMS:
-        names = [n for n in attn if n.startswith(f"K1/B2 bfloat16 D{d} ")]
+        names = [n for n in attn if n.startswith(f"{kernel} bfloat16 D{d} ")]
         if not names:
-            out.append(f"no K1/B2 bfloat16 D{d} instance")
+            out.append(f"no {kernel} bfloat16 D{d} instance")
         for n in names:
             r = attn[n]
             if r.get("hgmma", 0) <= 0 or r.get("utmaldg", 0) <= 0:

@@ -7,11 +7,12 @@ config) pair without touching the card: grid, threads, dynamic shared
 bytes, the cluster, what the grid must cover and the operands each block
 reads. The arithmetic mirrors the C launchers (``csrc/*.cu``:
 ``flash_attention.cu``'s ``Layout<T, D>`` and ``WgLayout<D, NC>``, the
-backward kernels' ``Layout``, K2's ``make_plan``, B6's ``make_layout``,
-K3's ``make_plan``; the mirrors of K2, B6 and K3 live in
-:mod:`repro_torch.kernels.tuning`), and ``chip_smoke.py`` phase 14a holds
-every plan to the C code's own plan query, field by field. The rules,
-against :func:`repro_torch.kernels.tuning.capabilities`:
+backward kernels' ``Layout``, ``DqLayout`` and ``DkvLayout``, K2's
+``make_plan``, B6's ``make_layout``, K3's ``make_plan``; the mirrors of
+K2, B6 and K3 live in :mod:`repro_torch.kernels.tuning`), and
+``chip_smoke.py`` phase 14a holds every plan to the C code's own plan
+query, field by field. The rules, against
+:func:`repro_torch.kernels.tuning.capabilities`:
 
 * **RK001** the grid covers every row, key tile, page and V column (the
   kernels take ragged edges, so coverage, not exact division);
@@ -60,6 +61,11 @@ FWD_WG_TILE = {64: (128, 2), 128: (64, 3)}
 FWD_WG_DIMS = tuple(FWD_WG_TILE)
 BWD_ROWS, BWD_THREADS = 64, 256
 BWD_PAD = {"float32": 4, "bfloat16": 8}
+# bf16 at the same head dims runs B3's and B4's wgmma kernels
+# (``DqLayout<D, NC>``, ``DkvLayout<D, NC>``): NC consumer warpgroups of 64
+# resident rows (B4 at D128: one) and a producer; streamed tiles of 64 rows
+# (B3: keys, B4: queries) in two stages
+BWD_WG_TILE, BWD_WG_STAGES = 64, 2
 
 
 @dataclass
@@ -140,7 +146,7 @@ def fwd_launch(B: int, Sq: int, Hq: int, D: int, dtype: str):
 
 
 def bwd_smem(D: int, dtype: str, dkv: bool) -> int:
-    """B3 (``dq_bytes``) or B4 (``dkv_bytes``) of the backward's
+    """B3 (``dq_bytes``) or B4 (``dkv_bytes``) of the mma.sync backward's
     ``Layout<T, D, NS>``."""
     if dtype == "bfloat16":
         ns = 64
@@ -152,6 +158,29 @@ def bwd_smem(D: int, dtype: str, dkv: bool) -> int:
     if dkv:
         return (2 * resident + 2 * stage + 2 * pds) * es + 2 * 2 * ns * 4
     return (2 * resident + 2 * stage + pds) * es
+
+
+def bwd_launch(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int,
+               dtype: str, dkv: bool):
+    """B3's (dkv false) or B4's (resident rows a block, threads, dynamic
+    shared bytes): the wgmma kernels' layouts (1024 bytes of alignment,
+    the resident pair of tiles, two stages of the streamed pair, B4's lse
+    and delta rows, 1 + 3 STAGES mbarriers; consumer warpgroups by
+    ``fwd_groups``'s rule over B3's q rows or B4's key rows of each head,
+    and one for B4 at D128, ``dkv_groups``) or the mma.sync kernels' (64
+    rows, 256 threads, ``bwd_smem``), by the forward's (dtype, D) rule."""
+    if not fwd_wgmma(D, dtype):
+        return BWD_ROWS, BWD_THREADS, bwd_smem(D, dtype, dkv)
+    if dkv:
+        nc = 1 if D == 128 else fwd_groups(B, Sk, Hkv)
+    else:
+        nc = fwd_groups(B, Sq, Hq)
+    rows, tile, stages = 64 * nc, BWD_WG_TILE, BWD_WG_STAGES
+    smem = 1024 + 2 * rows * D * 2 + stages * 2 * tile * D * 2 \
+        + 8 * (1 + 3 * stages)
+    if dkv:
+        smem += stages * 2 * tile * 4
+    return rows, 384 if nc == 2 else 160, smem
 
 
 def plan_flash_attention(dims: Dims, config: Dict[str, int],
@@ -177,21 +206,25 @@ def plan_flash_attention(dims: Dims, config: Dict[str, int],
                 ("key tiles", Sk, fwd_bk, _cdiv(Sk, fwd_bk))],
         reads=("q tile", "k, v of its kv head", "lse out (B2)"),
         bad_dims=list(bad), query="flash_attention_fwd", query_args=args)
+    dq_rows, dq_threads, dq_bytes = bwd_launch(B, Sq, Sk, Hq, Hkv, D, dt,
+                                               dkv=False)
     dq = Plan(
         kernel="B3", path=f"{CSRC}/flash_attention_bwd.cu", dtype=dt,
-        grid=(_cdiv(Sq, BWD_ROWS), Hq, B), threads=BWD_THREADS,
-        smem=bwd_smem(D, dt, dkv=False),
+        grid=(_cdiv(Sq, dq_rows), Hq, B), threads=dq_threads,
+        smem=dq_bytes, max_threads=dq_threads,
         static_smem=_static("B3", dt, static_smem),
-        covers=[("q rows", Sq, BWD_ROWS, _cdiv(Sq, BWD_ROWS)),
+        covers=[("q rows", Sq, dq_rows, _cdiv(Sq, dq_rows)),
                 ("q heads", Hq, 1, Hq), ("batch rows", B, 1, B)],
         reads=("q, dO tiles", "k, v of its kv head", "lse, delta rows"),
         bad_dims=list(bad), query="flash_attention_dq", query_args=args)
+    kv_rows, kv_threads, kv_bytes = bwd_launch(B, Sq, Sk, Hq, Hkv, D, dt,
+                                               dkv=True)
     dkv = Plan(
         kernel="B4", path=f"{CSRC}/flash_attention_bwd.cu", dtype=dt,
-        grid=(_cdiv(Sk, BWD_ROWS), Hkv, B), threads=BWD_THREADS,
-        smem=bwd_smem(D, dt, dkv=True),
+        grid=(_cdiv(Sk, kv_rows), Hkv, B), threads=kv_threads,
+        smem=kv_bytes, max_threads=kv_threads,
         static_smem=_static("B4", dt, static_smem),
-        covers=[("key rows", Sk, BWD_ROWS, _cdiv(Sk, BWD_ROWS)),
+        covers=[("key rows", Sk, kv_rows, _cdiv(Sk, kv_rows)),
                 ("kv heads", Hkv, 1, Hkv), ("batch rows", B, 1, B)],
         reads=("k, v tiles", "q, dO of its group's heads",
                "lse, delta rows"),
@@ -402,7 +435,9 @@ _INSTANCE = (
     # bf16 only: the type is not a template argument
     (re.compile(r"attn_fwd_kernel_wgmma()I"), "K1/B2"),
     (re.compile(r"attn_dq_kernelI(f|13__nv_bfloat16)"), "B3"),
+    (re.compile(r"attn_dq_kernel_wgmma()I"), "B3"),
     (re.compile(r"attn_dkv_kernelI(f|13__nv_bfloat16)"), "B4"),
+    (re.compile(r"attn_dkv_kernel_wgmma()I"), "B4"),
     (re.compile(r"paged_decode_kernelI(f|13__nv_bfloat16)"), "K2"),
     (re.compile(r"rmsnorm_kernelI(f|13__nv_bfloat16)"), "K3"),
     (re.compile(r"wkv6_kernelI(f|13__nv_bfloat16)"), "B6"),

@@ -625,18 +625,9 @@ attn_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-int sm_count() {
-  int sms = 132, dev = 0;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms;
-}
-
 // Consumer warpgroups a block of the wgmma kernel: 2 (128 q rows) when the
 // grid of 128-row tiles fills the SMs, else 1 (64 rows, twice the blocks).
-int fwd_groups(int B, int Sq, int Hq) {
-  return long(B) * Hq * ((Sq + 127) / 128) >= sm_count() ? 2 : 1;
-}
+int fwd_groups(int B, int Sq, int Hq) { return wg::groups(long(B) * Hq, Sq); }
 
 dim3 wgmma_grid(int B, int Sq, int Hq, int NC) {
   return dim3((Sq + 64 * NC - 1) / (64 * NC), Hq, B);

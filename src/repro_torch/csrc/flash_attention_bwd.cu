@@ -15,48 +15,78 @@
 // What bounds them on the H100: at the training shape (S 4096, D 128) each
 // (q tile, key tile) pair is 3 (dq) or 4 (dk, dv) 64x64x128 products, ~S/2
 // multiply-adds per loaded byte, so arithmetic bounds them: on the tensor
-// cores, not the FMA units (67 TFLOP/s f32), which the first versions of
-// these kernels used. Every product here is a warp-level mma.sync
-// (mma.cuh):
-//  - bf16: m16n8k16, f32 accumulators (989 TFLOP/s dense). P and dS enter
-//    the second products rounded to bf16, as FlashAttention-2 does; the
-//    reference keeps them in f32 (a deliberate difference, ROADMAP C).
-//  - f32: 3xTF32, m16n8k8 on each operand split as hi = tf32(x), lo =
-//    tf32(x - hi): lo*hi + hi*lo, then hi*hi; three passes at 495 TFLOP/s
-//    keep f32 accuracy (single TF32 keeps ~3 digits, too few for the
-//    training gates).
-// wgmma (the full tensor-core rate) is later work: for tf32 it needs
-// K-major shared-memory operands, and B4's ds^T q and p^T dO and B3's ds K
-// are transposed products.
+// cores, not the FMA units (67 TFLOP/s f32). P and dS enter the second
+// products rounded once to bf16 in bf16, as FlashAttention-2 does; the
+// reference keeps them in f32 (a deliberate difference, ROADMAP C).
 //
-// Design, both kernels: 256 threads, 8 warps; a block keeps 64 resident
-// rows (B3: its q and dO tile; B4: its k and v tile) in shared memory and
-// streams tiles of the other operand (B3: k, v; B4: q, dO, lse and delta
-// rows) through a two-stage ring filled by 16-byte cp.async, so the next
-// tile's copy overlaps the current tile's products; rows past the end are
-// zero-filled by the copy and masked. Warps pair up on 16 resident rows:
-// for the scores, each warp of the pair takes half of the streamed columns
-// and writes its p / ds block to shared memory; after a barrier, each warp
-// of the pair accumulates half of the head dim's columns (dq, or dk and dv)
-// from the pair's whole p / ds rows, so the accumulators take 32 (B3) or
-// 64 (B4) registers a thread at D=128.
+// Which kernels run is a fixed rule on (dtype, D), in dispatch() and
+// bwd_plan(), as the forward's (flash_attention.cu):
+//  - bf16 at D 64 and 128 (granite, qwen2.5, llama4 at D128, whisper at
+//    D64): attn_dq_kernel_wgmma and attn_dkv_kernel_wgmma, Hopper's
+//    warpgroup products fed by TMA (below; the bf16 D64/D128 instances of
+//    the mma.sync kernels are not built);
+//  - f32 at any D, and bf16 at D 16, 32 and 160: attn_dq_kernel and
+//    attn_dkv_kernel, warp-level mma.sync (mma.cuh). TF32 wgmma takes both
+//    operands K-major, so ds K would need K transposed in shared memory,
+//    and 3xTF32 three passes of it: the f32 path stays on mma.sync.
+// A launch error raises in the wrapper; nothing falls back to another
+// kernel.
 //
-// Shared memory and bank conflicts: rows are padded to D+4 floats or D+8
-// halves, so fragment reads are conflict-free: in f32 with 32-bit loads
-// (the transposed operand read at rows 2t and 2t+1, see mma.cuh), in bf16
-// with 32-bit loads and ldmatrix.trans for the transposed operand. One f32
-// 64x128 tile is 33 KiB, so f32 B4 (and f32 B3 at D=160) streams 32-row
-// tiles to fit both ring stages next to its resident tiles (at D=128, f32
-// B4 takes 152.5 KiB, f32 B3 216 KiB); the others stream 64 rows. One
-// block per SM, except bf16 B3 (111 KiB, 126 registers at D=128: two). Whole tiles, which
-// every (query, key) pair of the block sees, skip the mask.
+// The wgmma kernels (bf16, D 64/128): a block of NC consumer warpgroups of
+// 64 rows each (B3: q rows, Q and dO resident; B4: key rows, K and V
+// resident), then a producer; NC is 2 when the grid of 128-row tiles fills
+// the SMs, else 1 (wg::groups, shared with the forward). One producer
+// thread streams the other operand's 64-row tiles (B3: K, V; B4: Q, dO)
+// through a two-stage ring by TMA from 4-D tensor maps over (D, H, S, B),
+// boxes of 64 columns, 128-byte swizzle (rows past S zero-filled by the
+// hardware, never read from the next batch row), each stage with two full
+// mbarriers and an empty one that every consumer warp releases. B4's
+// producer is a warp: its lanes copy each step's lse and delta rows into
+// shared memory with ordinary loads, since (B, Hq, Sq) f32 rows cannot be
+// mapped when Sq % 4 != 0 (a map's strides are multiples of 16 bytes). No
+// tile is transposed in shared memory: the score products take both
+// operands K-major, the second products their A (p or ds, packed to bf16
+// from the accumulator fragments) from registers and their B MN-major by
+// wgmma's transpose bit; B4 computes S^T = K Q^T and dP^T = V dO^T so that
+// p^T and ds^T are A fragments (see the section's notes below). The
+// backward has no online rescale, so dQ, dK and dV accumulate on the tensor
+// cores directly, with no per-tile fold (the f32 path's 1e-4 gate needed
+// one, below; the bf16 gate is 2e-2). Only tiles that straddle the causal,
+// window or sequence edge of a warp's rows apply the mask; rows past Sq/Sk
+// are not stored; a block whose rows see no key writes zeros.
 //
-// B3: one block per (batch row, q head, 64-row q tile), heaviest causal
-// tiles first; the key tiles run from the window bound to the causal bound
-// (fully masked tiles are never loaded, the TPU kernel's pl.when skip).
-// B4: one block per (batch row, kv head, 64-row key tile). It walks its GQA
-// group's q heads and, for each, the q tiles that can see its keys, as one
-// sequence of ring steps, with dk and dv in registers throughout: the
+// The mma.sync kernels (f32; bf16 at D 16/32/160): 256 threads, 8 warps; a
+// block keeps 64 resident rows (B3: its q and dO tile; B4: its k and v
+// tile) in shared memory and streams tiles of the other operand (B3: k, v;
+// B4: q, dO, lse and delta rows) through a two-stage ring filled by 16-byte
+// cp.async, so the next tile's copy overlaps the current tile's products;
+// rows past the end are zero-filled by the copy and masked. Every product
+// is a warp-level mma.sync: bf16 m16n8k16 with f32 accumulators; f32 as
+// 3xTF32, m16n8k8 on each operand split as hi = tf32(x), lo = tf32(x -
+// hi): lo*hi + hi*lo, then hi*hi; three passes at 495 TFLOP/s keep f32
+// accuracy (single TF32 keeps ~3 digits, too few for the training gates).
+// Warps pair up on 16 resident rows: for the scores, each warp of the pair
+// takes half of the streamed columns and writes its p / ds block to shared
+// memory; after a barrier, each warp of the pair accumulates half of the
+// head dim's columns (dq, or dk and dv) from the pair's whole p / ds rows,
+// so the accumulators take 32 (B3) or 64 (B4) registers a thread at D=128.
+//
+// Shared memory and bank conflicts (mma.sync): rows are padded to D+4
+// floats or D+8 halves, so fragment reads are conflict-free: in f32 with
+// 32-bit loads (the transposed operand read at rows 2t and 2t+1, see
+// mma.cuh), in bf16 with 32-bit loads and ldmatrix.trans for the
+// transposed operand. One f32 64x128 tile is 33 KiB, so f32 B4 (and f32 B3
+// at D=160) streams 32-row tiles to fit both ring stages next to its
+// resident tiles (at D=128, f32 B4 takes 152.5 KiB, f32 B3 216 KiB); the
+// others stream 64 rows. One block per SM. Whole tiles, which every
+// (query, key) pair of the block sees, skip the mask.
+//
+// Both designs: B3 has one block per (batch row, q head, q tile), heaviest
+// causal tiles first; the key tiles run from the window bound to the causal
+// bound (fully masked tiles are never loaded, the TPU kernel's pl.when
+// skip). B4 has one block per (batch row, kv head, key tile). It walks its
+// GQA group's q heads and, for each, the q tiles that can see its keys, as
+// one sequence of ring steps, with dk and dv in registers throughout: the
 // group sum of the TPU wrapper (:334-335) happens in a fixed order, with
 // no atomics and no partials in device memory, so two runs give the same
 // bits. B3 uses no atomics either.
@@ -64,8 +94,10 @@
 // Both take any Sq/Sk (the TPU backward silently drops tail rows when its
 // blocks do not tile the sequence). Layouts: q, dO (B, Sq, Hq, D); k, v
 // (B, Sk, Hkv, D); dq like q; dk, dv like k; all contiguous, 16-byte
-// aligned (the copies are 16 bytes). q head h reads kv head h / (Hq /
-// Hkv). Both need more than 48 KB of shared memory (smem_opt_in.cuh).
+// aligned (the copies are 16 bytes, TMA's bases 16 bytes). q head h reads
+// kv head h / (Hq / Hkv). Both need more than 48 KB of shared memory
+// (smem_opt_in.cuh). Registers, spills and the HGMMA, UTMALDG, HMMA and
+// LDGSTS counts per instance are read by chip_smoke.py phase 1.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -77,6 +109,7 @@
 #include "attn_tile.cuh"
 #include "mma.cuh"
 #include "smem_opt_in.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -423,6 +456,534 @@ attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   store_rows<D>(dv + head, dv_acc, 1.f, k0 + rg * 16, half * (D / 2), Sk, Hkv, lane);
 }
 
+// ------------------------------------------- bf16 at D 64/128: wgmma fed by TMA
+//
+// Every product is a warpgroup wgmma (wgmma.cuh) whose shared-memory
+// operands are 128-byte-swizzled tiles written by TMA, and no tile is
+// transposed in shared memory: the first products (scores and dP) take both
+// operands K-major, as the forward's Q K^T; the second take A (the packed
+// p or ds fragments) from registers and B MN-major through the transpose
+// bit, as the forward's P V. B3 reads its K tile both ways (K-major for
+// S = Q K^T, MN-major for dQ += dS K). B4 computes the transposed scores
+// directly, S^T = K Q^T and dP^T = V dO^T with the keys as the M dimension,
+// so p^T and ds^T land in registers as A fragments of dV += P^T dO and
+// dK += dS^T Q, which read dO and Q MN-major from the tiles the first
+// products read K-major.
+
+// Barriers of a block (wgmma kernels): [0] the resident tiles' full; per
+// stage s, two full barriers (B3: K, V; B4: Q, dO with the lse and delta
+// rows) and an empty one, released by lane 0 of every consumer warp.
+__device__ __forceinline__ uint32_t bar_first(uint32_t bar, int s) {
+  return bar + 8 * (1 + s);
+}
+template <int ST>
+__device__ __forceinline__ uint32_t bar_second(uint32_t bar, int s) {
+  return bar + 8 * (1 + ST + s);
+}
+template <int ST>
+__device__ __forceinline__ uint32_t bar_empty(uint32_t bar, int s) {
+  return bar + 8 * (1 + 2 * ST + s);
+}
+
+// The block's shared memory past the alignment of its base to 1024 bytes
+// (the swizzle's atom), as a 32-bit shared address.
+__device__ __forceinline__ uint32_t aligned_base(const unsigned char* smem_raw) {
+  const uint32_t raw = mma::smem_addr(smem_raw);
+  return raw + (1024 - raw % 1024) % 1024;
+}
+
+__device__ __forceinline__ void init_bars(unsigned char* smem_raw, uint32_t bar, int nbar,
+                                          int stages, int second_count, int consumers) {
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw + (bar - mma::smem_addr(smem_raw)));
+  for (int i = 0; i < nbar; ++i)
+    mma::mbar_init(bars + i, i < 1 + stages ? 1 : i < 1 + 2 * stages ? second_count : 4 * consumers);
+  mma::mbar_fence_init();
+}
+
+// Writes a warpgroup's accumulators (its warp's 16 rows from r0, the
+// m64n64 fragments of D / 64 column chunks) times f into rows of a (B, S,
+// H, D) head (dst at its row 0); rows past S are not stored.
+template <int D>
+__device__ __forceinline__ void store_wg_rows(bf16* dst, const float (&c)[D / 64][32], float f,
+                                              int r0, int S, int H, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row_i = r0 + g + 8 * r;
+    if (row_i >= S) continue;
+    bf16* row = dst + size_t(row_i) * H * D + 2 * t;
+#pragma unroll
+    for (int cc = 0; cc < D / 64; ++cc)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mma::store_pair(row + 64 * cc + 8 * j, c[cc][4 * j + 2 * r] * f,
+                        c[cc][4 * j + 2 * r + 1] * f);
+  }
+}
+
+// A score tile's fragments (m64n8N: 8-column tiles j) as bf16 A fragments
+// of the second products, k step j = columns 16j .. 16j + 15 (tiles 2j
+// and 2j + 1), rounded once to bf16.
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int j = 0; j < N / 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[j][e] = mma::pack_bf16(x[8 * j + 2 * e], x[8 * j + 2 * e + 1]);
+}
+
+// B3's tiles: NC consumer warpgroups of 64 q rows each (BQ = 64 NC), then
+// the producer; key tiles of BK rows in a ring of STAGES. Shared memory,
+// after up to 1024 bytes that align the base: Q and dO (D / 64 swizzled
+// tiles of BQ x 64 each), per stage K and V (D / 64 tiles of BK x 64 each),
+// then the 1 + 3 STAGES mbarriers. With two consumer warpgroups the
+// producer is a warpgroup whose registers setmaxnreg moves to the
+// consumers (ptxas gives 384 threads 168 a thread); with one, a warp.
+template <int D, int NC>
+struct DqLayout {
+  static constexpr int BQ = 64 * NC;
+  static constexpr int BK = 64;
+  static constexpr int STAGES = 2;
+  static constexpr int THREADS = NC == 2 ? 384 : 160;
+  static constexpr uint32_t q = uint32_t(BQ) * D * 2;   // Q or dO
+  static constexpr uint32_t kv = uint32_t(BK) * D * 2;  // K or V of one stage
+  static constexpr uint32_t ring = 2 * q;
+  static constexpr uint32_t bars = ring + STAGES * 2 * kv;
+  static constexpr int NBAR = 1 + 3 * STAGES;
+  static constexpr size_t bytes = 1024 + bars + 8 * NBAR;
+};
+
+// What B3's producer and consumers share.
+struct DqBlock {
+  uint32_t qs, dos, ring, bar;
+  int q0, t_begin, steps, h, b;
+};
+
+// B3's producer thread: Q and dO once, then K and V of each key tile into
+// its stage once every consumer warp has released it.
+template <int D, int NC>
+__device__ __forceinline__ void dq_produce(const DqBlock& blk, const CUtensorMap* tq,
+                                           const CUtensorMap* tdo, const CUtensorMap* tk,
+                                           const CUtensorMap* tv, int hk) {
+  using L = DqLayout<D, NC>;
+  constexpr int BQ = L::BQ, BK = L::BK, ST = L::STAGES;
+  wg::mbar_arrive_expect(blk.bar, 2 * L::q);
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) {
+    wg::tma_load_4d(blk.qs + c * BQ * 128, tq, blk.bar, 64 * c, blk.h, blk.q0, blk.b);
+    wg::tma_load_4d(blk.dos + c * BQ * 128, tdo, blk.bar, 64 * c, blk.h, blk.q0, blk.b);
+  }
+  for (int i = 0; i < blk.steps; ++i) {
+    const int s = i % ST;
+    if (i >= ST) wg::mbar_wait(bar_empty<ST>(blk.bar, s), ((i / ST) - 1) & 1);
+    const int k0 = (blk.t_begin + i) * BK;
+    const uint32_t ks = blk.ring + 2 * s * L::kv, vs = ks + L::kv;
+    wg::mbar_arrive_expect(bar_first(blk.bar, s), L::kv);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+      wg::tma_load_4d(ks + c * BK * 128, tk, bar_first(blk.bar, s), 64 * c, hk, k0, blk.b);
+    wg::mbar_arrive_expect(bar_second<ST>(blk.bar, s), L::kv);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+      wg::tma_load_4d(vs + c * BK * 128, tv, bar_second<ST>(blk.bar, s), 64 * c, hk, k0, blk.b);
+  }
+}
+
+// B3's consumer warpgroup w: q rows q0 + 64 w .. q0 + 64 w + 63 over every
+// key tile of the block, then its dq rows. Per key tile: S = Q K^T and dP =
+// dO V^T (SS, K-major), p = exp(s scale - lse) on S's fragments while dP is
+// in flight, ds = p (dp - delta) rounded once to bf16 and packed as A, then
+// dQ += dS K per 64 columns of D (RS, K MN-major) into the accumulators.
+template <int D, int NC>
+__device__ __forceinline__ void dq_consume(const DqBlock& blk, int w, const float* __restrict__ lse,
+                                           const float* __restrict__ delta, bf16* __restrict__ dq,
+                                           int Sq, int Sk, int Hq, int causal, int window,
+                                           float scale) {
+  using L = DqLayout<D, NC>;
+  constexpr int BQ = L::BQ, BK = L::BK, ST = L::STAGES;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rw = blk.q0 + 64 * w + 16 * warp;  // the warp's first row
+  const uint32_t q_desc = wg::desc_lo(blk.qs + w * 64 * 128, 16);
+  const uint32_t do_desc = wg::desc_lo(blk.dos + w * 64 * 128, 16);
+
+  // rows g and g + 8 of the warp's 16: lse in log2 units, delta
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = rw + g + 8 * r;
+    const size_t row = (size_t(blk.b) * Hq + blk.h) * Sq + qp;
+    lse2[r] = qp < Sq ? lse[row] * kLog2e : 0.f;
+    dlt[r] = qp < Sq ? delta[row] : 0.f;
+  }
+  const float scale2 = scale * kLog2e;  // exp(x) = exp2(x log2(e))
+  float acc[D / 64][32];
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
+
+  if (blk.steps > 0) wg::mbar_wait(blk.bar, 0);
+  for (int i = 0; i < blk.steps; ++i) {
+    const int s = i % ST;
+    const uint32_t phase = (i / ST) & 1;
+    const int k0 = (blk.t_begin + i) * BK;
+    const uint32_t ks = blk.ring + 2 * s * L::kv, vs = ks + L::kv;
+
+    // S = Q K^T and dP = dO V^T: D / 16 k steps each, 32 bytes further
+    // along the rows (the next 64 columns in the next swizzled tile)
+    float sc[32], dp[32];
+    const uint32_t k_desc = wg::desc_lo(ks, 16), v_desc = wg::desc_lo(vs, 16);
+    wg::mbar_wait(bar_first(blk.bar, s), phase);
+    wg::fence();
+    wg::static_for<0, D / 16>([&](auto kk) {
+      constexpr int K = decltype(kk)::value, c = K / 4, step = 2 * (K % 4);  // 16-byte units
+      wg::mma_ss<c * BQ * 8 + step, c * BK * 8 + step, (K > 0)>(sc, q_desc, k_desc);
+    });
+    wg::commit();
+    wg::mbar_wait(bar_second<ST>(blk.bar, s), phase);
+    wg::fence();
+    wg::static_for<0, D / 16>([&](auto kk) {
+      constexpr int K = decltype(kk)::value, c = K / 4, step = 2 * (K % 4);
+      wg::mma_ss<c * BQ * 8 + step, c * BK * 8 + step, (K > 0)>(dp, do_desc, v_desc);
+    });
+    wg::commit();
+
+    wg::wait<1>();  // S is in; dP may still run
+    wg::fence_operand(sc);
+    auto probs = [&](auto whole) {  // p, in sc
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qp = rw + g + 8 * (e >> 1);
+          const int kp = k0 + 8 * j + 2 * t4 + (e & 1);
+          sc[4 * j + e] = (decltype(whole)::value || visible(qp, kp, Sk, causal, window))
+                              ? exp2f(fmaf(sc[4 * j + e], scale2, -lse2[e >> 1]))
+                              : 0.f;
+        }
+    };
+    // a key tile that every row of the warp sees skips the mask
+    if (k0 + BK <= Sk && (!causal || k0 + BK - 1 <= rw) && (window <= 0 || rw + 15 - k0 < window))
+      probs(std::true_type{});
+    else
+      probs(std::false_type{});
+    wg::wait<0>();
+    wg::fence_operand(dp);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] *= dp[e] - dlt[(e >> 1) & 1];  // ds
+    uint32_t ds[BK / 16][4];
+    pack_a<BK>(ds, sc);
+
+    // dQ += dS K per 64 columns of D: K's tile read MN-major (k16 step j
+    // starts 16 rows, 2048 bytes, further)
+    const uint32_t kt_desc = wg::desc_lo(ks, BK * 128);
+    wg::fence();
+    wg::static_for<0, D / 64>([&](auto cc) {
+      constexpr int c = decltype(cc)::value;
+      wg::static_for<0, BK / 16>([&](auto jj) {
+        constexpr int j = decltype(jj)::value;
+        wg::mma_rs<c * BK * 8 + j * 128, 1>(acc[c], ds[j], kt_desc);
+      });
+    });
+    wg::commit();
+    wg::wait<0>();
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) wg::fence_operand(acc[c]);
+    if (lane == 0) wg::mbar_arrive(bar_empty<ST>(blk.bar, s));  // this warp is done with the stage
+  }
+  store_wg_rows<D>(dq + (size_t(blk.b) * Sq * Hq + blk.h) * D, acc, scale, rw, Sq, Hq, lane);
+}
+
+template <int D, int NC>
+__global__ void __launch_bounds__(DqLayout<D, NC>::THREADS, 1)
+attn_dq_kernel_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dq, int Sq, int Sk, int Hq, int Hkv, int causal, int window,
+                     float scale) {
+  using L = DqLayout<D, NC>;
+  constexpr int BQ = L::BQ, BK = L::BK, ST = L::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DqBlock blk;
+  blk.qs = aligned_base(smem_raw);
+  blk.dos = blk.qs + L::q;
+  blk.ring = blk.qs + L::ring;
+  blk.bar = blk.qs + L::bars;
+  blk.h = blockIdx.y;
+  blk.b = blockIdx.z;
+  blk.q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest causal tiles first
+  // key tiles from the window bound to the causal bound: fully masked
+  // tiles are never loaded (the TPU kernel's pl.when skip)
+  const int k_end = causal ? min(Sk, blk.q0 + BQ) : Sk;
+  const int k_begin = (causal && window > 0) ? max(0, blk.q0 - window + 1) : 0;
+  blk.t_begin = k_begin / BK;
+  blk.steps = k_end > k_begin ? (k_end + BK - 1) / BK - blk.t_begin : 0;
+
+  if (threadIdx.x == 0) init_bars(smem_raw, blk.bar, L::NBAR, ST, 1, NC);
+  __syncthreads();
+
+  // the thread's warpgroup, read from lane 0 so that the compiler sees it
+  // uniform across each warp: consumers 0 .. NC - 1, then the producer
+  const int role = __shfl_sync(0xffffffffu, int(threadIdx.x) >> 7, 0);
+  if (role == NC) {
+    if constexpr (NC == 2) wg::regs_dec<24>();
+    if (threadIdx.x == 128 * NC && blk.steps > 0)
+      dq_produce<D, NC>(blk, &tq, &tdo, &tk, &tv, blk.h / (Hq / Hkv));
+  } else {
+    if constexpr (NC == 2) wg::regs_inc<240>();
+    dq_consume<D, NC>(blk, role, lse, delta, dq, Sq, Sk, Hq, causal, window, scale);
+  }
+}
+
+// B4's tiles: NC consumer warpgroups of 64 key rows each (BKR = 64 NC
+// resident keys: K and V), then the producer; q tiles of BN rows (Q, dO
+// and their lse and delta rows) in a ring of STAGES. Shared memory, after
+// up to 1024 bytes that align the base: K and V (D / 64 swizzled tiles of
+// BKR x 64 each), per stage Q and dO (D / 64 tiles of BN x 64 each), per
+// stage the lse (log2 units) and delta rows (BN floats each), then the 1 +
+// 3 STAGES mbarriers. Producer as B3's. At D128 a consumer holds dK and dV
+// (128 registers) beside S^T and dP^T (64): 220 registers with one consumer
+// warpgroup, so D128 runs NC = 1 only (dkv_groups). With two, ptxas holds
+// every thread to 168 (it allocates by whole warpgroups, whatever
+// setmaxnreg asks: 872 bytes spilled, and 272 with 32-query steps), and a
+// producer warp does not help: 288 threads are allocated as 384, so
+// __maxnreg__(224) built without spills but could not launch. Blocks of
+// one warpgroup that feeds itself, two an SM, ran 16% slower at S4096 and
+// 50% at whisper's S1500 (PERF.md).
+template <int D, int NC>
+struct DkvLayout {
+  static constexpr int BKR = 64 * NC;
+  static constexpr int BN = 64;
+  static constexpr int STAGES = 2;
+  static constexpr int THREADS = NC == 2 ? 384 : 160;
+  static constexpr uint32_t kv = uint32_t(BKR) * D * 2;  // K or V
+  static constexpr uint32_t qt = uint32_t(BN) * D * 2;   // Q or dO of one stage
+  static constexpr uint32_t ring = 2 * kv;
+  static constexpr uint32_t rows = ring + STAGES * 2 * qt;
+  static constexpr uint32_t bars = rows + STAGES * 2 * BN * 4;
+  static constexpr int NBAR = 1 + 3 * STAGES;
+  static constexpr size_t bytes = 1024 + bars + 8 * NBAR;
+};
+
+// What B4's producer and consumers share. Step i is q head hk group + i /
+// per_head and q tile t_begin + i % per_head: the GQA group's heads
+// head-major, each over the q tiles that can see the block's keys.
+struct DkvBlock {
+  uint32_t ks, vs, ring, bar;
+  float* rows;  // the ring's lse and delta rows (generic address)
+  int k0, t_begin, per_head, steps, hk, group, b;
+};
+
+// B4's producer warp: K and V once; then per step, once every consumer warp
+// has released the stage, lane 0 starts the Q and dO loads and all 32
+// lanes copy the step's lse (times log2(e)) and delta rows with ordinary
+// loads (a tensor map needs 16-byte strides, which (B, Hq, Sq) f32 rows of
+// a ragged Sq do not have) and arrive on the dO barrier.
+template <int D, int NC>
+__device__ __forceinline__ void dkv_produce(const DkvBlock& blk, const CUtensorMap* tk,
+                                            const CUtensorMap* tv, const CUtensorMap* tq,
+                                            const CUtensorMap* tdo, const float* __restrict__ lse,
+                                            const float* __restrict__ delta, int Sq, int Hq,
+                                            int lane) {
+  using L = DkvLayout<D, NC>;
+  constexpr int BKR = L::BKR, BN = L::BN, ST = L::STAGES;
+  if (lane == 0) {
+    wg::mbar_arrive_expect(blk.bar, 2 * L::kv);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) {
+      wg::tma_load_4d(blk.ks + c * BKR * 128, tk, blk.bar, 64 * c, blk.hk, blk.k0, blk.b);
+      wg::tma_load_4d(blk.vs + c * BKR * 128, tv, blk.bar, 64 * c, blk.hk, blk.k0, blk.b);
+    }
+  }
+  for (int i = 0; i < blk.steps; ++i) {
+    const int s = i % ST;
+    if (i >= ST) wg::mbar_wait(bar_empty<ST>(blk.bar, s), ((i / ST) - 1) & 1);
+    const int h = blk.hk * blk.group + i / blk.per_head;
+    const int q0 = (blk.t_begin + i % blk.per_head) * BN;
+    const uint32_t qs = blk.ring + 2 * s * L::qt, dos = qs + L::qt;
+    if (lane == 0) {
+      wg::mbar_arrive_expect(bar_first(blk.bar, s), L::qt);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        wg::tma_load_4d(qs + c * BN * 128, tq, bar_first(blk.bar, s), 64 * c, h, q0, blk.b);
+      wg::mbar_expect(bar_second<ST>(blk.bar, s), L::qt);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        wg::tma_load_4d(dos + c * BN * 128, tdo, bar_second<ST>(blk.bar, s), 64 * c, h, q0, blk.b);
+    }
+    float* rows = blk.rows + s * 2 * BN;
+    const size_t base = (size_t(blk.b) * Hq + h) * Sq;
+#pragma unroll
+    for (int r = lane; r < BN; r += 32) {
+      const int qp = q0 + r;
+      rows[r] = qp < Sq ? lse[base + qp] * kLog2e : 0.f;
+      rows[BN + r] = qp < Sq ? delta[base + qp] : 0.f;
+    }
+    wg::mbar_arrive(bar_second<ST>(blk.bar, s));  // this lane's rows are written
+  }
+}
+
+// B4's consumer warpgroup w: keys k0 + 64 w .. k0 + 64 w + 63 over every
+// step of the block, then its dk and dv rows. Per step: S^T = K Q^T and
+// dP^T = V dO^T (SS, K-major), p^T = exp(s^T scale - lse) on S^T's
+// fragments while dP^T is in flight (lse and delta vary along the
+// columns), ds^T = p^T (dp^T - delta), both rounded once to bf16 and packed
+// as A, then dV += P^T dO and dK += dS^T Q per 64 columns of D (RS, dO and
+// Q MN-major) into the accumulators: the group sum stays in registers, in
+// step order, and no key is shared with another warpgroup.
+template <int D, int NC>
+__device__ __forceinline__ void dkv_consume(const DkvBlock& blk, int w, bf16* __restrict__ dk,
+                                            bf16* __restrict__ dv, int Sq, int Sk, int Hkv,
+                                            int causal, int window, float scale) {
+  using L = DkvLayout<D, NC>;
+  constexpr int BKR = L::BKR, BN = L::BN, ST = L::STAGES;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kw = blk.k0 + 64 * w + 16 * warp;  // the warp's first key
+  const uint32_t k_desc = wg::desc_lo(blk.ks + w * 64 * 128, 16);
+  const uint32_t v_desc = wg::desc_lo(blk.vs + w * 64 * 128, 16);
+  const float scale2 = scale * kLog2e;  // exp(x) = exp2(x log2(e))
+  float dk_acc[D / 64][32], dv_acc[D / 64][32];
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dk_acc[c][e] = dv_acc[c][e] = 0.f;
+
+  if (blk.steps > 0) wg::mbar_wait(blk.bar, 0);
+  for (int i = 0; i < blk.steps; ++i) {
+    const int s = i % ST;
+    const uint32_t phase = (i / ST) & 1;
+    const int q0 = (blk.t_begin + i % blk.per_head) * BN;
+    const uint32_t qs = blk.ring + 2 * s * L::qt, dos = qs + L::qt;
+
+    float st[BN / 2], dpt[BN / 2];
+    const uint32_t q_desc = wg::desc_lo(qs, 16), do_desc = wg::desc_lo(dos, 16);
+    wg::mbar_wait(bar_first(blk.bar, s), phase);
+    wg::fence();
+    wg::static_for<0, D / 16>([&](auto kk) {
+      constexpr int K = decltype(kk)::value, c = K / 4, step = 2 * (K % 4);  // 16-byte units
+      wg::mma_ss<c * BKR * 8 + step, c * BN * 8 + step, (K > 0)>(st, k_desc, q_desc);
+    });
+    wg::commit();
+    wg::mbar_wait(bar_second<ST>(blk.bar, s), phase);  // dO, and the lse and delta rows
+    wg::fence();
+    wg::static_for<0, D / 16>([&](auto kk) {
+      constexpr int K = decltype(kk)::value, c = K / 4, step = 2 * (K % 4);
+      wg::mma_ss<c * BKR * 8 + step, c * BN * 8 + step, (K > 0)>(dpt, v_desc, do_desc);
+    });
+    wg::commit();
+    const float* lse2 = blk.rows + s * 2 * BN;
+    const float* dlt = lse2 + BN;
+
+    wg::wait<1>();  // S^T is in; dP^T may still run
+    wg::fence_operand(st);
+    auto probs = [&](auto whole) {  // p^T, in st; column c is query q0 + c
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t4 + (e & 1);
+          const int qp = q0 + c;
+          const int kp = kw + g + 8 * (e >> 1);
+          st[4 * j + e] =
+              (decltype(whole)::value || (qp < Sq && visible(qp, kp, Sk, causal, window)))
+                  ? exp2f(fmaf(st[4 * j + e], scale2, -lse2[c]))
+                  : 0.f;
+        }
+    };
+    // a q tile that sees every key of the warp skips the mask
+    if (q0 + BN <= Sq && kw + 16 <= Sk && (!causal || q0 >= kw + 15) &&
+        (window <= 0 || q0 + BN - 1 - kw < window))
+      probs(std::true_type{});
+    else
+      probs(std::false_type{});
+    wg::wait<0>();
+    wg::fence_operand(dpt);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - dlt[8 * j + 2 * t4 + (e & 1)]);  // ds^T
+    uint32_t pa[BN / 16][4], da[BN / 16][4];
+    pack_a<BN>(pa, st);
+    pack_a<BN>(da, dpt);
+
+    // dV += P^T dO and dK += dS^T Q per 64 columns of D: dO's and Q's tiles
+    // read MN-major (k16 step j starts 16 rows, 2048 bytes, further)
+    const uint32_t dot_desc = wg::desc_lo(dos, BN * 128), qt_desc = wg::desc_lo(qs, BN * 128);
+    wg::fence();
+    wg::static_for<0, D / 64>([&](auto cc) {
+      constexpr int c = decltype(cc)::value;
+      wg::static_for<0, BN / 16>([&](auto jj) {
+        constexpr int j = decltype(jj)::value;
+        wg::mma_rs<c * BN * 8 + j * 128, 1>(dv_acc[c], pa[j], dot_desc);
+      });
+    });
+    wg::static_for<0, D / 64>([&](auto cc) {
+      constexpr int c = decltype(cc)::value;
+      wg::static_for<0, BN / 16>([&](auto jj) {
+        constexpr int j = decltype(jj)::value;
+        wg::mma_rs<c * BN * 8 + j * 128, 1>(dk_acc[c], da[j], qt_desc);
+      });
+    });
+    wg::commit();
+    wg::wait<0>();
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) {
+      wg::fence_operand(dv_acc[c]);
+      wg::fence_operand(dk_acc[c]);
+    }
+    if (lane == 0) wg::mbar_arrive(bar_empty<ST>(blk.bar, s));  // this warp is done with the stage
+  }
+  const size_t head = (size_t(blk.b) * Sk * Hkv + blk.hk) * D;
+  store_wg_rows<D>(dk + head, dk_acc, scale, kw, Sk, Hkv, lane);
+  store_wg_rows<D>(dv + head, dv_acc, 1.f, kw, Sk, Hkv, lane);
+}
+
+template <int D, int NC>
+__global__ void __launch_bounds__(DkvLayout<D, NC>::THREADS, 1)
+attn_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int Sq, int Sk, int Hq, int Hkv, int causal,
+                      int window, float scale) {
+  using L = DkvLayout<D, NC>;
+  constexpr int BKR = L::BKR, BN = L::BN, ST = L::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DkvBlock blk;
+  blk.ks = aligned_base(smem_raw);
+  blk.vs = blk.ks + L::kv;
+  blk.ring = blk.ks + L::ring;
+  blk.rows = reinterpret_cast<float*>(smem_raw + (blk.ks + L::rows - mma::smem_addr(smem_raw)));
+  blk.bar = blk.ks + L::bars;
+  blk.hk = blockIdx.y;
+  blk.b = blockIdx.z;
+  blk.group = Hq / Hkv;
+  blk.k0 = blockIdx.x * BKR;  // causal: low key tiles see the most queries, run first
+  // queries that can see keys k0 .. k0 + BKR - 1: from k0 if causal, and
+  // below k0 + BKR - 1 + window for a causal window
+  const int q_begin = causal ? blk.k0 : 0;
+  const int q_end = (causal && window > 0) ? min(Sq, blk.k0 + BKR - 1 + window) : Sq;
+  blk.t_begin = q_begin / BN;
+  blk.per_head = q_end > q_begin ? (q_end + BN - 1) / BN - blk.t_begin : 0;
+  blk.steps = blk.group * blk.per_head;
+
+  if (threadIdx.x == 0) init_bars(smem_raw, blk.bar, L::NBAR, ST, 32, NC);
+  __syncthreads();
+
+  const int role = __shfl_sync(0xffffffffu, int(threadIdx.x) >> 7, 0);
+  if (role == NC) {
+    if constexpr (NC == 2) wg::regs_dec<24>();
+    if ((threadIdx.x >> 5) == 4 * NC && blk.steps > 0)
+      dkv_produce<D, NC>(blk, &tk, &tv, &tq, &tdo, lse, delta, Sq, Hq, threadIdx.x & 31);
+  } else {
+    if constexpr (NC == 2) wg::regs_inc<240>();
+    dkv_consume<D, NC>(blk, role, dk, dv, Sq, Sk, Hkv, causal, window, scale);
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -474,25 +1035,136 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
+// ------------------------------------------------- the wgmma launches
+
+// B3's and B4's consumer warpgroups a block (wg::groups): B3 tiles the q
+// rows of each q head, B4 the key rows of each kv head (B4 at D128: one,
+// see DkvLayout)
+int dq_groups(int B, int Sq, int Hq) { return wg::groups(long(B) * Hq, Sq); }
+int dkv_groups(int B, int Sk, int Hkv, int D) {
+  return D == 128 ? 1 : wg::groups(long(B) * Hkv, Sk);
+}
+
+template <int D, int NC>
+cudaError_t launch_dq_wgmma(const Args& a) {
+  using L = DqLayout<D, NC>;
+  static_assert(L::bytes <= kMaxSmem, "B3's tiles exceed the shared memory of a block");
+  CUtensorMap tq, tdo, tk, tv;
+  cudaError_t err = wg::map_rows(&tq, a.q, a.B, a.Sq, a.Hq, D, L::BQ);
+  if (err == cudaSuccess) err = wg::map_rows(&tdo, a.dout, a.B, a.Sq, a.Hq, D, L::BQ);
+  if (err == cudaSuccess) err = wg::map_rows(&tk, a.k, a.B, a.Sk, a.Hkv, D, L::BK);
+  if (err == cudaSuccess) err = wg::map_rows(&tv, a.v, a.B, a.Sk, a.Hkv, D, L::BK);
+  if (err != cudaSuccess) return err;
+  static SmemOptIn opt_in;  // one per kernel instance
+  err = opt_in_smem(opt_in, attn_dq_kernel_wgmma<D, NC>, L::bytes);
+  if (err != cudaSuccess) return err;
+  attn_dq_kernel_wgmma<D, NC>
+      <<<dim3((a.Sq + L::BQ - 1) / L::BQ, a.Hq, a.B), L::THREADS, L::bytes, a.stream>>>(
+          tq, tdo, tk, tv, a.lse, a.delta, static_cast<bf16*>(a.dq), a.Sq, a.Sk, a.Hq, a.Hkv,
+          a.causal, a.window, a.scale);
+  return cudaGetLastError();
+}
+
+template <int D, int NC>
+cudaError_t launch_dkv_wgmma(const Args& a) {
+  using L = DkvLayout<D, NC>;
+  static_assert(L::bytes <= kMaxSmem, "B4's tiles exceed the shared memory of a block");
+  CUtensorMap tk, tv, tq, tdo;
+  cudaError_t err = wg::map_rows(&tk, a.k, a.B, a.Sk, a.Hkv, D, L::BKR);
+  if (err == cudaSuccess) err = wg::map_rows(&tv, a.v, a.B, a.Sk, a.Hkv, D, L::BKR);
+  if (err == cudaSuccess) err = wg::map_rows(&tq, a.q, a.B, a.Sq, a.Hq, D, L::BN);
+  if (err == cudaSuccess) err = wg::map_rows(&tdo, a.dout, a.B, a.Sq, a.Hq, D, L::BN);
+  if (err != cudaSuccess) return err;
+  static SmemOptIn opt_in;  // one per kernel instance
+  err = opt_in_smem(opt_in, attn_dkv_kernel_wgmma<D, NC>, L::bytes);
+  if (err != cudaSuccess) return err;
+  attn_dkv_kernel_wgmma<D, NC>
+      <<<dim3((a.Sk + L::BKR - 1) / L::BKR, a.Hkv, a.B), L::THREADS, L::bytes, a.stream>>>(
+          tk, tv, tq, tdo, a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+          a.Sq, a.Sk, a.Hq, a.Hkv, a.causal, a.window, a.scale);
+  return cudaGetLastError();
+}
+
+// With no keys (B3) or no queries (B4) the gradients are zeros, and there
+// is nothing to map: the outputs are cleared on the stream instead.
+template <int D>
+cudaError_t launch_wgmma(const Args& a, bool dkv) {
+  if (!dkv) {
+    if (a.Sk <= 0) return cudaMemsetAsync(a.dq, 0, size_t(a.B) * a.Sq * a.Hq * D * 2, a.stream);
+    return dq_groups(a.B, a.Sq, a.Hq) == 2 ? launch_dq_wgmma<D, 2>(a) : launch_dq_wgmma<D, 1>(a);
+  }
+  if (a.Sq <= 0) {
+    const size_t bytes = size_t(a.B) * a.Sk * a.Hkv * D * 2;
+    const cudaError_t err = cudaMemsetAsync(a.dk, 0, bytes, a.stream);
+    return err != cudaSuccess ? err : cudaMemsetAsync(a.dv, 0, bytes, a.stream);
+  }
+  if constexpr (D == 128)
+    return launch_dkv_wgmma<D, 1>(a);
+  else
+    return dkv_groups(a.B, a.Sk, a.Hkv, D) == 2 ? launch_dkv_wgmma<D, 2>(a)
+                                                : launch_dkv_wgmma<D, 1>(a);
+}
+
+// The (dtype, D) rule of the header: bf16 at D 64 and 128 runs the wgmma
+// kernels, everything else the mma.sync ones (whose bf16 D64/D128
+// instances are not built).
 template <typename T>
 cudaError_t dispatch(const Args& a, int D, bool dkv) {
 #define REPRO_BWD_CASE(DIM) \
   case DIM: return dkv ? launch_dkv<T, DIM>(a) : launch_dq<T, DIM>(a);
+#define REPRO_BWD_WGMMA_CASE(DIM)                                     \
+  case DIM:                                                           \
+    if constexpr (std::is_same<T, bf16>::value)                       \
+      return launch_wgmma<DIM>(a, dkv);                               \
+    else                                                              \
+      return dkv ? launch_dkv<T, DIM>(a) : launch_dq<T, DIM>(a);
   switch (D) {  // the head dims of K1 (flash_attention.cu)
     REPRO_BWD_CASE(16)
     REPRO_BWD_CASE(32)
-    REPRO_BWD_CASE(64)
-    REPRO_BWD_CASE(128)
+    REPRO_BWD_WGMMA_CASE(64)
+    REPRO_BWD_WGMMA_CASE(128)
     REPRO_BWD_CASE(160)
     default: return cudaErrorInvalidValue;
   }
+#undef REPRO_BWD_WGMMA_CASE
 #undef REPRO_BWD_CASE
+}
+
+// The wgmma launch of B3 (dkv false) or B4 for these sizes: grid, threads,
+// shared bytes.
+template <int D>
+void wgmma_plan(int B, int Sq, int Sk, int Hq, int Hkv, bool dkv, int64_t* out) {
+  int nc, rows, threads;
+  size_t smem;
+  dim3 g;
+  if (dkv) {
+    nc = dkv_groups(B, Sk, Hkv, D);
+    rows = 64 * nc;
+    g = dim3((Sk + rows - 1) / rows, Hkv, B);
+    threads = nc == 2 ? DkvLayout<D, 2>::THREADS : DkvLayout<D, 1>::THREADS;
+    smem = nc == 2 ? DkvLayout<D, 2>::bytes : DkvLayout<D, 1>::bytes;
+  } else {
+    nc = dq_groups(B, Sq, Hq);
+    rows = 64 * nc;
+    g = dim3((Sq + rows - 1) / rows, Hq, B);
+    threads = nc == 2 ? DqLayout<D, 2>::THREADS : DqLayout<D, 1>::THREADS;
+    smem = nc == 2 ? DqLayout<D, 2>::bytes : DqLayout<D, 1>::bytes;
+  }
+  const int64_t v[6] = {g.x, g.y, g.z, threads, int64_t(smem), 1};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
 }
 
 // The launch of B3 (dkv false) or B4 for these sizes: grid, threads,
 // shared bytes.
 template <typename T>
 int bwd_plan(int B, int Sq, int Sk, int Hq, int Hkv, int D, bool dkv, int64_t* out) {
+  if (std::is_same<T, bf16>::value && (D == 64 || D == 128)) {
+    if (D == 64)
+      wgmma_plan<64>(B, Sq, Sk, Hq, Hkv, dkv, out);
+    else
+      wgmma_plan<128>(B, Sq, Sk, Hq, Hkv, dkv, out);
+    return cudaSuccess;
+  }
   size_t smem = 0;
 #define REPRO_BWD_PLAN(DIM) \
   case DIM: smem = dkv ? dkv_smem<T, DIM>() : dq_smem<T, DIM>(); break;
@@ -521,7 +1193,8 @@ int plan(int B, int Sq, int Sk, int Hq, int Hkv, int D, int dtype, bool dkv, int
 int run(const Args& a, int D, int dtype, bool dkv) {
   if (a.B <= 0 || (dkv ? a.Sk : a.Sq) <= 0) return cudaSuccess;
   if (a.Hkv <= 0 || a.Hq % a.Hkv != 0) return cudaErrorInvalidValue;
-  // 16-byte copies of q, k, v, dO; paired stores of dq, dk, dv
+  // 16-byte copies (and TMA's 16-byte bases) of q, k, v, dO; paired stores
+  // of dq, dk, dv
   if (!aligned(a.q, 16) || !aligned(a.k, 16) || !aligned(a.v, 16) || !aligned(a.dout, 16) ||
       !aligned(a.lse, 4) || !aligned(a.delta, 4) || !aligned(dkv ? a.dk : a.dq, 8) ||
       (dkv && !aligned(a.dv, 8)))

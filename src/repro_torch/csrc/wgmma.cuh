@@ -4,8 +4,11 @@
 // shared-memory matrix descriptors of 128-byte-swizzled tiles, TMA loads
 // (cp.async.bulk.tensor) from a CUtensorMap completing on an mbarrier,
 // setmaxnreg, and the host's encoding of a tensor map, looked up at run
-// time (cudaGetDriverEntryPoint), so the library links without -lcuda.
-// Used by the bf16 flash-attention forward (flash_attention.cu: K1, B2).
+// time (cudaGetDriverEntryPoint), so the library links without -lcuda,
+// and the host's rule for the consumer warpgroups of a block (groups).
+// Used by the bf16 flash-attention kernels at D 64 and 128: the forward
+// (flash_attention.cu: K1, B2) and the backward (flash_attention_bwd.cu:
+// B3, B4).
 //
 // Tiles in shared memory are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
 // writes for a box 64 bf16 wide: rows of 128 bytes, the 16-byte chunks of
@@ -29,6 +32,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 #include "mma.cuh"
@@ -111,6 +115,12 @@ __device__ __forceinline__ void regs_inc() {
 // One arrival on the mbarrier at `bar`.
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Expects `bytes` more bytes of copies this phase, without arriving.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
 }
 
 // One arrival that also expects `bytes` more bytes of copies this phase.
@@ -291,6 +301,31 @@ inline cudaError_t map_rows(CUtensorMap* map, const void* base, int B, int S, in
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The SM count of the current device, asked of the runtime once per
+// device: every launch of a wgmma kernel reads it (groups).
+inline int sm_count() {
+  constexpr int kDevices = 64;
+  static std::atomic<int> known[kDevices];  // 0: not asked yet
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
+  const bool cached = dev >= 0 && dev < kDevices;
+  if (cached) sms = known[dev].load(std::memory_order_relaxed);
+  if (sms > 0) return sms;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms <= 0)
+    return 132;
+  if (cached) known[dev].store(sms, std::memory_order_relaxed);
+  return sms;
+}
+
+// Consumer warpgroups a block of a wgmma kernel that tiles `rows` rows of
+// each of `heads` (batch rows x heads): 2 (128 rows a block) when the grid
+// of 128-row tiles fills the SMs, else 1 (64 rows, twice the blocks). The
+// forward (K1/B2: q rows of each q head), B3 (the same) and B4 (key rows of
+// each kv head) share it.
+inline int groups(long heads, int rows) {
+  return heads * ((rows + 127) / 128) >= sm_count() ? 2 : 1;
 }
 
 }  // namespace wg

@@ -283,6 +283,78 @@ def test_the_bf16_forward_plans_are_the_wgmma_launches(B, Sq, Sk, Hq, Hkv,
     assert (f32.grid[0], f32.threads) == (-(-Sq // 64), 128)
 
 
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,dq,dkv", [
+    # granite's training S4096: B3 two consumer warpgroups (1024 tiles of
+    # 128 q rows); B4 at D128 one, 64 keys a block, whatever the grid
+    (1, 4096, 4096, 32, 8, 128,
+     dict(grid_x=32, grid_y=32, grid_z=1, threads=384, smem=132152),
+     dict(grid_x=64, grid_y=8, grid_z=1, threads=160, smem=100408)),
+    # whisper's encoder, S1500 D64 non-causal: 240 tiles each, two
+    (1, 1500, 1500, 20, 20, 64,
+     dict(grid_x=12, grid_y=20, grid_z=1, threads=384, smem=66616),
+     dict(grid_x=12, grid_y=20, grid_z=1, threads=384, smem=67640)),
+    # phase 11b's B8 S128 microbatch, qwen2.5's GQA 40:8: B3 two (320 tiles)
+    (8, 128, 128, 40, 8, 128,
+     dict(grid_x=1, grid_y=40, grid_z=8, threads=384, smem=132152),
+     dict(grid_x=2, grid_y=8, grid_z=8, threads=160, smem=100408)),
+    # ragged S300 (48 tiles of 128 rows < 132 SMs): one each
+    (2, 300, 300, 8, 2, 128,
+     dict(grid_x=5, grid_y=8, grid_z=2, threads=160, smem=99384),
+     dict(grid_x=5, grid_y=2, grid_z=2, threads=160, smem=100408)),
+])
+def test_the_bf16_backward_plans_are_the_wgmma_launches(B, Sq, Sk, Hq, Hkv,
+                                                        D, dq, dkv):
+    """B3 and B4 in bf16 at D64/D128 plan their wgmma kernels
+    (``DqLayout<D, NC>``, ``DkvLayout<D, NC>``): consumer warpgroups by
+    whether 128-row tiles (B3's q rows, B4's key rows of each head) fill
+    the 132 SMs, B4 at D128 always one; 1024 bytes of alignment, the
+    resident tiles, two stages of 64-row streamed tiles (and B4's lse and
+    delta rows), 1 + 3 STAGES mbarriers. The same shapes in f32 keep the
+    mma.sync kernels' plans: 64 rows, 256 threads, ``Layout<T, D, NS>``."""
+    dims = dict(B=B, Sq=Sq, Sk=Sk, Hq=Hq, Hkv=Hkv, D=D)
+    _, b3, b4 = kernel_lint.plan_flash_attention({**dims, "dtype": "bfloat16"},
+                                                 {})
+    assert b3.launch() == {**dq, "cluster": 1}
+    assert b4.launch() == {**dkv, "cluster": 1}
+    assert kernel_lint.check_plan(b3) == [] == kernel_lint.check_plan(b4)
+    _, f3, f4 = kernel_lint.plan_flash_attention({**dims, "dtype": "float32"},
+                                                 {})
+    ld = D + 4
+    f3_smem = (2 * 64 * ld + 2 * 2 * 64 * ld + 64 * 72) * 4
+    f4_smem = (2 * 64 * ld + 2 * 2 * 32 * ld + 2 * 64 * 40) * 4 + 2 * 2 * 32 * 4
+    assert f3.launch() == dict(grid_x=-(-Sq // 64), grid_y=Hq, grid_z=B,
+                               threads=256, smem=f3_smem, cluster=1)
+    assert f4.launch() == dict(grid_x=-(-Sk // 64), grid_y=Hkv, grid_z=B,
+                               threads=256, smem=f4_smem, cluster=1)
+    if D == 128:
+        assert (f3_smem, f4_smem) == (221184, 156160)
+
+
+def test_static_shared_memory_of_the_backward_wgmma_instances(tmp_path):
+    """B3's and B4's wgmma kernels (no type argument in their mangled
+    names) count as B3 and B4 in bf16, beside their mma.sync instances."""
+    log = tmp_path / "build.log"
+    log.write_text(
+        "ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__67799fe8_"
+        "22_flash_attention_bwd_cu_51c9e81920attn_dq_kernel_wgmmaILi128ELi2E"
+        "EEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16iiiiiif' for "
+        "'sm_90a'\n"
+        "ptxas info    : Used 168 registers, 16 bytes smem, 400 bytes "
+        "cmem[0]\n"
+        "ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__67799fe8_"
+        "22_flash_attention_bwd_cu_51c9e81921attn_dkv_kernel_wgmmaILi64ELi1E"
+        "EEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiiiiif' for "
+        "'sm_90a'\n"
+        "ptxas info    : Used 159 registers, 8 bytes smem, 400 bytes "
+        "cmem[0]\n"
+        "ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__67799fe8_"
+        "22_flash_attention_bwd_cu_51c9e81914attn_dkv_kernelIfLi128EEEvPKT_"
+        "S3_S3_S3_PKfS5_PS1_S6_iiiiiif' for 'sm_90a'\n"
+        "ptxas info    : Used 255 registers, 4 bytes smem\n")
+    assert kernel_lint.static_smem_from_log(log) == {
+        ("B3", "bfloat16"): 16, ("B4", "bfloat16"): 8, ("B4", "float32"): 4}
+
+
 def test_static_shared_memory_of_the_wgmma_instances(tmp_path):
     """The wgmma kernel's mangled name (no type argument) counts as K1/B2
     in bf16."""

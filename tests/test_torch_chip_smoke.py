@@ -96,6 +96,18 @@ def test_held_fields_by_dtype(smoke):
     ("_ZN51_GLOBAL__N__04cf38d3_18_flash_attention_cu_a939580c21attn_fwd_"
      "kernel_wgmmaILi64ELi1EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16"
      "Pfiiiiiif", "K1/B2 bfloat16 D64 BQ64"),
+    ("_ZN55_GLOBAL__N__67799fe8_22_flash_attention_bwd_cu_51c9e81920attn_dq_"
+     "kernel_wgmmaILi128ELi2EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_"
+     "bfloat16iiiiiif", "B3 bfloat16 D128 BQ128"),
+    ("_ZN55_GLOBAL__N__67799fe8_22_flash_attention_bwd_cu_51c9e81920attn_dq_"
+     "kernel_wgmmaILi64ELi1EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_"
+     "bfloat16iiiiiif", "B3 bfloat16 D64 BQ64"),
+    ("_ZN55_GLOBAL__N__67799fe8_22_flash_attention_bwd_cu_51c9e81921attn_dkv_"
+     "kernel_wgmmaILi64ELi1EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_"
+     "bfloat16S5_iiiiiif", "B4 bfloat16 D64 BK64"),
+    ("_ZN55_GLOBAL__N__67799fe8_22_flash_attention_bwd_cu_51c9e81921attn_dkv_"
+     "kernel_wgmmaILi128ELi1EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_"
+     "bfloat16S5_iiiiiif", "B4 bfloat16 D128 BK64"),
 ])
 def test_attn_instance_names(smoke, mangled, name):
     assert smoke._attn_instance(mangled) == name
@@ -172,6 +184,94 @@ def test_phase1_wants_every_wgmma_head_dim(smoke):
     assert smoke._wgmma_problems(report) == [
         "no K1/B2 bfloat16 D64 instance"]
     assert len(smoke._wgmma_problems({})) == 2
+
+
+# the backward's wgmma instances, (kernel, head dim, consumer warpgroups):
+# B3 at both sizes of both head dims, B4 at D64 (both) and D128 (one)
+BWD_INSTANCES = (("dq", 64, 1), ("dq", 64, 2), ("dq", 128, 1), ("dq", 128, 2),
+                 ("dkv", 64, 1), ("dkv", 64, 2), ("dkv", 128, 1))
+
+
+def _bwd_name(kernel: str, d: int, nc: int) -> str:
+    return (f"{'B3' if kernel == 'dq' else 'B4'} bfloat16 D{d} "
+            f"{'BQ' if kernel == 'dq' else 'BK'}{64 * nc}")
+
+
+def _bwd_sass(body: dict, instances=BWD_INSTANCES) -> str:
+    """A ``cuobjdump -sass`` listing of the backward's wgmma instances, each
+    function's body the lines ``body`` gives its name."""
+    out = ["\tcode for sm_90a"]
+    for kernel, d, nc in instances:
+        n = 20 if kernel == "dq" else 21
+        out.append(f"\t\tFunction : _ZN55_GLOBAL__N__67799fe8_22_flash_"
+                   f"attention_bwd_cu_51c9e819{n}attn_{kernel}_kernel_wgmmaILi"
+                   f"{d}ELi{nc}EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_"
+                   f"bfloat16iiiiiif")
+        out.append('\t.headerflags\t@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"')
+        for i, line in enumerate(body[_bwd_name(kernel, d, nc)]):
+            out.append(f"        /*{16 * i:04x}*/                   {line} ;")
+    return "\n".join(out) + "\n"
+
+
+@pytest.mark.parametrize("target", ["B3 bfloat16 D128 BQ128",
+                                    "B4 bfloat16 D128 BK64",
+                                    "B4 bfloat16 D64 BK128"])
+@pytest.mark.parametrize("change,problem", [
+    (None, None),
+    ("no_hgmma", "no HGMMA or no TMA load"),
+    ("no_tma", "no HGMMA or no TMA load"),
+    ("hmma", "HMMA or cp.async left"),
+    ("cp_async", "HMMA or cp.async left"),
+    ("spills", "spills"),
+])
+def test_phase1_holds_the_backward_wgmma_instances(smoke, target, change,
+                                                   problem):
+    """Phase 1's check of B3's and B4's bf16 wgmma instances, on SASS
+    listings: HGMMA and UTMALDG in each, no HMMA, no LDGSTS and no spills
+    pass; a listing without HGMMA or TMA loads, or with HMMA or cp.async
+    left in one instance, or spilling, fails and names that instance, under
+    its own kernel's check only."""
+    names = [_bwd_name(*i) for i in BWD_INSTANCES]
+    body = {n: list(WGMMA_BODY) for n in names}
+    edit = {"no_hgmma": lambda b: [x for x in b if "HGMMA" not in x],
+            "no_tma": lambda b: [x for x in b if "UTMALDG" not in x],
+            "hmma": lambda b: b + ["HMMA.16816.F32.BF16 R4, R8, R12, R4"],
+            "cp_async": lambda b: b + ["LDGSTS.E.BYPASS.LTC128B.128 [R3], "
+                                       "desc[UR6][R4.64]"]}
+    if change in edit:
+        body[target] = edit[change](body[target])
+    report = smoke._count_sass(_bwd_sass(body))
+    assert sorted(report) == sorted(names)
+    for counts in report.values():
+        counts["spill_bytes"] = 0
+    if change == "spills":
+        report[target]["spill_bytes"] = 8
+    found = {k: smoke._wgmma_problems(report, k) for k in ("B3", "B4")}
+    kernel = target.split()[0]
+    assert found[kernel] == ([] if problem is None
+                             else [f"{target}: {problem}"])
+    assert found["B4" if kernel == "B3" else "B3"] == []
+    # the forward's check, over the same report, misses only its instances
+    assert smoke._wgmma_problems(report) == [
+        "no K1/B2 bfloat16 D64 instance", "no K1/B2 bfloat16 D128 instance"]
+
+
+def test_phase1_wants_the_backward_wgmma_at_every_head_dim(smoke):
+    """A build without the D64 backward instances fails phase 1's check of
+    B3 and of B4, naming the head dim."""
+    d128 = [i for i in BWD_INSTANCES if i[1] == 128]
+    body = {_bwd_name(*i): list(WGMMA_BODY) for i in d128}
+    report = smoke._count_sass(_bwd_sass(body, d128))
+    for counts in report.values():
+        counts["spill_bytes"] = 0
+    assert sorted(report) == ["B3 bfloat16 D128 BQ128",
+                              "B3 bfloat16 D128 BQ64",
+                              "B4 bfloat16 D128 BK64"]
+    assert smoke._wgmma_problems(report, "B3") == [
+        "no B3 bfloat16 D64 instance"]
+    assert smoke._wgmma_problems(report, "B4") == [
+        "no B4 bfloat16 D64 instance"]
+    assert smoke.WGMMA_KERNELS == ("K1/B2", "B3", "B4")
 
 
 def test_profile_groups_name_the_kernels():

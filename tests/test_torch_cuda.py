@@ -386,11 +386,12 @@ def test_training_kernels_match_plain(dev, dtype, sq, sk, hq, hkv, d, causal,
     _close(lse, lse_want, F32)
 
 
-def _bwd_inputs(dtype, dev, sq, sk, hq, hkv, d, causal, window, seed=0):
+def _bwd_inputs(dtype, dev, sq, sk, hq, hkv, d, causal, window, seed=0,
+                b=2):
     """q, k, v, do and the plain forward's lse and delta for B3 and B4."""
     rng = np.random.default_rng(seed + sq + 3 * sk + hq + d + int(causal))
-    q, do = (_rand(rng, (2, sq, hq, d), dtype, dev) for _ in range(2))
-    k, v = (_rand(rng, (2, sk, hkv, d), dtype, dev) for _ in range(2))
+    q, do = (_rand(rng, (b, sq, hq, d), dtype, dev) for _ in range(2))
+    k, v = (_rand(rng, (b, sk, hkv, d), dtype, dev) for _ in range(2))
     o, lse = ref.flash_attention_lse_ref(q, k, v, causal=causal, window=window)
     return q, k, v, do, lse, ref.attention_delta(o, do)
 
@@ -402,20 +403,32 @@ BWD_CASES = [
     (200, 200, 4, 1, True, 96),      # ragged, MQA, sliding window
     (130, 130, 4, 4, False, 0),      # ragged, non-causal
     (100, 77, 6, 2, False, 40),      # Sq > Sk, one-sided window, non-causal
+    (100, 300, 8, 2, True, 40),      # Sq < Sk with a window: keys past Sq
+    #                                  see no query (dk, dv zero)
+    (300, 100, 8, 2, True, 64),      # rows from 163 see no key (dq zero)
+]
+# (batch, head dim, ...) at the models' shapes, on the wgmma kernels in
+# bf16: whisper's encoder, S1500 D64 non-causal, and granite's training
+# microbatch, S4096 Hq32:8 D128 causal
+BWD_MODEL_CASES = [
+    (1, 64, 1500, 1500, 20, 20, False, 0),
+    (1, 128, 4096, 4096, 32, 8, True, 0),
 ]
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("d", [16, 32, 64, 128, 160])
-@pytest.mark.parametrize("sq,sk,hq,hkv,causal,window", BWD_CASES)
-def test_backward_kernels_match_plain(dev, dtype, d, sq, sk, hq, hkv, causal,
-                                      window):
+@pytest.mark.parametrize("b,d,sq,sk,hq,hkv,causal,window", [
+    (2, d, *case) for case in BWD_CASES for d in (16, 32, 64, 128, 160)]
+    + BWD_MODEL_CASES)
+def test_backward_kernels_match_plain(dev, dtype, b, d, sq, sk, hq, hkv,
+                                      causal, window):
     """B3 (dq) and B4 (dk, dv) against their plain versions on the same
-    q, k, v, do, lse and delta."""
+    q, k, v, do, lse and delta; a row of dq that sees no key, and a row of
+    dk and dv that no query sees, is exactly zero."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_dkv_cuda, flash_attention_dq_cuda)
     kw = dict(causal=causal, window=window)
-    args = _bwd_inputs(dtype, dev, sq, sk, hq, hkv, d, causal, window)
+    args = _bwd_inputs(dtype, dev, sq, sk, hq, hkv, d, causal, window, b=b)
     dq = flash_attention_dq_cuda(*args, **kw)
     dk, dv = flash_attention_dkv_cuda(*args, **kw)
     want = (ref.flash_attention_dq_ref(*args, **kw),
@@ -423,6 +436,19 @@ def test_backward_kernels_match_plain(dev, dtype, d, sq, sk, hq, hkv, causal,
     for got, w in zip((dq, dk, dv), want):
         assert got.dtype == dtype and got.shape == w.shape
         _close(got, w, dtype)
+    # the mask's rule (kernels' visible()): causal, and a one-sided window
+    qp = torch.arange(sq, device=dev)[:, None]
+    kp = torch.arange(sk, device=dev)[None, :]
+    seen = torch.ones(sq, sk, dtype=torch.bool, device=dev)
+    if causal:
+        seen &= qp >= kp
+    if window:
+        seen &= qp - kp < window
+    no_key, no_query = ~seen.any(1), ~seen.any(0)
+    assert not dq[:, no_key].any()
+    assert not dk[:, no_query].any() and not dv[:, no_query].any()
+    if causal and window and sq != sk:   # built to leave rows unseen
+        assert bool((no_key if sq > sk else no_query).any())
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
@@ -440,6 +466,56 @@ def test_backward_kernels_are_deterministic(dev, dtype):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# (B, Sq, Sk, Hq, Hkv, D, causal): shapes that together launch every
+# instance of B3's and B4's wgmma kernels (bf16 at D64/D128): (D, consumer
+# warpgroups) = (64, 2), (64, 1), (128, 2), (128, 1) of B3 and (64, 2),
+# (64, 1), (128, 1) of B4, by whether 128-row tiles of B3's q rows or B4's
+# key rows fill the card's SMs (B4 at D128 always one)
+BWD_WGMMA_SHAPES = [(1, 1500, 1500, 20, 20, 64, False),   # B3 2, B4 2
+                    (1, 256, 256, 8, 2, 64, True),        # B3 1, B4 1
+                    (1, 4096, 4096, 32, 8, 128, True),    # B3 2, B4 1
+                    (8, 128, 128, 40, 8, 128, True),      # B3 2, B4 1
+                    (2, 300, 300, 8, 2, 128, True)]       # B3 1, B4 1
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal", BWD_WGMMA_SHAPES)
+def test_backward_wgmma_instances_are_deterministic(dev, B, Sq, Sk, Hq, Hkv,
+                                                    D, causal):
+    """The wgmma instances of B3 and B4 use no atomics, and B4 sums its GQA
+    group in registers in a fixed order: two launches on the same inputs
+    give the same bits."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_dkv_cuda, flash_attention_dq_cuda)
+    kw = dict(causal=causal, window=0)
+    args = _bwd_inputs(BF16, dev, Sq, Sk, Hq, Hkv, D, causal, 0, b=B)
+    first = (flash_attention_dq_cuda(*args, **kw),
+             *flash_attention_dkv_cuda(*args, **kw))
+    second = (flash_attention_dq_cuda(*args, **kw),
+              *flash_attention_dkv_cuda(*args, **kw))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal", BWD_WGMMA_SHAPES)
+def test_backward_wgmma_plan_query_is_the_lints_plan(dev, B, Sq, Sk, Hq, Hkv,
+                                                     D, causal):
+    """The C plan queries of B3 and B4 in bf16 at each wgmma instance equal
+    the lint's mirror (``kernel_lint.bwd_launch``): grid, threads (384 with
+    two consumer warpgroups, 160 with one) and shared bytes."""
+    from repro_torch.analysis import kernel_lint
+    from repro_torch.kernels import _build
+    dims = dict(B=B, Sq=Sq, Sk=Sk, Hq=Hq, Hkv=Hkv, D=D, dtype="bfloat16")
+    _, dq, dkv = kernel_lint.plan_flash_attention(dims, {})
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for plan, (heads, rows), one in ((dq, (B * Hq, Sq), False),
+                                     (dkv, (B * Hkv, Sk), D == 128)):
+        assert plan.query_args == (B, Sq, Sk, Hq, Hkv, D, 1)
+        assert _build.plan(plan.query, *plan.query_args) == plan.launch()
+        nc = 2 if heads * -(-rows // 128) >= sms and not one else 1
+        assert plan.threads == (384 if nc == 2 else 160)
 
 
 def test_reduced_loss_grads_through_the_kernels_match_dense(dev):

@@ -261,3 +261,76 @@ def test_forward_bf16_wgmma_tiles_need_p_in_two_terms(one_head, one_head_d64,
                 pv=pv, bk=bk)
     err = smoke._ulp_err(o.to(torch.bfloat16), o_want)
     assert (err <= smoke.ULP_TOL) == held, err
+
+
+# -------------------------------------------- the bf16 backward on wgmma
+def _bwd_wgmma_tiles(q, k, v, do, lse, delta, causal, bn=64):
+    """B3's and B4's arithmetic on their wgmma kernels for one kv head:
+    q, do (S, G, D) of its GQA group's G q heads, k, v (S, D), lse and
+    delta (G, S), bf16 values in f32. Products of bf16 values summed in f32
+    stand in for the tensor cores. p = exp2(s * scale * log2(e) - lse *
+    log2(e)) where visible, else 0; ds = p (dp - delta) formed in f32; p
+    and ds rounded once to bf16 as the second products' A operand; dQ, dK
+    and dV accumulated directly across tiles, in the kernels' order. B3
+    (dq): per head, every key tile of ``bn`` keys in order for all q rows
+    at once (a tile past a row's causal bound adds exact zeros, which the
+    kernel skips). B4 (dk, dv): the group's heads head-major, each over its
+    q tiles of ``bn`` rows in order, for all keys at once (the transposed
+    scores S^T = K Q^T, dP^T = V dO^T). Returns dq (S, G, D), dk and dv
+    (S, D), dq and dk times the scale."""
+    S, G, D = q.shape
+    scale2 = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32) \
+        * torch.tensor(LOG2E, dtype=torch.float32)
+    lse2 = lse * LOG2E
+    pos = torch.arange(S)
+    qh, doh = q.transpose(0, 1), do.transpose(0, 1)          # G, S, D
+    dq = torch.zeros(G, S, D)
+    for k0 in range(0, S, bn):
+        kt, vt = k[k0:k0 + bn], v[k0:k0 + bn]
+        seen = (pos[:, None] >= pos[None, k0:k0 + bn]) if causal else \
+            torch.ones(S, len(kt), dtype=torch.bool)
+        p = torch.where(seen, torch.exp2(qh @ kt.T * scale2
+                                         - lse2[..., None]), 0.0)
+        ds = p * (doh @ vt.T - delta[..., None])
+        dq += _bf16(ds) @ kt
+    dk, dv = torch.zeros(S, D), torch.zeros(S, D)
+    for h in range(G):
+        for q0 in range(0, S, bn):
+            qt, dot = q[q0:q0 + bn, h], do[q0:q0 + bn, h]
+            keys = q0 + len(qt) if causal else S      # keys that can be seen
+            seen = (pos[q0:q0 + bn][None, :] >= pos[:keys, None]) \
+                if causal else torch.ones(keys, len(qt), dtype=torch.bool)
+            pt = torch.where(seen, torch.exp2(k[:keys] @ qt.T * scale2
+                                              - lse2[h, q0:q0 + bn]), 0.0)
+            dst = pt * (v[:keys] @ dot.T - delta[h, q0:q0 + bn])
+            dv[:keys] += _bf16(pt) @ dot
+            dk[:keys] += _bf16(dst) @ qt
+    scale = 1.0 / math.sqrt(D)
+    return dq.transpose(0, 1) * scale, dk * scale, dv
+
+
+@pytest.mark.parametrize("S,G,D,causal", [
+    (4096, 4, 128, True),    # one kv head of granite's training shape
+    (1500, 1, 64, False),    # one head of whisper's encoder
+])
+def test_backward_bf16_wgmma_tiles_meet_phase_2b(S, G, D, causal):
+    """The bf16 backward on wgmma (``attn_dq_kernel_wgmma``,
+    ``attn_dkv_kernel_wgmma``) at its tiles, 64 keys a B3 step and 64
+    queries a B4 step, with p and ds rounded once to bf16 and dQ, dK, dV
+    accumulated directly: dq, dk and dv stay within phase 2b's bf16
+    tolerance (``chip_smoke.TOL``, max abs error over the largest
+    magnitude) of the plain f32 backward on the same bf16 inputs."""
+    tol = _smoke().TOL["bfloat16"]
+    rng = np.random.default_rng(S + D)
+    q, do = (_bf16(_rand(rng, (1, S, G, D))) for _ in range(2))
+    k, v = (_bf16(_rand(rng, (1, S, 1, D))) for _ in range(2))
+    o, lse = ref.flash_attention_lse_ref(q, k, v, causal=causal)
+    delta = ref.attention_delta(o, do)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    got = _bwd_wgmma_tiles(q[0], k[0, :, 0], v[0, :, 0], do[0], lse[0],
+                           delta[0], causal)
+    rel = [float((g - w[0].reshape(g.shape)).abs().max()
+                 / w.abs().max()) for g, w in zip(got, want)]
+    print(f"S{S} G{G} D{D} causal={causal}: rel err dq, dk, dv {rel}")
+    assert max(rel) <= tol
+    assert min(rel) > 0       # p and ds were rounded
