@@ -13,12 +13,15 @@ called through this checkout's launchers, so the C entry points must match
 JSON line each: K1 and B2 at the shapes of ``chip_smoke.py`` phases 2 and
 2b (K1 also at whisper's non-causal encoder and llama4's prefills), B3
 and B4 at the training shape, whisper's encoder and phase 11b's B8 S128
-microbatch, B6 at phase 2c's shapes, K2 and K3 at phase 2's; ``--kernels`` keeps a subset. Each line has the device ms of
+and B1 microbatches (B4 also at B4), B6 at phase 2c's shapes, K2 and K3 at phase 2's;
+``--kernels`` keeps a subset. Each line has the device ms of
 every library (a CUDA graph of back-to-back calls, ``chip_smoke._time_ms``)
 and the eager call's ms (``call_ms_<tag>``: the host's cost per call where
 it exceeds the device's) in the turns A B .. B A, twice each, and each
 output's error against the plain version (relative to its max magnitude; K1
-and K3 in bf16 also in units of bf16 rounding, ``chip_smoke._ulp_err``).
+and K3 in bf16 also in units of bf16 rounding, ``chip_smoke._ulp_err``), and
+``max_abs_delta_<tag>``: the largest |difference| between that tag's
+outputs and the first tag's on the same inputs (0: the same bits).
 Where an OTHER's K3 is its Triton kernel
 (``kernels/rmsnorm.py::rmsnorm_triton``, before it was rewritten in CUDA
 C++), that kernel runs in its turns; K3's lines also time ``F.rms_norm`` and
@@ -78,9 +81,15 @@ def main(argv: list[str]) -> int:
                          ("bfloat16", torch.bfloat16)):
         for fn, shape, call, want in _cases(kernels, dtype, dev, gen):
             line = {"kernel": fn, "dtype": dname, "shape": shape}
+            first = {}   # each tag's outputs in its first turn
             for tag in turns:
                 _build._lib, TURN[0] = libs[tag], tag
                 got = call()
+                first.setdefault(tag, [g.detach().clone() for g in got])
+                if tag != tags[0]:
+                    line[f"max_abs_delta_{tag}"] = max(
+                        float((g.float() - a.float()).abs().max())
+                        for g, a in zip(got, first[tags[0]]))
                 line[f"rel_err_{tag}"] = max(
                     c._err(g, w) / max(float(w.float().abs().max()), 1e-30)
                     for g, w in zip(got, want))
@@ -100,7 +109,7 @@ def main(argv: list[str]) -> int:
                 line["ms_floor"] = [c._time_ms(lambda: one.add_(1.0))[0]
                                     for _ in range(2)]
             print(json.dumps(line), flush=True)
-            del call, want, got
+            del call, want, got, first
             torch.cuda.empty_cache()
     return 0
 
@@ -152,7 +161,8 @@ def _cases(kernels, dtype, dev, gen):
     # (kernel, B, S, Hq, Hkv, D, window, causal): phase 2b's B2, phase 2's
     # K1 (granite, hymba; whisper's encoder, non-causal; llama4's
     # prefills), B3 and B4 at the training shape, whisper's encoder and
-    # phase 11b's B8 S128 microbatch (qwen2.5's GQA 40:8)
+    # phase 11b's B8 and B1 S128 microbatches (qwen2.5's GQA 40:8; at B1,
+    # and at B4's B4, f32 B4 splits its group over a cluster)
     flash = [("B2", 1, 4096, 32, 8, 128, 0, True),
              ("B2", 1, 4000, 32, 8, 128, 0, True),
              ("K1", 1, 128, 32, 8, 128, 0, True),
@@ -166,9 +176,12 @@ def _cases(kernels, dtype, dev, gen):
              ("B3", 1, 4096, 32, 8, 128, 0, True),
              ("B3", 1, 1500, 20, 20, 64, 0, False),
              ("B3", 8, 128, 40, 8, 128, 0, True),
+             ("B3", 1, 128, 40, 8, 128, 0, True),
              ("B4", 1, 4096, 32, 8, 128, 0, True),
              ("B4", 1, 1500, 20, 20, 64, 0, False),
-             ("B4", 8, 128, 40, 8, 128, 0, True)]
+             ("B4", 8, 128, 40, 8, 128, 0, True),
+             ("B4", 4, 128, 40, 8, 128, 0, True),
+             ("B4", 1, 128, 40, 8, 128, 0, True)]
     for fn, B, S, Hq, Hkv, D, W, causal in flash:
         if fn not in kernels:
             continue

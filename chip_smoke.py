@@ -287,7 +287,7 @@ Phases, one JSON line each:
    ``launch/train.py`` under one ``torchrun`` rank with
    ``--ckpt-dir`` (the reduced granite), 2 steps and then on to 4: the
    second launch prints ``resumed_from=1`` (the last step the first
-   saved);
+   saved); those two run from the start of 13a, beside it and 13b;
 13c. ``python -m repro_torch.bench --only scaling_matrix,trace_replay``
    through the harness's API on the card: the one-card points run (dp1,
    over NCCL in a fresh process, granite-3-8b at full width, 2 layers,
@@ -348,6 +348,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -620,6 +621,9 @@ KERNELS = {
 }
 
 
+PYCACHE = ROOT / "build" / "pycache"
+
+
 def emit(obj) -> None:
     print(json.dumps({**obj, "elapsed_s": time.perf_counter() - T0}),
           flush=True)
@@ -648,6 +652,14 @@ def main() -> int:
         print("chip_smoke.py: src/repro_torch not found beside this script; "
               "run it from the root of a checkout", file=sys.stderr)
         return 2
+    # the bytecode of every module this run imports goes under build/, so
+    # the processes it starts (phases 3b/3c, 12e, 13b, 13c), each a fresh
+    # interpreter, load torch's modules from it instead of compiling their
+    # sources again: an installation without bytecode beside its sources
+    # spent about 10 s a process on that
+    sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"] = str(PYCACHE)
+    sys.dont_write_bytecode = False
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is false; this "
@@ -686,14 +698,18 @@ def main() -> int:
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "cuda_library_build_s": build_s, "ptxas": ptxas,
-          "attention_sass": attn})
+          "attention_sass": attn,
+          # f32 B4's registers, unsplit and as rank of a cluster
+          "b4_f32_d128_registers": {
+              n: attn.get(n, {}).get("registers") for n in F32_D128[2:]}})
     # the flash-attention kernels run on the tensor cores without spilling
     # at the serving and training paths' head dim, in both dtypes: K1/B2,
-    # B3 and B4 in f32 on mma.sync (HMMA), and in bf16 at D64 and D128 on
-    # wgmma fed by TMA (_wgmma_problems)
-    short = [f"{b} float32 D128" for b in ("K1/B2", "B3", "B4")
-             if attn.get(f"{b} float32 D128", {}).get("hmma", 0) <= 0
-             or attn[f"{b} float32 D128"].get("spill_bytes", 1) != 0]
+    # B3 and B4 (and B4's instance that splits its group over a cluster)
+    # in f32 on mma.sync (HMMA), and in bf16 at D64 and D128 on wgmma fed
+    # by TMA (_wgmma_problems)
+    short = [n for n in F32_D128
+             if attn.get(n, {}).get("hmma", 0) <= 0
+             or attn[n].get("spill_bytes", 1) != 0]
     if short:
         raise AssertionError(f"no HMMA or spills in {short}: {attn}")
     short = [p for kernel in WGMMA_KERNELS
@@ -2122,7 +2138,8 @@ def _gate_state(rcfg, dev, mesh, seed: int = 0):
 def _dry_run(dev, use_reduced: bool = False) -> dict:
     """Phase 13, one part after another: 13a the dry run's cells (the
     card's machine only) and its gate, 13b remesh and (the card only) the
-    launcher, 13c the scaling matrix and the traces (the card only). 13a's
+    launcher, its processes started first (``_Launcher``), 13c the scaling
+    matrix and the traces (the card only). 13a's
     real count and 13b run over a world-size-1 process group (NCCL on the
     card, gloo on the CPU where the tests run it). Returns the launch
     counts of 13a's real step, 13b's resumed steps and 13c."""
@@ -2135,14 +2152,15 @@ def _dry_run(dev, use_reduced: bool = False) -> dict:
 
     on_card = dev.type == "cuda"
     launches = {}
-    if not use_reduced:
-        _dry_run_cells()
-    rcfg = _gate_config(dev, use_reduced)
-    t0 = time.perf_counter()
-    meta = _gate_on_meta(rcfg)
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(prefix=".dist-",
-                                     dir=ROOT / "build") as store:
+                                     dir=ROOT / "build") as store, \
+            _Launcher(Path(store) / "launcher", on_card) as launcher:
+        if not use_reduced:
+            _dry_run_cells()
+        rcfg = _gate_config(dev, use_reduced)
+        t0 = time.perf_counter()
+        meta = _gate_on_meta(rcfg)
         init_world(dev.type, store_dir=store, rank=0, world_size=1)
         try:
             mesh = make_mesh(rcfg.mesh, dev.type)
@@ -2158,8 +2176,7 @@ def _dry_run(dev, use_reduced: bool = False) -> dict:
         gc.collect()
         if on_card:
             torch.cuda.empty_cache()
-            line = {"phase": "13b",
-                    "launcher": _launcher_resume(Path(store) / "launcher")}
+            line = {"phase": "13b", "launcher": launcher.result()}
             emit(line)
             if line["launcher"]["resumed_from"] != REMESH_SPLIT - 1:
                 raise AssertionError(f"phase 13b's launcher failed: {line}")
@@ -2351,24 +2368,94 @@ def _remesh_phase(rcfg, dev, mesh, where) -> dict:
     return counts
 
 
-def _launcher_resume(ckpt_dir: Path) -> dict:
+class _Launcher:
+    """13b's launcher (``_launcher_resume``) on the card, in a thread of
+    its own from the start of phase 13: its two launches are processes of
+    their own (torch's import, a first step and ``torchrun``'s rendezvous,
+    about half a minute each), so they run while 13a counts on ``meta``
+    and 13b steps in this process. Leaving the block kills a launch still
+    running (``torchrun`` and its rank: each launch leads a process group
+    of its own), and starts no other."""
+
+    def __init__(self, ckpt_dir: Path, on_card: bool):
+        import threading
+        self.ckpt_dir, self.on_card = ckpt_dir, on_card
+        self.lock, self.stopped = threading.Lock(), False
+        self.procs, self.out = [], None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def __enter__(self):
+        if self.on_card:
+            self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        with self.lock:
+            self.stopped = True
+            for proc in self.procs:
+                _kill_group(proc)
+        if self.thread.is_alive():
+            self.thread.join()
+        return False
+
+    def _start(self, cmd, **kw):
+        with self.lock:
+            if self.stopped:
+                return None
+            proc = subprocess.Popen(cmd, **kw)
+            self.procs.append(proc)
+            return proc
+
+    def _run(self):
+        try:
+            self.out = _launcher_resume(self.ckpt_dir, self._start)
+        except Exception as e:          # re-raised by result()
+            self.out = e
+
+    def result(self) -> dict:
+        self.thread.join()
+        if isinstance(self.out, Exception):
+            raise self.out
+        return self.out
+
+
+def _kill_group(proc) -> None:
+    """Kill the process group ``proc`` leads, unless it has ended."""
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+
+def _launcher_resume(ckpt_dir: Path, start=subprocess.Popen) -> dict:
     """``launch/train.py`` under one ``torchrun`` rank with ``--ckpt-dir``
     (the reduced granite): REMESH_SPLIT steps, then a second launch on to
-    REMESH_STEPS, which resumes; its ``resumed_from`` and losses."""
+    REMESH_STEPS, which resumes; its ``resumed_from`` and losses. ``start``
+    starts a launch (returns its ``Popen``, or None: stop)."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = {}
     t0 = time.perf_counter()
     for steps in (REMESH_SPLIT, REMESH_STEPS):
-        proc = subprocess.run(
+        proc = start(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
              "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
              "--arch", SHARDED["arch"], "--batch", "2", "--seq", "128",
              "--steps", str(steps), "--ckpt-dir", str(ckpt_dir),
              "--ckpt-every", "100", "--log-every", "1"],
-            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, start_new_session=True)
+        if proc is None:
+            raise AssertionError("13b launcher stopped")
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            _kill_group(proc)
+            proc.communicate()
+            raise AssertionError("13b launcher ran past 300 s") from None
         if proc.returncode:
-            raise AssertionError(f"13b launcher failed: {proc.stderr[-2000:]}")
-        out[steps] = proc.stdout
+            raise AssertionError(f"13b launcher failed: {stderr[-2000:]}")
+        out[steps] = stdout
     final = re.search(r"resumed_from=(\S+)", out[REMESH_STEPS]).group(1)
     return {"resumed_from": None if final == "None" else int(final),
             "last_line": out[REMESH_STEPS].strip().splitlines()[-1],
@@ -3088,11 +3175,14 @@ def _train_kernels(rand, record, shapes=TRAIN_ATTN, stream=None,
     of D multiply-adds each (QK^T and PV; + dO V^T and ds K; + p^T dO and
     ds^T q), and every input read and output written once
     (``kernels/work.py``). Phase 11's lines pass their own shapes, stream
-    and dtypes."""
+    and dtypes. B3's and B4's lines carry their launch's cluster (the C
+    plan query: f32 B4 splits its GQA group where its grid underfills the
+    card), and B4's the sum of the two kernels' times beside ATen's
+    backward, which computes dq, dk and dv in one call."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ops, ref, work
+    from repro_torch.kernels import _build, ops, ref, work
     from repro_torch.kernels.flash_attention import (
         flash_attention_dkv_cuda, flash_attention_dq_cuda,
         flash_attention_lse_cuda)
@@ -3148,6 +3238,7 @@ def _train_kernels(rand, record, shapes=TRAIN_ATTN, stream=None,
                        "flash_attention_dq": (lib_bwd, lib_name[1]),
                        "flash_attention_dkv": (lib_bwd, lib_name[1])}
             group_ms = 0.0
+            plan_args = (B, S, S, Hq, Hkv, D, 0 if dname == "float32" else 1)
             for name, (kernel, plain, flops, nbytes) in cases.items():
                 got, want = held[name]
                 errs = [_err(g, w) for g, w in zip(got, want)]
@@ -3167,6 +3258,14 @@ def _train_kernels(rand, record, shapes=TRAIN_ATTN, stream=None,
                     "bound_ms": b_ms, "bound_by": b_by}
                 if dname == "float32":
                     line["bound_3xtf32_ms"] = bound_3xtf32(flops, nbytes)
+                if name != "flash_attention_lse":
+                    line["cluster"] = _build.plan(name, *plan_args)["cluster"]
+                if name == "flash_attention_dkv":
+                    line["b3_b4_ms"] = dq_ms + times["kernel_ms"]
+                    line["aten_backward_ms"] = times["library_ms"]
+                    line["b3_b4_over_aten"] = (line["b3_b4_ms"]
+                                               / times["library_ms"])
+                dq_ms = times["kernel_ms"]
                 record(line, main_path=(S == TRAIN_SEQ and stream is None
                                         and dname == "float32"))
             if rose["flash_attention"]:
@@ -4863,8 +4962,11 @@ def _ptxas_summary(log: Path) -> list:
 
 
 ATTN_INSTANCE = re.compile(
-    r"attn_(fwd|dq|dkv)_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+    r"attn_(fwd|dq|dkv)_kernelI(f|13__nv_bfloat16)Li(\d+)E(?:Lb([01])E)?")
 ATTN_KERNEL = {"fwd": "K1/B2", "dq": "B3", "dkv": "B4"}
+# the f32 D128 instances phase 1 requires on the tensor cores, unspilled
+F32_D128 = ("K1/B2 float32 D128", "B3 float32 D128", "B4 float32 D128",
+            "B4 float32 D128 cluster")
 # K1/B2, B3 and B4 in bf16 at D64/D128: kernel, head dim, consumer
 # warpgroups (64 rows each: q rows of K1/B2 and B3, key rows of B4)
 WGMMA_INSTANCE = re.compile(r"attn_(fwd|dq|dkv)_kernel_wgmmaILi(\d+)ELi(\d+)E")
@@ -4885,17 +4987,20 @@ def _dtype_name(mangled_type: str) -> str:
 def _attn_instance(mangled: str):
     """The kernel instance a mangled name stands for, else None: 'B3
     float32 D128' (or 'K1/B2 ...', 'B4 ...') for the flash-attention
-    kernels, 'K1/B2 bfloat16 D128 BQ128', 'B3 bfloat16 D128 BQ128' and
-    'B4 bfloat16 D64 BK64' for their bf16 wgmma kernels (q rows a block,
-    or key rows for B4), 'B6 float32 ld float32 VS32' for B6 (input
+    kernels ('B4 float32 D128 cluster' for f32 B4's instance that splits
+    its GQA group over a cluster), 'K1/B2 bfloat16 D128 BQ128', 'B3
+    bfloat16 D128 BQ128' and 'B4 bfloat16 D64 BK64' for their bf16 wgmma
+    kernels (q rows a block, or key rows for B4), 'B6 float32 ld float32
+    VS32' for B6 (input
     and decay types, V columns per block), 'K2 bfloat16 D<=128' for K2
     (the head dims the instance takes), 'K3 bfloat16 vec8' for K3
     (elements a load: 16 bytes' worth, or 1 for rows not on a 16-byte
     boundary)."""
     m = ATTN_INSTANCE.search(mangled)
     if m:
-        kernel, dtype, d = m.groups()
-        return f"{ATTN_KERNEL[kernel]} {_dtype_name(dtype)} D{d}"
+        kernel, dtype, d, cluster = m.groups()
+        return (f"{ATTN_KERNEL[kernel]} {_dtype_name(dtype)} D{d}"
+                + (" cluster" if cluster == "1" else ""))
     m = WGMMA_INSTANCE.search(mangled)
     if m:
         kernel, d, nc = m.groups()

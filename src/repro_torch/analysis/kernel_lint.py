@@ -66,6 +66,10 @@ BWD_PAD = {"float32": 4, "bfloat16": 8}
 # resident rows (B4 at D128: one) and a producer; streamed tiles of 64 rows
 # (B3: keys, B4: queries) in two stages
 BWD_WG_TILE, BWD_WG_STAGES = 64, 2
+# f32 B4 splits its GQA group over a cluster of at most this many blocks,
+# and only while the split grid stays within this many waves of the SMs
+# (``dkv_cluster``)
+BWD_MAX_CLUSTER, BWD_SPLIT_WAVES = 8, 4
 
 
 @dataclass
@@ -147,7 +151,10 @@ def fwd_launch(B: int, Sq: int, Hq: int, D: int, dtype: str):
 
 def bwd_smem(D: int, dtype: str, dkv: bool) -> int:
     """B3 (``dq_bytes``) or B4 (``dkv_bytes``) of the mma.sync backward's
-    ``Layout<T, D, NS>``."""
+    ``Layout<T, D, NS>``: up to 128 bytes that align the base for the
+    tensor copies, the tiles (rows of D + PAD; B4 in f32 at D128 also the
+    lo halves of its resident k and v), then 32 bytes of the ring's
+    mbarriers and release counts."""
     if dtype == "bfloat16":
         ns = 64
     else:
@@ -156,8 +163,27 @@ def bwd_smem(D: int, dtype: str, dkv: bool) -> int:
     resident, stage, pds = BWD_ROWS * ld, 2 * ns * ld, BWD_ROWS * (ns + 8)
     es = tuning.itemsize(dtype)
     if dkv:
-        return (2 * resident + 2 * stage + 2 * pds) * es + 2 * 2 * ns * 4
-    return (2 * resident + 2 * stage + pds) * es
+        lo = 2 * resident if dtype == "float32" and D == 128 else 0
+        tiles = (2 * resident + 2 * stage + 2 * pds + lo) * es
+    else:
+        tiles = (2 * resident + 2 * stage + pds) * es
+    return 128 + tiles + 32
+
+
+def bwd_cluster(B: int, Sk: int, Hkv: int, group: int, dtype: str,
+                sms: Optional[int] = None) -> int:
+    """f32 B4's cluster (``dkv_cluster``): where its (key tile, kv head,
+    row) grid underfills the SMs, the largest divisor of the GQA group at
+    most BWD_MAX_CLUSTER whose split grid stays within BWD_SPLIT_WAVES
+    waves of them; 1 (no split) otherwise, and always in bf16."""
+    sms = tuning.capabilities().sms if sms is None else sms
+    blocks = B * Hkv * _cdiv(Sk, BWD_ROWS)
+    if dtype != "float32" or blocks >= sms:
+        return 1
+    for c in range(min(group, BWD_MAX_CLUSTER), 1, -1):
+        if group % c == 0 and blocks * c <= BWD_SPLIT_WAVES * sms:
+            return c
+    return 1
 
 
 def bwd_launch(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int,
@@ -219,12 +245,15 @@ def plan_flash_attention(dims: Dims, config: Dict[str, int],
         bad_dims=list(bad), query="flash_attention_dq", query_args=args)
     kv_rows, kv_threads, kv_bytes = bwd_launch(B, Sq, Sk, Hq, Hkv, D, dt,
                                                dkv=True)
+    group = Hq // Hkv if Hkv > 0 and Hq % Hkv == 0 else 1
+    split = bwd_cluster(B, Sk, Hkv, group, dt)
     dkv = Plan(
         kernel="B4", path=f"{CSRC}/flash_attention_bwd.cu", dtype=dt,
-        grid=(_cdiv(Sk, kv_rows), Hkv, B), threads=kv_threads,
-        smem=kv_bytes, max_threads=kv_threads,
+        grid=(split * _cdiv(Sk, kv_rows), Hkv, B), threads=kv_threads,
+        smem=kv_bytes, cluster=split, max_threads=kv_threads,
         static_smem=_static("B4", dt, static_smem),
         covers=[("key rows", Sk, kv_rows, _cdiv(Sk, kv_rows)),
+                ("q heads of a group", group, group // split, split),
                 ("kv heads", Hkv, 1, Hkv), ("batch rows", B, 1, B)],
         reads=("k, v tiles", "q, dO of its group's heads",
                "lse, delta rows"),
@@ -334,14 +363,17 @@ def _attn(B, S, Hq, Hkv, D, Sk=None, **kw) -> Dims:
 
 # the shapes of PERF.md's kernel table, in both dtypes: K1 at granite's
 # prefill, B2-B4 at its training sequence, whisper's non-causal S1500 and
-# cross attention; K2 at the paged engine's decode table; K3 at 128 rows
-# of granite's width; B6 at rwkv6-3b's and hymba-1.5b's layers
+# cross attention, and phase 11b's B1 S128 microbatch (qwen2.5's 40:8,
+# where f32 B4 splits its group over a cluster); K2 at the paged engine's
+# decode table; K3 at 128 rows of granite's width; B6 at rwkv6-3b's and
+# hymba-1.5b's layers
 CANONICAL_DIMS: Dict[str, List[Dims]] = {
     "flash_attention": [
         _attn(B, S, Hq, Hkv, D, Sk, dtype=dt) for dt in DTYPES
         for B, S, Hq, Hkv, D, Sk in (
             (1, 128, 32, 8, 128, None), (1, 4096, 32, 8, 128, None),
-            (1, 1500, 20, 20, 64, None), (4, 4, 20, 20, 64, 1500))],
+            (1, 1500, 20, 20, 64, None), (4, 4, 20, 20, 64, 1500),
+            (1, 128, 40, 8, 128, None))],
     "paged_attention_fwd": [
         dict(B=B, Hq=Hq, Hkv=8, D=128, P=B * npag + 1, ps=16, npag=npag,
              dtype=dt) for dt in DTYPES

@@ -11,6 +11,12 @@ adds an engine run's decode steps and launches per forward pass (decode
 step or prefill chunk). Timings under the profiler are inflated by the
 tracing itself. ``chip_smoke.py`` runs them on its serving workload and
 on one training step; on CPU tensors the device figures are zero.
+
+The summary reads kineto's raw events (name, device, start, duration)
+and never ``prof.events()``: that builds a ``FunctionEvent`` tree over
+every recorded event first, tens of microseconds an event on the host, so
+a training step of some 10^5 launches (five events each) spent most of a
+minute in it and a fraction of a second in the sums it feeds.
 """
 from __future__ import annotations
 
@@ -33,6 +39,12 @@ GROUPS = (("attn_fwd_kernel", "K1/B2 flash forward"),
           ("xmma", "matmul"), ("nvjet", "matmul"))
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize")
+# what ``prof.events()`` leaves out: the profiler's own and memory records
+_FILTERED = frozenset(("[memory]", "[OutOfMemory]",
+                       "profiler::_record_function_enter",
+                       "profiler::_record_function_enter_new",
+                       "profiler::_record_function_exit",
+                       "aten::is_leaf", "aten::output_nr", "aten::_version"))
 
 
 def _group(name: str) -> str:
@@ -55,30 +67,47 @@ def _union_us(intervals) -> float:
     return total
 
 
+def _raw_events(prof) -> list:
+    """(name, on the device, start ns, duration ns) of each event kineto
+    recorded, without the profiler's own bookkeeping ops."""
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        name = e.name()
+        if name in _FILTERED:
+            continue
+        out.append((name, e.device_type() == DeviceType.CUDA, e.start_ns(),
+                    e.duration_ns()))
+    return out
+
+
 def profile_device(fn) -> tuple:
     """Run ``fn()`` once under the profiler; returns (its result, the
     summary of the device's activity)."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         out = fn()
-    events = prof.events()
-    device = [e for e in events if e.device_type == DeviceType.CUDA]
-    spans = [(e.time_range.start, e.time_range.end) for e in device]
-    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
-    copies = Counter(e.name for e in device if e.name.startswith("Memcpy"))
+    events = _raw_events(prof)
+    device = [(n, s, s + d) for n, on_device, s, d in events if on_device]
+    spans = [(s, e) for _, s, e in device]
+    kernels = [(n, s, e) for n, s, e in device
+               if not n.startswith(("Memcpy", "Memset"))]
+    copies = Counter(n for n, _, _ in device if n.startswith("Memcpy"))
     by_group, by_name = Counter(), Counter()
-    for e in kernels:
-        us = e.time_range.elapsed_us()
-        by_group[_group(e.name)] += us
-        by_name[e.name] += us
-    syncs = Counter(e.name for e in events
-                    if e.device_type == DeviceType.CPU and e.name in SYNC_CALLS)
-    span_us = (max(s[1] for s in spans) - min(s[0] for s in spans)
-               if spans else 0.0)
+    for n, s, e in kernels:
+        us = (e - s) / 1e3
+        by_group[_group(n)] += us
+        by_name[n] += us
+    syncs = Counter(n for n, on_device, _, _ in events
+                    if not on_device and n in SYNC_CALLS)
+    span_us = (max(s[1] for s in spans) - min(s[0] for s in spans)) / 1e3 \
+        if spans else 0.0
     return out, {
         "kernel_launches": len(kernels),
         "device_span_ms": span_us / 1e3,
-        "device_busy_share": (_union_us(spans) / span_us) if span_us else 0.0,
+        "device_busy_share": (_union_us(spans) / 1e3 / span_us)
+        if span_us else 0.0,
         "device_ms_by_group": {k: v / 1e3 for k, v in by_group.most_common()},
         "top_kernels_ms": [[name[:80], us / 1e3]
                            for name, us in by_name.most_common(8)],

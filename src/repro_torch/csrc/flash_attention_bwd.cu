@@ -58,18 +58,30 @@
 // The mma.sync kernels (f32; bf16 at D 16/32/160): 256 threads, 8 warps; a
 // block keeps 64 resident rows (B3: its q and dO tile; B4: its k and v
 // tile) in shared memory and streams tiles of the other operand (B3: k, v;
-// B4: q, dO, lse and delta rows) through a two-stage ring filled by 16-byte
-// cp.async, so the next tile's copy overlaps the current tile's products;
-// rows past the end are zero-filled by the copy and masked. Every product
-// is a warp-level mma.sync: bf16 m16n8k16 with f32 accumulators; f32 as
+// B4: q, dO) through a two-stage ring of TMA copies, one per tile: a box of
+// D + PAD columns, whose columns past D read zeros, lands as the padded
+// rows the fragment reads want (Maps). Each stage has a full mbarrier and
+// a count of the warps that have released it; the warp whose release is
+// the last refills the stage with the step two ahead, so the copy overlaps
+// a step's products and no warp waits for another to refill, only for a
+// stage's bytes to land (16-byte cp.async by all 256 threads behind two
+// block barriers a step ran B3 12% slower at S4096). Rows past the end
+// read zeros and are masked. B4 reads each step's lse and delta into
+// registers before its score products. Every product is a warp-level
+// mma.sync: bf16 m16n8k16 with f32 accumulators; f32 as
 // 3xTF32, m16n8k8 on each operand split as hi = tf32(x), lo = tf32(x -
 // hi): lo*hi + hi*lo, then hi*hi; three passes at 495 TFLOP/s keep f32
 // accuracy (single TF32 keeps ~3 digits, too few for the training gates).
+// The f32 score products read their fragments by ldmatrix (scores()), and
+// f32 B4 at D128 splits its resident k and v into hi and lo once per block
+// (Layout::PRE), where the step split them again for every product.
 // Warps pair up on 16 resident rows: for the scores, each warp of the pair
 // takes half of the streamed columns and writes its p / ds block to shared
-// memory; after a barrier, each warp of the pair accumulates half of the
-// head dim's columns (dq, or dk and dv) from the pair's whole p / ds rows,
-// so the accumulators take 32 (B3) or 64 (B4) registers a thread at D=128.
+// memory; after a barrier of the pair (a named barrier of 64 threads, one
+// before the write so that the other warp has read the last step's), each
+// warp of the pair accumulates half of the head dim's columns (dq, or dk
+// and dv) from the pair's whole p / ds rows, so the accumulators take 32
+// (B3) or 64 (B4) registers a thread at D=128.
 //
 // Shared memory and bank conflicts (mma.sync): rows are padded to D+4
 // floats or D+8 halves, so fragment reads are conflict-free: in f32 with
@@ -77,8 +89,9 @@
 // mma.cuh), in bf16 with 32-bit loads and ldmatrix.trans for the
 // transposed operand. One f32 64x128 tile is 33 KiB, so f32 B4 (and f32 B3
 // at D=160) streams 32-row tiles to fit both ring stages next to its
-// resident tiles (at D=128, f32 B4 takes 152.5 KiB, f32 B3 216 KiB); the
-// others stream 64 rows. One block per SM. Whole tiles, which every
+// resident tiles (at D=128, f32 B4 takes 218 KiB with the lo halves of k
+// and v, f32 B3 216 KiB); the others stream 64 rows. One block per SM.
+// Whole tiles, which every
 // (query, key) pair of the block sees, skip the mask.
 //
 // Both designs: B3 has one block per (batch row, q head, q tile), heaviest
@@ -89,12 +102,23 @@
 // one sequence of ring steps, with dk and dv in registers throughout: the
 // group sum of the TPU wrapper (:334-335) happens in a fixed order, with
 // no atomics and no partials in device memory, so two runs give the same
-// bits. B3 uses no atomics either.
+// bits. B3 uses no atomics either. Where that grid underfills the SMs
+// (B x Hkv x key tiles < the SM count: short sequences, small batches),
+// f32 B4 instead launches clusters of c blocks along x, c the largest
+// divisor of the group size G at most 8 whose c-fold grid stays within
+// four waves of the SMs (dkv_cluster; 1: no split): rank r takes the
+// key tile's q heads r G/c .. (r+1) G/c - 1 in the same order, and the c
+// partial dK and dV are summed in rank order through distributed shared
+// memory in the same launch, each rank summing and storing a slice of the
+// rows. That sum is fixed by the sizes and the SM count, so two runs still
+// give the same bits; it is another order than the unsplit walk's (ROADMAP
+// C). No atomics, no partials in device memory; a cluster that cannot be
+// resident raises.
 //
 // Both take any Sq/Sk (the TPU backward silently drops tail rows when its
 // blocks do not tile the sequence). Layouts: q, dO (B, Sq, Hq, D); k, v
 // (B, Sk, Hkv, D); dq like q; dk, dv like k; all contiguous, 16-byte
-// aligned (the copies are 16 bytes, TMA's bases 16 bytes). q head h reads
+// aligned (TMA's bases 16 bytes). q head h reads
 // kv head h / (Hq / Hkv). Both need more than 48 KB of shared memory
 // (smem_opt_in.cuh). Registers, spills and the HGMMA, UTMALDG, HMMA and
 // LDGSTS counts per instance are read by chip_smoke.py phase 1.
@@ -104,7 +128,10 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
+
+#include <cooperative_groups.h>
 
 #include "attn_tile.cuh"
 #include "mma.cuh"
@@ -123,7 +150,9 @@ using mma::store_pair;
 using mma::warp_abt;
 
 constexpr int THREADS = 256;  // 8 warps: 4 groups of 16 resident rows x 2 halves
+constexpr int WARPS = THREADS / 32;
 constexpr int ROWS = 64;      // resident rows per block
+constexpr int MAX_CLUSTER = 8;  // the portable cluster size
 
 // Row padding, and the rows of B3's (NS_DQ) and B4's (NS_DKV) streamed
 // tiles: 64, or 32 where two ring stages of 64 would not fit beside the
@@ -145,8 +174,9 @@ struct Tile<bf16> {
   static constexpr int NS_DKV = 64;
 };
 
-// Shared-memory layout, in elements of T: tiles of rows of D + PAD, and the
-// p / ds tiles ROWS x (NS + 8).
+// Shared-memory layout, in elements of T, after up to 128 bytes that align
+// the base (TMA's destinations): tiles of rows of D + PAD, the p / ds tiles
+// ROWS x (NS + 8), then the ring's control (Ring).
 template <typename T, int D, int NS_>
 struct Layout {
   static constexpr int NS = NS_;
@@ -155,11 +185,68 @@ struct Layout {
   static constexpr size_t resident = size_t(ROWS) * LD;
   static constexpr size_t stage = 2 * size_t(NS) * LD;  // two streamed tiles
   static constexpr size_t pds = size_t(ROWS) * LDP;
+  static constexpr uint32_t resident_bytes = uint32_t(resident * sizeof(T));
+  static constexpr uint32_t stream_bytes = uint32_t(NS * LD * sizeof(T));  // one streamed tile
   // B3: q, dO; ring of (k, v); ds
-  static constexpr size_t dq_bytes = (2 * resident + 2 * stage + pds) * sizeof(T);
-  // B4: k, v; ring of (q, dO); p^T, ds^T; ring of (lse, delta) rows
-  static constexpr size_t dkv_bytes =
-      (2 * resident + 2 * stage + 2 * pds) * sizeof(T) + 2 * 2 * NS * sizeof(float);
+  static constexpr size_t dq_tiles = (2 * resident + 2 * stage + pds) * sizeof(T);
+  // B4: k, v; ring of (q, dO); p^T, ds^T; f32 at D128 (PRE), the lo
+  // halves of k and v (k and v themselves then hold their hi halves): B4
+  // at S4096 6.11 ms with it, 6.67 without (an H100 80GB HBM3 at 700 W,
+  // PERF.md). Not at D64, where the extra 34 KiB leave one block an SM
+  // instead of two (whisper's S1500 ran 3% slower), nor at D160, where it
+  // does not fit.
+  static constexpr bool PRE = std::is_same<T, float>::value && D == 128;
+  static constexpr size_t dkv_tiles =
+      (2 * resident + 2 * stage + 2 * pds + (PRE ? 2 * resident : 0)) * sizeof(T);
+  static constexpr size_t dq_bytes = 128 + dq_tiles + 32;
+  static constexpr size_t dkv_bytes = 128 + dkv_tiles + 32;
+};
+
+// The ring's control, 32 bytes after the tiles: mbarriers [0] the resident
+// tiles' full and [1 + s] stage s's full, each completed by one arrival
+// with its bytes and the copies' transactions; per stage, the count of
+// warps that have released it (read all of it). The warp whose release is
+// the stage's WARPS-th refills it with the step two ahead, so no warp ever
+// waits to refill a stage: only for a stage's copies to land.
+struct Ring {
+  uint32_t bar;       // shared address of mbarrier 0
+  uint32_t* released; // two counts
+  __device__ uint32_t full(int s) const { return bar + 8 * (1 + s); }
+};
+
+// The block's shared memory from its first 128-byte boundary.
+__device__ __forceinline__ unsigned char* aligned128(unsigned char* smem_raw) {
+  return smem_raw + (128 - mma::smem_addr(smem_raw) % 128) % 128;
+}
+
+__device__ __forceinline__ Ring init_ring(unsigned char* ctl) {
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ctl);
+  Ring r{mma::smem_addr(ctl), reinterpret_cast<uint32_t*>(ctl + 24)};
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mma::mbar_init(bars + i, 1);
+    r.released[0] = r.released[1] = 0;
+    mma::mbar_fence_init();
+  }
+  __syncthreads();
+  return r;
+}
+
+// Lane 0, once its warp has read all of stage s: counts the release
+// (acquire-release, so that the last releaser's copies follow every warp's
+// reads) and returns whether it was the stage's last.
+__device__ __forceinline__ bool release(const Ring& r, int s) {
+  uint32_t old;
+  asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], 1;\n"
+               : "=r"(old)
+               : "r"(mma::smem_addr(r.released + s))
+               : "memory");
+  return old % WARPS == WARPS - 1;
+}
+
+// The tensor maps of q, dO, k and v, boxes of D + PAD columns (the padding
+// reads zeros) and of ROWS (resident) or NS (streamed) rows.
+struct Maps {
+  CUtensorMap q, dout, k, v;
 };
 
 // -------------------------------------------------------- warp products
@@ -219,6 +306,56 @@ __device__ __forceinline__ void warp_ab(float (&acc)[ND][4], const bf16* P, cons
   add_into(acc, part);
 }
 
+// acc (16 x 8NT) = A B^T over D, A a 16-row tile, B an 8NT-row tile, both
+// of row stride LD: the score products. f32 as mma::warp_abt's 3xTF32 (the
+// same products in the same order, so the same bits), with every fragment
+// read by ldmatrix_x4 (A's four registers in one, B's two tiles' in one);
+// with PRE, A holds hi = tf32(a) and Alo lo = tf32(a - hi), split once per
+// block, else A is split here. bf16: mma::warp_abt.
+template <int D, int LD, int NT, bool PRE>
+__device__ __forceinline__ void scores(float (&acc)[NT][4], const float* A, const float* Alo,
+                                       const float* B, int lane) {
+  static_assert(NT % 2 == 0, "B's tiles are read in pairs");
+  const int m = lane >> 3, r = lane & 7;  // the matrix and row this lane addresses
+  const int a_at = ((m & 1) * 8 + r) * LD + (m >> 1) * 4;
+  const float* b_row = B + ((m >> 1) * 8 + r) * LD + (m & 1) * 4;
+  float small[NT][4] = {};  // the lo*hi + hi*lo terms, added at the end
+#pragma unroll
+  for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < D; k += 8) {
+    uint32_t ahi[4], alo[4];
+    if constexpr (PRE) {
+      mma::ldmatrix_x4(ahi, A + a_at + k);
+      mma::ldmatrix_x4(alo, Alo + a_at + k);
+    } else {
+      uint32_t a[4];
+      mma::ldmatrix_x4(a, A + a_at + k);
+      const float av[4] = {__uint_as_float(a[0]), __uint_as_float(a[1]), __uint_as_float(a[2]),
+                           __uint_as_float(a[3])};
+      split4(ahi, alo, av);
+    }
+    mma::Tf32Pair b0[NT], b1[NT];
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+      uint32_t b[4];
+      mma::ldmatrix_x4(b, b_row + 16 * j * LD + k);
+      b0[2 * j] = mma::split_tf32(__uint_as_float(b[0]));
+      b1[2 * j] = mma::split_tf32(__uint_as_float(b[1]));
+      b0[2 * j + 1] = mma::split_tf32(__uint_as_float(b[2]));
+      b1[2 * j + 1] = mma::split_tf32(__uint_as_float(b[3]));
+    }
+    mma::mma_3xtf32(acc, small, ahi, alo, b0, b1);
+  }
+  add_into(acc, small);
+}
+
+template <int D, int LD, int NT, bool PRE>
+__device__ __forceinline__ void scores(float (&acc)[NT][4], const bf16* A, const bf16*,
+                                       const bf16* B, int lane) {
+  warp_abt<D, LD, NT>(acc, A, B, lane);
+}
+
 // Writes a warp's C fragments (16 x 8NT) into rows of stride LDP.
 template <int LDP, int NT, typename T>
 __device__ __forceinline__ void store_tile(T* P, const float (&c)[NT][4], int lane) {
@@ -250,8 +387,7 @@ __device__ __forceinline__ void store_rows(T* dst, const float (&c)[ND][4], floa
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
-attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               const T* __restrict__ dout, const float* __restrict__ lse,
+attn_dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__ lse,
                const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Sk, int Hq,
                int Hkv, int causal, int window, float scale) {
   using L = Layout<T, D, Tile<T>::template NS_DQ<D>>;
@@ -259,10 +395,12 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   constexpr int NT = NS / 16;  // 8-column tiles of a warp's half of the scores
   constexpr int ND = D / 16;   // 8-column tiles of a warp's half of dq
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);  // ROWS x LD
-  T* dOs = Qs + L::resident;               // ROWS x LD
-  T* ring = dOs + L::resident;             // stage s: k at ring + s * stage, v after it
-  T* dSs = ring + 2 * L::stage;            // ROWS x LDP
+  unsigned char* base = aligned128(smem_raw);
+  T* Qs = reinterpret_cast<T*>(base);  // ROWS x LD
+  T* dOs = Qs + L::resident;           // ROWS x LD
+  T* ring = dOs + L::resident;         // stage s: k at ring + s * stage, v after it
+  T* dSs = ring + 2 * L::stage;        // ROWS x LDP
+  const Ring rc = init_ring(base + L::dq_tiles);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rg = warp >> 1, half = warp & 1;
@@ -278,21 +416,20 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   const int t_begin = k_begin / NS;
   const int steps = k_end > k_begin ? (k_end + NS - 1) / NS - t_begin : 0;
 
-  const T* kh = k + (size_t(b) * Sk * Hkv + hk) * D;
-  const T* vh = v + (size_t(b) * Sk * Hkv + hk) * D;
+  // step `step`'s k and v tiles into its stage (one thread)
   auto issue = [&](int step) {
-    T* st = ring + (step & 1) * L::stage;
-    const int k0 = (t_begin + step) * NS;
-    mma::load_rows<T, D, LD, NS, THREADS>(st, kh, k0, Sk, Hkv, tid);
-    mma::load_rows<T, D, LD, NS, THREADS>(st + NS * LD, vh, k0, Sk, Hkv, tid);
-    mma::cp_async_commit();
+    const int s = step & 1, k0 = (t_begin + step) * NS;
+    const uint32_t st = mma::smem_addr(ring + s * L::stage);
+    wg::mbar_arrive_expect(rc.full(s), 2 * L::stream_bytes);
+    wg::tma_load_4d(st, &maps.k, rc.full(s), 0, hk, k0, b);
+    wg::tma_load_4d(st + L::stream_bytes, &maps.v, rc.full(s), 0, hk, k0, b);
   };
-  if (steps > 0) {
-    mma::load_rows<T, D, LD, ROWS, THREADS>(Qs, q + (size_t(b) * Sq * Hq + h) * D, q0, Sq, Hq,
-                                            tid);
-    mma::load_rows<T, D, LD, ROWS, THREADS>(dOs, dout + (size_t(b) * Sq * Hq + h) * D, q0, Sq,
-                                            Hq, tid);
-    issue(0);  // one group with the resident tiles
+  if (tid == 0 && steps > 0) {
+    wg::mbar_arrive_expect(rc.bar, 2 * L::resident_bytes);
+    wg::tma_load_4d(mma::smem_addr(Qs), &maps.q, rc.bar, 0, h, q0, b);
+    wg::tma_load_4d(mma::smem_addr(dOs), &maps.dout, rc.bar, 0, h, q0, b);
+    issue(0);
+    if (steps > 1) issue(1);
   }
 
   // rows g and g + 8 of the warp's 16: lse in log2 units, delta
@@ -307,17 +444,16 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   const float scale2 = scale * kLog2e;  // exp(x) = exp2(x log2(e))
 
   float acc[ND][4] = {};
+  if (steps > 0) wg::mbar_wait(rc.bar, 0);
   for (int step = 0; step < steps; ++step) {
-    mma::cp_async_wait<0>();
-    __syncthreads();  // this step's tiles are in; the last step's reads are done
-    if (step + 1 < steps) issue(step + 1);
+    wg::mbar_wait(rc.full(step & 1), (step >> 1) & 1);  // this step's tiles are in
     const int k0 = (t_begin + step) * NS;
     const T* Kt = ring + (step & 1) * L::stage;
     const T* Vt = Kt + NS * LD;
 
     float s[NT][4], dp[NT][4];
-    warp_abt<D, LD, NT>(s, Qs + rg * 16 * LD, Kt + half * (NS / 2) * LD, lane);
-    warp_abt<D, LD, NT>(dp, dOs + rg * 16 * LD, Vt + half * (NS / 2) * LD, lane);
+    scores<D, LD, NT, false>(s, Qs + rg * 16 * LD, nullptr, Kt + half * (NS / 2) * LD, lane);
+    scores<D, LD, NT, false>(dp, dOs + rg * 16 * LD, nullptr, Vt + half * (NS / 2) * LD, lane);
     auto grad_scores = [&](auto whole) {  // ds = p (dp - delta), in dp
 #pragma unroll
       for (int i = 0; i < NT; ++i)
@@ -337,19 +473,32 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
       grad_scores(std::true_type{});
     else
       grad_scores(std::false_type{});
+    // the warp pair of these 16 rows shares their ds: the other warp has
+    // read the last step's before this one is written, and written its
+    // half before either reads
+    mma::named_sync(1 + rg, 64);
     store_tile<LDP>(dSs + rg * 16 * LDP + half * (NS / 2), dp, lane);
-    __syncthreads();
+    mma::named_sync(1 + rg, 64);
     warp_ab<NS, LDP, LD>(acc, dSs + rg * 16 * LDP, Kt + half * (D / 2), lane);
+    __syncwarp();  // the warp is done with the stage
+    if (lane == 0 && release(rc, step & 1) && step + 2 < steps) {
+      mma::fence_proxy_async();
+      issue(step + 2);
+    }
   }
 
   store_rows<D>(dq + (size_t(b) * Sq * Hq + h) * D, acc, scale, q0 + rg * 16, half * (D / 2), Sq,
                 Hq, lane);
 }
 
-template <typename T, int D>
+// B4. CLUSTER: the block is rank r of a cluster of c along grid x that
+// shares its key tile (blockIdx.x / c) and splits the GQA group: rank r
+// walks q heads r G / c .. (r + 1) G / c - 1, and the c partial dK and dV
+// are summed in rank order through distributed shared memory, each rank
+// summing and storing a slice of the 64 rows.
+template <typename T, int D, bool CLUSTER>
 __global__ void __launch_bounds__(THREADS)
-attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ dout, const float* __restrict__ lse,
+attn_dkv_kernel(const __grid_constant__ Maps maps, const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int Sq,
                 int Sk, int Hq, int Hkv, int causal, int window, float scale) {
   using L = Layout<T, D, Tile<T>::NS_DKV>;
@@ -357,20 +506,27 @@ attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   constexpr int NT = NS / 16;  // 8-column tiles of a warp's half of the scores
   constexpr int ND = D / 16;   // 8-column tiles of a warp's half of dk, dv
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);  // ROWS x LD
-  T* Vs = Ks + L::resident;                // ROWS x LD
-  T* ring = Vs + L::resident;              // stage s: q at ring + s * stage, dO after it
-  T* Ps = ring + 2 * L::stage;             // p^T, ROWS x LDP
-  T* dSs = Ps + L::pds;                    // ds^T, ROWS x LDP
-  float* rows = reinterpret_cast<float*>(dSs + L::pds);  // stage s: lse at rows + 2 NS s, delta after
+  unsigned char* base = aligned128(smem_raw);
+  T* Ks = reinterpret_cast<T*>(base);  // ROWS x LD
+  T* Vs = Ks + L::resident;            // ROWS x LD
+  T* ring = Vs + L::resident;          // stage s: q at ring + s * stage, dO after it
+  T* Ps = ring + 2 * L::stage;         // p^T, ROWS x LDP
+  T* dSs = Ps + L::pds;                // ds^T, ROWS x LDP
+  T* Klo = dSs + L::pds;               // PRE: lo of k, then of v, ROWS x LD each
+  T* Vlo = Klo + L::resident;
+  constexpr bool PRE = L::PRE;
+  const Ring rc = init_ring(base + L::dkv_tiles);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rg = warp >> 1, half = warp & 1;
   const int g = lane >> 2, t = lane & 3;
-  const int kt = blockIdx.x;  // causal: low key tiles see the most queries, run first
+  const int ranks = CLUSTER ? int(cooperative_groups::this_cluster().num_blocks()) : 1;
+  const int rank = CLUSTER ? int(cooperative_groups::this_cluster().block_rank()) : 0;
+  const int kt = blockIdx.x / ranks;  // causal: low key tiles see the most queries, run first
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
-  const int group = Hq / Hkv;
+  const int heads = Hq / Hkv / ranks;  // the rank's share of the group
+  const int h_first = hk * (Hq / Hkv) + rank * heads;
   const int k0 = kt * ROWS;
 
   // queries that can see keys k0 .. k0+ROWS-1: from k0 if causal, and below
@@ -379,63 +535,78 @@ attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const int q_end = (causal && window > 0) ? min(Sq, k0 + ROWS - 1 + window) : Sq;
   const int t_begin = q_begin / NS;
   const int per_head = q_end > q_begin ? (q_end + NS - 1) / NS - t_begin : 0;
-  const int steps = group * per_head;  // (q head, q tile) pairs, head-major
+  const int steps = heads * per_head;  // (q head, q tile) pairs, head-major
 
+  // step `step`'s q and dO tiles into its stage (one thread)
   auto issue = [&](int step) {
-    const int h = hk * group + step / per_head;
+    const int s = step & 1;
+    const int h = h_first + step / per_head;
     const int q0 = (t_begin + step % per_head) * NS;
-    T* st = ring + (step & 1) * L::stage;
-    mma::load_rows<T, D, LD, NS, THREADS>(st, q + (size_t(b) * Sq * Hq + h) * D, q0, Sq, Hq,
-                                          tid);
-    mma::load_rows<T, D, LD, NS, THREADS>(st + NS * LD, dout + (size_t(b) * Sq * Hq + h) * D, q0,
-                                          Sq, Hq, tid);
-    if (tid < 2 * NS) {
-      const float* src = tid < NS ? lse : delta;
-      const int qp = q0 + tid % NS;
-      const bool ok = qp < Sq;
-      mma::cp_async4(rows + (step & 1) * 2 * NS + tid,
-                     ok ? src + (size_t(b) * Hq + h) * Sq + qp : src, ok);
-    }
-    mma::cp_async_commit();
+    const uint32_t st = mma::smem_addr(ring + s * L::stage);
+    wg::mbar_arrive_expect(rc.full(s), 2 * L::stream_bytes);
+    wg::tma_load_4d(st, &maps.q, rc.full(s), 0, h, q0, b);
+    wg::tma_load_4d(st + L::stream_bytes, &maps.dout, rc.full(s), 0, h, q0, b);
   };
-  if (steps > 0) {
-    mma::load_rows<T, D, LD, ROWS, THREADS>(Ks, k + (size_t(b) * Sk * Hkv + hk) * D, k0, Sk, Hkv,
-                                            tid);
-    mma::load_rows<T, D, LD, ROWS, THREADS>(Vs, v + (size_t(b) * Sk * Hkv + hk) * D, k0, Sk, Hkv,
-                                            tid);
-    issue(0);  // one group with the resident tiles
+  if (tid == 0 && steps > 0) {
+    wg::mbar_arrive_expect(rc.bar, 2 * L::resident_bytes);
+    wg::tma_load_4d(mma::smem_addr(Ks), &maps.k, rc.bar, 0, hk, k0, b);
+    wg::tma_load_4d(mma::smem_addr(Vs), &maps.v, rc.bar, 0, hk, k0, b);
+    issue(0);
+    if (steps > 1) issue(1);
   }
 
   const float scale2 = scale * kLog2e;  // exp(x) = exp2(x log2(e))
   float dk_acc[ND][4] = {}, dv_acc[ND][4] = {};
+  if (steps > 0) {
+    wg::mbar_wait(rc.bar, 0);
+    if constexpr (PRE) {  // k and v into tf32 hi (in place) and lo, once
+      for (int i = tid; i < 2 * ROWS * D; i += THREADS) {
+        const int at = (i / D) * LD + i % D;  // rows of k, then of v
+        const mma::Tf32Pair x = mma::split_tf32(Ks[at]);
+        Ks[at] = __uint_as_float(x.hi);
+        Klo[at] = __uint_as_float(x.lo);
+      }
+      __syncthreads();
+    }
+  }
   for (int step = 0; step < steps; ++step) {
-    mma::cp_async_wait<0>();
-    __syncthreads();  // this step's tiles are in; the last step's reads are done
-    if (step + 1 < steps) issue(step + 1);
+    const int h = h_first + step / per_head;
     const int q0 = (t_begin + step % per_head) * NS;
+    // lse and delta of the thread's score columns c = half NS / 2 + 8i +
+    // 2t + j (0 past Sq), read while the products run
+    float lse_c[NT][2], delta_c[NT][2];
+    const size_t row = (size_t(b) * Hq + h) * Sq;
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int qp = q0 + half * (NS / 2) + 8 * i + 2 * t + j;
+        lse_c[i][j] = qp < Sq ? lse[row + qp] : 0.f;
+        delta_c[i][j] = qp < Sq ? delta[row + qp] : 0.f;
+      }
+    wg::mbar_wait(rc.full(step & 1), (step >> 1) & 1);  // this step's tiles are in
     const T* Qt = ring + (step & 1) * L::stage;
     const T* dOt = Qt + NS * LD;
-    const float* lse_s = rows + (step & 1) * 2 * NS;
-    const float* delta_s = lse_s + NS;
 
     // transposed scores: the warp's 16 keys x its half of the NS queries
     float s[NT][4], dp[NT][4];
-    warp_abt<D, LD, NT>(s, Ks + rg * 16 * LD, Qt + half * (NS / 2) * LD, lane);
-    warp_abt<D, LD, NT>(dp, Vs + rg * 16 * LD, dOt + half * (NS / 2) * LD, lane);
+    scores<D, LD, NT, PRE>(s, Ks + rg * 16 * LD, Klo + rg * 16 * LD, Qt + half * (NS / 2) * LD,
+                           lane);
+    scores<D, LD, NT, PRE>(dp, Vs + rg * 16 * LD, Vlo + rg * 16 * LD, dOt + half * (NS / 2) * LD,
+                           lane);
     auto grad_scores = [&](auto whole) {  // p in s, ds = p (dp - delta) in dp
 #pragma unroll
       for (int i = 0; i < NT; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kp = k0 + rg * 16 + g + 8 * (e >> 1);
-          const int c = half * (NS / 2) + 8 * i + 2 * t + (e & 1);
-          const int qp = q0 + c;
+          const int qp = q0 + half * (NS / 2) + 8 * i + 2 * t + (e & 1);
           const float p =
               (decltype(whole)::value || (qp < Sq && visible(qp, kp, Sk, causal, window)))
-                  ? exp2f(fmaf(s[i][e], scale2, -lse_s[c] * kLog2e))
+                  ? exp2f(fmaf(s[i][e], scale2, -lse_c[i][e & 1] * kLog2e))
                   : 0.f;
           s[i][e] = p;
-          dp[i][e] = p * (dp[i][e] - delta_s[c]);
+          dp[i][e] = p * (dp[i][e] - delta_c[i][e & 1]);
         }
     };
     // a q tile that sees every key of the block skips the mask
@@ -444,16 +615,64 @@ attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       grad_scores(std::true_type{});
     else
       grad_scores(std::false_type{});
+    // the warp pair of these 16 keys shares their p^T and ds^T (as B3)
+    mma::named_sync(1 + rg, 64);
     store_tile<LDP>(Ps + rg * 16 * LDP + half * (NS / 2), s, lane);
     store_tile<LDP>(dSs + rg * 16 * LDP + half * (NS / 2), dp, lane);
-    __syncthreads();
+    mma::named_sync(1 + rg, 64);
     warp_ab<NS, LDP, LD>(dv_acc, Ps + rg * 16 * LDP, dOt + half * (D / 2), lane);
     warp_ab<NS, LDP, LD>(dk_acc, dSs + rg * 16 * LDP, Qt + half * (D / 2), lane);
+    __syncwarp();  // the warp is done with the stage
+    if (lane == 0 && release(rc, step & 1) && step + 2 < steps) {
+      mma::fence_proxy_async();
+      issue(step + 2);
+    }
   }
 
   const size_t head = (size_t(b) * Sk * Hkv + hk) * D;
-  store_rows<D>(dk + head, dk_acc, scale, k0 + rg * 16, half * (D / 2), Sk, Hkv, lane);
-  store_rows<D>(dv + head, dv_acc, 1.f, k0 + rg * 16, half * (D / 2), Sk, Hkv, lane);
+  if constexpr (CLUSTER) {
+    static_assert(std::is_same<T, float>::value, "B4 splits its group in f32 only");
+    // the partials, rows of stride LD over the resident k and v tiles
+    // (every warp has read them): dK, then dV
+    auto cluster = cooperative_groups::this_cluster();
+    float* part = reinterpret_cast<float*>(base);
+    __syncthreads();
+    store_tile<LD>(part + rg * 16 * LD + half * (D / 2), dk_acc, lane);
+    store_tile<LD>(part + L::resident + rg * 16 * LD + half * (D / 2), dv_acc, lane);
+    cluster.sync();
+    // rank r sums and stores pairs [r per, (r + 1) per) of the 64 x D/2,
+    // all ranks' partials loaded first (one latency of distributed shared
+    // memory), then summed in rank order
+    const float* parts[MAX_CLUSTER];
+#pragma unroll
+    for (int rr = 0; rr < MAX_CLUSTER; ++rr)
+      parts[rr] = rr < ranks ? cluster.map_shared_rank(part, rr) : part;
+    constexpr int PAIRS = ROWS * D / 2;
+    const int per = (PAIRS + ranks - 1) / ranks;
+    for (int i = rank * per + tid; i < min(PAIRS, (rank + 1) * per); i += THREADS) {
+      const int r = i / (D / 2), col = 2 * (i % (D / 2));
+      if (k0 + r >= Sk) continue;
+      const int at = r * LD + col;
+      float2 x[MAX_CLUSTER], y[MAX_CLUSTER];
+#pragma unroll
+      for (int rr = 0; rr < MAX_CLUSTER; ++rr)
+        if (rr < ranks) {
+          x[rr] = *reinterpret_cast<const float2*>(parts[rr] + at);
+          y[rr] = *reinterpret_cast<const float2*>(parts[rr] + L::resident + at);
+        }
+      float2 a = x[0], c = y[0];
+#pragma unroll
+      for (int rr = 1; rr < MAX_CLUSTER; ++rr)
+        if (rr < ranks) a.x += x[rr].x, a.y += x[rr].y, c.x += y[rr].x, c.y += y[rr].y;
+      const size_t out = head + size_t(k0 + r) * Hkv * D + col;
+      store_pair(dk + out, a.x * scale, a.y * scale);
+      store_pair(dv + out, c.x, c.y);
+    }
+    cluster.sync();  // no block leaves while another reads its shared memory
+  } else {
+    store_rows<D>(dk + head, dk_acc, scale, k0 + rg * 16, half * (D / 2), Sk, Hkv, lane);
+    store_rows<D>(dv + head, dv_acc, 1.f, k0 + rg * 16, half * (D / 2), Sk, Hkv, lane);
+  }
 }
 
 // ------------------------------------------- bf16 at D 64/128: wgmma fed by TMA
@@ -994,9 +1213,30 @@ struct Args {
 };
 
 // B3: a block per (ROWS q rows, q head, row); B4: per (ROWS key rows, kv
-// head, row).
+// head, row), times its cluster along x.
 dim3 dq_grid(int B, int Sq, int Hq) { return dim3((Sq + ROWS - 1) / ROWS, Hq, B); }
-dim3 dkv_grid(int B, int Sk, int Hkv) { return dim3((Sk + ROWS - 1) / ROWS, Hkv, B); }
+dim3 dkv_grid(int B, int Sk, int Hkv, int cluster = 1) {
+  return dim3(cluster * ((Sk + ROWS - 1) / ROWS), Hkv, B);
+}
+
+// f32 B4's cluster: where its grid of (key tile, kv head, row) blocks
+// underfills the SMs, the largest divisor c of the GQA group at most
+// MAX_CLUSTER whose c-fold grid stays within SPLIT_WAVES waves of the SMs
+// (1: no split); bf16 never splits. Each split block pays for its resident
+// tiles and the cluster's sum: at 11b's S128 Hq40:8 (G 5) the split ran B4
+// 0.110 -> 0.031 ms at B1 (80 blocks) and 0.110 -> 0.091 at B4 (320), but
+// 0.115 -> 0.163 at B8 (640, 4.8 waves; an H100 80GB HBM3 at 700 W,
+// PERF.md). A fixed function of the sizes and the SM count, so two
+// launches sum in the same order.
+constexpr int SPLIT_WAVES = 4;
+int dkv_cluster(int B, int Sk, int Hkv, int group, bool f32) {
+  const long blocks = long(B) * Hkv * ((Sk + ROWS - 1) / ROWS);
+  const int sms = wg::sm_count();
+  if (!f32 || blocks >= sms) return 1;
+  for (int c = group < MAX_CLUSTER ? group : MAX_CLUSTER; c > 1; --c)
+    if (group % c == 0 && blocks * c <= long(SPLIT_WAVES) * sms) return c;
+  return 1;
+}
 
 template <typename T, int D>
 constexpr size_t dq_smem() {
@@ -1007,31 +1247,110 @@ constexpr size_t dkv_smem() {
   return Layout<T, D, Tile<T>::NS_DKV>::dkv_bytes;
 }
 
+// The mma.sync kernels' tensor maps: boxes of D + PAD columns, of ROWS
+// rows for the resident operands and NS for the streamed ones (B3: q and
+// dO resident; B4: k and v).
+template <typename T, int D>
+cudaError_t make_maps(Maps* m, const Args& a, bool dkv, int ns) {
+  constexpr bool f32 = std::is_same<T, float>::value;
+  constexpr int cols = D + Tile<T>::PAD;
+  const int qrows = dkv ? ns : ROWS, krows = dkv ? ROWS : ns;
+  cudaError_t err = wg::map_box(&m->q, a.q, f32, a.B, a.Sq, a.Hq, D, cols, qrows,
+                                CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == cudaSuccess)
+    err = wg::map_box(&m->dout, a.dout, f32, a.B, a.Sq, a.Hq, D, cols, qrows,
+                      CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == cudaSuccess)
+    err = wg::map_box(&m->k, a.k, f32, a.B, a.Sk, a.Hkv, D, cols, krows,
+                      CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == cudaSuccess)
+    err = wg::map_box(&m->v, a.v, f32, a.B, a.Sk, a.Hkv, D, cols, krows,
+                      CU_TENSOR_MAP_SWIZZLE_NONE);
+  return err;
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a) {
-  constexpr size_t smem = dq_smem<T, D>();
+  using L = Layout<T, D, Tile<T>::template NS_DQ<D>>;
+  constexpr size_t smem = L::dq_bytes;
   static_assert(smem <= kMaxSmem, "B3's tiles exceed the shared memory of a block");
+  // no keys: dq is zeros, and there is nothing to map
+  if (a.Sk <= 0)
+    return cudaMemsetAsync(a.dq, 0, size_t(a.B) * a.Sq * a.Hq * D * sizeof(T), a.stream);
+  Maps maps;
+  cudaError_t err = make_maps<T, D>(&maps, a, false, L::NS);
+  if (err != cudaSuccess) return err;
   static SmemOptIn opt_in;  // one per kernel instance
-  cudaError_t err = opt_in_smem(opt_in, attn_dq_kernel<T, D>, smem);
+  err = opt_in_smem(opt_in, attn_dq_kernel<T, D>, smem);
   if (err != cudaSuccess) return err;
   attn_dq_kernel<T, D><<<dq_grid(a.B, a.Sq, a.Hq), THREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.dq), a.Sq, a.Sk, a.Hq,
-      a.Hkv, a.causal, a.window, a.scale);
+      maps, a.lse, a.delta, static_cast<T*>(a.dq), a.Sq, a.Sk, a.Hq, a.Hkv, a.causal, a.window,
+      a.scale);
+  return cudaGetLastError();
+}
+
+// f32 B4 as clusters of c blocks along x (dkv_cluster). A cluster that
+// cannot be resident (cudaOccupancyMaxActiveClusters 0, asked once per
+// size) raises cudaErrorInvalidConfiguration: nothing falls back to the
+// unsplit launch.
+template <int D>
+cudaError_t launch_dkv_cluster(const Args& a, const Maps& maps, int c) {
+  constexpr size_t smem = dkv_smem<float, D>();
+  auto kernel = attn_dkv_kernel<float, D, true>;
+  static SmemOptIn opt_in;                    // one per kernel instance
+  static std::atomic<unsigned> resident{0};  // bit c: clusters of c fit
+  cudaError_t err = opt_in_smem(opt_in, kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dkv_grid(a.B, a.Sk, a.Hkv, c);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (!(resident.load(std::memory_order_relaxed) & (1u << c))) {
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (n <= 0) return cudaErrorInvalidConfiguration;
+    resident.fetch_or(1u << c, std::memory_order_relaxed);
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, maps, a.lse, a.delta, static_cast<float*>(a.dk),
+                           static_cast<float*>(a.dv), a.Sq, a.Sk, a.Hq, a.Hkv, a.causal, a.window,
+                           a.scale);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_dkv(const Args& a) {
-  constexpr size_t smem = dkv_smem<T, D>();
+  using L = Layout<T, D, Tile<T>::NS_DKV>;
+  constexpr size_t smem = L::dkv_bytes;
   static_assert(smem <= kMaxSmem, "B4's tiles exceed the shared memory of a block");
-  static SmemOptIn opt_in;  // one per kernel instance
-  cudaError_t err = opt_in_smem(opt_in, attn_dkv_kernel<T, D>, smem);
+  // no queries: dk and dv are zeros, and there is nothing to map
+  if (a.Sq <= 0) {
+    const size_t bytes = size_t(a.B) * a.Sk * a.Hkv * D * sizeof(T);
+    const cudaError_t err = cudaMemsetAsync(a.dk, 0, bytes, a.stream);
+    return err != cudaSuccess ? err : cudaMemsetAsync(a.dv, 0, bytes, a.stream);
+  }
+  Maps maps;
+  cudaError_t err = make_maps<T, D>(&maps, a, true, L::NS);
   if (err != cudaSuccess) return err;
-  attn_dkv_kernel<T, D><<<dkv_grid(a.B, a.Sk, a.Hkv), THREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.Sq, a.Sk, a.Hq, a.Hkv, a.causal, a.window, a.scale);
+  if constexpr (std::is_same<T, float>::value) {
+    const int c = dkv_cluster(a.B, a.Sk, a.Hkv, a.Hq / a.Hkv, true);
+    if (c > 1) return launch_dkv_cluster<D>(a, maps, c);
+  }
+  static SmemOptIn opt_in;  // one per kernel instance
+  err = opt_in_smem(opt_in, attn_dkv_kernel<T, D, false>, smem);
+  if (err != cudaSuccess) return err;
+  attn_dkv_kernel<T, D, false><<<dkv_grid(a.B, a.Sk, a.Hkv), THREADS, smem, a.stream>>>(
+      maps, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.Sq, a.Sk, a.Hq,
+      a.Hkv, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
@@ -1155,7 +1474,7 @@ void wgmma_plan(int B, int Sq, int Sk, int Hq, int Hkv, bool dkv, int64_t* out) 
 }
 
 // The launch of B3 (dkv false) or B4 for these sizes: grid, threads,
-// shared bytes.
+// shared bytes, cluster.
 template <typename T>
 int bwd_plan(int B, int Sq, int Sk, int Hq, int Hkv, int D, bool dkv, int64_t* out) {
   if (std::is_same<T, bf16>::value && (D == 64 || D == 128)) {
@@ -1177,8 +1496,9 @@ int bwd_plan(int B, int Sq, int Sk, int Hq, int Hkv, int D, bool dkv, int64_t* o
     default: return cudaErrorInvalidValue;
   }
 #undef REPRO_BWD_PLAN
-  const dim3 g = dkv ? dkv_grid(B, Sk, Hkv) : dq_grid(B, Sq, Hq);
-  const int64_t v[6] = {g.x, g.y, g.z, THREADS, int64_t(smem), 1};
+  const int c = dkv ? dkv_cluster(B, Sk, Hkv, Hq / Hkv, std::is_same<T, float>::value) : 1;
+  const dim3 g = dkv ? dkv_grid(B, Sk, Hkv, c) : dq_grid(B, Sq, Hq);
+  const int64_t v[6] = {g.x, g.y, g.z, THREADS, int64_t(smem), c};
   for (int i = 0; i < 6; ++i) out[i] = v[i];
   return cudaSuccess;
 }
@@ -1193,8 +1513,7 @@ int plan(int B, int Sq, int Sk, int Hq, int Hkv, int D, int dtype, bool dkv, int
 int run(const Args& a, int D, int dtype, bool dkv) {
   if (a.B <= 0 || (dkv ? a.Sk : a.Sq) <= 0) return cudaSuccess;
   if (a.Hkv <= 0 || a.Hq % a.Hkv != 0) return cudaErrorInvalidValue;
-  // 16-byte copies (and TMA's 16-byte bases) of q, k, v, dO; paired stores
-  // of dq, dk, dv
+  // TMA's 16-byte bases of q, k, v, dO; paired stores of dq, dk, dv
   if (!aligned(a.q, 16) || !aligned(a.k, 16) || !aligned(a.v, 16) || !aligned(a.dout, 16) ||
       !aligned(a.lse, 4) || !aligned(a.delta, 4) || !aligned(dkv ? a.dk : a.dq, 8) ||
       (dkv && !aligned(a.dv, 8)))

@@ -1,7 +1,8 @@
 // Tensor-core and asynchronous-copy helpers for Hopper (sm_90a), inline PTX:
 // warp-level mma.sync products in bf16 (m16n8k16) and in TF32 (m16n8k8,
 // with the three-pass split that keeps f32 accuracy), ldmatrix for the
-// transposed bf16 operand, 16-, 8- and 4-byte cp.async with zero fill, bulk
+// transposed bf16 operand and for tf32 fragments, named barriers, 16-, 8-
+// and 4-byte cp.async with zero fill, bulk
 // copies by the copy engine completing on an mbarrier, and the tile copy
 // and score product the attention kernels share. Used by the
 // flash-attention forward (flash_attention.cu: K1, B2) and backward
@@ -105,6 +106,18 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, co
                : "memory");
 }
 
+// Four 8x8 b16 matrices, lanes 8m to 8m + 7 giving the row addresses of
+// matrix m (16-byte aligned); register m of lane 4g + t holds row g, b16
+// columns 2t and 2t + 1 of matrix m. Read as 32-bit elements, a matrix is
+// 8 rows x 4 columns and the lane gets element (g, t): the tf32 fragment
+// layout, so one ldmatrix reads four tf32 fragment registers.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row))
+               : "memory");
+}
+
 __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -180,6 +193,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "}\n" ::"r"(smem_addr(bar)),
       "r"(parity)
       : "memory");
+}
+
+// A barrier of `count` threads (whole warps) on named barrier `id`, 1 to
+// 15 (0 is __syncthreads'): warps that share shared-memory rows meet
+// without holding the rest of the block.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // Orders this thread's earlier shared-memory accesses before later bulk

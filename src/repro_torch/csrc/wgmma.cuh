@@ -8,7 +8,8 @@
 // and the host's rule for the consumer warpgroups of a block (groups).
 // Used by the bf16 flash-attention kernels at D 64 and 128: the forward
 // (flash_attention.cu: K1, B2) and the backward (flash_attention_bwd.cu:
-// B3, B4).
+// B3, B4); the backward's mma.sync kernels take its tensor maps (map_box),
+// TMA loads, mbarriers and SM count too.
 //
 // Tiles in shared memory are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
 // writes for a box 64 bf16 wide: rows of 128 bytes, the 16-byte chunks of
@@ -282,25 +283,34 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a contiguous bf16 (B, S, H, D) tensor as the 4-D (D, H,
-// S, B), innermost first, in boxes of 64 columns x 1 head x `rows` rows x 1
-// batch row, 128-byte swizzled. A box past S (or a batch row's end) reads
-// zeros, never the next batch row. base must be 16-byte aligned (TMA's
-// rule; the entry points refuse others).
-inline cudaError_t map_rows(CUtensorMap* map, const void* base, int B, int S, int H, int D,
-                            int rows) {
+// The tensor map of a contiguous (B, S, H, D) tensor (f32 or bf16) as the
+// 4-D (D, H, S, B), innermost first, in boxes of `cols` columns x 1 head x
+// `rows` rows x 1 batch row. A box past S (or a batch row's end) reads
+// zeros, never the next batch row; so do columns past D, which is how a
+// box of D + pad columns writes the padded rows of the mma.sync backward
+// (flash_attention_bwd.cu). base must be 16-byte aligned (TMA's rule; the
+// entry points refuse others).
+inline cudaError_t map_box(CUtensorMap* map, const void* base, bool f32, int B, int S, int H,
+                           int D, int cols, int rows, CUtensorMapSwizzle swizzle) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t es = 2;
+  const cuuint64_t es = f32 ? 4 : 2;
   const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(S), cuuint64_t(B)};
   const cuuint64_t strides[3] = {D * es, cuuint64_t(H) * D * es, cuuint64_t(S) * H * D * es};
-  const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
+  const cuuint32_t box[4] = {cuuint32_t(cols), 1, cuuint32_t(rows), 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(
+      map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+      const_cast<void*>(base), dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 tensor in boxes of 64 columns, 128-byte swizzled (the wgmma
+// kernels' tiles).
+inline cudaError_t map_rows(CUtensorMap* map, const void* base, int B, int S, int H, int D,
+                            int rows) {
+  return map_box(map, base, false, B, S, H, D, 64, rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // The SM count of the current device, asked of the runtime once per

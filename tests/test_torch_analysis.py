@@ -283,6 +283,57 @@ def test_the_bf16_forward_plans_are_the_wgmma_launches(B, Sq, Sk, Hq, Hkv,
     assert (f32.grid[0], f32.threads) == (-(-Sq // 64), 128)
 
 
+# (B, S, Hq, Hkv, D, cluster): f32 B4's split of its GQA group, from 11b's
+# S128 microbatches (qwen2.5's 40:8, G 5: B1-B4 split five ways; B8's 640
+# split blocks would be 4.8 waves of the 132 SMs, and its 128 unsplit
+# blocks already fill them) to granite's S4096 training shape (512 blocks)
+# and whisper's S1500 (G 1); the groups of the repo's models (4, 7, 8) and
+# an MQA group of 16 (at most 8, the portable cluster size)
+F32_SPLITS = [(1, 128, 40, 8, 128, 5), (2, 128, 40, 8, 128, 5),
+              (4, 128, 40, 8, 128, 5), (8, 128, 40, 8, 128, 1),
+              (16, 128, 40, 8, 128, 1), (32, 128, 40, 8, 128, 1),
+              (1, 4096, 32, 8, 128, 1), (1, 1500, 20, 20, 64, 1),
+              (1, 128, 32, 8, 128, 4), (1, 128, 56, 8, 128, 7),
+              (2, 128, 64, 8, 128, 8), (1, 200, 16, 1, 64, 8)]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,cluster", F32_SPLITS)
+def test_the_f32_b4_plan_splits_its_group_where_the_grid_underfills_the_card(
+        B, S, Hq, Hkv, D, cluster):
+    """f32 B4 launches as clusters of c blocks along grid x (c the largest
+    divisor of the group at most 8 whose split grid stays within four
+    waves of the SMs) where B x Hkv x key tiles is below the SM count;
+    its grid x is c x the key tiles, each rank a share of the group, and
+    the plan breaks no launch rule (a cluster divides grid x, at most 8).
+    bf16 never splits, and B3 is never a cluster."""
+    dims = dict(B=B, Sq=S, Sk=S, Hq=Hq, Hkv=Hkv, D=D)
+    _, b3, b4 = kernel_lint.plan_flash_attention({**dims, "dtype": "float32"},
+                                                 {})
+    tiles = -(-S // 64)
+    assert b4.cluster == cluster
+    assert b4.grid == (cluster * tiles, Hkv, B)
+    assert ("q heads of a group", Hq // Hkv, Hq // Hkv // cluster,
+            cluster) in b4.covers
+    assert b3.cluster == 1
+    assert kernel_lint.check_plan(b4) == [] == kernel_lint.check_plan(b3)
+    assert kernel_lint.bwd_cluster(B, S, Hkv, Hq // Hkv, "float32") == cluster
+    if cluster > 1:
+        assert B * Hkv * tiles < 132 and (Hq // Hkv) % cluster == 0
+    _, _, bf = kernel_lint.plan_flash_attention({**dims, "dtype": "bfloat16"},
+                                                {})
+    assert bf.cluster == 1
+
+
+def test_no_default_plan_breaks_a_launch_rule():
+    """Every default plan at the canonical shapes, f32 B4's split at 11b's
+    B1 S128 among them, passes the lint: no RK004 (a cluster over 8 or not
+    dividing grid x) nor any other finding."""
+    splits = [p for p in kernel_lint.all_plans() if p.cluster > 1]
+    assert any(p.kernel == "B4" and p.dtype == "float32" for p in splits)
+    assert [f for f in kernel_lint.check_all() if f.rule == "RK004"] == []
+    assert kernel_lint.check_defaults() == []
+
+
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,dq,dkv", [
     # granite's training S4096: B3 two consumer warpgroups (1024 tiles of
     # 128 q rows); B4 at D128 one, 64 keys a block, whatever the grid
@@ -310,7 +361,11 @@ def test_the_bf16_backward_plans_are_the_wgmma_launches(B, Sq, Sk, Hq, Hkv,
     the 132 SMs, B4 at D128 always one; 1024 bytes of alignment, the
     resident tiles, two stages of 64-row streamed tiles (and B4's lse and
     delta rows), 1 + 3 STAGES mbarriers. The same shapes in f32 keep the
-    mma.sync kernels' plans: 64 rows, 256 threads, ``Layout<T, D, NS>``."""
+    mma.sync kernels' plans: 64 rows, 256 threads, ``Layout<T, D, NS>``
+    (128 bytes that align the tensor copies' destinations, the tiles, B4's
+    lo halves of k and v at D128, 32 bytes of the ring's control); B4
+    splits its group over a cluster where its grid underfills the card
+    (S300's 20 blocks: four ranks)."""
     dims = dict(B=B, Sq=Sq, Sk=Sk, Hq=Hq, Hkv=Hkv, D=D)
     _, b3, b4 = kernel_lint.plan_flash_attention({**dims, "dtype": "bfloat16"},
                                                  {})
@@ -320,14 +375,17 @@ def test_the_bf16_backward_plans_are_the_wgmma_launches(B, Sq, Sk, Hq, Hkv,
     _, f3, f4 = kernel_lint.plan_flash_attention({**dims, "dtype": "float32"},
                                                  {})
     ld = D + 4
-    f3_smem = (2 * 64 * ld + 2 * 2 * 64 * ld + 64 * 72) * 4
-    f4_smem = (2 * 64 * ld + 2 * 2 * 32 * ld + 2 * 64 * 40) * 4 + 2 * 2 * 32 * 4
+    lo = 2 * 64 * ld if D == 128 else 0
+    f3_smem = 128 + (2 * 64 * ld + 2 * 2 * 64 * ld + 64 * 72) * 4 + 32
+    f4_smem = 128 + (2 * 64 * ld + 2 * 2 * 32 * ld + 2 * 64 * 40 + lo) * 4 + 32
+    split = 4 if Sk == 300 else 1
     assert f3.launch() == dict(grid_x=-(-Sq // 64), grid_y=Hq, grid_z=B,
                                threads=256, smem=f3_smem, cluster=1)
-    assert f4.launch() == dict(grid_x=-(-Sk // 64), grid_y=Hkv, grid_z=B,
-                               threads=256, smem=f4_smem, cluster=1)
+    assert f4.launch() == dict(grid_x=split * -(-Sk // 64), grid_y=Hkv,
+                               grid_z=B, threads=256, smem=f4_smem,
+                               cluster=split)
     if D == 128:
-        assert (f3_smem, f4_smem) == (221184, 156160)
+        assert (f3_smem, f4_smem) == (221344, 223392)
 
 
 def test_static_shared_memory_of_the_backward_wgmma_instances(tmp_path):

@@ -71,6 +71,14 @@ def test_held_fields_by_dtype(smoke):
      "iiiiiif", "B3 float32 D128"),
     ("_ZN12_GLOBAL__N_115attn_dkv_kernelI13__nv_bfloat16Li160EEEvPKT_",
      "B4 bfloat16 D160"),
+    ("_ZN55_GLOBAL__N__67799fe8_22_flash_attention_bwd_cu_51c9e81915attn_dkv_"
+     "kernelIfLi128ELb0EEEvNS_4MapsEPKfS3_PT_S5_iiiiiif", "B4 float32 D128"),
+    ("_ZN55_GLOBAL__N__67799fe8_22_flash_attention_bwd_cu_51c9e81915attn_dkv_"
+     "kernelIfLi128ELb1EEEvNS_4MapsEPKfS3_PT_S5_iiiiiif",
+     "B4 float32 D128 cluster"),
+    ("_ZN55_GLOBAL__N__67799fe8_22_flash_attention_bwd_cu_51c9e81915attn_dkv_"
+     "kernelI13__nv_bfloat16Li32ELb0EEEvNS_4MapsEPKfS4_PT_S6_iiiiiif",
+     "B4 bfloat16 D32"),
     ("_ZN12_GLOBAL__N_115attn_fwd_kernelIfLi128EEEvPKT_S3_S3_PS1_Pfiiiiiif",
      "K1/B2 float32 D128"),
     ("_ZN39_GLOBAL__N__351eb0a2_7_wkv6_cu_efce1d8411wkv6_kernelIffLi4EEEvPKT_"
@@ -1275,7 +1283,8 @@ def _records():
 
 def test_plan_problems_hold_each_launch(smoke):
     problems, n = smoke.plan_problems(_records(), _lint_query)
-    assert problems == [] and n == 3 * 8 + 6 + 4 + 6
+    # K1/B2, B3 and B4 at five shapes in two dtypes; K2, B6, K3
+    assert problems == [] and n == 3 * 10 + 6 + 4 + 6
 
     def off(name, *args):
         plan = dict(_lint_query(name, *args))

@@ -414,12 +414,19 @@ BWD_MODEL_CASES = [
     (1, 64, 1500, 1500, 20, 20, False, 0),
     (1, 128, 4096, 4096, 32, 8, True, 0),
 ]
+# f32 B4 splits its GQA group over a cluster where its grid underfills the
+# card: phase 11b's S128 microbatches at B1, B2 and B8 with qwen2.5's 40:8
+# (split five ways at B1 and B2, not at B8), arctic's 56:8 and
+# qwen2-vl's 64:8, and an MQA group of 16 at a ragged length (eight ways)
+BWD_SPLIT_CASES = [(b, 128, 128, 128, hq, 8, True, 0)
+                   for b in (1, 2, 8) for hq in (40, 56, 64)] + [
+    (1, 128, 200, 200, 16, 1, True, 0), (1, 64, 200, 200, 16, 1, False, 0)]
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("b,d,sq,sk,hq,hkv,causal,window", [
     (2, d, *case) for case in BWD_CASES for d in (16, 32, 64, 128, 160)]
-    + BWD_MODEL_CASES)
+    + BWD_MODEL_CASES + BWD_SPLIT_CASES)
 def test_backward_kernels_match_plain(dev, dtype, b, d, sq, sk, hq, hkv,
                                       causal, window):
     """B3 (dq) and B4 (dk, dv) against their plain versions on the same
@@ -452,13 +459,19 @@ def test_backward_kernels_match_plain(dev, dtype, b, d, sq, sk, hq, hkv,
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
-def test_backward_kernels_are_deterministic(dev, dtype):
-    """B3 and B4 use no atomics and B4 sums its GQA group in a fixed order:
-    two runs on the same inputs give the same bits."""
+@pytest.mark.parametrize("b,d,sq,sk,hq,hkv,causal,window",
+                         [(1, 128, 1000, 1000, 16, 2, True, 0)]
+                         + BWD_SPLIT_CASES)
+def test_backward_kernels_are_deterministic(dev, dtype, b, d, sq, sk, hq, hkv,
+                                            causal, window):
+    """B3 and B4 use no atomics and B4 sums its GQA group in a fixed order,
+    also where f32 B4 splits the group over a cluster (its ranks' partials
+    summed in rank order): two runs on the same inputs give the same
+    bits."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_dkv_cuda, flash_attention_dq_cuda)
-    kw = dict(causal=True, window=0)
-    args = _bwd_inputs(dtype, dev, 1000, 1000, 16, 2, 128, True, 0)
+    kw = dict(causal=causal, window=window)
+    args = _bwd_inputs(dtype, dev, sq, sk, hq, hkv, d, causal, window, b=b)
     first = (flash_attention_dq_cuda(*args, **kw),
              *flash_attention_dkv_cuda(*args, **kw))
     second = (flash_attention_dq_cuda(*args, **kw),
@@ -516,6 +529,31 @@ def test_backward_wgmma_plan_query_is_the_lints_plan(dev, B, Sq, Sk, Hq, Hkv,
         assert _build.plan(plan.query, *plan.query_args) == plan.launch()
         nc = 2 if heads * -(-rows // 128) >= sms and not one else 1
         assert plan.threads == (384 if nc == 2 else 160)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,cluster", [
+    (1, 128, 40, 8, 128, 5), (2, 128, 40, 8, 128, 5), (4, 128, 40, 8, 128, 5),
+    (8, 128, 40, 8, 128, 1), (32, 128, 40, 8, 128, 1),
+    (1, 4096, 32, 8, 128, 1), (1, 1500, 20, 20, 64, 1),
+    (1, 128, 56, 8, 128, 7), (2, 128, 64, 8, 128, 8), (1, 200, 16, 1, 64, 8),
+    (2, 300, 8, 2, 160, 4)])
+def test_f32_backward_plan_query_is_the_lints_plan(dev, B, S, Hq, Hkv, D,
+                                                   cluster):
+    """The C plan queries of f32 B3 and B4 equal the lint's mirror
+    (``kernel_lint.plan_flash_attention``): grid, threads, shared bytes and
+    B4's cluster, which splits its GQA group where its grid underfills the
+    card's SMs (at most eight ways, within four waves of them)."""
+    from repro_torch.analysis import kernel_lint
+    from repro_torch.kernels import _build
+    dims = dict(B=B, Sq=S, Sk=S, Hq=Hq, Hkv=Hkv, D=D, dtype="float32")
+    _, dq, dkv = kernel_lint.plan_flash_attention(dims, {})
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert dkv.cluster == kernel_lint.bwd_cluster(B, S, Hkv, Hq // Hkv,
+                                                  "float32", sms=sms)
+    if sms == 132:
+        assert dkv.cluster == cluster
+    for plan in (dq, dkv):
+        assert _build.plan(plan.query, *plan.query_args) == plan.launch()
 
 
 def test_reduced_loss_grads_through_the_kernels_match_dense(dev):
