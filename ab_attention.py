@@ -2,19 +2,24 @@
 """Times the hand-written kernels of other checkouts against this one's on
 one NVIDIA GPU, in turns.
 
-    python3 ab_attention.py [--kernels K1,B2,B3,B4,B6,K2,K3] OTHER [OTHER ...]
+    python3 ab_attention.py [--kernels K1,B2,B3,B4,B6,K2,K3]
+                            [--dtypes float32,bfloat16] OTHER [OTHER ...]
 
 Each OTHER is the root of a checkout (for the parent commit: ``git archive``
 unpacked under ``build/``, which ``.gitignore`` lists). The kernel library is
 built from each OTHER's ``src/repro_torch/csrc`` and from this checkout's
 (tags A, B, ... for the OTHERs in order, the last tag for this checkout) and
 called through this checkout's launchers, so the C entry points must match
-(their signatures are in ``kernels/_build.py``). Cases, in f32 and bf16, one
-JSON line each: K1 and B2 at the shapes of ``chip_smoke.py`` phases 2 and
-2b (K1 also at whisper's non-causal encoder and llama4's prefills), B3
-and B4 at the training shape, whisper's encoder and phase 11b's B8 S128
-and B1 microbatches (B4 also at B4), B6 at phase 2c's shapes, K2 and K3 at phase 2's;
-``--kernels`` keeps a subset. Each line has the device ms of
+(their signatures are in ``kernels/_build.py``); the libraries build at
+once, one thread a tree. Cases, in f32 and bf16, one JSON line each: K1
+and B2 at the shapes of ``chip_smoke.py`` phases 2 and 2b (B2 also at
+phase 11b's B1, B2, B4 and B8 S128 microbatches; K1 also at phase 9's
+8-token prefills, whisper's
+non-causal encoder, its cross attention at Sq4 and Sq128 against Sk1500,
+and llama4's prefills), B3 and B4 at the training shape, whisper's
+encoder and phase 11b's B8 S128 and B1 microbatches (B4 also at B4), B6
+at phase 2c's shapes, K2 and K3 at phase 2's; ``--kernels`` and
+``--dtypes`` keep a subset. Each line has the device ms of
 every library (a CUDA graph of back-to-back calls, ``chip_smoke._time_ms``)
 and the eager call's ms (``call_ms_<tag>``: the host's cost per call where
 it exceeds the device's) in the turns A B .. B A, twice each, and each
@@ -36,6 +41,7 @@ import json
 import string
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -48,11 +54,16 @@ TURN = [""]
 def main(argv: list[str]) -> int:
     import torch
     import torch.nn.functional as F
-    kernels = ALL
-    if argv[:1] == ["--kernels"] and len(argv) > 1:
-        kernels, argv = argv[1].split(","), argv[2:]
+    kernels, dtypes = ALL, DTYPES
+    while argv[:1] in (["--kernels"], ["--dtypes"]) and len(argv) > 1:
+        if argv[0] == "--kernels":
+            kernels = argv[1].split(",")
+        else:
+            dtypes = argv[1].split(",")
+        argv = argv[2:]
     others = argv
-    if not others or not torch.cuda.is_available() or set(kernels) - set(ALL):
+    if (not others or not torch.cuda.is_available()
+            or set(kernels) - set(ALL) or set(dtypes) - set(DTYPES)):
         print(__doc__, file=sys.stderr)
         return 2
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
@@ -66,6 +77,9 @@ def main(argv: list[str]) -> int:
     dirs = [Path(o).resolve() / "src" / "repro_torch" / "csrc"
             for o in others] + [tree]
     tags = string.ascii_uppercase[:len(dirs)]
+    # every tree's library at once (each build runs one nvcc per source)
+    with ThreadPoolExecutor(len(dirs)) as pool:
+        list(pool.map(_build.build_library, dirs))
     libs = {}
     for tag, d in zip(tags, dirs):
         _build.CSRC, _build._lib = d, None
@@ -77,8 +91,8 @@ def main(argv: list[str]) -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
-    for dname, dtype in (("float32", torch.float32),
-                         ("bfloat16", torch.bfloat16)):
+    for dname in dtypes:
+        dtype = getattr(torch, dname)
         for fn, shape, call, want in _cases(kernels, dtype, dev, gen):
             line = {"kernel": fn, "dtype": dname, "shape": shape}
             first = {}   # each tag's outputs in its first turn
@@ -115,6 +129,7 @@ def main(argv: list[str]) -> int:
 
 
 ALL = ["K1", "B2", "B3", "B4", "B6", "K2", "K3"]
+DTYPES = ["float32", "bfloat16"]
 
 
 def _k3_launcher(module: Path, tag: str):
@@ -158,35 +173,48 @@ def _cases(kernels, dtype, dev, gen):
         x = torch.randn(shape, generator=gen, device=dev)
         return x if f32 else x.to(dtype)
 
-    # (kernel, B, S, Hq, Hkv, D, window, causal): phase 2b's B2, phase 2's
-    # K1 (granite, hymba; whisper's encoder, non-causal; llama4's
-    # prefills), B3 and B4 at the training shape, whisper's encoder and
-    # phase 11b's B8 and B1 S128 microbatches (qwen2.5's GQA 40:8; at B1,
-    # and at B4's B4, f32 B4 splits its group over a cluster)
-    flash = [("B2", 1, 4096, 32, 8, 128, 0, True),
-             ("B2", 1, 4000, 32, 8, 128, 0, True),
-             ("K1", 1, 128, 32, 8, 128, 0, True),
-             ("K1", 1, 125, 32, 8, 128, 0, True),
-             ("K1", 1, 2048, 32, 8, 128, 0, True),
-             ("K1", 1, 128, 25, 5, 64, 1024, True),
-             ("K1", 1, 1100, 25, 5, 64, 1024, True),
-             ("K1", 1, 1500, 20, 20, 64, 0, False),
-             ("K1", 1, 128, 40, 8, 128, 0, True),
-             ("K1", 1, 125, 40, 8, 128, 0, True),
-             ("B3", 1, 4096, 32, 8, 128, 0, True),
-             ("B3", 1, 1500, 20, 20, 64, 0, False),
-             ("B3", 8, 128, 40, 8, 128, 0, True),
-             ("B3", 1, 128, 40, 8, 128, 0, True),
-             ("B4", 1, 4096, 32, 8, 128, 0, True),
-             ("B4", 1, 1500, 20, 20, 64, 0, False),
-             ("B4", 8, 128, 40, 8, 128, 0, True),
-             ("B4", 4, 128, 40, 8, 128, 0, True),
-             ("B4", 1, 128, 40, 8, 128, 0, True)]
-    for fn, B, S, Hq, Hkv, D, W, causal in flash:
+    # (kernel, B, Sq, Sk, Hq, Hkv, D, window, causal), Sk None for Sq:
+    # phase 2b's B2, and at phase 11b's B1, B2, B4 and B8 S128 microbatches
+    # (qwen2.5's GQA 40:8; where the grid underfills the card, f32 K1/B2
+    # split the key range over a cluster); phase 2's K1 (granite, and
+    # phase 9's 8-token prefills of 1 and 4 prompts; hymba;
+    # whisper's encoder, non-causal, and its cross attention at Sq4 and
+    # Sq128 against Sk1500; llama4's prefills), B3 and B4 at the training
+    # shape, whisper's encoder and phase 11b's B8 and B1 S128 microbatches
+    # (at B1, and at B4's B4, f32 B4 splits its group over a cluster)
+    flash = [("B2", 1, 4096, None, 32, 8, 128, 0, True),
+             ("B2", 1, 4000, None, 32, 8, 128, 0, True),
+             ("B2", 1, 128, None, 40, 8, 128, 0, True),
+             ("B2", 2, 128, None, 40, 8, 128, 0, True),
+             ("B2", 4, 128, None, 40, 8, 128, 0, True),
+             ("B2", 8, 128, None, 40, 8, 128, 0, True),
+             ("K1", 1, 128, None, 32, 8, 128, 0, True),
+             ("K1", 1, 125, None, 32, 8, 128, 0, True),
+             ("K1", 1, 8, None, 32, 8, 128, 0, True),
+             ("K1", 4, 8, None, 32, 8, 128, 0, True),
+             ("K1", 1, 2048, None, 32, 8, 128, 0, True),
+             ("K1", 1, 128, None, 25, 5, 64, 1024, True),
+             ("K1", 1, 1100, None, 25, 5, 64, 1024, True),
+             ("K1", 1, 1500, None, 20, 20, 64, 0, False),
+             ("K1", 4, 4, 1500, 20, 20, 64, 0, False),
+             ("K1", 1, 128, 1500, 20, 20, 64, 0, False),
+             ("K1", 1, 128, None, 40, 8, 128, 0, True),
+             ("K1", 1, 125, None, 40, 8, 128, 0, True),
+             ("B3", 1, 4096, None, 32, 8, 128, 0, True),
+             ("B3", 1, 1500, None, 20, 20, 64, 0, False),
+             ("B3", 8, 128, None, 40, 8, 128, 0, True),
+             ("B3", 1, 128, None, 40, 8, 128, 0, True),
+             ("B4", 1, 4096, None, 32, 8, 128, 0, True),
+             ("B4", 1, 1500, None, 20, 20, 64, 0, False),
+             ("B4", 8, 128, None, 40, 8, 128, 0, True),
+             ("B4", 4, 128, None, 40, 8, 128, 0, True),
+             ("B4", 1, 128, None, 40, 8, 128, 0, True)]
+    for fn, B, Sq, Sk, Hq, Hkv, D, W, causal in flash:
         if fn not in kernels:
             continue
-        q, do = rand(B, S, Hq, D), rand(B, S, Hq, D)
-        k, v = rand(B, S, Hkv, D), rand(B, S, Hkv, D)
+        Sk = Sq if Sk is None else Sk
+        q, do = rand(B, Sq, Hq, D), rand(B, Sq, Hq, D)
+        k, v = rand(B, Sk, Hkv, D), rand(B, Sk, Hkv, D)
         kw = dict(causal=causal, window=W)
         o_ref, lse_ref = ref.flash_attention_lse_ref(q, k, v, **kw)
         delta = ref.attention_delta(o_ref, do)
@@ -202,7 +230,8 @@ def _cases(kernels, dtype, dev, gen):
             "B4": (lambda: flash_attention_dkv_cuda(*args, **kw),
                    lambda: ref.flash_attention_dkv_ref(*args, **kw)),
         }[fn]
-        yield (fn, f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} "
+        yield (fn, f"B{B} " + (f"S{Sq}" if Sk == Sq else f"Sq{Sq} Sk{Sk}")
+               + f" Hq{Hq} Hkv{Hkv} D{D} "
                + ("causal" if causal else "non-causal")
                + (f" window{W}" if W else ""), call, want())
     if "B6" in kernels:

@@ -12,10 +12,11 @@ Phases, one JSON line each:
    kernels (K1/B2, B3, B4), of B6, K2 and K3 the HMMA (tensor-core)
    instructions in the library's SASS (``cuobjdump -sass``) and its
    registers and spills (``-Xptxas -v``): fails unless every f32
-   flash-attention instance at D=128 and every B6 instance has HMMA, every
-   bf16 K1/B2, B3 and B4 instance at D64 and D128 has HGMMA and TMA loads
-   and no HMMA or cp.async, and none of those and no K2 or K3 instance
-   spills;
+   flash-attention instance at D=128 (K1/B2's and B4's split instances
+   too) and every B6 instance has HMMA, every f32 K1/B2 instance has TMA
+   loads and no cp.async (``_f32_fwd_problems``), every bf16 K1/B2, B3 and
+   B4 instance at D64 and D128 has HGMMA and TMA loads and no HMMA or
+   cp.async, and none of those and no K2 or K3 instance spills;
 2. kernels against their plain PyTorch versions at the shapes of the
    serving path (K1 and K3 at granite-3-8b's and at hymba-1.5b's, K1 with
    hymba's 1024-token window at S128 and S1100; K2 at the paged engine's
@@ -68,7 +69,9 @@ Phases, one JSON line each:
    expanded to the q heads outside the timed call), and SDPA's forward
    plus backward beside B2 + B3 + B4; also at each of 11b's microbatches
    (S128 Hq40 Hkv8 D128 causal, ``DEPLOY_ATTN``: B1-32 in f32, B8 in
-   bf16);
+   bf16); each line carries its launch's ``cluster`` (the C plan query:
+   where the grid underfills the card, f32 B2 splits its key range and
+   f32 B4 its GQA group), as phase 2's K1 lines do;
 2c. kernel B6 (chunked WKV6) against its plain version on the same
    inputs: rwkv6 mode at rwkv6-3b's prefill shape (B1 T128 H40 K64 V64,
    with u, mild decay: every chunk on the rescaled product), the same at
@@ -699,19 +702,22 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "cuda_library_build_s": build_s, "ptxas": ptxas,
           "attention_sass": attn,
-          # f32 B4's registers, unsplit and as rank of a cluster
-          "b4_f32_d128_registers": {
-              n: attn.get(n, {}).get("registers") for n in F32_D128[2:]}})
+          # f32 K1/B2's and B4's registers, unsplit and split
+          "f32_d128_registers": {
+              n: attn.get(n, {}).get("registers") for n in F32_D128}})
     # the flash-attention kernels run on the tensor cores without spilling
     # at the serving and training paths' head dim, in both dtypes: K1/B2,
-    # B3 and B4 (and B4's instance that splits its group over a cluster)
-    # in f32 on mma.sync (HMMA), and in bf16 at D64 and D128 on wgmma fed
-    # by TMA (_wgmma_problems)
+    # B3 and B4 (and K1/B2's and B4's instances that split their work)
+    # in f32 on mma.sync (HMMA; K1/B2 fed by TMA, _f32_fwd_problems), and
+    # in bf16 at D64 and D128 on wgmma fed by TMA (_wgmma_problems)
     short = [n for n in F32_D128
              if attn.get(n, {}).get("hmma", 0) <= 0
              or attn[n].get("spill_bytes", 1) != 0]
     if short:
         raise AssertionError(f"no HMMA or spills in {short}: {attn}")
+    short = _f32_fwd_problems(attn)
+    if short:
+        raise AssertionError(f"the f32 forward's instances: {short}: {attn}")
     short = [p for kernel in WGMMA_KERNELS
              for p in _wgmma_problems(attn, kernel)]
     if short:
@@ -826,7 +832,8 @@ def main() -> int:
                 "library": "scaled_dot_product_attention("
                            + ("attn_mask" if W else "is_causal")
                            + ", enable_gqa=True)",
-                "bound_ms": b_ms, "bound_by": b_by, **b_ms3},
+                "bound_ms": b_ms, "bound_by": b_by, **b_ms3,
+                "cluster": _fwd_cluster(B, S, S, Hq, Hkv, D, dname)},
                 main_path=(S == 128 and Hq == 32 and dname == "float32"))
         # K2: paged decode, 16-token pages in shuffled order: 4 rows in a
         # table as wide as their pages (ctx160, ctx4096), then (their own
@@ -3012,6 +3019,14 @@ def _layer_errors(model, plain, params, prompt) -> list:
     return errs
 
 
+def _fwd_cluster(B, Sq, Sk, Hq, Hkv, D, dname) -> int:
+    """The cluster of K1's launch at these sizes, from the C plan query
+    (f32 splits the key range where the grid underfills the card)."""
+    from repro_torch.kernels import _build
+    return _build.plan("flash_attention_fwd", B, Sq, Sk, Hq, Hkv, D,
+                       0 if dname == "float32" else 1)["cluster"]
+
+
 def _family_kernels(rand, record, gen, k1=FAMILY_K1, k2=FAMILY_K2,
                     dtypes=("float32", "bfloat16"), stream: int = 6) -> None:
     """Phase 2's lines at phase 10's shapes, in f32 and bf16, from their own
@@ -3056,7 +3071,8 @@ def _family_kernels(rand, record, gen, k1=FAMILY_K1, k2=FAMILY_K2,
                              enable_gqa=True)),
                 "library": f"scaled_dot_product_attention(is_causal="
                            f"{causal}, enable_gqa=True)",
-                "bound_ms": b_ms, "bound_by": b_by, **b_ms3},
+                "bound_ms": b_ms, "bound_by": b_by, **b_ms3,
+                "cluster": _fwd_cluster(B, Sq, Sk, Hq, Hkv, D, dname)},
                 main_path=False)
             del q, k, v, out, want, qt, kt, vt
         # K2 at qwen2-vl's and arctic's heads on phase 3's paged table
@@ -3175,10 +3191,10 @@ def _train_kernels(rand, record, shapes=TRAIN_ATTN, stream=None,
     of D multiply-adds each (QK^T and PV; + dO V^T and ds K; + p^T dO and
     ds^T q), and every input read and output written once
     (``kernels/work.py``). Phase 11's lines pass their own shapes, stream
-    and dtypes. B3's and B4's lines carry their launch's cluster (the C
-    plan query: f32 B4 splits its GQA group where its grid underfills the
-    card), and B4's the sum of the two kernels' times beside ATen's
-    backward, which computes dq, dk and dv in one call."""
+    and dtypes. Each line carries its launch's cluster (the C plan query:
+    f32 B2 splits its key range and f32 B4 its GQA group where the grid
+    underfills the card), and B4's the sum of the two kernels' times
+    beside ATen's backward, which computes dq, dk and dv in one call."""
     import torch
     import torch.nn.functional as F
 
@@ -3258,8 +3274,9 @@ def _train_kernels(rand, record, shapes=TRAIN_ATTN, stream=None,
                     "bound_ms": b_ms, "bound_by": b_by}
                 if dname == "float32":
                     line["bound_3xtf32_ms"] = bound_3xtf32(flops, nbytes)
-                if name != "flash_attention_lse":
-                    line["cluster"] = _build.plan(name, *plan_args)["cluster"]
+                line["cluster"] = _build.plan(
+                    "flash_attention_fwd" if name == "flash_attention_lse"
+                    else name, *plan_args)["cluster"]
                 if name == "flash_attention_dkv":
                     line["b3_b4_ms"] = dq_ms + times["kernel_ms"]
                     line["aten_backward_ms"] = times["library_ms"]
@@ -4962,11 +4979,15 @@ def _ptxas_summary(log: Path) -> list:
 
 
 ATTN_INSTANCE = re.compile(
-    r"attn_(fwd|dq|dkv)_kernelI(f|13__nv_bfloat16)Li(\d+)E(?:Lb([01])E)?")
+    r"attn_(fwd|dq|dkv)_kernelI(f|13__nv_bfloat16)Li(\d+)E(?:Lb([01])E)?"
+    r"(?:Lb([01])E)?")
 ATTN_KERNEL = {"fwd": "K1/B2", "dq": "B3", "dkv": "B4"}
-# the f32 D128 instances phase 1 requires on the tensor cores, unspilled
-F32_D128 = ("K1/B2 float32 D128", "B3 float32 D128", "B4 float32 D128",
-            "B4 float32 D128 cluster")
+# the f32 D128 instances phase 1 requires on the tensor cores, unspilled:
+# K1/B2's (unsplit, as rank of a cluster, with two warp groups), B3's, B4's
+F32_FWD_D128 = ("K1/B2 float32 D128", "K1/B2 float32 D128 cluster",
+                "K1/B2 float32 D128 halves")
+F32_D128 = F32_FWD_D128 + ("B3 float32 D128", "B4 float32 D128",
+                           "B4 float32 D128 cluster")
 # K1/B2, B3 and B4 in bf16 at D64/D128: kernel, head dim, consumer
 # warpgroups (64 rows each: q rows of K1/B2 and B3, key rows of B4)
 WGMMA_INSTANCE = re.compile(r"attn_(fwd|dq|dkv)_kernel_wgmmaILi(\d+)ELi(\d+)E")
@@ -4988,7 +5009,9 @@ def _attn_instance(mangled: str):
     """The kernel instance a mangled name stands for, else None: 'B3
     float32 D128' (or 'K1/B2 ...', 'B4 ...') for the flash-attention
     kernels ('B4 float32 D128 cluster' for f32 B4's instance that splits
-    its GQA group over a cluster), 'K1/B2 bfloat16 D128 BQ128', 'B3
+    its GQA group over a cluster, 'K1/B2 float32 D128 cluster' and '...
+    halves' for f32 K1/B2's that split the key range over a cluster or
+    two warp groups), 'K1/B2 bfloat16 D128 BQ128', 'B3
     bfloat16 D128 BQ128' and 'B4 bfloat16 D64 BK64' for their bf16 wgmma
     kernels (q rows a block, or key rows for B4), 'B6 float32 ld float32
     VS32' for B6 (input
@@ -4998,9 +5021,10 @@ def _attn_instance(mangled: str):
     boundary)."""
     m = ATTN_INSTANCE.search(mangled)
     if m:
-        kernel, dtype, d, cluster = m.groups()
+        kernel, dtype, d, cluster, halves = m.groups()
         return (f"{ATTN_KERNEL[kernel]} {_dtype_name(dtype)} D{d}"
-                + (" cluster" if cluster == "1" else ""))
+                + (" cluster" if cluster == "1" else "")
+                + (" halves" if halves == "1" else ""))
     m = WGMMA_INSTANCE.search(mangled)
     if m:
         kernel, d, nc = m.groups()
@@ -5075,6 +5099,24 @@ def _wgmma_problems(attn: dict, kernel: str = "K1/B2") -> list:
                 out.append(f"{n}: HMMA or cp.async left")
             if r.get("spill_bytes", 1) != 0:
                 out.append(f"{n}: spills")
+    return out
+
+
+def _f32_fwd_problems(attn: dict) -> list:
+    """What phase 1 finds wrong with the f32 forward's instances (K1/B2 on
+    mma.sync, every head dim, unsplit, as rank of a cluster and with two
+    warp groups): one of F32_FWD_D128 missing, or any without HMMA or TMA
+    loads, with cp.async left, or spilling."""
+    names = [n for n in attn if n.startswith("K1/B2 float32 ")]
+    out = [f"no {n} instance" for n in F32_FWD_D128 if n not in names]
+    for n in names:
+        r = attn[n]
+        if r.get("hmma", 0) <= 0 or r.get("utmaldg", 0) <= 0:
+            out.append(f"{n}: no HMMA or no TMA load")
+        if r.get("ldgsts", 0):
+            out.append(f"{n}: cp.async left")
+        if r.get("spill_bytes", 1) != 0:
+            out.append(f"{n}: spills")
     return out
 
 

@@ -59,6 +59,16 @@ FWD_TILE = {"float32": (4, 32), "bfloat16": (8, 64)}    # (PAD, BK)
 # stages)
 FWD_WG_TILE = {64: (128, 2), 128: (64, 3)}
 FWD_WG_DIMS = tuple(FWD_WG_TILE)
+# the mma.sync forward's ring stages; f32 at FWD_PRE_DIMS keeps the q
+# tile's TF32 lo beside it (``Layout<T, D>::PRE``)
+FWD_STAGES, FWD_PRE_DIMS = 2, (64,)
+# f32 K1/B2 at these head dims split the key range over a cluster of at
+# most FWD_MAX_CLUSTER blocks, each rank FWD_RANK_TILES key tiles or more
+# (``fwd_cluster``)
+FWD_SPLIT_DIMS, FWD_MAX_CLUSTER, FWD_RANK_TILES = (64, 128), 8, 4
+# elsewhere, over two warp groups of one block (``fwd_halves``) unless the
+# grid fills four waves of the SMs with ranges of fewer key tiles than this
+FWD_HALVES_TILES = 8
 BWD_ROWS, BWD_THREADS = 64, 256
 BWD_PAD = {"float32": 4, "bfloat16": 8}
 # bf16 at the same head dims runs B3's and B4's wgmma kernels
@@ -132,12 +142,22 @@ def fwd_groups(B: int, Sq: int, Hq: int, sms: Optional[int] = None) -> int:
     return 2 if B * Hq * _cdiv(Sq, 128) >= sms else 1
 
 
-def fwd_launch(B: int, Sq: int, Hq: int, D: int, dtype: str):
+def ring_ctl_bytes(stages: int) -> int:
+    """The ring's control after the mma.sync kernels' tiles
+    (``attn::ring_ctl_bytes``): 1 + STAGES mbarriers, then the release
+    counts, in whole 8-byte words."""
+    return 8 * (1 + stages) + 8 * ((stages + 1) // 2)
+
+
+def fwd_launch(B: int, Sq: int, Sk: int, Hq: int, D: int, dtype: str):
     """K1/B2's (q rows a block, threads, dynamic shared bytes, key rows a
     tile): the wgmma kernel's ``WgLayout<D, NC>`` (the q tile, the stages'
     K and V, 1024 bytes of alignment and the 1 + 3 STAGES mbarriers) or
-    the mma.sync kernel's ``Layout<T, D>`` (the q tile and a two-stage ring
-    of (k, v) tiles, rows padded)."""
+    the mma.sync kernel's ``Layout<T, D, HALVES>`` (up to 128 bytes that
+    align the tensor copies' destinations, the q tile, in f32 at
+    FWD_PRE_DIMS its TF32 lo, FWD_STAGES stages of (k, v) tiles for each
+    warp group, rows padded, then each group's ring control; two groups of
+    128 threads where ``fwd_halves``)."""
     if fwd_wgmma(D, dtype):
         nc = fwd_groups(B, Sq, Hq)
         bq, (bk, stages) = 64 * nc, FWD_WG_TILE[D]
@@ -145,8 +165,41 @@ def fwd_launch(B: int, Sq: int, Hq: int, D: int, dtype: str):
         return bq, 384 if nc == 2 else 160, smem, bk
     pad, bk = FWD_TILE.get(dtype, FWD_TILE["float32"])
     ld = D + pad
-    smem = (FWD_BQ * ld + 2 * 2 * bk * ld) * tuning.itemsize(dtype)
-    return FWD_BQ, FWD_THREADS, smem, bk
+    groups = 2 if fwd_halves(B, Sq, Sk, Hq, D, dtype) else 1
+    q = (2 if dtype == "float32" and D in FWD_PRE_DIMS else 1) * FWD_BQ * ld
+    tiles = (q + groups * FWD_STAGES * 2 * bk * ld) * tuning.itemsize(dtype)
+    return (FWD_BQ, groups * FWD_THREADS,
+            128 + tiles + groups * ring_ctl_bytes(FWD_STAGES), bk)
+
+
+def fwd_cluster(B: int, Sq: int, Sk: int, Hq: int, D: int, dtype: str,
+                sms: Optional[int] = None) -> int:
+    """f32 K1/B2's cluster (``fwd_cluster``): at FWD_SPLIT_DIMS, where the
+    grid of (q tile, q head, row) blocks underfills the SMs, the largest c
+    at most FWD_MAX_CLUSTER that leaves each rank FWD_RANK_TILES or more
+    of the 32-key tiles of Sk; 1 (no split) otherwise, and always in
+    bf16."""
+    sms = tuning.capabilities().sms if sms is None else sms
+    blocks = B * Hq * _cdiv(Sq, FWD_BQ)
+    key_tiles = _cdiv(Sk, FWD_TILE["float32"][1])
+    if dtype != "float32" or D not in FWD_SPLIT_DIMS or blocks >= sms:
+        return 1
+    return max(1, min(FWD_MAX_CLUSTER, key_tiles // FWD_RANK_TILES))
+
+
+def fwd_halves(B: int, Sq: int, Sk: int, Hq: int, D: int, dtype: str,
+               sms: Optional[int] = None) -> bool:
+    """Whether f32 K1/B2 splits each q tile's key range over two warp
+    groups of one block instead (``fwd_halves``): at FWD_SPLIT_DIMS, where
+    ``fwd_cluster`` does not split, Sk has two key tiles or more, and the
+    grid fills fewer than four waves of the SMs or Sk spans
+    FWD_HALVES_TILES key tiles or more."""
+    sms = tuning.capabilities().sms if sms is None else sms
+    blocks = B * Hq * _cdiv(Sq, FWD_BQ)
+    key_tiles = _cdiv(Sk, FWD_TILE["float32"][1])
+    return (dtype == "float32" and D in FWD_SPLIT_DIMS and key_tiles >= 2
+            and (blocks < 4 * sms or key_tiles >= FWD_HALVES_TILES)
+            and fwd_cluster(B, Sq, Sk, Hq, D, dtype, sms) == 1)
 
 
 def bwd_smem(D: int, dtype: str, dkv: bool) -> int:
@@ -167,7 +220,7 @@ def bwd_smem(D: int, dtype: str, dkv: bool) -> int:
         tiles = (2 * resident + 2 * stage + 2 * pds + lo) * es
     else:
         tiles = (2 * resident + 2 * stage + pds) * es
-    return 128 + tiles + 32
+    return 128 + tiles + ring_ctl_bytes(2)
 
 
 def bwd_cluster(B: int, Sk: int, Hkv: int, group: int, dtype: str,
@@ -221,15 +274,22 @@ def plan_flash_attention(dims: Dims, config: Dict[str, int],
     if Hkv <= 0 or Hq % Hkv:
         bad.append(f"Hq={Hq} not a multiple of Hkv={Hkv}")
     args = (B, Sq, Sk, Hq, Hkv, D, _code(dt))
-    fwd_bq, fwd_threads, fwd_bytes, fwd_bk = fwd_launch(B, Sq, Hq, D, dt)
+    fwd_bq, fwd_threads, fwd_bytes, fwd_bk = fwd_launch(B, Sq, Sk, Hq, D, dt)
+    keys = fwd_cluster(B, Sq, Sk, Hq, D, dt)
+    key_tiles = _cdiv(Sk, fwd_bk)
+    # ranks a q tile's key range is split over: a cluster's blocks, or the
+    # two warp groups of one block
+    ranks = 2 if fwd_halves(B, Sq, Sk, Hq, D, dt) else keys
     fwd = Plan(
         kernel="K1/B2", path=f"{CSRC}/flash_attention.cu", dtype=dt,
-        grid=(_cdiv(Sq, fwd_bq), Hq, B), threads=fwd_threads,
-        smem=fwd_bytes, max_threads=fwd_threads,
+        grid=(keys * _cdiv(Sq, fwd_bq), Hq, B), threads=fwd_threads,
+        smem=fwd_bytes, cluster=keys, max_threads=fwd_threads,
         static_smem=_static("K1/B2", dt, static_smem),
         covers=[("q rows", Sq, fwd_bq, _cdiv(Sq, fwd_bq)),
                 ("q heads", Hq, 1, Hq), ("batch rows", B, 1, B),
-                ("key tiles", Sk, fwd_bk, _cdiv(Sk, fwd_bk))],
+                ("key tiles", Sk, fwd_bk, key_tiles),
+                ("key tiles of a q tile", key_tiles,
+                 _cdiv(key_tiles, ranks), ranks)],
         reads=("q tile", "k, v of its kv head", "lse out (B2)"),
         bad_dims=list(bad), query="flash_attention_fwd", query_args=args)
     dq_rows, dq_threads, dq_bytes = bwd_launch(B, Sq, Sk, Hq, Hkv, D, dt,

@@ -75,21 +75,51 @@
 // tile (FlashAttention-2's layout), every product a warp-level mma.sync
 // (mma.cuh): f32 as 3xTF32 m16n8k8 on each operand split as hi = tf32(x),
 // lo = tf32(x - hi): lo*hi + hi*lo, then hi*hi (495 TFLOP/s a pass, three
-// passes keep f32 accuracy); bf16 as m16n8k16. P goes from the score's C
-// fragments to the A fragments of P V in registers (tf32: logical k t and
-// t+4 read at physical columns 2t and 2t+1, with V's B fragment read at
-// rows 2t and 2t+1, mma.cuh). P V runs over 64-column slices of D, each in
-// its own fresh 32-register accumulator. Q stays in shared memory; K and V
-// tiles stream through a two-stage ring filled by 16-byte cp.async. Key
-// tiles: 32 rows in f32 (Q 33 KiB + two stages of K and V 66 KiB at D=128:
-// two blocks per SM), 64 in bf16. At D=128 f32 takes 225 registers and 240
-// HMMA and does not spill (H100 80GB HBM3 at 700 W, PERF.md). Each warp
-// splits the K and V values it reads into TF32 hi/lo itself; a variant that
-// split each tile once per block ran B2 slower (3.35 against 3.25 ms).
+// passes keep f32 accuracy); bf16 as m16n8k16. Key tiles: 32 rows in f32,
+// 64 in bf16. Three parts, shared with the backward's mma.sync kernels
+// (attn_ring.cuh):
+//  - The ring. Thread 0 loads the q tile once and the K and V tiles by TMA
+//    (cp.async.bulk.tensor, one copy a tile, a box of D + PAD columns whose
+//    padding reads zeros, so the tiles keep their padded, conflict-free
+//    rows; rows past Sq or Sk read zeros) into a ring of STAGES stages,
+//    each with a full mbarrier and a count of the warps that have released
+//    it. The last warp to release a stage refills it with the step STAGES
+//    ahead: no block barrier in the key loop, a warp waits only for its
+//    stage's bytes (a ring of 16-byte cp.async copies that met the whole
+//    block at __syncthreads() every step ran slower, PERF.md).
+//  - The fragments. S = Q K^T reads Q's and K's tf32 fragments by ldmatrix
+//    (attn::scores: the same products in the same order as scalar reads,
+//    so the same bits); P goes from the score's C fragments to the A
+//    fragments of P V in registers (tf32: logical k t and t+4 read at
+//    physical columns 2t and 2t+1, with V's B fragment read at rows 2t and
+//    2t+1, mma.cuh), over 64-column slices of D, each in its own fresh
+//    accumulator. V cannot go through ldmatrix (no 32-bit transpose): each
+//    warp splits the V values it reads. f32 at D64 splits the q tile into
+//    hi/lo once a block (Layout::PRE); at D128 that costs the second block
+//    an SM, and each V tile split once for the four warps a block barrier
+//    a step as well: both ran slower (PERF.md).
+//  - The key split. Where the grid underfills the SMs (fwd_cluster: f32 at
+//    D64/D128, B x Hq x q tiles below the SM count, four key tiles or more
+//    a rank), the launch is clusters of c blocks per q tile
+//    (attn_fwd_kernel<float, D, true, false>): rank r walks a contiguous,
+//    near-equal share of the tile's key tiles with its own m, l and
+//    accumulator, and after the loop the ranks' partials are combined
+//    through distributed shared memory in rank order (combine());
+//    flash-decoding's split, in one launch. No atomics, no partials in
+//    device memory; a fixed order, so two runs give the same bits (another
+//    order than the unsplit walk's, ROADMAP C); a cluster that cannot be
+//    resident raises. Elsewhere, unless the grid is many short blocks
+//    (fwd_halves), the block runs two warp groups of four warps
+//    (attn_fwd_kernel<float, D, false, true>), each with its own ring
+//    walking half of the key tiles, merged in rank order in shared
+//    memory: the training shape's tail evens out.
+// At D=128 f32 a block of two warp groups takes 169,152 bytes of shared
+// memory, one block an SM (213 registers), a block of one 101,536 bytes,
+// two blocks an SM (168 registers); no spills (the HMMA and UTMALDG
+// counts: chip_smoke.py phase 1).
 //
 // Layouts: q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), out like q, all
-// contiguous and 16-byte aligned (the copies are 16 bytes, TMA's bases 16
-// bytes); lse (B, Hq, Sq) f32.
+// contiguous and 16-byte aligned (TMA's bases); lse (B, Hq, Sq) f32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -97,8 +127,12 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <atomic>
 #include <type_traits>
 
+#include <cooperative_groups.h>
+
+#include "attn_ring.cuh"
 #include "attn_tile.cuh"
 #include "mma.cuh"
 #include "smem_opt_in.cuh"
@@ -107,7 +141,13 @@
 namespace {
 
 using attn::aligned;
+using attn::aligned128;
+using attn::init_ring;
 using attn::kLog2e;
+using attn::Maps;
+using attn::release;
+using attn::Ring;
+using attn::scores;
 using attn::visible;
 using bf16 = __nv_bfloat16;
 
@@ -130,25 +170,43 @@ struct Tile<bf16> {
   static constexpr int PAD = 8, BK = 64;
 };
 
-// Shared memory, in elements of T: the q tile, then a two-stage ring of
-// (k, v) tiles, all rows of D + PAD.
-template <typename T, int D>
+// Shared memory, in elements of T, after up to 128 bytes that align the
+// base (TMA's destinations): the q tile (with PRE, its TF32 lo after it)
+// and STAGES stages of (k, v) tiles for each warp group (two with HALVES),
+// all rows of D + PAD, then each group's ring control (attn_ring.cuh).
+template <typename T, int D, bool HALVES = false>
 struct Layout {
+  static constexpr int GROUPS = HALVES ? 2 : 1;
+  static constexpr bool F32 = std::is_same<T, float>::value;
   static constexpr int BK = Tile<T>::BK;
   static constexpr int LD = D + Tile<T>::PAD;
+  static constexpr int STAGES = 2;
+  // f32 at D64: q split into TF32 hi/lo once a block, a third more shared
+  // memory (hymba's S1100 prefill 0.1628 -> 0.1328 ms, whisper's cross
+  // attention 0.0313 -> 0.0299; at D128, where it leaves one block an SM
+  // instead of two, B2 at S4096 took 3.286 ms against 2.809, H100 80GB
+  // HBM3 at 700 W, PERF.md)
+  static constexpr bool PRE = F32 && D == 64;
+  static_assert(F32 || !PRE, "TF32 splits are f32's");
   static constexpr size_t q = size_t(BQ) * LD;
   static constexpr size_t stage = 2 * size_t(BK) * LD;
-  static constexpr size_t bytes = (q + 2 * stage) * sizeof(T);
+  static constexpr uint32_t q_bytes = uint32_t(q * sizeof(T));
+  static constexpr uint32_t kv_bytes = uint32_t(BK * LD * sizeof(T));  // one k or v tile
+  static constexpr size_t tiles = ((PRE ? 2 : 1) * q + GROUPS * STAGES * stage) * sizeof(T);
+  static constexpr size_t bytes = 128 + tiles + GROUPS * attn::ring_ctl_bytes(STAGES);
+  // a split launch's partial output and row statistics fit in a ring
+  static_assert(q + 2 * BQ <= STAGES * stage, "the cluster's partials exceed the ring");
+  static_assert((D / 2 + 4) * 32 * WARPS <= STAGES * stage, "a half's partials exceed its ring");
 };
 
 // acc (16 x D) = acc * corr + P V for the warp's rows: p the warp's scores
 // after the softmax (NT 8-column C fragments over the key tile), V a BK-row
 // tile of stride LD. Slices of CH 8-column tiles of D sum in a fresh
 // accumulator each, folded with f32 fmas (corr[0] for row g, corr[1] for
-// row g + 8). A slice's CH accumulators are its independent mma chains:
-// up to 8 (64 columns, 32 registers), the largest such divisor of the tile
-// count; with 32-column slices B2 took 9% (f32) and 18% (bf16) longer on
-// an H100 (PERF.md).
+// row g + 8). A slice's CH
+// accumulators are its independent mma chains: up to 8 (64 columns, 32
+// registers), the largest such divisor of the tile count; with 32-column
+// slices B2 took 9% (f32) and 18% (bf16) longer on an H100 (PERF.md).
 __host__ __device__ constexpr int slice_tiles(int nd) {
   return nd <= 8 ? nd : nd % 8 == 0 ? 8 : nd / 2;
 }
@@ -231,22 +289,126 @@ __device__ __forceinline__ void pv(float (&acc)[D / 8][4], const float (&p)[NT][
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
-                int causal, int window, float scale) {
-  using L = Layout<T, D>;
-  constexpr int BK = L::BK, LD = L::LD;
-  constexpr int NT = BK / 8;  // 8-column tiles of a warp's scores
-  constexpr int ND = D / 8;   // 8-column tiles of a warp's output
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);  // BQ x LD
-  T* ring = Qs + L::q;                     // stage s: k at ring + s * stage, v after it
-
+// The split launch's combine (CLUSTER), after every rank's key loop: each
+// rank leaves its unnormalised output acc, and per row its running max m
+// (log2 units) and its sum l, in its ring (free by then); rank r then
+// combines rows r BQ / ranks .. (r + 1) BQ / ranks - 1 of the q tile from
+// the n ranks that walked keys, in rank order: m = max m_r, w_r =
+// 2^(m_r - m), l = sum l_r w_r, o = (sum acc_r w_r) / max(l, 1e-30), and
+// writes them (and the lse row) once.
+template <int D>
+__device__ __forceinline__ void combine(float* part, float* wts, const float (&acc)[D / 8][4],
+                                        const float (&m2)[2], const float (&l)[2], int n, int q0,
+                                        float* __restrict__ o, float* __restrict__ lse, int Sq,
+                                        int Hq, int h, int b) {
+  constexpr int LD = Layout<float, D>::LD, W = attn::MAX_CLUSTER + 1;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  auto cluster = cooperative_groups::this_cluster();
+  const int ranks = int(cluster.num_blocks()), rank = int(cluster.block_rank());
+  float* pm = part + BQ * LD;  // per row: m, then l
+  __syncthreads();             // every warp is done with the ring and the q tile
+  attn::store_tile<LD>(part + warp * 16 * LD, acc, lane);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if (t == 0) {
+      pm[warp * 16 + g + 8 * r] = m2[r];
+      pm[BQ + warp * 16 + g + 8 * r] = sum;
+    }
+  }
+  cluster.sync();
+  const float* parts[attn::MAX_CLUSTER];
+#pragma unroll
+  for (int rr = 0; rr < attn::MAX_CLUSTER; ++rr)
+    parts[rr] = rr < n ? cluster.map_shared_rank(part, rr) : part;
+  const int row0 = rank * BQ / ranks, rows = (rank + 1) * BQ / ranks - row0;
+  // per row of the rank's slice: the n weights, then 1 / max(l, 1e-30)
+  for (int i = tid; i < rows; i += THREADS) {
+    const int row = row0 + i;
+    float mr[attn::MAX_CLUSTER], lr[attn::MAX_CLUSTER];
+#pragma unroll
+    for (int rr = 0; rr < attn::MAX_CLUSTER; ++rr)
+      if (rr < n) {
+        mr[rr] = parts[rr][BQ * LD + row];
+        lr[rr] = parts[rr][BQ * LD + BQ + row];
+      }
+    float m = mr[0];
+#pragma unroll
+    for (int rr = 1; rr < attn::MAX_CLUSTER; ++rr)
+      if (rr < n) m = fmaxf(m, mr[rr]);
+    float sum = 0.f;
+#pragma unroll
+    for (int rr = 0; rr < attn::MAX_CLUSTER; ++rr)
+      if (rr < n) {
+        const float w = exp2f(mr[rr] - m);
+        wts[i * W + rr] = w;
+        sum = rr == 0 ? lr[rr] * w : fmaf(lr[rr], w, sum);
+      }
+    const float denom = fmaxf(sum, 1e-30f);
+    wts[i * W + attn::MAX_CLUSTER] = __fdividef(1.f, denom);
+    if (lse != nullptr && q0 + row < Sq)
+      lse[(size_t(b) * Hq + h) * Sq + q0 + row] = fmaf(m, kLn2, logf(denom));
+  }
+  __syncthreads();
+  float* oh = o + (size_t(b) * Sq * Hq + h) * D;
+  for (int i = tid; i < rows * (D / 2); i += THREADS) {
+    const int r = i / (D / 2), col = 2 * (i % (D / 2)), row = row0 + r;
+    if (q0 + row >= Sq) continue;
+    const int at = row * LD + col;
+    float2 x[attn::MAX_CLUSTER];
+#pragma unroll
+    for (int rr = 0; rr < attn::MAX_CLUSTER; ++rr)
+      if (rr < n) x[rr] = *reinterpret_cast<const float2*>(parts[rr] + at);
+    float2 a = make_float2(x[0].x * wts[r * W], x[0].y * wts[r * W]);
+#pragma unroll
+    for (int rr = 1; rr < attn::MAX_CLUSTER; ++rr)
+      if (rr < n) {
+        a.x = fmaf(x[rr].x, wts[r * W + rr], a.x);
+        a.y = fmaf(x[rr].y, wts[r * W + rr], a.y);
+      }
+    const float inv = wts[r * W + attn::MAX_CLUSTER];
+    mma::store_pair(oh + size_t(q0 + row) * Hq * D + col, a.x * inv, a.y * inv);
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+// The key range of a q tile is split in ranks, each a contiguous,
+// near-equal share of its key tiles (the first n = min(ranks, the tile's
+// key tiles) ranks take one or more), combined in rank order: CLUSTER, the
+// block is rank r of a cluster of c along grid x that shares its q tile
+// (blockIdx.x / c), merged by combine(); HALVES, the block's two warp
+// groups of WARPS warps are ranks 0 and 1, each with its own ring, merged
+// in shared memory by group 0.
+template <typename T, int D, bool CLUSTER, bool HALVES>
+__global__ void __launch_bounds__(Layout<T, D, HALVES>::GROUPS * THREADS)
+attn_fwd_kernel(const __grid_constant__ Maps maps, T* __restrict__ o, float* __restrict__ lse,
+                int Sq, int Sk, int Hq, int Hkv, int causal, int window, float scale) {
+  using L = Layout<T, D, HALVES>;
+  constexpr int BK = L::BK, LD = L::LD, ST = L::STAGES;
+  constexpr int NT = BK / 8;  // 8-column tiles of a warp's scores
+  constexpr int ND = D / 8;   // 8-column tiles of a warp's output
+  static_assert(!(CLUSTER || HALVES) || L::F32, "K1/B2 split their keys in f32 only");
+  static_assert(!(CLUSTER && HALVES), "one split at a time");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = aligned128(smem_raw);
+  T* Qs = reinterpret_cast<T*>(base);       // BQ x LD
+  T* Qlo = Qs + L::q;                       // PRE: BQ x LD
+  T* ring0 = Qs + (L::PRE ? 2 : 1) * L::q;  // group 0's stage s: k at + s * stage, v after it
+  const Ring rc0 = init_ring<ST>(base + L::tiles);
+  const Ring rc1 = HALVES ? init_ring<ST>(base + L::tiles + attn::ring_ctl_bytes(ST)) : rc0;
+
+  const int group = HALVES ? int(threadIdx.x) / THREADS : 0;
+  const int tid = threadIdx.x % THREADS, lane = tid & 31, warp = tid >> 5;  // in the group
+  const int g = lane >> 2, t = lane & 3;
+  T* ring = ring0 + group * ST * L::stage;
+  const Ring rc = group ? rc1 : rc0;
+  const int ranks = CLUSTER ? int(cooperative_groups::this_cluster().num_blocks()) : L::GROUPS;
+  const int rank = CLUSTER ? int(cooperative_groups::this_cluster().block_rank()) : group;
+  const int per_tile = CLUSTER ? ranks : 1;  // blocks along x a q tile
+  const int qt = gridDim.x / per_tile - 1 - blockIdx.x / per_tile;  // heaviest causal tiles first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -255,23 +417,31 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
   const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
   const int k_begin = (causal && window > 0) ? max(0, q0 - window + 1) : 0;
-  const int t_begin = k_begin / BK;
-  const int steps = k_end > k_begin ? (k_end + BK - 1) / BK - t_begin : 0;
+  const int tiles = k_end > k_begin ? (k_end + BK - 1) / BK - k_begin / BK : 0;
+  // the rank's share of the key tiles (all of them unsplit)
+  const int n = max(1, min(ranks, tiles));
+  const int first = rank < n ? rank * tiles / n : tiles;
+  const int steps = (rank < n ? (rank + 1) * tiles / n : tiles) - first;
+  const int t_begin = k_begin / BK + first;
 
-  const T* kh = k + (size_t(b) * Sk * Hkv + hk) * D;
-  const T* vh = v + (size_t(b) * Sk * Hkv + hk) * D;
+  // the block reads its q tile if any of its ranks walks keys (rank 0
+  // does, if any does)
+  const bool loads = HALVES ? tiles > 0 : steps > 0;
+
+  // step `step`'s k and v tiles into its group's stage (one thread)
   auto issue = [&](int step) {
-    T* st = ring + (step & 1) * L::stage;
-    const int k0 = (t_begin + step) * BK;
-    mma::load_rows<T, D, LD, BK, THREADS>(st, kh, k0, Sk, Hkv, tid);
-    mma::load_rows<T, D, LD, BK, THREADS>(st + BK * LD, vh, k0, Sk, Hkv, tid);
-    mma::cp_async_commit();
+    const int s = step % ST, k0 = (t_begin + step) * BK;
+    const uint32_t st = mma::smem_addr(ring + s * L::stage);
+    wg::mbar_arrive_expect(rc.full(s), 2 * L::kv_bytes);
+    wg::tma_load_4d(st, &maps.k, rc.full(s), 0, hk, k0, b);
+    wg::tma_load_4d(st + L::kv_bytes, &maps.v, rc.full(s), 0, hk, k0, b);
   };
-  if (steps > 0) {
-    mma::load_rows<T, D, LD, BQ, THREADS>(Qs, q + (size_t(b) * Sq * Hq + h) * D, q0, Sq, Hq,
-                                          tid);
-    issue(0);  // one group with the q tile
+  if (threadIdx.x == 0 && loads) {  // the q tile, completing on group 0's ring
+    wg::mbar_arrive_expect(rc0.bar, L::q_bytes);
+    wg::tma_load_4d(mma::smem_addr(Qs), &maps.q, rc0.bar, 0, h, q0, b);
   }
+  if (tid == 0)
+    for (int i = 0; i < ST && i < steps; ++i) issue(i);
 
   // rows g and g + 8 of the warp's 16: running max (log2 units) and this
   // thread's share of the row sum (its columns; the quad's shares are
@@ -279,16 +449,22 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   float m2[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
   float acc[ND][4] = {};
   const float scale2 = scale * kLog2e;  // exp(x) = exp2(x log2(e))
+  if (loads) {
+    wg::mbar_wait(rc0.bar, 0);
+    if constexpr (L::PRE) {  // q into tf32 hi (in place) and lo, once
+      attn::split_rows<D, LD, L::GROUPS * THREADS>(Qs, Qlo, BQ);
+      __syncthreads();
+    }
+  }
   for (int step = 0; step < steps; ++step) {
-    mma::cp_async_wait<0>();
-    __syncthreads();  // this step's tiles are in; the last step's reads are done
-    if (step + 1 < steps) issue(step + 1);
+    const int s = step % ST;
+    wg::mbar_wait(rc.full(s), (step / ST) & 1);  // this step's tiles are in
     const int k0 = (t_begin + step) * BK;
-    const T* Kt = ring + (step & 1) * L::stage;
+    const T* Kt = ring + s * L::stage;
     const T* Vt = Kt + BK * LD;
 
-    float s[NT][4];
-    mma::warp_abt<D, LD, NT>(s, Qs + warp * 16 * LD, Kt, lane);
+    float sc[NT][4];
+    scores<D, LD, NT, L::PRE>(sc, Qs + warp * 16 * LD, Qlo + warp * 16 * LD, Kt, lane);
     auto scale_mask = [&](auto whole) {  // scaled scores in log2 units
 #pragma unroll
       for (int i = 0; i < NT; ++i)
@@ -296,9 +472,9 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
         for (int e = 0; e < 4; ++e) {
           const int qp = r0 + g + 8 * (e >> 1);
           const int kp = k0 + 8 * i + 2 * t + (e & 1);
-          s[i][e] = (decltype(whole)::value || visible(qp, kp, Sk, causal, window))
-                        ? s[i][e] * scale2
-                        : kMasked;
+          sc[i][e] = (decltype(whole)::value || visible(qp, kp, Sk, causal, window))
+                         ? sc[i][e] * scale2
+                         : kMasked;
         }
     };
     // a key tile that every row of the warp sees skips the mask
@@ -313,7 +489,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     for (int r = 0; r < 2; ++r) {
       float mx = m2[r];
 #pragma unroll
-      for (int i = 0; i < NT; ++i) mx = fmaxf(mx, fmaxf(s[i][2 * r], s[i][2 * r + 1]));
+      for (int i = 0; i < NT; ++i) mx = fmaxf(mx, fmaxf(sc[i][2 * r], sc[i][2 * r + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       corr[r] = exp2f(m2[r] - mx);
@@ -323,21 +499,73 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       for (int i = 0; i < NT; ++i)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          const float p = exp2f(s[i][2 * r + c] - mx);
-          s[i][2 * r + c] = p;
+          const float p = exp2f(sc[i][2 * r + c] - mx);
+          sc[i][2 * r + c] = p;
           sum += p;
         }
       l[r] = fmaf(l[r], corr[r], sum);
     }
-    pv<D, LD, NT>(acc, s, corr, Vt, lane);
+    pv<D, LD, NT>(acc, sc, corr, Vt, lane);
+    __syncwarp();  // the warp is done with the stage
+    if (lane == 0 && release<WARPS>(rc, s) && step + ST < steps) {
+      mma::fence_proxy_async();
+      issue(step + ST);
+    }
   }
 
+  if constexpr (CLUSTER) {
+    combine<D>(reinterpret_cast<float*>(ring), reinterpret_cast<float*>(Qs), acc, m2, l, n, q0, o,
+               lse, Sq, Hq, h, b);
+    return;
+  }
+  float rsum[2];  // the rows' sums (the quad's shares added)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    rsum[r] = l[r];
+    rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
+    rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
+  }
+  if constexpr (HALVES) {
+    // group 1 leaves its acc, m and row sums in its ring, each thread's
+    // values at its own index; group 0 merges them into its own in rank
+    // order, as combine() does, and stores the rows
+    float* part = reinterpret_cast<float*>(ring0 + ST * L::stage);
+    if (group == 1) {
+      mma::named_sync(1, THREADS);  // every warp of group 1 is done with its ring
+#pragma unroll
+      for (int i = 0; i < ND; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[(4 * i + e) * THREADS + tid] = acc[i][e];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        part[(4 * ND + r) * THREADS + tid] = m2[r];
+        part[(4 * ND + 2 + r) * THREADS + tid] = rsum[r];
+      }
+    }
+    __syncthreads();
+    if (group == 1) return;
+    if (n == 2) {
+      float w0[2], w1[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m1 = part[(4 * ND + r) * THREADS + tid];
+        const float m = fmaxf(m2[r], m1);
+        w0[r] = exp2f(m2[r] - m);
+        w1[r] = exp2f(m1 - m);
+        rsum[r] = fmaf(part[(4 * ND + 2 + r) * THREADS + tid], w1[r], rsum[r] * w0[r]);
+        m2[r] = m;
+      }
+#pragma unroll
+      for (int i = 0; i < ND; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[i][e] = fmaf(part[(4 * i + e) * THREADS + tid], w1[e >> 1], acc[i][e] * w0[e >> 1]);
+    }
+  }
   T* oh = o + (size_t(b) * Sq * Hq + h) * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    float sum = l[r];
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float sum = rsum[r];
     const int qp = r0 + g + 8 * r;
     if (qp >= Sq) continue;
     const float denom = fmaxf(sum, 1e-30f);
@@ -351,8 +579,70 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 }
 
-// A block per (BQ q rows, q head, row).
-dim3 fwd_grid(int B, int Sq, int Hq) { return dim3((Sq + BQ - 1) / BQ, Hq, B); }
+// A block per (BQ q rows, q head, row), times its cluster along x.
+dim3 fwd_grid(int B, int Sq, int Hq, int cluster = 1) {
+  return dim3(cluster * ((Sq + BQ - 1) / BQ), Hq, B);
+}
+
+// f32 K1/B2's cluster at D 64 and 128: where the grid of (q tile, q head,
+// row) blocks underfills the SMs, the largest c at most MAX_CLUSTER that
+// leaves each rank at least FWD_RANK_TILES of the 32-key tiles of Sk; 1
+// (no split) otherwise, and always in bf16. A rank pays for its own q tile
+// and the combine, about what four key tiles cost: at 11b's S128 (four key
+// tiles, 80 blocks) B2 took 0.0172 ms unsplit against 0.0214 in two ranks
+// and 0.0240 in four, while whisper's cross attention (47 key tiles) fell
+// from 0.0862 to 0.0313 ms in eight ranks (B1 Sq128) and from 0.0874 to
+// 0.0557 in eight (B4 Sq4; 0.0594 in six; an H100 80GB HBM3 at 700 W,
+// PERF.md). Fewer than SM-count blocks split at most eight ways stay
+// within eight waves of the SMs. A causal tile with fewer key tiles than
+// ranks leaves the last ranks idle. A fixed function of the sizes and the
+// SM count (the plan query sees no mask), so two launches combine in the
+// same order.
+constexpr int FWD_RANK_TILES = 4;
+int fwd_cluster(int B, int Sq, int Sk, int Hq, int D, bool f32) {
+  const long blocks = long(B) * Hq * ((Sq + BQ - 1) / BQ);
+  const int key_tiles = (Sk + Tile<float>::BK - 1) / Tile<float>::BK;
+  if (!f32 || (D != 64 && D != 128) || blocks >= wg::sm_count()) return 1;
+  return std::max(1, std::min(attn::MAX_CLUSTER, key_tiles / FWD_RANK_TILES));
+}
+
+// Whether f32 K1/B2 at D 64 and 128 splits each q tile's key range in two
+// inside the block instead (HALVES: two warp groups of four warps, each
+// with its own ring, one block an SM): where fwd_cluster does not split,
+// Sk has two key tiles or more, and either the grid fills fewer than four
+// waves of the SMs or the key range spans FWD_HALVES_TILES key tiles or
+// more. Half the steps a block evens out the causal tail: B2 at S4096 took
+// 2.608 ms against 2.790 in blocks of four warps, K1 at S2048 0.730
+// against 0.802, 11b's B1 S128 (80 blocks) 0.0146 against 0.0172; only
+// short blocks past four waves lose their second block an SM (11b's B8
+// S128, 640 blocks of four key tiles: 0.0639 against 0.0593; an H100
+// 80GB HBM3 at 700 W, PERF.md).
+constexpr int FWD_HALVES_TILES = 8;
+bool fwd_halves(int B, int Sq, int Sk, int Hq, int D, bool f32) {
+  const long blocks = long(B) * Hq * ((Sq + BQ - 1) / BQ);
+  const int key_tiles = (Sk + Tile<float>::BK - 1) / Tile<float>::BK;
+  return f32 && (D == 64 || D == 128) && key_tiles >= 2 &&
+         (blocks < 4 * wg::sm_count() || key_tiles >= FWD_HALVES_TILES) &&
+         fwd_cluster(B, Sq, Sk, Hq, D, f32) == 1;
+}
+
+// The mma.sync kernel's tensor maps: q in boxes of BQ rows, k and v of BK,
+// each D + PAD columns wide (the padding reads zeros). With no keys, k's
+// and v's maps point at q: nothing reads them.
+template <typename T, int D>
+cudaError_t make_maps(Maps* m, const void* q, const void* k, const void* v, int B, int Sq, int Sk,
+                      int Hq, int Hkv) {
+  constexpr bool f32 = std::is_same<T, float>::value;
+  constexpr int cols = D + Tile<T>::PAD, bk = Tile<T>::BK;
+  if (Sk <= 0) k = v = q, Sk = 1;
+  cudaError_t err =
+      wg::map_box(&m->q, q, f32, B, Sq, Hq, D, cols, BQ, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == cudaSuccess)
+    err = wg::map_box(&m->k, k, f32, B, Sk, Hkv, D, cols, bk, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == cudaSuccess)
+    err = wg::map_box(&m->v, v, f32, B, Sk, Hkv, D, cols, bk, CU_TENSOR_MAP_SWIZZLE_NONE);
+  return err;
+}
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
@@ -360,12 +650,37 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
                    cudaStream_t stream) {
   constexpr size_t smem = Layout<T, D>::bytes;
   static_assert(smem <= kMaxSmem, "the forward's tiles exceed the shared memory of a block");
-  static SmemOptIn opt_in;  // one per kernel instance
-  cudaError_t err = opt_in_smem(opt_in, attn_fwd_kernel<T, D>, smem);
+  Maps maps = {};
+  cudaError_t err = make_maps<T, D>(&maps, q, k, v, B, Sq, Sk, Hq, Hkv);
   if (err != cudaSuccess) return err;
-  attn_fwd_kernel<T, D><<<fwd_grid(B, Sq, Hq), THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, Sq, Sk, Hq, Hkv, causal, window, scale);
+  if constexpr (std::is_same<T, float>::value && (D == 64 || D == 128)) {
+    const int c = fwd_cluster(B, Sq, Sk, Hq, D, true);
+    if (c > 1) {
+      auto kernel = attn_fwd_kernel<float, D, true, false>;
+      static SmemOptIn opt_in;                    // one per kernel instance
+      static std::atomic<unsigned> resident{0};  // bit c: clusters of c fit
+      err = opt_in_smem(opt_in, kernel, smem);
+      if (err != cudaSuccess) return err;
+      return attn::launch_clusters(kernel, resident, fwd_grid(B, Sq, Hq, c), THREADS, smem,
+                                   stream, c, maps, static_cast<float*>(o), lse, Sq, Sk, Hq, Hkv,
+                                   causal, window, scale);
+    }
+    if (fwd_halves(B, Sq, Sk, Hq, D, true)) {
+      constexpr size_t halves = Layout<float, D, true>::bytes;
+      static_assert(halves <= kMaxSmem, "the split block's tiles exceed its shared memory");
+      static SmemOptIn opt_in;  // one per kernel instance
+      err = opt_in_smem(opt_in, attn_fwd_kernel<float, D, false, true>, halves);
+      if (err != cudaSuccess) return err;
+      attn_fwd_kernel<float, D, false, true><<<fwd_grid(B, Sq, Hq), 2 * THREADS, halves, stream>>>(
+          maps, static_cast<float*>(o), lse, Sq, Sk, Hq, Hkv, causal, window, scale);
+      return cudaGetLastError();
+    }
+  }
+  static SmemOptIn opt_in;  // one per kernel instance
+  err = opt_in_smem(opt_in, attn_fwd_kernel<T, D, false, false>, smem);
+  if (err != cudaSuccess) return err;
+  attn_fwd_kernel<T, D, false, false><<<fwd_grid(B, Sq, Hq), THREADS, smem, stream>>>(
+      maps, static_cast<T*>(o), lse, Sq, Sk, Hq, Hkv, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -691,12 +1006,13 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, flo
 #undef REPRO_FWD_CASE
 }
 
-// The launch of K1/B2 for these sizes: grid, threads, shared bytes.
+// The launch of K1/B2 for these sizes: grid, threads, shared bytes,
+// cluster.
 template <typename T>
-int fwd_plan(int B, int Sq, int Hq, int D, int64_t* out) {
+int fwd_plan(int B, int Sq, int Sk, int Hq, int D, int64_t* out) {
   size_t smem = 0;
-  dim3 g = fwd_grid(B, Sq, Hq);
-  int threads = THREADS;
+  int threads = THREADS, c = 1;
+  dim3 g;
   if (std::is_same<T, bf16>::value && (D == 64 || D == 128)) {
     const int nc = fwd_groups(B, Sq, Hq);
     g = wgmma_grid(B, Sq, Hq, nc);
@@ -704,16 +1020,21 @@ int fwd_plan(int B, int Sq, int Hq, int D, int64_t* out) {
     smem = D == 64 ? (nc == 2 ? WgLayout<64, 2>::bytes : WgLayout<64, 1>::bytes)
                    : (nc == 2 ? WgLayout<128, 2>::bytes : WgLayout<128, 1>::bytes);
   } else {
+    constexpr bool f32 = std::is_same<T, float>::value;
+    const bool halves = fwd_halves(B, Sq, Sk, Hq, D, f32);
     switch (D) {  // HEAD_DIMS of kernels/flash_attention.py
       case 16: smem = Layout<T, 16>::bytes; break;
       case 32: smem = Layout<T, 32>::bytes; break;
-      case 64: smem = Layout<T, 64>::bytes; break;
-      case 128: smem = Layout<T, 128>::bytes; break;
+      case 64: smem = halves ? Layout<T, 64, true>::bytes : Layout<T, 64>::bytes; break;
+      case 128: smem = halves ? Layout<T, 128, true>::bytes : Layout<T, 128>::bytes; break;
       case 160: smem = Layout<T, 160>::bytes; break;
       default: return cudaErrorInvalidValue;
     }
+    c = fwd_cluster(B, Sq, Sk, Hq, D, f32);
+    threads = halves ? 2 * THREADS : THREADS;
+    g = fwd_grid(B, Sq, Hq, c);
   }
-  const int64_t v[6] = {g.x, g.y, g.z, threads, int64_t(smem), 1};
+  const int64_t v[6] = {g.x, g.y, g.z, threads, int64_t(smem), c};
   for (int i = 0; i < 6; ++i) out[i] = v[i];
   return cudaSuccess;
 }
@@ -723,7 +1044,7 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, float* lse
                 void* stream) {
   if (Sq <= 0 || B <= 0) return cudaSuccess;
   if (Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
-  // 16-byte copies (and TMA's 16-byte bases) of q, k, v; paired stores of o
+  // TMA's 16-byte bases of q, k, v; paired stores of o
   if (!aligned(q, 16) || !aligned(k, 16) || !aligned(v, 16) || !aligned(o, 8) ||
       !aligned(lse, 4))
     return cudaErrorMisalignedAddress;
@@ -758,13 +1079,12 @@ extern "C" int repro_flash_attention_fwd_lse(const void* q, const void* k, const
 }
 
 // The launch repro_flash_attention_fwd(_lse) makes for these sizes, by the
-// same fwd_grid and Layout: out = grid x, y, z, threads, dynamic shared
-// bytes, cluster x. Launches nothing.
+// same fwd_grid, fwd_cluster and Layout: out = grid x, y, z, threads,
+// dynamic shared bytes, cluster x. Launches nothing.
 extern "C" int repro_flash_attention_fwd_plan(int B, int Sq, int Sk, int Hq, int Hkv, int D,
                                               int dtype, int64_t* out) {
-  (void)Sk;
   if (B <= 0 || Sq <= 0 || Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
-  return dtype == 0 ? fwd_plan<float>(B, Sq, Hq, D, out)
-         : dtype == 1 ? fwd_plan<bf16>(B, Sq, Hq, D, out)
+  return dtype == 0 ? fwd_plan<float>(B, Sq, Sk, Hq, D, out)
+         : dtype == 1 ? fwd_plan<bf16>(B, Sq, Sk, Hq, D, out)
                       : cudaErrorInvalidValue;
 }

@@ -60,7 +60,8 @@
 // tile) in shared memory and streams tiles of the other operand (B3: k, v;
 // B4: q, dO) through a two-stage ring of TMA copies, one per tile: a box of
 // D + PAD columns, whose columns past D read zeros, lands as the padded
-// rows the fragment reads want (Maps). Each stage has a full mbarrier and
+// rows the fragment reads want (Maps, in attn_ring.cuh with the ring
+// and the score products the forward shares). Each stage has a full mbarrier and
 // a count of the warps that have released it; the warp whose release is
 // the last refills the stage with the step two ahead, so the copy overlaps
 // a step's products and no warp waits for another to refill, only for a
@@ -133,6 +134,7 @@
 
 #include <cooperative_groups.h>
 
+#include "attn_ring.cuh"
 #include "attn_tile.cuh"
 #include "mma.cuh"
 #include "smem_opt_in.cuh"
@@ -141,18 +143,24 @@
 namespace {
 
 using attn::aligned;
+using attn::aligned128;
+using attn::init_ring;
 using attn::kLog2e;
+using attn::Maps;
+using attn::MAX_CLUSTER;
+using attn::release;
+using attn::Ring;
+using attn::scores;
+using attn::store_tile;
 using attn::visible;
 using bf16 = __nv_bfloat16;
 using mma::add_into;
 using mma::split4;
 using mma::store_pair;
-using mma::warp_abt;
 
 constexpr int THREADS = 256;  // 8 warps: 4 groups of 16 resident rows x 2 halves
 constexpr int WARPS = THREADS / 32;
 constexpr int ROWS = 64;      // resident rows per block
-constexpr int MAX_CLUSTER = 8;  // the portable cluster size
 
 // Row padding, and the rows of B3's (NS_DQ) and B4's (NS_DKV) streamed
 // tiles: 64, or 32 where two ring stages of 64 would not fit beside the
@@ -198,55 +206,8 @@ struct Layout {
   static constexpr bool PRE = std::is_same<T, float>::value && D == 128;
   static constexpr size_t dkv_tiles =
       (2 * resident + 2 * stage + 2 * pds + (PRE ? 2 * resident : 0)) * sizeof(T);
-  static constexpr size_t dq_bytes = 128 + dq_tiles + 32;
-  static constexpr size_t dkv_bytes = 128 + dkv_tiles + 32;
-};
-
-// The ring's control, 32 bytes after the tiles: mbarriers [0] the resident
-// tiles' full and [1 + s] stage s's full, each completed by one arrival
-// with its bytes and the copies' transactions; per stage, the count of
-// warps that have released it (read all of it). The warp whose release is
-// the stage's WARPS-th refills it with the step two ahead, so no warp ever
-// waits to refill a stage: only for a stage's copies to land.
-struct Ring {
-  uint32_t bar;       // shared address of mbarrier 0
-  uint32_t* released; // two counts
-  __device__ uint32_t full(int s) const { return bar + 8 * (1 + s); }
-};
-
-// The block's shared memory from its first 128-byte boundary.
-__device__ __forceinline__ unsigned char* aligned128(unsigned char* smem_raw) {
-  return smem_raw + (128 - mma::smem_addr(smem_raw) % 128) % 128;
-}
-
-__device__ __forceinline__ Ring init_ring(unsigned char* ctl) {
-  uint64_t* bars = reinterpret_cast<uint64_t*>(ctl);
-  Ring r{mma::smem_addr(ctl), reinterpret_cast<uint32_t*>(ctl + 24)};
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < 3; ++i) mma::mbar_init(bars + i, 1);
-    r.released[0] = r.released[1] = 0;
-    mma::mbar_fence_init();
-  }
-  __syncthreads();
-  return r;
-}
-
-// Lane 0, once its warp has read all of stage s: counts the release
-// (acquire-release, so that the last releaser's copies follow every warp's
-// reads) and returns whether it was the stage's last.
-__device__ __forceinline__ bool release(const Ring& r, int s) {
-  uint32_t old;
-  asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], 1;\n"
-               : "=r"(old)
-               : "r"(mma::smem_addr(r.released + s))
-               : "memory");
-  return old % WARPS == WARPS - 1;
-}
-
-// The tensor maps of q, dO, k and v, boxes of D + PAD columns (the padding
-// reads zeros) and of ROWS (resident) or NS (streamed) rows.
-struct Maps {
-  CUtensorMap q, dout, k, v;
+  static constexpr size_t dq_bytes = 128 + dq_tiles + attn::ring_ctl_bytes(2);
+  static constexpr size_t dkv_bytes = 128 + dkv_tiles + attn::ring_ctl_bytes(2);
 };
 
 // -------------------------------------------------------- warp products
@@ -306,67 +267,6 @@ __device__ __forceinline__ void warp_ab(float (&acc)[ND][4], const bf16* P, cons
   add_into(acc, part);
 }
 
-// acc (16 x 8NT) = A B^T over D, A a 16-row tile, B an 8NT-row tile, both
-// of row stride LD: the score products. f32 as mma::warp_abt's 3xTF32 (the
-// same products in the same order, so the same bits), with every fragment
-// read by ldmatrix_x4 (A's four registers in one, B's two tiles' in one);
-// with PRE, A holds hi = tf32(a) and Alo lo = tf32(a - hi), split once per
-// block, else A is split here. bf16: mma::warp_abt.
-template <int D, int LD, int NT, bool PRE>
-__device__ __forceinline__ void scores(float (&acc)[NT][4], const float* A, const float* Alo,
-                                       const float* B, int lane) {
-  static_assert(NT % 2 == 0, "B's tiles are read in pairs");
-  const int m = lane >> 3, r = lane & 7;  // the matrix and row this lane addresses
-  const int a_at = ((m & 1) * 8 + r) * LD + (m >> 1) * 4;
-  const float* b_row = B + ((m >> 1) * 8 + r) * LD + (m & 1) * 4;
-  float small[NT][4] = {};  // the lo*hi + hi*lo terms, added at the end
-#pragma unroll
-  for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < D; k += 8) {
-    uint32_t ahi[4], alo[4];
-    if constexpr (PRE) {
-      mma::ldmatrix_x4(ahi, A + a_at + k);
-      mma::ldmatrix_x4(alo, Alo + a_at + k);
-    } else {
-      uint32_t a[4];
-      mma::ldmatrix_x4(a, A + a_at + k);
-      const float av[4] = {__uint_as_float(a[0]), __uint_as_float(a[1]), __uint_as_float(a[2]),
-                           __uint_as_float(a[3])};
-      split4(ahi, alo, av);
-    }
-    mma::Tf32Pair b0[NT], b1[NT];
-#pragma unroll
-    for (int j = 0; j < NT / 2; ++j) {
-      uint32_t b[4];
-      mma::ldmatrix_x4(b, b_row + 16 * j * LD + k);
-      b0[2 * j] = mma::split_tf32(__uint_as_float(b[0]));
-      b1[2 * j] = mma::split_tf32(__uint_as_float(b[1]));
-      b0[2 * j + 1] = mma::split_tf32(__uint_as_float(b[2]));
-      b1[2 * j + 1] = mma::split_tf32(__uint_as_float(b[3]));
-    }
-    mma::mma_3xtf32(acc, small, ahi, alo, b0, b1);
-  }
-  add_into(acc, small);
-}
-
-template <int D, int LD, int NT, bool PRE>
-__device__ __forceinline__ void scores(float (&acc)[NT][4], const bf16* A, const bf16*,
-                                       const bf16* B, int lane) {
-  warp_abt<D, LD, NT>(acc, A, B, lane);
-}
-
-// Writes a warp's C fragments (16 x 8NT) into rows of stride LDP.
-template <int LDP, int NT, typename T>
-__device__ __forceinline__ void store_tile(T* P, const float (&c)[NT][4], int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < NT; ++i) {
-    store_pair(P + g * LDP + 8 * i + 2 * t, c[i][0], c[i][1]);
-    store_pair(P + (g + 8) * LDP + 8 * i + 2 * t, c[i][2], c[i][3]);
-  }
-}
-
 // Writes a warp's accumulators (16 rows from row r0, 8ND columns from col0)
 // times f into rows of a (B, S, H, D) head (dst at its row 0).
 template <int D, int ND, typename T>
@@ -400,7 +300,7 @@ attn_dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__ lse,
   T* dOs = Qs + L::resident;           // ROWS x LD
   T* ring = dOs + L::resident;         // stage s: k at ring + s * stage, v after it
   T* dSs = ring + 2 * L::stage;        // ROWS x LDP
-  const Ring rc = init_ring(base + L::dq_tiles);
+  const Ring rc = init_ring<2>(base + L::dq_tiles);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rg = warp >> 1, half = warp & 1;
@@ -481,7 +381,7 @@ attn_dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__ lse,
     mma::named_sync(1 + rg, 64);
     warp_ab<NS, LDP, LD>(acc, dSs + rg * 16 * LDP, Kt + half * (D / 2), lane);
     __syncwarp();  // the warp is done with the stage
-    if (lane == 0 && release(rc, step & 1) && step + 2 < steps) {
+    if (lane == 0 && release<WARPS>(rc, step & 1) && step + 2 < steps) {
       mma::fence_proxy_async();
       issue(step + 2);
     }
@@ -515,7 +415,7 @@ attn_dkv_kernel(const __grid_constant__ Maps maps, const float* __restrict__ lse
   T* Klo = dSs + L::pds;               // PRE: lo of k, then of v, ROWS x LD each
   T* Vlo = Klo + L::resident;
   constexpr bool PRE = L::PRE;
-  const Ring rc = init_ring(base + L::dkv_tiles);
+  const Ring rc = init_ring<2>(base + L::dkv_tiles);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rg = warp >> 1, half = warp & 1;
@@ -559,13 +459,8 @@ attn_dkv_kernel(const __grid_constant__ Maps maps, const float* __restrict__ lse
   float dk_acc[ND][4] = {}, dv_acc[ND][4] = {};
   if (steps > 0) {
     wg::mbar_wait(rc.bar, 0);
-    if constexpr (PRE) {  // k and v into tf32 hi (in place) and lo, once
-      for (int i = tid; i < 2 * ROWS * D; i += THREADS) {
-        const int at = (i / D) * LD + i % D;  // rows of k, then of v
-        const mma::Tf32Pair x = mma::split_tf32(Ks[at]);
-        Ks[at] = __uint_as_float(x.hi);
-        Klo[at] = __uint_as_float(x.lo);
-      }
+    if constexpr (PRE) {  // k and v (rows of k, then of v) into tf32 hi and lo, once
+      attn::split_rows<D, LD, THREADS>(Ks, Klo, 2 * ROWS);
       __syncthreads();
     }
   }
@@ -623,7 +518,7 @@ attn_dkv_kernel(const __grid_constant__ Maps maps, const float* __restrict__ lse
     warp_ab<NS, LDP, LD>(dv_acc, Ps + rg * 16 * LDP, dOt + half * (D / 2), lane);
     warp_ab<NS, LDP, LD>(dk_acc, dSs + rg * 16 * LDP, Qt + half * (D / 2), lane);
     __syncwarp();  // the warp is done with the stage
-    if (lane == 0 && release(rc, step & 1) && step + 2 < steps) {
+    if (lane == 0 && release<WARPS>(rc, step & 1) && step + 2 < steps) {
       mma::fence_proxy_async();
       issue(step + 2);
     }
@@ -1289,42 +1184,20 @@ cudaError_t launch_dq(const Args& a) {
   return cudaGetLastError();
 }
 
-// f32 B4 as clusters of c blocks along x (dkv_cluster). A cluster that
-// cannot be resident (cudaOccupancyMaxActiveClusters 0, asked once per
-// size) raises cudaErrorInvalidConfiguration: nothing falls back to the
-// unsplit launch.
+// f32 B4 as clusters of c blocks along x (dkv_cluster); a cluster that
+// cannot be resident raises (attn::launch_clusters).
 template <int D>
 cudaError_t launch_dkv_cluster(const Args& a, const Maps& maps, int c) {
   constexpr size_t smem = dkv_smem<float, D>();
   auto kernel = attn_dkv_kernel<float, D, true>;
   static SmemOptIn opt_in;                    // one per kernel instance
   static std::atomic<unsigned> resident{0};  // bit c: clusters of c fit
-  cudaError_t err = opt_in_smem(opt_in, kernel, smem);
+  const cudaError_t err = opt_in_smem(opt_in, kernel, smem);
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dkv_grid(a.B, a.Sk, a.Hkv, c);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = a.stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = c;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (!(resident.load(std::memory_order_relaxed) & (1u << c))) {
-    int n = 0;
-    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
-    if (err != cudaSuccess) return err;
-    if (n <= 0) return cudaErrorInvalidConfiguration;
-    resident.fetch_or(1u << c, std::memory_order_relaxed);
-  }
-  err = cudaLaunchKernelEx(&cfg, kernel, maps, a.lse, a.delta, static_cast<float*>(a.dk),
-                           static_cast<float*>(a.dv), a.Sq, a.Sk, a.Hq, a.Hkv, a.causal, a.window,
-                           a.scale);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return attn::launch_clusters(kernel, resident, dkv_grid(a.B, a.Sk, a.Hkv, c), THREADS, smem,
+                               a.stream, c, maps, a.lse, a.delta, static_cast<float*>(a.dk),
+                               static_cast<float*>(a.dv), a.Sq, a.Sk, a.Hq, a.Hkv, a.causal,
+                               a.window, a.scale);
 }
 
 template <typename T, int D>

@@ -3,8 +3,8 @@
 // with the three-pass split that keeps f32 accuracy), ldmatrix for the
 // transposed bf16 operand and for tf32 fragments, named barriers, 16-, 8-
 // and 4-byte cp.async with zero fill, bulk
-// copies by the copy engine completing on an mbarrier, and the tile copy
-// and score product the attention kernels share. Used by the
+// copies by the copy engine completing on an mbarrier, and the score
+// product the attention kernels share. Used by the
 // flash-attention forward (flash_attention.cu: K1, B2) and backward
 // (flash_attention_bwd.cu: B3, B4), and by B6 (wkv6.cu) and K2
 // (paged_attention.cu) for their bulk copies and cp.async.
@@ -149,15 +149,6 @@ __device__ __forceinline__ void cp_async4_n(void* dst, const void* src, int byte
                : "memory");
 }
 
-// 16 or 4 bytes, zeros where !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  cp_async16_n(dst, src, valid ? 16 : 0);
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  cp_async4_n(dst, src, valid ? 4 : 0);
-}
-
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 
 // ------------------------------------------------- bulk copies (the copy engine)
@@ -226,21 +217,6 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // ------------------------------------------------- tiles of the attention kernels
 
-// Rows [row0, row0 + N) of one head of a (B, S, H, D) tensor (src points at
-// its row 0) into a tile of row stride LD, asynchronously, by a block of
-// THREADS threads; rows >= S are zero-filled.
-template <typename T, int D, int LD, int N, int THREADS>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int row0, int S, int H,
-                                          int tid) {
-  constexpr int PER = 16 / sizeof(T);  // elements per 16-byte copy
-  constexpr int CH = D / PER;
-  for (int idx = tid; idx < N * CH; idx += THREADS) {
-    const int r = idx / CH, c = (idx - r * CH) * PER;
-    const bool ok = row0 + r < S;
-    cp_async16(dst + r * LD + c, ok ? src + size_t(row0 + r) * H * D + c : src, ok);
-  }
-}
-
 __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
@@ -270,34 +246,9 @@ __device__ __forceinline__ void split4(uint32_t (&hi)[4], uint32_t (&lo)[4],
   }
 }
 
-// acc (16 x 8NT) = A B^T over D: A a 16-row tile, B an 8NT-row tile, both
-// row-major with stride LD. In f32 the small terms of 3xTF32 sum in their
-// own accumulators, added at the end.
-template <int D, int LD, int NT>
-__device__ __forceinline__ void warp_abt(float (&acc)[NT][4], const float* A, const float* B,
-                                         int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  float small[NT][4] = {};  // the lo*hi + hi*lo terms, added at the end
-#pragma unroll
-  for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < D; k += 8) {
-    const float* a = A + g * LD + k + t;
-    const float av[4] = {a[0], a[8 * LD], a[4], a[8 * LD + 4]};
-    uint32_t ahi[4], alo[4];
-    split4(ahi, alo, av);
-    Tf32Pair b0[NT], b1[NT];
-#pragma unroll
-    for (int i = 0; i < NT; ++i) {
-      const float* b = B + (8 * i + g) * LD + k + t;
-      b0[i] = split_tf32(b[0]);
-      b1[i] = split_tf32(b[4]);
-    }
-    mma_3xtf32(acc, small, ahi, alo, b0, b1);
-  }
-  add_into(acc, small);
-}
-
+// acc (16 x 8NT) = A B^T over D in bf16: A a 16-row tile, B an 8NT-row
+// tile, both row-major with stride LD (the f32 score products read their
+// fragments by ldmatrix, attn_ring.cuh).
 template <int D, int LD, int NT>
 __device__ __forceinline__ void warp_abt(float (&acc)[NT][4], const __nv_bfloat16* A,
                                          const __nv_bfloat16* B, int lane) {

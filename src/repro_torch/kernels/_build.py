@@ -95,33 +95,35 @@ def nvcc_path() -> str:
         "bin): the CUDA kernels of repro_torch are built from source")
 
 
-def sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path | None = None) -> list[Path]:
+    return sorted((csrc or CSRC).glob("*.cu"))
 
 
-def _digest(srcs: list[Path]) -> str:
+def _digest(srcs: list[Path], csrc: Path | None = None) -> str:
     """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for s in srcs + sorted(CSRC.glob("*.cuh")):
+    for s in srcs + sorted((csrc or CSRC).glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build_library() -> Path:
-    """Compile ``csrc/*.cu`` into the shared library (unless a build of
-    exactly these sources exists) and return its path. The compiler's
-    ``-Xptxas -v`` report (registers, shared memory, spills per kernel) is
-    kept beside it in ``build.log``."""
-    srcs = sources()
+def build_library(csrc: Path | None = None) -> Path:
+    """Compile ``csrc/*.cu`` (``csrc``: another checkout's sources, as
+    ``ab_attention.py`` builds them) into the shared library (unless a
+    build of exactly these sources exists) and return its path. The
+    compiler's ``-Xptxas -v`` report (registers, shared memory, spills per
+    kernel) is kept beside it in ``build.log``."""
+    csrc = csrc or CSRC
+    srcs = sources(csrc)
     if not srcs:
-        raise RuntimeError(f"no CUDA sources under {CSRC}")
-    out_dir = BUILD_ROOT / f"kernels-{_digest(srcs)}"
+        raise RuntimeError(f"no CUDA sources under {csrc}")
+    out_dir = BUILD_ROOT / f"kernels-{_digest(srcs, csrc)}"
     lib = out_dir / LIB_NAME
     if lib.is_file():
         return lib
     nvcc = nvcc_path()
-    tmp = out_dir / f"tmp-{os.getpid()}"
+    tmp = out_dir / f"tmp-{os.getpid()}-{threading.get_ident()}"
     tmp.mkdir(parents=True, exist_ok=True)
     try:
         procs = []

@@ -237,7 +237,12 @@ def test_default_plans_are_the_c_launchers():
     """The lint's plans at the canonical shapes, by the mirrored layouts
     (the card holds each to the C plan query, phase 14a): K2 4 splits of
     100,408 B in f32; B6 V slices of 32 (rwkv6, 215,440 B) and 16
-    (hymba); K3 256 threads at d 4096; K1/B2 101,376 B in f32."""
+    (hymba); K3 256 threads at d 4096; f32 K1/B2 at granite's S128 and
+    S4096 two warp groups of 128 threads (169,152 B: 128 bytes that align
+    the tensor copies, the q tile, each group's two stages of (k, v) and
+    its ring's 32 bytes); at D64 also the q tile's TF32 lo, one group of
+    128 threads (69,792 B) split eight ways over a cluster at whisper's
+    cross attention (B4 Sq4 Sk1500)."""
     by = {(p.kernel, p.dtype, p.query_args): p.launch()
           for p in kernel_lint.all_plans()}
     assert by[("K2", "float32", (4, 41, 16, 32, 8, 128, 10, 0, 4))] == dict(
@@ -248,7 +253,11 @@ def test_default_plans_are_the_c_launchers():
         == 4
     assert by[("K3", "float32", (128, 4096, 0, 1, 256))]["threads"] == 256
     assert by[("K1/B2", "float32", (1, 128, 128, 32, 8, 128, 0))] == dict(
-        grid_x=2, grid_y=32, grid_z=1, threads=128, smem=101376, cluster=1)
+        grid_x=2, grid_y=32, grid_z=1, threads=256, smem=169152, cluster=1)
+    assert by[("K1/B2", "float32", (1, 4096, 4096, 32, 8, 128, 0))] == dict(
+        grid_x=64, grid_y=32, grid_z=1, threads=256, smem=169152, cluster=1)
+    assert by[("K1/B2", "float32", (4, 4, 1500, 20, 20, 64, 0))] == dict(
+        grid_x=8, grid_y=20, grid_z=4, threads=128, smem=69792, cluster=8)
 
 
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,launch", [
@@ -272,7 +281,8 @@ def test_the_bf16_forward_plans_are_the_wgmma_launches(B, Sq, Sk, Hq, Hkv,
     NC>``): consumer warpgroups by whether 128-row tiles fill the 132 SMs,
     1024 bytes of alignment, the q tile, the stages' K and V and 1 + 3
     STAGES mbarriers; the same shape in f32 keeps the mma.sync kernel's
-    plan (64 rows, 128 threads)."""
+    plan (64 rows, 128 threads or two groups of them, times its cluster
+    along x)."""
     dims = dict(B=B, Sq=Sq, Sk=Sk, Hq=Hq, Hkv=Hkv, D=D)
     fwd = kernel_lint.plan_flash_attention({**dims, "dtype": "bfloat16"},
                                            {})[0]
@@ -280,7 +290,9 @@ def test_the_bf16_forward_plans_are_the_wgmma_launches(B, Sq, Sk, Hq, Hkv,
     assert kernel_lint.check_plan(fwd) == []
     f32 = kernel_lint.plan_flash_attention({**dims, "dtype": "float32"},
                                            {})[0]
-    assert (f32.grid[0], f32.threads) == (-(-Sq // 64), 128)
+    halves = kernel_lint.fwd_halves(B, Sq, Sk, Hq, D, "float32")
+    assert (f32.grid[0], f32.threads) == (f32.cluster * -(-Sq // 64),
+                                          256 if halves else 128)
 
 
 # (B, S, Hq, Hkv, D, cluster): f32 B4's split of its GQA group, from 11b's
@@ -324,12 +336,76 @@ def test_the_f32_b4_plan_splits_its_group_where_the_grid_underfills_the_card(
     assert bf.cluster == 1
 
 
+# (B, Sq, Sk, Hq, Hkv, D, cluster, halves): f32 K1/B2's split of the key
+# range, over a cluster at whisper's cross attention (47 key tiles: B4 Sq4
+# Sk1500's 80 blocks and B1 Sq128's 40 split eight ways) and a causal S512
+# (16 key tiles, 64 blocks: four ranks of four tiles); over the two warp
+# groups of one block at 11b's B1, B2 and B4 S128 (qwen2.5's 40:8: 80-320
+# blocks, fewer than four waves of the SMs; four key tiles, too few for a
+# cluster), granite's serving S128 (64), whisper's encoder (480 blocks, 47
+# key tiles) and the training S4096 (2048 blocks, 128 key tiles); no split
+# at 11b's B8 S128 (640 short blocks) or phase 9's 8-token prefills (one
+# key tile)
+F32_FWD_SPLITS = [(4, 4, 1500, 20, 20, 64, 8, False),
+                  (1, 128, 1500, 20, 20, 64, 8, False),
+                  (1, 512, 512, 8, 2, 128, 4, False),
+                  (1, 128, 128, 40, 8, 128, 1, True),
+                  (1, 128, 128, 32, 8, 128, 1, True),
+                  (2, 128, 128, 40, 8, 128, 1, True),
+                  (4, 128, 128, 40, 8, 128, 1, True),
+                  (8, 128, 128, 40, 8, 128, 1, False),
+                  (1, 1500, 1500, 20, 20, 64, 1, True),
+                  (1, 4096, 4096, 32, 8, 128, 1, True),
+                  (1, 8, 8, 32, 8, 128, 1, False),
+                  (4, 8, 8, 32, 8, 128, 1, False)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,cluster,halves", F32_FWD_SPLITS)
+def test_the_f32_forward_plan_splits_its_keys_where_the_grid_underfills_the_card(
+        B, Sq, Sk, Hq, Hkv, D, cluster, halves):
+    """f32 K1/B2 launch as clusters of c blocks along grid x (c the largest
+    at most 8 that leaves each rank four or more of the 32-key tiles of
+    Sk) where B x Hq x q tiles is below the SM count, grid x c x the q
+    tiles; where that leaves c = 1, Sk has two key tiles and the grid is
+    under four waves of the SMs or Sk eight key tiles or more, as blocks
+    of two warp groups (256 threads, each group a ring of its own); each
+    rank a share of a q tile's key tiles, and no launch rule broken. No
+    bf16 plan splits (the wgmma kernel at D64/D128, the mma.sync kernel
+    elsewhere)."""
+    dims = dict(B=B, Sq=Sq, Sk=Sk, Hq=Hq, Hkv=Hkv, D=D)
+    fwd = kernel_lint.plan_flash_attention({**dims, "dtype": "float32"},
+                                           {})[0]
+    tiles, key_tiles = -(-Sq // 64), -(-Sk // 32)
+    ranks = 2 if halves else cluster
+    assert fwd.cluster == cluster
+    assert fwd.grid == (cluster * tiles, Hq, B)
+    assert (fwd.threads, fwd.max_threads) == ((256, 256) if halves
+                                              else (128, 128))
+    assert ("key tiles of a q tile", key_tiles, -(-key_tiles // ranks),
+            ranks) in fwd.covers
+    assert kernel_lint.check_plan(fwd) == []
+    assert kernel_lint.fwd_cluster(B, Sq, Sk, Hq, D, "float32") == cluster
+    assert kernel_lint.fwd_halves(B, Sq, Sk, Hq, D, "float32") == halves
+    if cluster > 1:
+        assert B * Hq * tiles < 132 and 4 * cluster <= key_tiles
+    if halves:
+        assert key_tiles >= 2
+        assert B * Hq * tiles < 4 * 132 or key_tiles >= 8
+    for d in (D, 160):
+        bf = kernel_lint.plan_flash_attention(
+            {**dims, "D": d, "dtype": "bfloat16"}, {})[0]
+        rows = 128 if bf.threads == 384 else 64   # two consumer warpgroups
+        assert bf.cluster == 1 and bf.grid[0] == -(-Sq // rows)
+        assert not kernel_lint.fwd_halves(B, Sq, Sk, Hq, d, "bfloat16")
+
+
 def test_no_default_plan_breaks_a_launch_rule():
     """Every default plan at the canonical shapes, f32 B4's split at 11b's
     B1 S128 among them, passes the lint: no RK004 (a cluster over 8 or not
     dividing grid x) nor any other finding."""
     splits = [p for p in kernel_lint.all_plans() if p.cluster > 1]
     assert any(p.kernel == "B4" and p.dtype == "float32" for p in splits)
+    assert any(p.kernel == "K1/B2" and p.dtype == "float32" for p in splits)
     assert [f for f in kernel_lint.check_all() if f.rule == "RK004"] == []
     assert kernel_lint.check_defaults() == []
 

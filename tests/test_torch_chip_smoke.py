@@ -81,6 +81,17 @@ def test_held_fields_by_dtype(smoke):
      "B4 bfloat16 D32"),
     ("_ZN12_GLOBAL__N_115attn_fwd_kernelIfLi128EEEvPKT_S3_S3_PS1_Pfiiiiiif",
      "K1/B2 float32 D128"),
+    ("_ZN55_GLOBAL__N__4bd8c1a2_17_flash_attention_cu_2e11f0b815attn_fwd_"
+     "kernelIfLi128ELb0ELb0EEEvN4attn4MapsEPT_Pfiiiiiif", "K1/B2 float32 D128"),
+    ("_ZN55_GLOBAL__N__4bd8c1a2_17_flash_attention_cu_2e11f0b815attn_fwd_"
+     "kernelIfLi64ELb1ELb0EEEvN4attn4MapsEPT_Pfiiiiiif",
+     "K1/B2 float32 D64 cluster"),
+    ("_ZN55_GLOBAL__N__4bd8c1a2_17_flash_attention_cu_2e11f0b815attn_fwd_"
+     "kernelIfLi128ELb0ELb1EEEvN4attn4MapsEPT_Pfiiiiiif",
+     "K1/B2 float32 D128 halves"),
+    ("_ZN55_GLOBAL__N__4bd8c1a2_17_flash_attention_cu_2e11f0b815attn_fwd_"
+     "kernelI13__nv_bfloat16Li160ELb0ELb0EEEvN4attn4MapsEPT_Pfiiiiiif",
+     "K1/B2 bfloat16 D160"),
     ("_ZN39_GLOBAL__N__351eb0a2_7_wkv6_cu_efce1d8411wkv6_kernelIffLi4EEEvPKT_"
      "S3_S3_PKT", "B6 float32 ld float32 VS32"),
     ("_ZN39_GLOBAL__N__351eb0a2_7_wkv6_cu_efce1d8411wkv6_kernelI13__nv_bfloat"
@@ -280,6 +291,85 @@ def test_phase1_wants_the_backward_wgmma_at_every_head_dim(smoke):
     assert smoke._wgmma_problems(report, "B4") == [
         "no B4 bfloat16 D64 instance"]
     assert smoke.WGMMA_KERNELS == ("K1/B2", "B3", "B4")
+
+
+# the f32 forward's mma.sync instances as phase 1 counts them: HMMA and TMA
+# loads, no cp.async, no spills
+F32_FWD_OK = {"hmma": 300, "hgmma": 0, "utmaldg": 3, "ldgsts": 0,
+              "spill_bytes": 0}
+
+
+@pytest.mark.parametrize("change,problem", [
+    (None, None),
+    ("no_hmma", "no HMMA or no TMA load"),
+    ("no_tma", "no HMMA or no TMA load"),
+    ("cp_async", "cp.async left"),
+    ("spills", "spills"),
+])
+@pytest.mark.parametrize("target", ["K1/B2 float32 D128",
+                                    "K1/B2 float32 D128 cluster",
+                                    "K1/B2 float32 D128 halves",
+                                    "K1/B2 float32 D16"])
+def test_phase1_holds_the_f32_forward_instances(smoke, target, change,
+                                                problem):
+    """Phase 1's check of the f32 forward (K1/B2 on mma.sync, fed by TMA):
+    every f32 instance, at every head dim, unsplit and split (a cluster's
+    rank, two warp groups), has HMMA and UTMALDG, no LDGSTS and no spills;
+    one that lacks HMMA or TMA loads, keeps a cp.async or spills fails and
+    is named. The three D128 instances are in F32_D128 (HMMA, no
+    spills)."""
+    names = ["K1/B2 float32 D16", "K1/B2 float32 D64",
+             "K1/B2 float32 D64 cluster", "K1/B2 float32 D64 halves",
+             "K1/B2 float32 D128", "K1/B2 float32 D128 cluster",
+             "K1/B2 float32 D128 halves"]
+    report = {n: dict(F32_FWD_OK) for n in names}
+    report["K1/B2 bfloat16 D160"] = {**F32_FWD_OK, "utmaldg": 0}
+    edit = {"no_hmma": {"hmma": 0}, "no_tma": {"utmaldg": 0},
+            "cp_async": {"ldgsts": 4}, "spills": {"spill_bytes": 8}}
+    report[target].update(edit.get(change, {}))
+    found = smoke._f32_fwd_problems(report)
+    assert found == ([] if problem is None else [f"{target}: {problem}"])
+    assert set(smoke.F32_FWD_D128) == {"K1/B2 float32 D128",
+                                       "K1/B2 float32 D128 cluster",
+                                       "K1/B2 float32 D128 halves"}
+    assert set(smoke.F32_FWD_D128) < set(smoke.F32_D128)
+
+
+def test_phase1_wants_the_f32_forward_cluster_instance(smoke):
+    """A build without the f32 forward's split instances at D128 (or with
+    no f32 forward at all) fails phase 1's check."""
+    report = {"K1/B2 float32 D128": dict(F32_FWD_OK)}
+    assert smoke._f32_fwd_problems(report) == [
+        "no K1/B2 float32 D128 cluster instance",
+        "no K1/B2 float32 D128 halves instance"]
+    assert len(smoke._f32_fwd_problems({})) == 3
+
+
+def test_k1_b2_lines_carry_their_cluster(smoke, monkeypatch):
+    """Phase 2's K1 lines (its own, phase 10's and phase 11's shapes) and
+    phase 2b's B2 lines carry their launch's cluster from the C plan query
+    of the forward, as B3's and B4's lines carry theirs: the dtype goes to
+    the query as its code (0 f32, 1 bf16)."""
+    import inspect
+
+    from repro_torch.kernels import _build
+    asked = []
+
+    def plan(name, *args):
+        asked.append((name, args))
+        return {"cluster": 4}
+
+    monkeypatch.setattr(_build, "plan", plan)
+    assert smoke._fwd_cluster(1, 4, 1500, 20, 20, 64, "float32") == 4
+    assert smoke._fwd_cluster(1, 128, 128, 40, 8, 128, "bfloat16") == 4
+    assert asked == [("flash_attention_fwd", (1, 4, 1500, 20, 20, 64, 0)),
+                     ("flash_attention_fwd", (1, 128, 128, 40, 8, 128, 1))]
+    main = inspect.getsource(smoke.main)
+    assert '"cluster": _fwd_cluster(B, S, S, Hq, Hkv, D, dname)' in main
+    family = inspect.getsource(smoke._family_kernels)
+    assert '"cluster": _fwd_cluster(B, Sq, Sk, Hq, Hkv, D, dname)' in family
+    train = inspect.getsource(smoke._train_kernels)
+    assert '"flash_attention_fwd" if name == "flash_attention_lse"' in train
 
 
 def test_profile_groups_name_the_kernels():

@@ -121,15 +121,23 @@ def test_forward_bf16_within_a_unit_of_rounding(dev, s, hq, hkv, d, window):
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
-def test_forward_is_deterministic(dev, dtype):
+@pytest.mark.parametrize("B,S,Sk,Hq,Hkv", [(2, 1000, 1000, 16, 2),
+                                          (1, 128, 128, 40, 8),
+                                          (1, 128, 1500, 20, 20)])
+def test_forward_is_deterministic(dev, dtype, B, S, Sk, Hq, Hkv):
     """K1 and B2 use no atomics: two launches on the same inputs give the
-    same bits."""
+    same bits, also where f32 splits the key range: at S1000 (512 blocks)
+    and 11b's B1 S128 Hq40:8 (80) over the two warp groups of each block,
+    and over a cluster at B1 Sq128 against Sk1500 (whisper's cross
+    attention at head dim 128: 40 blocks, eight ranks a q tile), combined
+    in rank order."""
     from repro_torch.kernels.flash_attention import flash_attention_lse_cuda
     rng = np.random.default_rng(7)
-    q = _rand(rng, (2, 1000, 16, 128), dtype, dev)
-    k, v = (_rand(rng, (2, 1000, 2, 128), dtype, dev) for _ in range(2))
-    first = flash_attention_lse_cuda(q, k, v, causal=True, window=0)
-    second = flash_attention_lse_cuda(q, k, v, causal=True, window=0)
+    q = _rand(rng, (B, S, Hq, 128), dtype, dev)
+    k, v = (_rand(rng, (B, Sk, Hkv, 128), dtype, dev) for _ in range(2))
+    causal = S == Sk
+    first = flash_attention_lse_cuda(q, k, v, causal=causal, window=0)
+    second = flash_attention_lse_cuda(q, k, v, causal=causal, window=0)
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
@@ -175,6 +183,43 @@ def test_wgmma_plan_query_is_the_lints_plan(dev, B, Sq, Sk, Hq, Hkv, D,
     nc = kernel_lint.fwd_groups(B, Sq, Hq, torch.cuda.get_device_properties(
         dev).multi_processor_count)
     assert fwd.threads == (384 if nc == 2 else 160)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,window,cluster,halves", [
+    (1, 128, 128, 40, 8, 128, 0, 1, True), (1, 512, 512, 8, 2, 128, 0, 4, False),
+    (1, 1024, 1024, 4, 2, 64, 300, 8, False), (1, 200, 600, 8, 2, 128, 0, 4, False),
+    (4, 4, 1500, 20, 20, 64, 0, 8, False), (1, 128, 1500, 20, 20, 64, 0, 8, False),
+    (2, 4, 1499, 4, 4, 64, 0, 8, False), (1, 4096, 4096, 32, 8, 128, 0, 1, True),
+    (1, 8, 8, 32, 8, 128, 0, 1, False), (2, 50, 77, 8, 2, 160, 0, 1, False),
+    (1, 100, 100, 8, 2, 64, 0, 1, True), (2, 77, 90, 4, 4, 64, 40, 1, True),
+    (1, 40, 64, 8, 2, 128, 0, 1, True)])
+def test_f32_forward_plan_query_is_the_lints_plan(dev, B, Sq, Sk, Hq, Hkv, D,
+                                                  window, cluster, halves):
+    """The C plan query of f32 K1/B2 equals the lint's mirror
+    (``kernel_lint.plan_flash_attention``): grid, threads, shared bytes and
+    the split of the key range where the grid underfills the card's SMs,
+    over a cluster (``kernel_lint.fwd_cluster``) or the two warp groups of
+    one block (``kernel_lint.fwd_halves``), and the launch matches the
+    plain forward (causal where Sq = Sk, with sliding windows: at S1024 a
+    cluster's ranks walk one or two key tiles of a windowed q tile; at a
+    ragged Sq77 against Sk90 the halves split three key tiles)."""
+    from repro_torch.analysis import kernel_lint
+    from repro_torch.kernels import _build
+    dims = dict(B=B, Sq=Sq, Sk=Sk, Hq=Hq, Hkv=Hkv, D=D, dtype="float32")
+    fwd = kernel_lint.plan_flash_attention(dims, {})[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert fwd.cluster == kernel_lint.fwd_cluster(B, Sq, Sk, Hq, D,
+                                                  "float32", sms=sms)
+    if sms == 132:
+        assert fwd.cluster == cluster
+        assert kernel_lint.fwd_halves(B, Sq, Sk, Hq, D, "float32") == halves
+    assert _build.plan(fwd.query, *fwd.query_args) == fwd.launch()
+    rng = np.random.default_rng(Sq + Sk + D)
+    q = _rand(rng, (B, Sq, Hq, D), F32, dev)
+    k, v = (_rand(rng, (B, Sk, Hkv, D), F32, dev) for _ in range(2))
+    kw = dict(causal=Sq == Sk, window=window)
+    _close(ops.flash_attention(q, k, v, **kw),
+           ref.flash_attention_ref(q, k, v, **kw), F32)
 
 
 def test_flash_attention_refuses_unaligned_rows(dev):
