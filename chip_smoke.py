@@ -16,7 +16,9 @@ Phases, one JSON line each:
    too) and every B6 instance has HMMA, every f32 K1/B2 instance has TMA
    loads and no cp.async (``_f32_fwd_problems``), every bf16 K1/B2, B3 and
    B4 instance at D64 and D128 has HGMMA and TMA loads and no HMMA or
-   cp.async, and none of those and no K2 or K3 instance spills;
+   cp.async, and none of those and no K2 or K3 instance spills; it
+   reports, without a gate, the registers and spilled bytes of every
+   K1/B2, B3 and B4 instance at D128 and at stablelm-12b's D160;
 2. kernels against their plain PyTorch versions at the shapes of the
    serving path (K1 and K3 at granite-3-8b's and at hymba-1.5b's, K1 with
    hymba's 1024-token window at S128 and S1100; K2 at the paged engine's
@@ -39,7 +41,13 @@ Phases, one JSON line each:
    prefills (Hq40 Hkv8 D128, S128 and S125, ``LLAMA4_K1``) and K2 at its
    heads on phase 3's table; K3 at d_model 5120 (``SLICE_K3``): 11b's
    microbatches in f32 (128 to 4096 rows) and bf16 (1024), llama4's
-   prompts, decode steps and head (128, 125, 4 and 1 rows) in bf16): in
+   prompts, decode steps and head (128, 125, 4 and 1 rows) in bf16); and
+   at the shapes of phases 6e, 10e, 10f and 11e, from their own stream
+   (``_config_kernels``): K1 at stablelm-12b's one-prompt prefills (Hq32
+   Hkv8 D160, S128 and S125) and K2 at its heads on phase 3's table, in
+   f32 and bf16, B2-B4 (as phase 2b) at its training microbatch (B1
+   S4096 Hq32 Hkv8 D160 causal, f32), K3 at qwen1.5-110b's d_model (128
+   x 8192, f32): in
    f32 the max abs error (tolerance 5e-4); in bf16 the error against the plain version computed
    in f32 from the same bf16 inputs, in units of bf16 rounding at each
    element's magnitude (at most 1, ``_held``; a line first shows that an
@@ -142,6 +150,11 @@ Phases, one JSON line each:
    and the plain chunked ssm form that training pins: no port kernel on
    its path, so no kernel-vs-plain gate), step seconds, tokens/s and
    peak memory;
+6e. stablelm-12b (LayerNorm, head dim 160) at full width cut to 4 of
+   its 40 layers, as phase 6 (``TRAIN["6e"]``): 6a's per-leaf gradients
+   within 1e-4, the kernels' and the plain path's 3-step trajectories
+   within 1e-5; every step launches B2, B3 and B4 (the mma.sync
+   instances at D160) and neither K1 nor K3 (``_step_launch_problems``);
 6d. both families reduced (the reference's reduced configs: 2 layers,
    window 64, chunks of 16) at 2 x 128 tokens: 3 steps on the card
    through the kernels, each held to the same step on this machine's CPU
@@ -210,6 +223,15 @@ Phases, one JSON line each:
    both paths' top-2 logit margins and router margins;
 10d. reduced arctic-480b and qwen2-vl-72b trained on the card and on the
    CPU as 6d;
+10e. stablelm-12b at full width and full depth (40 layers, f32, 48.6 GB
+   of weights) served as 10b: greedy tokens identical across the three
+   runs, K1 in the continuous engine and K2 in the paged one (its
+   attention at D160 on the mma.sync kernels), and K3 in no run of any
+   of the three (LayerNorm; ``_norm_launches``);
+10f. qwen1.5-110b (QKV bias, rope theta 1e6) at full width cut to 6 of 80
+   layers (42.6 GB; the cut's reason in its weights line) served as 10b:
+   tokens identical, K1 and K3 in the continuous engine, K2 and K3 in the
+   paged one;
 11a. (phases 11a-11d run after 10d, before 8) granite-3-8b as phase 6 (8
    layers, 2 x 4096 tokens, 2 microbatches, remat) with bf16 params, an
    f32 master, f32 moments and f32 gradient sums (``TRAIN["11a"]``):
@@ -228,7 +250,9 @@ Phases, one JSON line each:
    kernels and the continuous engine on the plain path (``_serve_family``
    in bf16); each prompt's prefill logits at every position, kernels
    against plain, within LOGIT_UNITS units of bf16 rounding at the
-   largest logit, where both paths routed the tokens alike (a token sent
+   largest logit (``_prefill_logits``: where the plain path lies within
+   that of the plain path with its attention in f32, as 11e's does not),
+   where both paths routed the tokens alike (a token sent
    to other experts, or dropped otherwise, is left out with what it
    reaches: its own position in the last layer), at least
    LOGIT_HELD_SHARE of the positions held; tokens per rid under the flip
@@ -239,6 +263,16 @@ Phases, one JSON line each:
    kernels against the plain path; TTFT and per-token p50/p95, peak
    memory, expert load and LI, and the smallest router margin over the
    run;
+11e. (after 11c, before 11d) stablelm-12b at full width and full depth in
+   bf16 (24.3 GB) as 11c: tokens under the flip rule, K1 and K2 on their
+   mma.sync instances at D160 and no K3 in any run; its prefill logits
+   through the same gate as 11c's, which takes the other measure where
+   the run finds the plain path itself more than LOGIT_UNITS from the
+   plain path with its attention in f32 (``_f32_attention``; 40 bf16
+   layers grow its bf16 score roundings past that): the kernels no
+   farther from that path than EXACT_RATIO (sqrt 2) times the plain path,
+   and each of REJECTED_FAULTS, planted in the kernels' attention
+   output, failing that gate (every fault of PLANTED_FAULTS reported);
 11d. checkpoint and resume: granite-3-8b at full width, 1 layer, bf16
    params with an f32 master, 4 steps unbroken twice, then 2 steps
    saving, the state rebuilt from another seed and resumed through
@@ -327,17 +361,22 @@ Phases, one JSON line each:
    call over 10,000 calls. 14d: ``graph_audit.audit_all`` on CUDA tensors
    clean. Phase 14 prints its own seconds (target: under 60);
 7. the ``kernels`` summary line, with the launch counts of the serving
-   (phases 3, 3b, 3c, 9, 10a-c, 11c), training (phases 6, 6b, 6c, 6d,
-   10a, 10d, 11a, 11d, 12b) and bench (phases 8, 11b) runs; fails unless
+   (phases 3, 3b, 3c, 9, 10a-c, 10e-f, 11c, 11e), training (phases 6,
+   6b, 6c, 6e, 6d, 10a, 10d, 11a, 11d, 12b) and bench (phases 8, 11b)
+   runs; fails unless
    phase 8's steps launched
    B2, B3, B4 and K3, each scenario of phase 9 launched K3, K2 if it
    decodes from pages and K1 if it prefills in one shot
    (``SERVING_SCENARIOS``), whisper's prefill launched K1 three times a
    decoder layer and its training B2-B4 likewise, 10b's and 10c's
-   engines launched K1, K2 and K3, 11a's and 11b's steps B2, B3, B4 and
-   K3, llama4's engines K1, K2 and K3, 12b's sharded steps B2, B3, B4
-   and K3, 12c K2, 13a's and 13b's steps B2, B3, B4 and K3, and 13c's
-   served engines K2 and K3.
+   engines launched K1, K2 and K3, 6e's steps B2, B3 and B4, 10e's and
+   11e's engines K1 and K2, 10f's K1, K2 and K3, 11a's and 11b's steps
+   B2, B3, B4 and K3, llama4's engines K1, K2 and K3, 12b's sharded
+   steps B2, B3, B4 and K3, 12c K2, 13a's and 13b's steps B2, B3, B4 and
+   K3, and 13c's served engines K2 and K3 (stablelm-12b's paths, 6e, 10e
+   and 11e, fail their own phases if they launch K3, and every training
+   step its phase if it launches K1: ``_norm_launches``,
+   ``_step_launch_problems``).
 
 Any failure raises and exits non-zero. Without a CUDA device, or outside a
 checkout, it exits non-zero before printing any result. The last line of
@@ -425,6 +464,15 @@ TRAIN = {
     "11d": dict(arch="granite-3-8b", layers=1, dtype="bfloat16",
                 cut="a checkpoint a layer deep: 0.40 B parameters, 5.6 GB "
                     "a save"),
+    # stablelm-12b: LayerNorm (no K3 on its path) and head dim 160, whose
+    # B2-B4 run the mma.sync kernels
+    "6e": dict(arch="stablelm-12b", layers=4, gate="free",
+               held=("loss", "grad_norm"),
+               cut="f32 params, grads, master and two AdamW moments of 40 "
+                   "layers (12.14 B params, ~243 GB) exceed one 80 GB card; "
+                   "4 layers reckon 2.14 B params, ~43 GB of state, and "
+                   "leave room for the 100,352-row logits and the plain "
+                   "path's S4096 scores"),
 }
 TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-5}   # relative, kernel vs plain
 GRAD_TOL = 1e-4   # per leaf, |g_kernel - g_plain| / |g_plain| (L2 norms)
@@ -493,7 +541,10 @@ SERVING_K2 = (
 # a 128-token prompt's cross attention and a ragged key length; then
 # qwen2-vl's and arctic's one-prompt prefills of phase 3's mix (the
 # vision-stub prefill of 10b is the S128 line). K2: (Hq, Hkv) of qwen2-vl
-# and arctic at phase 3's paged table (B4 ctx160 ps16 table 10)
+# and arctic at phase 3's paged table (B4 ctx160 ps16 table 10), with
+# their head dim. qwen1.5-110b's prefills and decode (10f) have qwen2-vl's
+# heads, Hq64 Hkv8 D128, so its lines are qwen2-vl's; stablelm-12b's (10e,
+# 11e) are STABLELM_K1 and STABLELM_K2
 FAMILY_K1 = (
     (4, 1500, 1500, 20, 20, 64, False), (4, 4, 4, 20, 20, 64, True),
     (4, 4, 1500, 20, 20, 64, False), (1, 1500, 1500, 20, 20, 64, False),
@@ -501,7 +552,7 @@ FAMILY_K1 = (
     (1, 128, 128, 64, 8, 128, True), (1, 125, 125, 64, 8, 128, True),
     (1, 128, 128, 56, 8, 128, True), (1, 125, 125, 56, 8, 128, True),
 )
-FAMILY_K2 = ((64, 8), (56, 8))
+FAMILY_K2 = ((64, 8, 128), (56, 8, 128))
 # phase 2b's attention shapes: (B, S, Hq, Hkv, D, causal), granite's
 # training microbatch and a ragged length, then whisper's (non-causal:
 # its encoder and cross attention; causal: its decoder)
@@ -529,10 +580,35 @@ DEPLOY_ATTN = {
 # 11b's microbatches (128 rows a sequence), llama4's prompts (128 and 125
 # rows), its decode steps (4) and its head's last position (1)
 LLAMA4 = "llama4-maverick-400b-a17b"
+STABLELM, QWEN15 = "stablelm-12b", "qwen1.5-110b"   # phases 6e, 10e-f, 11e
 LOGIT_UNITS = 4
 LOGIT_HELD_SHARE = 0.9
+# The prefill logits of 11c and 11e also go through a third path, the
+# plain one with its attention computed in f32 from the same bf16 q, k and
+# v and rounded once ("exact": ``_f32_attention``, phase 2's bf16
+# reference). Where the run finds the plain path within LOGIT_UNITS of
+# exact, the kernels are held to the plain path within LOGIT_UNITS (11c).
+# Where it finds it farther (over stablelm-12b's 40 bf16 layers any
+# rounding difference grows to 5-6 units; PERF.md, Findings), that measure
+# cannot tell the kernels from the plain path's own roundings, and they
+# are held no farther from exact than EXACT_RATIO times the plain path
+# (two independent roundings of one size differ by sqrt(2) times either,
+# as tests/test_torch_bf16.py holds the port's bf16 to JAX's). That gate
+# must then reject each fault of REJECTED_FAULTS planted in the kernels'
+# attention (``_planted_fault``); every fault of PLANTED_FAULTS is run and
+# reported: ("ulps", k) moves each element of K1's output k units of its
+# own bf16 rounding in every layer, ("p_bf16", 0) rounds the softmax
+# weights once to bf16 before their product with v. On stablelm-12b's 40
+# layers the ratio went 1.30-1.60 at k = 1, 1.67-2.09 at 2, 2.82-3.51 at 4
+# and 0.90-1.11 for "p_bf16" (PERF.md): the gate sees two units an element
+# on every prompt, one on some, and not P kept in one bf16 term, which
+# phase 2's bf16 K1 lines hold within one unit of the f32 attention
+EXACT_RATIO = math.sqrt(2.0)
+PLANTED_FAULTS = (("ulps", 1), ("ulps", 2), ("ulps", 4), ("ulps", 8),
+                  ("p_bf16", 0))
+REJECTED_FAULTS = (("ulps", 2), ("ulps", 4), ("ulps", 8))
 LLAMA4_K1 = ((1, 128, 128, 40, 8, 128, True), (1, 125, 125, 40, 8, 128, True))
-LLAMA4_K2 = ((40, 8),)
+LLAMA4_K2 = ((40, 8, 128),)
 SLICE_K3 = {"float32": tuple((128 * b, 5120) for b in DEPLOY_BATCHES),
             "bfloat16": ((128, 5120), (125, 5120), (4, 5120), (1, 5120),
                          (1024, 5120))}
@@ -544,6 +620,10 @@ BF16_PATHS = {
            "rmsnorm") for p in ("train:11a", "deploy")},
     f"{LLAMA4}:continuous": ("flash_attention", "rmsnorm"),
     f"{LLAMA4}:paged": ("paged_attention", "rmsnorm"),
+    # 11e: stablelm-12b in bf16, whose attention at head dim 160 runs the
+    # mma.sync kernels; LayerNorm, so no K3 (``_norm_launches``)
+    f"{STABLELM}:continuous:bf16": ("flash_attention",),
+    f"{STABLELM}:paged:bf16": ("paged_attention",),
 }
 # phase 12: the sharded step's arch, depth and batch (12b); partitioned
 # decode at qwen1.5-110b's heads over 32,768 cached tokens, cut into P
@@ -580,25 +660,54 @@ PHASE13_PATHS = {
                         "flash_attention_dkv", "rmsnorm") for p in "ab"},
     "13c": ("paged_attention", "rmsnorm")}
 CKPT_STEPS, CKPT_EVERY = 4, 2   # phase 11d: the unbroken run, the save
-# phase 10: whisper's served requests, and the depth qwen2-vl and arctic
-# are cut to (f32 params of 80 and 35 layers exceed one 80 GB card); and
-# 11c's llama4 (1 of 48 layers, bf16: 36.5 GB)
+# phase 10: whisper's served requests; the depth each served model runs
+# at (0: all of it) and why it was cut; and 11c's llama4 (1 of 48 layers,
+# bf16: 36.5 GB). stablelm-12b whole in f32 (10e) and bf16 (11e): 12.14 B
+# parameters, 48.6 and 24.3 GB
 WHISPER = dict(requests=4, frames=1500, prompt=4, new_tokens=64)
-FAMILY_LAYERS = {"qwen2-vl-72b": 8, "arctic-480b": 1}
+FAMILY_LAYERS = {"qwen2-vl-72b": 8, "arctic-480b": 1, STABLELM: 0,
+                 QWEN15: 6}
 SERVED_LAYERS = {**FAMILY_LAYERS, LLAMA4: 1}
+SERVED_CUT = {
+    "qwen2-vl-72b": "f32 params of 80 layers (~290 GB) exceed one 80 GB "
+                    "card",
+    "arctic-480b": "f32 params of 35 layers (~1.9 TB) exceed one 80 GB card",
+    LLAMA4: "params of 48 layers (~1.6 TB in bf16) exceed one 80 GB card",
+    QWEN15: "f32 params of 80 layers (111 B params, ~445 GB) exceed one 80 "
+            "GB card; 6 layers reckon 10.65 B params, 42.6 GB, and an init "
+            "peak near 56 GB",
+}
+FAMILY_PHASE = {"qwen2-vl-72b": "10b", "arctic-480b": "10c", STABLELM: "10e",
+                QWEN15: "10f"}
 MROPE_GRID = (2, 8, 8)     # 10b's vision prefill: (t, h, w) patches
-PAGED_CHUNK = {"qwen2-vl-72b": 64, "arctic-480b": 0, LLAMA4: 0}  # 0: one
+PAGED_CHUNK = {"qwen2-vl-72b": 64, "arctic-480b": 0, LLAMA4: 0,
+               STABLELM: 64, QWEN15: 64}  # 0: one chunk
 # the kernels each of phase 10's paths must launch: K1 in whisper's
-# prefill, B2-B4 in its training, K1 and K3 in the continuous engines' and
-# K2 and K3 in the paged engines' runs of 10b and 10c
+# prefill, B2-B4 in its training, K1 in the continuous engines' and K2 in
+# the paged engines' runs of 10b, 10c, 10e and 10f, and K3 in both where
+# the model's norm is RMSNorm: stablelm-12b's LayerNorm launches none
+# (``_norm_launches``)
 FAMILY_PATHS = {
     "whisper:serve": ("flash_attention",),
     "train:10a": ("flash_attention_lse", "flash_attention_dq",
                   "flash_attention_dkv"),
-    **{f"{a}:{e}": k for a in ("qwen2-vl-72b", "arctic-480b") for e, k in (
-        ("continuous", ("flash_attention", "rmsnorm")),
-        ("paged", ("paged_attention", "rmsnorm")))},
+    **{f"{a}:{e}": k for a in ("qwen2-vl-72b", "arctic-480b", QWEN15)
+       for e, k in (("continuous", ("flash_attention", "rmsnorm")),
+                    ("paged", ("paged_attention", "rmsnorm")))},
+    f"{STABLELM}:continuous": ("flash_attention",),
+    f"{STABLELM}:paged": ("paged_attention",),
 }
+# phase 2's lines at the shapes stablelm-12b and qwen1.5-110b give the
+# kernels, from their own stream (8): K1 at stablelm's one-prompt prefills
+# of phase 3's mix (Hq32 Hkv8 D160, S128 and S125) in f32 and bf16 (10e,
+# 11e), K2 at its heads on phase 3's paged table in both, B2-B4 at its
+# training microbatch (6e, f32) and K3 at qwen1.5's d_model 8192 for a
+# 128-token prompt (10f, f32)
+STABLELM_K1 = ((1, 128, 128, 32, 8, 160, True),
+               (1, 125, 125, 32, 8, 160, True))
+STABLELM_K2 = ((32, 8, 160),)
+STABLELM_ATTN = ((1, TRAIN_SEQ, 32, 8, 160, True),)
+QWEN15_K3 = ((128, 8192),)
 KERNELS = {
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
@@ -704,7 +813,11 @@ def main() -> int:
           "attention_sass": attn,
           # f32 K1/B2's and B4's registers, unsplit and split
           "f32_d128_registers": {
-              n: attn.get(n, {}).get("registers") for n in F32_D128}})
+              n: attn.get(n, {}).get("registers") for n in F32_D128},
+          # registers and spilled bytes of every flash-attention instance
+          # at the head dims the models run on mma.sync and wgmma: 128,
+          # and stablelm-12b's 160 (reported, not gated)
+          "d128_d160_registers_spills": _head_dim_report(attn, (128, 160))})
     # the flash-attention kernels run on the tensor cores without spilling
     # at the serving and training paths' head dim, in both dtypes: K1/B2,
     # B3 and B4 (and K1/B2's and B4's instances that split their work)
@@ -747,19 +860,21 @@ def main() -> int:
     gen_serve = torch.Generator(device=dev).manual_seed(5)
     gen_family = torch.Generator(device=dev).manual_seed(6)
     gen_slice = torch.Generator(device=dev).manual_seed(7)
+    gen_config = torch.Generator(device=dev).manual_seed(8)
 
     def rand(shape, dtype, hymba=False, stream=0):
         # the lines at hymba-1.5b's shapes (stream 1), K2's wide-table lines
         # (stream 2) and K3's decode and training lines (stream 3) draw from
         # their own streams, as do K2's shared-table lines (stream 4), the
         # K1 and K2 lines at phase 9's shapes (stream 5) and at phase 10's
-        # and phase 2b's whisper lines (stream 6) and at phase 11's (stream
-        # 7), so the other lines keep the inputs they had before those were
-        # added
+        # and phase 2b's whisper lines (stream 6), at phase 11's (stream
+        # 7) and at stablelm-12b's and qwen1.5-110b's (stream 8), so the
+        # other lines keep the inputs they had before those were added
         g = (gen_hymba if hymba or stream == 1 else gen_k2 if stream == 2
              else gen_k3 if stream == 3 else gen_share if stream == 4
              else gen_serve if stream == 5 else gen_family if stream == 6
-             else gen_slice if stream == 7 else gen)
+             else gen_slice if stream == 7 else gen_config if stream == 8
+             else gen)
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     # the floor under any one-kernel call: a one-element in-place add,
@@ -932,6 +1047,9 @@ def main() -> int:
     _train_kernels(rand, record)
     _wkv6_kernels(rand, record)
     _slice_kernels(rand, record, gen_slice, floor_ms)
+    t0 = time.perf_counter()
+    _config_kernels(rand, record, gen_config, floor_ms)
+    emit({"phase": "2-configs", "seconds": time.perf_counter() - t0})
     torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
@@ -947,8 +1065,10 @@ def main() -> int:
         _serve_ssm_in_child(arch)                # tokens and logits
 
     tier1 = {}
-    for phase in ("6", "6b", "6c"):     # training at full width
+    for phase in ("6", "6b", "6c", "6e"):     # training at full width
+        t0 = time.perf_counter()
         launches[f"train:{phase}"], tier1[phase] = _train(dev, phase)
+        emit({"phase": phase, "seconds": time.perf_counter() - t0})
         gc.collect()
         torch.cuda.empty_cache()
     for phase in ("6d-rwkv6", "6d-hymba"):   # reduced, card against CPU
@@ -1007,8 +1127,9 @@ def main() -> int:
     print(json.dumps(line), flush=True)
     missing = _missing(launches)
     if missing:
-        raise AssertionError(f"the serving, training or bench path never "
-                             f"launched {missing}")
+        raise AssertionError(f"a serving, training or bench path never "
+                             f"launched a kernel it must, or launched one "
+                             f"it must not: {missing}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1018,13 +1139,14 @@ def main() -> int:
 def _missing(launches: dict) -> list:
     """The kernels a path of the run never launched, from each path's
     counts (``launches``: path -> kernel -> launches): the serving phases'
-    (3, 3b, 3c), the training phases' (6, 6b), phase 8's (BENCH_KERNELS),
-    every scenario of phase 9's (SERVING_SCENARIOS), phase 10's paths
-    (FAMILY_PATHS), phase 11's (BF16_PATHS), phase 12's (PHASE12_PATHS)
-    and phase 13's (PHASE13_PATHS)."""
+    (3, 3b, 3c), the training phases' (6, 6b, 6e), phase 8's
+    (BENCH_KERNELS), every scenario of phase 9's (SERVING_SCENARIOS),
+    phase 10's paths (FAMILY_PATHS), phase 11's (BF16_PATHS), phase 12's
+    (PHASE12_PATHS) and phase 13's (PHASE13_PATHS)."""
     need = {"flash_attention": launches["continuous"]["flash_attention"],
             "paged_attention": launches["paged"]["paged_attention"],
-            **{k: min(launches[e][k] for e in ("train:6", "train:6b"))
+            **{k: min(launches[e][k] for e in ("train:6", "train:6b",
+                                               "train:6e"))
                for k in ("flash_attention_lse", "flash_attention_dq",
                          "flash_attention_dkv")},
             "rmsnorm": min(launches[e]["rmsnorm"] for e in (
@@ -1156,10 +1278,11 @@ def _request_mix(cfg, long_len: int = 0) -> list:
 
 
 def _families(dev) -> tuple:
-    """Phases 10a-10d: whisper-large-v3 served and trained, qwen2-vl-72b
-    and arctic-480b served, both reduced trained on the card and the CPU.
-    Each phase frees its model before the next. Returns (launch counts
-    per path, 10a's Tier-1 report)."""
+    """Phases 10a-10f: whisper-large-v3 served and trained, qwen2-vl-72b
+    and arctic-480b served, both reduced trained on the card and the CPU
+    (10d), stablelm-12b (10e) and qwen1.5-110b (10f) served. Each phase
+    frees its model before the next. Returns (launch counts per path,
+    10a's Tier-1 report)."""
     import torch
     launches = _serve_whisper(dev)
     gc.collect()
@@ -1167,8 +1290,11 @@ def _families(dev) -> tuple:
     launches["train:10a"], tier1 = _train(dev, "10a")
     gc.collect()
     torch.cuda.empty_cache()
-    for arch in FAMILY_LAYERS:                      # 10b, 10c
+    for arch in FAMILY_LAYERS:                      # 10b, 10c, 10e, 10f
+        t0 = time.perf_counter()
         launches.update(_serve_family(dev, arch))
+        emit({"phase": FAMILY_PHASE[arch],
+              "seconds": time.perf_counter() - t0})
         gc.collect()
         torch.cuda.empty_cache()
     for phase in ("10d-arctic", "10d-qwen2-vl"):
@@ -1394,71 +1520,238 @@ class _stack_output:
 
 def _prefill_logits(dev, arch: str, cfg, models, params, reqs,
                     span: int) -> tuple:
-    """Phase 11c's gate 1: each prompt's prefill through the kernels and
-    the plain path, logits at every position (``_all_logits``), held where
-    the two paths routed the tokens alike (``_rerouted``): the largest
-    difference within LOGIT_UNITS units of bf16 rounding at the plain
-    logits' largest magnitude there, at least LOGIT_HELD_SHARE of all
-    positions held, every logit finite; the smallest router margin of
-    these prefills reported. Returns (the largest held difference: the
-    flip rule's bound, problems)."""
+    """Phase 11c's and 11e's gate 1: each prompt's prefill, logits at every
+    position (``_all_logits``), through the kernels, the plain path, the
+    plain path with its attention in f32 ("exact", ``_f32_attention``) and
+    the kernels with each of PLANTED_FAULTS (``_planted_fault``); held
+    where the kernels and the plain path routed the tokens alike
+    (``_rerouted``), at least LOGIT_HELD_SHARE of all positions, every
+    logit finite; distances from exact over the held positions that exact
+    routed as the plain path (a fault's, over those its run routed so
+    too). The gate (``held_by``), chosen by what the
+    run measures: where every prompt's plain path lies within LOGIT_UNITS
+    units (of bf16 rounding at the plain logits' largest magnitude there)
+    of exact, the kernels' largest difference from the plain path within
+    LOGIT_UNITS units; else the kernels no farther from exact than
+    EXACT_RATIO times the plain path, and each of REJECTED_FAULTS failing
+    that gate on some prompt (whether each fault fails the gate chosen is
+    reported either way). The smallest router margin reported.
+    Returns (the largest held difference between the kernels and the
+    plain path: the flip rule's bound, problems)."""
     import torch
     per, problems, margins = [], [], []
     every_layer = None
+    runs = [("kernel", models["kernel"], False, None),
+            ("dense", models["dense"], False, None),
+            ("exact", models["dense"], True, None)] + [
+        (f"{kind}:{k}", models["kernel"], False, (kind, k))
+        for kind, k in PLANTED_FAULTS]
+    faulty = [name for name, _, _, fault in runs if fault is not None]
     for r in reqs:
         batch = {"tokens": torch.as_tensor(r.prompt[None], device=dev)}
         got = {}
-        for name, m in models.items():
-            with _expert_load() as seen, _stack_output() as out:
+        for name, m, f32, fault in runs:
+            with _expert_load() as seen, _stack_output() as out, \
+                    _f32_attention(f32), _planted_fault(fault, dev):
                 m.prefill(params, batch, span)
             got[name] = (_all_logits(params, cfg, out.x)[0], seen.calls)
-            if seen.calls:
+            if seen.calls and fault is None:
                 margins.append(seen.smallest)
-        (lk, ck), (lp, cp) = got["kernel"], got["dense"]
+        (lk, ck), (lp, cp), (le, ce) = (got[n] for n in ("kernel", "dense",
+                                                         "exact"))
         every_layer = len(ck) == cfg.num_layers
         held = ~_rerouted(ck, cp, every_layer) if ck else torch.ones(
             lk.shape[0], dtype=torch.bool, device=lk.device)
-        diff = float((lk[held] - lp[held]).abs().max()) if held.any() \
-            else 0.0
+        near = held & ~_rerouted(ce, cp, every_layer) if ce else held
+
+        def off(a, b, at):
+            return float((a[at] - b[at]).abs().max()) if at.any() else 0.0
+
+        def alike(f):
+            # the positions a planted fault's run routed as the plain path
+            return ~_rerouted(got[f][1], cp, every_layer) if cp else held
+
         unit = _bf16_unit(lp[held]) if held.any() else float("nan")
+        diff, plain = off(lk, lp, held), off(lp, le, near)
         per.append({"rid": r.rid, "positions": int(held.numel()),
                     "held": int(held.sum()), "max_abs_diff": diff,
                     "units": diff / unit,
-                    "finite": bool(torch.isfinite(lk).all())})
-        del got, lk, lp
+                    "finite": bool(torch.isfinite(lk).all()),
+                    "exact_positions": int(near.sum()),
+                    "kernel_vs_exact": off(lk, le, near),
+                    "plain_vs_exact": plain,
+                    "plain_units_from_exact": plain / unit,
+                    "faults_vs_exact": {
+                        f: off(got[f][0], le, near & alike(f))
+                        for f in faulty},
+                    "faults_units": {
+                        f: off(got[f][0], lp, held & alike(f)) / unit
+                        for f in faulty}})
+        del got, lk, lp, le
     n, held_n = sum(p["positions"] for p in per), sum(p["held"] for p in per)
     bound = max(p["max_abs_diff"] for p in per)
     worst = max(per, key=lambda p: p["units"])
-    emit({"phase": "prefill_logits", "arch": arch, "dtype": "bfloat16",
-          "prompts": len(reqs), "positions": n, "held": held_n,
-          "held_share": held_n / n, "held_share_min": LOGIT_HELD_SHARE,
-          "last_layer_pointwise": every_layer,
-          "max_units": worst["units"], "units_tol": LOGIT_UNITS,
-          "unit": "bf16 rounding at the plain logits' largest magnitude "
-          "over a prompt's held positions", "worst": worst,
-          "flip_bound": bound,
-          "smallest_router_margin": min(margins, default=None),
-          "per_prompt": per})
+    ratio = max(p["plain_units_from_exact"] for p in per) > LOGIT_UNITS
+
+    def within(p, fault=None):
+        # the gate of ``held_by``, for the kernels or a planted fault
+        if not ratio:
+            return (p["faults_units"][fault] if fault else p["units"]) \
+                <= LOGIT_UNITS
+        return (p["faults_vs_exact"][fault] if fault
+                else p["kernel_vs_exact"]) <= EXACT_RATIO * p[
+                    "plain_vs_exact"]
+
+    faults = {f"{kind}:{k}": {
+        "max_over_plain_vs_exact": max(
+            p["faults_vs_exact"][f"{kind}:{k}"] / max(p["plain_vs_exact"],
+                                                      1e-30) for p in per),
+        "max_units": max(p["faults_units"][f"{kind}:{k}"] for p in per),
+        "rejected": not all(within(p, f"{kind}:{k}") for p in per),
+        "must_be_rejected": ratio and (kind, k) in REJECTED_FAULTS}
+        for kind, k in PLANTED_FAULTS}
+    line = {"phase": "prefill_logits", "arch": arch, "dtype": "bfloat16",
+            "prompts": len(reqs), "positions": n, "held": held_n,
+            "held_share": held_n / n, "held_share_min": LOGIT_HELD_SHARE,
+            "last_layer_pointwise": every_layer,
+            "max_units": worst["units"], "units_tol": LOGIT_UNITS,
+            "unit": "bf16 rounding at the plain logits' largest magnitude "
+            "over a prompt's held positions", "worst": worst,
+            "max_plain_units_from_exact": max(
+                p["plain_units_from_exact"] for p in per),
+            "held_by": "exact_ratio" if ratio else "units",
+            "exact_ratio": EXACT_RATIO,
+            "max_kernel_over_plain_vs_exact": max(
+                p["kernel_vs_exact"] / max(p["plain_vs_exact"], 1e-30)
+                for p in per),
+            "planted_faults": faults,
+            "flip_bound": bound,
+            "smallest_router_margin": min(margins, default=None),
+            "per_prompt": per}
+    emit(line)
     if held_n < LOGIT_HELD_SHARE * n:
         problems.append(f"prefill: {held_n} of {n} positions routed alike")
     problems += [f"prefill rid {p['rid']}: {p}" for p in per
-                 if not p["finite"] or not p["units"] <= LOGIT_UNITS]
+                 if not p["finite"] or not within(p)]
+    problems += [f"the {line['held_by']} gate does not see the planted "
+                 f"fault {f}: {v}" for f, v in faults.items()
+                 if v["must_be_rejected"] and not v["rejected"]]
     return bound, problems
+
+
+class _planted_fault:
+    """Within it (unless ``fault`` is None), the kernels' attention
+    (``models/attention.py``'s ``attention`` with backend "kernel") gives
+    a wrong output, as the controls of ``_prefill_logits`` plant it:
+    ("ulps", k) moves each nonzero element of K1's output k units of its
+    own bf16 rounding, up or down by a sign drawn anew each call from one
+    seeded generator; ("p_bf16", 0) computes it in f32 from the same q, k
+    and v with the softmax weights rounded once to bf16 before their
+    product with v (``_p_bf16_attention``), as a kernel that kept P in one
+    bf16 term would."""
+
+    def __init__(self, fault, dev) -> None:
+        self.fault, self.dev = fault, dev
+
+    def __enter__(self):
+        if self.fault is None:
+            return self
+        import torch
+
+        from repro_torch.models import attention as attn_mod
+        self.mod, self.orig = attn_mod, attn_mod.attention
+        kind, k = self.fault
+        gen = torch.Generator(device=self.dev).manual_seed(9)
+
+        def faulty(q, kk, v, *, backend, causal, window=0):
+            if backend != "kernel":
+                return self.orig(q, kk, v, backend=backend, causal=causal,
+                                 window=window)
+            if kind == "p_bf16":
+                return _p_bf16_attention(q, kk, v, causal=causal,
+                                         window=window)
+            o = self.orig(q, kk, v, backend=backend, causal=causal,
+                          window=window)
+            _, e = torch.frexp(o.float())
+            step = torch.ldexp(torch.ones_like(o, dtype=torch.float32),
+                               e - 8)
+            sign = torch.randint(0, 2, o.shape, generator=gen,
+                                 device=o.device) * 2 - 1
+            return torch.where(o == 0, o, (o.float() + k * sign * step)
+                               .to(o.dtype))
+
+        attn_mod.attention = faulty
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.fault is not None:
+            self.mod.attention = self.orig
+
+
+def _p_bf16_attention(q, k, v, *, causal: bool, window: int = 0):
+    """Attention (q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D)) in f32 with
+    its softmax weights rounded once to q's dtype before their product
+    with v, and its output rounded once to q's dtype."""
+    import torch
+    from repro_torch.kernels.ref import NEG_INF
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, Sq, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(D)
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= qpos - kpos < window
+    w = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w.to(q.dtype).float(), v.float())
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+class _f32_attention:
+    """Within it (when ``on``), every plain attention call of the models
+    (``models/attention.py``'s ``dense_attention``) computes in f32 from
+    its q, k and v and rounds its output once to their dtype: the plain
+    path's attention without its bf16 roundings of the scores and the
+    softmax weights, as phase 2's bf16 lines compute their reference."""
+
+    def __init__(self, on: bool) -> None:
+        self.on = on
+
+    def __enter__(self):
+        if self.on:
+            from repro_torch.models import attention as attn_mod
+            self.mod, self.orig = attn_mod, attn_mod.dense_attention
+
+            def f32(q, k, v, **kw):
+                return self.orig(q.float(), k.float(), v.float(),
+                                 **kw).to(q.dtype)
+
+            attn_mod.dense_attention = f32
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.on:
+            self.mod.dense_attention = self.orig
 
 
 def _serve_family(dev, arch: str, use_reduced: bool = False,
                   param_dtype: str = "float32") -> dict:
-    """Phases 10b (qwen2-vl-72b), 10c (arctic-480b) and 11c
-    (llama4-maverick in bf16): the arch at full width cut to
-    SERVED_LAYERS[arch] layers (``use_reduced``: the reference's reduced
-    config, for tests on the CPU), seeded random weights in
-    ``param_dtype`` (the init's peak memory reported), phase 3's request
-    mix through the continuous and the paged engine (prefill chunks of
-    PAGED_CHUNK[arch] tokens) on the kernels and the continuous engine on
-    the plain path: every request completed, K1 and K3 launched by the
-    continuous engine, K2 and K3 by the paged one; the paged engine's
-    greedy tokens against the continuous one's and the plain path's
-    against the kernels', per rid under ``_flip_check``. In f32 its bound
+    """Phases 10b (qwen2-vl-72b), 10c (arctic-480b), 10e (stablelm-12b),
+    10f (qwen1.5-110b), 11c (llama4-maverick in bf16) and 11e
+    (stablelm-12b in bf16): the arch at full width, cut to
+    SERVED_LAYERS[arch] layers where that is not 0 (``use_reduced``: the
+    reference's reduced config, for tests on the CPU), seeded random
+    weights in ``param_dtype`` (the init's peak memory reported), phase
+    3's request mix through the continuous and the paged engine (prefill
+    chunks of PAGED_CHUNK[arch] tokens) on the kernels and the continuous
+    engine on the plain path: every request completed, K1 launched by the
+    continuous engine and K2 by the paged one, and K3 by both where the
+    model's norm is RMSNorm, by no run where it is LayerNorm; the paged
+    engine's greedy tokens against the continuous one's and the plain
+    path's against the kernels', per rid under ``_flip_check``. In f32 its bound
     is -inf: tokens identical. In bf16 (11c), where a 202,048-row head
     gives near-ties, it is the largest prefill logit difference of
     ``_prefill_logits``, which holds the logits too. A flip is reported
@@ -1469,6 +1762,7 @@ def _serve_family(dev, arch: str, use_reduced: bool = False,
     run. Returns each engine's counts, keyed ``<arch>:<name>``."""
     import torch
 
+    from repro_torch.configs import get_arch
     from repro_torch.core.metrics import expert_load_imbalance
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_engine
@@ -1485,8 +1779,13 @@ def _serve_family(dev, arch: str, use_reduced: bool = False,
     params = eng.params
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    full = get_arch(arch).num_layers
     _weights_line(arch, cfg, params, t0, dtype=param_dtype,
-                  init_peak_memory_bytes=_peak(dev))
+                  init_peak_memory_bytes=_peak(dev),
+                  reduced=("the reference's reduced config" if use_reduced
+                           else f"depth {cfg.num_layers} of {full} layers: "
+                           f"{SERVED_CUT[arch]}" if cfg.num_layers < full
+                           else "none: full width and full depth"))
     common["params"] = params
     engines = {
         "continuous": eng,
@@ -1528,12 +1827,8 @@ def _serve_family(dev, arch: str, use_reduced: bool = False,
         if s["completed"] != len(reqs):
             raise AssertionError(f"{arch} {name}: {s['completed']}/"
                                  f"{len(reqs)} requests completed")
-    problems = []
-    on_card = dev.type == "cuda"
-    for name, kernels in (("continuous", ("flash_attention", "rmsnorm")),
-                          ("paged", ("paged_attention", "rmsnorm"))):
-        problems += [f"{name} launched no {k}" for k in kernels
-                     if on_card and launches[f"{arch}:{name}"][k] <= 0]
+    problems = _engine_launch_problems(arch, cfg, launches,
+                                       dev.type == "cuda")
     if param_dtype == "bfloat16":
         bound, bad = _prefill_logits(dev, arch, cfg, models, params, reqs,
                                      prompt_len + budget)
@@ -1645,6 +1940,26 @@ def _slice_kernels(rand, record, gen, floor_ms: float) -> None:
                        dtypes=(dname,))
 
 
+def _config_kernels(rand, record, gen, floor_ms: float) -> None:
+    """Phase 2's lines at stablelm-12b's and qwen1.5-110b's shapes, from
+    their own stream (8; ``gen`` draws K2's block tables), each against
+    its plain version as the other lines are: K1 at stablelm's one-prompt
+    prefills (STABLELM_K1, Hq32 Hkv8 D160: the mma.sync forward in both
+    dtypes; each line names the backend SDPA picks at D160) and K2 at its
+    heads on phase 3's paged table (STABLELM_K2), in f32 and bf16; B2-B4 at its training microbatch (STABLELM_ATTN, f32);
+    K3 at qwen1.5's d_model 8192 (QWEN15_K3, f32)."""
+    import torch
+
+    _family_kernels(rand, record, gen, k1=STABLELM_K1, k2=STABLELM_K2,
+                    stream=8)
+    _train_kernels(rand, record, shapes=STABLELM_ATTN, stream=8,
+                   dtypes=("float32",))
+    for rows, d in QWEN15_K3:
+        record(_rmsnorm_line(rand((rows, d), torch.float32, stream=8),
+                             rand((d,), torch.float32, stream=8), floor_ms),
+               main_path=False)
+
+
 def _rmsnorm_line(x, scale, floor_ms: float) -> dict:
     """Phase 2's K3 line: ``ops.rmsnorm`` of rows ``x`` (its dtype) with
     an f32 ``scale`` against its plain version, times, the bound (and the
@@ -1670,10 +1985,11 @@ def _rmsnorm_line(x, scale, floor_ms: float) -> dict:
 
 
 def _bf16_phases(dev) -> tuple:
-    """Phases 11a-11d: granite-3-8b's bf16 training held to its plain path
+    """Phases 11a-11e: granite-3-8b's bf16 training held to its plain path
     (``TRAIN["11a"]``), the batch/precision suite at qwen2.5-32b's width
-    (``_deploy``), llama4-maverick served in bf16 (``_serve_family``) and
-    checkpoint/resume (``_ckpt_resume``). Returns (launch counts per
+    (``_deploy``), llama4-maverick (11c) and stablelm-12b (11e, its paths
+    keyed ``<arch>:<engine>:bf16``) served in bf16 (``_serve_family``) and
+    checkpoint/resume (11d, ``_ckpt_resume``). Returns (launch counts per
     path, 11a's Tier-1 report)."""
     import torch
     launches = {}
@@ -1684,13 +2000,21 @@ def _bf16_phases(dev) -> tuple:
         return _serve_family(dev, LLAMA4, param_dtype="bfloat16")
 
     for name, fn in (("11b", _deploy), ("11c", llama4),
-                     ("11d", _ckpt_resume)):
+                     ("11e", _serve_stablelm_bf16), ("11d", _ckpt_resume)):
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         launches.update(fn(dev))
         emit({"phase": name, "seconds": time.perf_counter() - t0})
     return launches, tier1
+
+
+def _serve_stablelm_bf16(dev, use_reduced: bool = False) -> dict:
+    """Phase 11e: stablelm-12b served in bf16 by ``_serve_family``, its
+    paths' counts keyed ``<arch>:<engine>:bf16`` beside 10e's f32 ones."""
+    return {f"{k}:bf16": n for k, n in _serve_family(
+        dev, STABLELM, use_reduced=use_reduced,
+        param_dtype="bfloat16").items()}
 
 
 # ============================================================ 12 inter-chip
@@ -3027,15 +3351,29 @@ def _fwd_cluster(B, Sq, Sk, Hq, Hkv, D, dname) -> int:
                        0 if dname == "float32" else 1)["cluster"]
 
 
+def _sdpa_backend(q, k, v, causal: bool) -> str:
+    """The backend ``F.scaled_dot_product_attention(q, k, v, is_causal=
+    causal, enable_gqa=True)`` dispatches these inputs to, asked of its
+    dispatcher without a run. A profiled call would also name it, but
+    with one in phase 2 phase 3's host-bound serving read some 30% slower
+    in turns, and not without it (PERF.md, PR 29; ``host_turns.py``)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(torch._fused_sdp_choice(
+        q, k, v, is_causal=causal, enable_gqa=True)).name
+
+
 def _family_kernels(rand, record, gen, k1=FAMILY_K1, k2=FAMILY_K2,
-                    dtypes=("float32", "bfloat16"), stream: int = 6) -> None:
+                    dtypes=("float32", "bfloat16"),
+                    stream: int = 6) -> None:
     """Phase 2's lines at phase 10's shapes, in f32 and bf16, from their own
     stream (6; ``gen`` draws its block tables): K1 at FAMILY_K1 (whisper's
     bidirectional encoder, its cross attention at Sq != Sk, its decoder
     prompt, qwen2-vl's and arctic's prefills) against the plain version,
     library SDPA with the same mask; K2 at FAMILY_K2's heads on phase 3's
-    paged table. Phase 11's lines pass their own shapes, dtypes and
-    stream."""
+    paged table, (Hq, Hkv, D). Phase 11's and stablelm-12b's lines pass
+    their own shapes, dtypes and stream. Each K1 line names the backend
+    SDPA dispatched its inputs to (``_sdpa_backend``)."""
     import torch
     import torch.nn.functional as F
 
@@ -3072,13 +3410,14 @@ def _family_kernels(rand, record, gen, k1=FAMILY_K1, k2=FAMILY_K2,
                 "library": f"scaled_dot_product_attention(is_causal="
                            f"{causal}, enable_gqa=True)",
                 "bound_ms": b_ms, "bound_by": b_by, **b_ms3,
-                "cluster": _fwd_cluster(B, Sq, Sk, Hq, Hkv, D, dname)},
+                "cluster": _fwd_cluster(B, Sq, Sk, Hq, Hkv, D, dname),
+                "library_backend": _sdpa_backend(qt, kt, vt, causal)},
                 main_path=False)
             del q, k, v, out, want, qt, kt, vt
         # K2 at qwen2-vl's and arctic's heads on phase 3's paged table
         # (their own stream): 4 rows of 160 tokens, 16-token pages
-        for Hq, Hkv in k2:
-            B, ctx, npag, D, ps = 4, 160, 10, 128, 16
+        for Hq, Hkv, D in k2:
+            B, ctx, npag, ps = 4, 160, 10, 16
             P = B * npag + 1
             q = rand((B, 1, Hq, D), dtype, stream=stream)
             kp, vp = (rand((P, ps, Hkv, D), dtype, stream=stream)
@@ -3600,21 +3939,56 @@ def _train(dev, phase: str) -> dict:
         _check_trajectories(phase, km, refs, "forced: the plain path's step "
                             "from the kernel run's params, no update")
     rcfg = _train_config(phase, "kernel")
-    need = ("flash_attention_lse", "flash_attention_dq", "flash_attention_dkv",
-            *(("rmsnorm",) if rcfg.model.norm == "rmsnorm" else ()))
-    short = [(i, k) for i, c in enumerate(per_step) for k in need if c[k] < 1]
-    if short:
-        raise AssertionError(f"{arch} training steps launched no {short}")
-    # B3 and B4: one launch each per attention and microbatch; no B6
-    per_layer = _attention_calls(rcfg.model) * rcfg.microbatches
-    off = [(i, k, c[k]) for i, c in enumerate(per_step)
-           for k in ("flash_attention_dq", "flash_attention_dkv")
-           if c[k] != per_layer] + [
-        (i, "wkv6", c["wkv6"]) for i, c in enumerate(per_step) if c["wkv6"]]
+    off = _step_launch_problems(per_step, rcfg.model, rcfg.microbatches)
     if off:
-        raise AssertionError(f"{arch}: B3/B4 launches per step differ from "
-                             f"{per_layer}, or B6 launched: {off}")
+        raise AssertionError(f"{arch} training steps' launches: {off}")
     return launches, tier1
+
+
+def _norm_launches(cfg) -> tuple:
+    """The norm's kernel on ``cfg``'s paths: (what they must launch, what
+    they must not). K3 where the norm is RMSNorm; where it is LayerNorm
+    (stablelm-12b) no K3, so that a norm routed through K3 by mistake
+    shows."""
+    k3 = ("rmsnorm",)
+    return (k3, ()) if cfg.norm == "rmsnorm" else ((), k3)
+
+
+def _engine_launch_problems(arch: str, cfg, launches: dict,
+                            on_card: bool) -> list:
+    """What ``_serve_family``'s runs (``launches``: ``<arch>:<engine>`` ->
+    kernel -> launches) break: on the card K1 in the continuous engine, K2
+    in the paged one and the norm's kernel in both (``_norm_launches``);
+    anywhere, a kernel the norm rules out in any run."""
+    need, none = _norm_launches(cfg)
+    return [f"{name} launched no {k}"
+            for name, kernels in (("continuous", ("flash_attention", *need)),
+                                  ("paged", ("paged_attention", *need)))
+            for k in kernels
+            if on_card and launches[f"{arch}:{name}"][k] <= 0] + [
+        f"{path} launched {k} {counts[k]} times on a {cfg.norm} model"
+        for path, counts in launches.items() for k in none if counts[k]]
+
+
+def _step_launch_problems(per_step: list, cfg, microbatches: int) -> list:
+    """What a training run's per-step launch counts (``per_step``: one
+    dict a step, kernel -> launches) break: B2, B3 and B4 in every step,
+    and the norm's kernel (``_norm_launches``); B3 and B4 once per
+    attention (``_attention_calls``) and microbatch; no K1 (the training
+    forward is B2), no B6, and none the norm rules out."""
+    norm_need, norm_none = _norm_launches(cfg)
+    need = ("flash_attention_lse", "flash_attention_dq", "flash_attention_dkv",
+            *norm_need)
+    none = ("flash_attention", "wkv6", *norm_none)
+    per_layer = _attention_calls(cfg) * microbatches
+    return [f"step {i} launched no {k}" for i, c in enumerate(per_step)
+            for k in need if c[k] < 1] + [
+        f"step {i} launched {k} {c[k]} times, not {per_layer}"
+        for i, c in enumerate(per_step)
+        for k in ("flash_attention_dq", "flash_attention_dkv")
+        if c[k] != per_layer] + [
+        f"step {i} launched {k} {c[k]} times" for i, c in enumerate(per_step)
+        for k in none if c[k]]
 
 
 def _attention_calls(cfg) -> int:
@@ -5118,6 +5492,17 @@ def _f32_fwd_problems(attn: dict) -> list:
         if r.get("spill_bytes", 1) != 0:
             out.append(f"{n}: spills")
     return out
+
+
+def _head_dim_report(attn: dict, dims: tuple) -> dict:
+    """Phase 1's report of the flash-attention instances (K1/B2, B3, B4;
+    ``attn``: ``_attn_build_report``'s) at head dims ``dims``: name ->
+    [registers, spilled bytes], in name order."""
+    want = {f"D{d}" for d in dims}
+    return {n: [a.get("registers"), a.get("spill_bytes")]
+            for n, a in sorted(attn.items())
+            if n.split()[0] in ("K1/B2", "B3", "B4")
+            and n.split()[2] in want}
 
 
 def _attn_build_report(lib: Path) -> dict:

@@ -30,13 +30,14 @@
 // PERF.md). No atomics: two runs give the same bits.
 //
 // Which kernel runs is a fixed rule on (dtype, D), in fwd() and fwd_plan():
-//  - bf16 at D 64 and 128 (every bf16 attention the card runs: granite,
-//    qwen2.5, qwen2-vl, arctic and llama4 at D128, whisper and hymba at
-//    D64): attn_fwd_kernel_wgmma, Hopper's warpgroup products fed by TMA;
-//  - f32 at any D, and bf16 at D 16, 32 and 160 (no configuration runs
-//    these in bf16 on the card): attn_fwd_kernel, warp-level mma.sync. TF32
-//    wgmma needs both operands K-major, so P V would need V transposed, and
-//    3xTF32 three passes of it: the f32 path stays on mma.sync.
+//  - bf16 at D 64 and 128 (granite, qwen2.5, qwen2-vl, arctic and llama4
+//    at D128, whisper and hymba at D64): attn_fwd_kernel_wgmma, Hopper's
+//    warpgroup products fed by TMA;
+//  - f32 at any D, and bf16 at D 16, 32 and 160 (stablelm-12b, the one
+//    configuration at D160, serves in bf16 through these, chip_smoke.py
+//    phase 11e): attn_fwd_kernel, warp-level mma.sync. TF32 wgmma needs
+//    both operands K-major, so P V would need V transposed, and 3xTF32
+//    three passes of it: the f32 path stays on mma.sync.
 // A launch error raises in the wrapper; nothing falls back to another
 // kernel.
 //

@@ -25,10 +25,12 @@
 //    D64): attn_dq_kernel_wgmma and attn_dkv_kernel_wgmma, Hopper's
 //    warpgroup products fed by TMA (below; the bf16 D64/D128 instances of
 //    the mma.sync kernels are not built);
-//  - f32 at any D, and bf16 at D 16, 32 and 160: attn_dq_kernel and
-//    attn_dkv_kernel, warp-level mma.sync (mma.cuh). TF32 wgmma takes both
-//    operands K-major, so ds K would need K transposed in shared memory,
-//    and 3xTF32 three passes of it: the f32 path stays on mma.sync.
+//  - f32 at any D, and bf16 at D 16, 32 and 160 (stablelm-12b trains at
+//    D160 in f32, chip_smoke.py phase 6e; no configuration trains in bf16
+//    at D 16, 32 or 160): attn_dq_kernel and attn_dkv_kernel, warp-level
+//    mma.sync (mma.cuh). TF32 wgmma takes both operands K-major, so ds K
+//    would need K transposed in shared memory, and 3xTF32 three passes of
+//    it: the f32 path stays on mma.sync.
 // A launch error raises in the wrapper; nothing falls back to another
 // kernel.
 //

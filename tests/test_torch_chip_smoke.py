@@ -595,8 +595,8 @@ def test_tier1_report_of_a_reduced_step_on_the_cpu(smoke):
 # ------------------------------------------------------------ phase 9
 def _launches(smoke):
     """A full run's launch counts, every kernel launched on every path."""
-    paths = ["continuous", "paged", "train:6", "train:6b", "bench",
-             "hymba-1.5b:static", "hymba-1.5b:continuous"] + [
+    paths = ["continuous", "paged", "train:6", "train:6b", "train:6e",
+             "bench", "hymba-1.5b:static", "hymba-1.5b:continuous"] + [
         f"{a}:{e}" for a in smoke.SSM_ARCHS for e in ("static",
                                                         "continuous")] + [
         f"serving:{s}" for s in smoke.SERVING_SCENARIOS] + list(
@@ -793,6 +793,81 @@ def test_phase10_is_wired(smoke):
     assert smoke.TRAIN["10a"]["arch"] == "whisper-large-v3"
 
 
+def test_layernorm_paths_want_no_rmsnorm(smoke):
+    """stablelm-12b's LayerNorm: its served paths (f32 10e, bf16 11e) need
+    K1 or K2 but not K3, and the launch check fails when K3 launched on
+    any of its runs; an RMSNorm model's engines need K3 on the card."""
+    from repro_torch.configs import get_arch
+    ln, rms = get_arch(smoke.STABLELM), get_arch(smoke.QWEN15)
+    assert ln.norm == "layernorm" and rms.norm == "rmsnorm"
+    assert smoke._norm_launches(ln) == ((), ("rmsnorm",))
+    assert smoke._norm_launches(rms) == (("rmsnorm",), ())
+    stablelm = {p: k for p, k in {**smoke.FAMILY_PATHS,
+                                  **smoke.BF16_PATHS}.items()
+                if p.startswith(smoke.STABLELM + ":")}
+    assert stablelm == {
+        f"{smoke.STABLELM}:continuous": ("flash_attention",),
+        f"{smoke.STABLELM}:paged": ("paged_attention",),
+        f"{smoke.STABLELM}:continuous:bf16": ("flash_attention",),
+        f"{smoke.STABLELM}:paged:bf16": ("paged_attention",)}
+
+    def runs(arch, **over):
+        out = {f"{arch}:{e}": dict.fromkeys(smoke.KERNELS, 0)
+               for e in ("continuous", "paged", "plain")}
+        out[f"{arch}:continuous"]["flash_attention"] = 7
+        out[f"{arch}:paged"]["paged_attention"] = 5
+        for path, n in over.items():
+            out[f"{arch}:{path}"]["rmsnorm"] = n
+        return out
+
+    a = smoke.STABLELM
+    for on_card in (True, False):
+        assert smoke._engine_launch_problems(a, ln, runs(a), on_card) == []
+    assert smoke._engine_launch_problems(
+        a, ln, runs(a, paged=3, plain=1), False) == [
+        f"{a}:paged launched rmsnorm 3 times on a layernorm model",
+        f"{a}:plain launched rmsnorm 1 times on a layernorm model"]
+    q = smoke.QWEN15
+    assert smoke._engine_launch_problems(q, rms, runs(q), True) == [
+        "continuous launched no rmsnorm", "paged launched no rmsnorm"]
+    assert smoke._engine_launch_problems(q, rms, runs(q), False) == []
+    assert smoke._engine_launch_problems(
+        q, rms, runs(q, continuous=4, paged=4), True) == []
+    bad = _launches(smoke)
+    bad["train:6e"]["flash_attention_dkv"] = 0
+    assert smoke._missing(bad) == ["flash_attention_dkv"]
+
+
+def test_step_launch_problems(smoke):
+    """6e's steps: B2-B4 every step and B3/B4 once per layer and
+    microbatch, no K1, no B6, and K3 only where the norm is RMSNorm."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch(smoke.STABLELM), num_layers=4)
+    step = {k: 0 for k in smoke.KERNELS}
+    step.update(flash_attention_lse=16, flash_attention_dq=8,
+                flash_attention_dkv=8)
+    assert smoke._step_launch_problems([step, step], cfg, 2) == []
+    assert smoke._step_launch_problems(
+        [step, {**step, "rmsnorm": 5, "flash_attention": 1}], cfg, 2) == [
+        "step 1 launched flash_attention 1 times",
+        "step 1 launched rmsnorm 5 times"]
+    assert smoke._step_launch_problems([step], cfg, 1) == [
+        "step 0 launched flash_attention_dq 8 times, not 4",
+        "step 0 launched flash_attention_dkv 8 times, not 4"]
+    rms = dataclasses.replace(cfg, norm="rmsnorm")
+    assert smoke._step_launch_problems([step], rms, 2) == [
+        "step 0 launched no rmsnorm"]
+    assert smoke._step_launch_problems([{**step, "rmsnorm": 9}], rms,
+                                       2) == []
+    spec = smoke.TRAIN["6e"]
+    assert (spec["arch"], spec["layers"], spec["gate"]) == (
+        smoke.STABLELM, 4, "free")
+    rcfg = smoke._train_config("6e", "kernel")
+    assert rcfg.model.d_model == 5120 and rcfg.model.num_layers == 4
+    assert rcfg.param_dtype == "float32" and rcfg.remat
+
 def test_attention_calls_per_forward(smoke):
     from repro_torch.configs import get_arch
     assert smoke._attention_calls(get_arch("granite-3-8b")) == 40
@@ -814,11 +889,115 @@ def test_one_ulp_q_moves_the_plain_attention_and_restores_it(smoke):
     assert 0 < diff < 1e-5
 
 
+def test_f32_attention_rounds_the_plain_attention_once_and_restores_it(
+        smoke):
+    """11e's third path: the plain attention computed in f32 from bf16 q,
+    k, v and rounded once, against the plain path's own bf16 roundings."""
+    from repro_torch.models import attention as attn_mod
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((1, 40, 4, 32), generator=gen).to(torch.bfloat16)
+               for _ in "qkv")
+    orig = attn_mod.dense_attention
+    plain = orig(q, k, v, causal=True)
+    with smoke._f32_attention(True):
+        exact = attn_mod.dense_attention(q, k, v, causal=True)
+    assert attn_mod.dense_attention is orig
+    with smoke._f32_attention(False):
+        assert attn_mod.dense_attention is orig
+    want = orig(q.float(), k.float(), v.float(), causal=True)
+    assert exact.dtype == torch.bfloat16
+    assert torch.equal(exact, want.to(torch.bfloat16))
+    assert not torch.equal(plain, exact)
+
+
+def test_planted_faults_move_the_kernels_attention_only(smoke):
+    """11e's controls: ("ulps", k) moves each nonzero element of the
+    kernels' attention output k units of its own bf16 rounding, both ways;
+    ("p_bf16", 0) is attention in f32 with P rounded once; the plain
+    backend is untouched and the module restored."""
+    from repro_torch.kernels.ref import dense_attention
+    from repro_torch.models import attention as attn_mod
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn((1, 40, 4, 32), generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn((1, 40, 2, 32), generator=gen).to(torch.bfloat16)
+            for _ in "kv")
+    orig, cpu = attn_mod.attention, torch.device("cpu")
+    good = orig(q, k, v, backend="kernel", causal=True)
+    plain = orig(q, k, v, backend="dense", causal=True)
+    _, e = torch.frexp(good.float())
+    step = torch.ldexp(torch.ones_like(good.float()), e - 8)
+    for n in (1, 4):
+        with smoke._planted_fault(("ulps", n), cpu):
+            bad = attn_mod.attention(q, k, v, backend="kernel", causal=True)
+            assert torch.equal(attn_mod.attention(
+                q, k, v, backend="dense", causal=True), plain)
+        assert attn_mod.attention is orig
+        moved = ((bad.float() - good.float()) / step)[good != 0]
+        assert bad.dtype == torch.bfloat16
+        assert (moved > 0).any() and (moved < 0).any()
+        if n == 1:      # one unit up or down is always representable
+            assert torch.equal(moved.abs(), torch.ones_like(moved))
+        else:           # n units up may cross into a coarser binade
+            assert float((moved.abs() - n).abs().max()) <= 1
+    with smoke._planted_fault(("p_bf16", 0), cpu):
+        got = attn_mod.attention(q, k, v, backend="kernel", causal=True,
+                                 window=7)
+    assert attn_mod.attention is orig
+    exact = dense_attention(q.float(), k.float(), v.float(), causal=True,
+                            window=7)
+    assert got.dtype == torch.bfloat16 and not torch.equal(
+        got, exact.to(torch.bfloat16))
+    assert torch.allclose(got.float(), exact, atol=2e-2)
+    # in f32, rounding P to q's dtype rounds nothing: the plain attention
+    f32 = smoke._p_bf16_attention(q.float(), k.float(), v.float(),
+                                  causal=True, window=7)
+    assert torch.allclose(f32, exact, atol=1e-6, rtol=0)
+    with smoke._planted_fault(None, cpu):
+        assert attn_mod.attention is orig
+    assert set(smoke.REJECTED_FAULTS) <= set(smoke.PLANTED_FAULTS)
+
+
+def test_sdpa_backend_is_the_dispatchers_choice(smoke):
+    """Phase 2's K1 lines name SDPA's backend as its dispatcher picks it,
+    without running a profile (whose hooks would stay on the host)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn((1, 8, 16, 32), generator=gen)
+    k, v = (torch.randn((1, 2, 16, 32), generator=gen) for _ in "kv")
+    got = smoke._sdpa_backend(q, k, v, True)
+    assert got in SDPBackend.__members__ and got != "ERROR"
+    with sdpa_kernel(SDPBackend.MATH):
+        assert smoke._sdpa_backend(q, k, v, False) == "MATH"
+
+
+def test_host_turns_reads_the_floor_and_phase3():
+    """``host_turns.py`` reads the floor call and phase 3's two engines
+    (not another arch's serve lines) from a run's output."""
+    spec = importlib.util.spec_from_file_location(
+        "host_turns", REPO / "host_turns.py")
+    host_turns = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(host_turns)
+    serve = {"phase": "serve", "ttft_p50_s": 0.5, "tok_p50_s": 0.05}
+    out = "\n".join([
+        "NVIDIA H100 80GB HBM3, 700.00 W",
+        json.dumps({"phase": "floor", "ms": 0.001, "call_ms": 0.008}),
+        json.dumps({**serve, "scheduler": "continuous"}),
+        json.dumps({**serve, "scheduler": "paged", "tok_p50_s": 0.04}),
+        json.dumps({**serve, "scheduler": "paged", "arch": "rwkv6-3b",
+                    "tok_p50_s": 9.0})])
+    assert host_turns._readings(out) == {
+        "floor_call_us": 8.0, "continuous_ttft_p50_s": 0.5,
+        "continuous_tok_p50_s": 0.05, "paged_ttft_p50_s": 0.5,
+        "paged_tok_p50_s": 0.04}
+    assert set(host_turns._readings(out)) == set(host_turns.READINGS)
+
+
 @pytest.fixture(scope="module")
 def phase10_on_the_cpu(smoke):
     """Phase 10's serving on the reference's reduced configs on the CPU:
-    whisper through ``serve_loop.generate``, qwen2-vl and arctic through
-    the three engines (their gates raise on failure); and the shapes they
+    whisper through ``serve_loop.generate``, qwen2-vl, arctic, stablelm
+    and qwen1.5 through the three engines (their gates raise on failure);
+    and the shapes they
     gave K1 ((batch, Sq, Sk, causal, window) -> calls) and K2 ((lanes,
     page size, table width, pool pages) -> calls): the same on the
     reduced configs as at full width, since only the heads, widths and
@@ -866,22 +1045,31 @@ def test_phase10_runs_on_the_cpu(smoke, phase10_on_the_cpu):
 def test_phase2_holds_every_shape_phase10_gives(smoke, phase10_on_the_cpu):
     """Phase 2 holds K1 and K2 against their plain versions at every shape
     phase 10 launches them at: each (batch, Sq, Sk, mask) of K1, with the
-    full configs' heads, and K2 at phase 3's paged table with qwen2-vl's
-    and arctic's heads."""
+    full configs' heads (stablelm-12b's in STABLELM_K1; qwen1.5-110b's are
+    qwen2-vl's), and K2 at phase 3's paged table with qwen2-vl's, arctic's
+    and stablelm's heads."""
     from repro_torch.configs import get_arch
     _, seen = phase10_on_the_cpu
-    lines = {(b, sq, sk, causal) for b, sq, sk, _, _, _, causal
-             in smoke.FAMILY_K1}
+    k1 = smoke.FAMILY_K1 + smoke.STABLELM_K1
+    lines = {(b, sq, sk, causal) for b, sq, sk, _, _, _, causal in k1}
     assert {(b, sq, sk, causal) for b, sq, sk, causal, window in seen["K1"]
             if window == 0} <= lines
-    heads = {(hq, hkv, d) for _, _, _, hq, hkv, d, _ in smoke.FAMILY_K1}
-    archs = ("whisper-large-v3", "qwen2-vl-72b", "arctic-480b")
-    assert heads == {(get_arch(a).num_heads, get_arch(a).num_kv_heads,
-                      get_arch(a).resolved_head_dim) for a in archs}
+    assert {(b, sq, sk, causal) for b, sq, sk, _, _, _, causal
+            in smoke.STABLELM_K1} == {(1, 128, 128, True), (1, 125, 125, True)}
+
+    def heads(a):
+        c = get_arch(a)
+        return (c.num_heads, c.num_kv_heads, c.resolved_head_dim)
+
+    archs = ("whisper-large-v3", "qwen2-vl-72b", "arctic-480b",
+             smoke.STABLELM, smoke.QWEN15)
+    assert {a[3:6] for a in k1} == {heads(a) for a in archs}
+    assert {a[3:6] for a in smoke.STABLELM_K1} == {heads(smoke.STABLELM)}
+    assert heads(smoke.QWEN15) == heads("qwen2-vl-72b")
     assert set(seen["K2"]) == {(4, 16, 10, 41)}
-    assert set(smoke.FAMILY_K2) == {(get_arch(a).num_heads,
-                                     get_arch(a).num_kv_heads)
-                                    for a in archs[1:]}
+    assert set(smoke.FAMILY_K2 + smoke.STABLELM_K2) == {
+        heads(a) for a in archs[1:]}
+    assert smoke.STABLELM_K2 == (heads(smoke.STABLELM),)
     # phase 2b at whisper's training microbatch, both masks
     cfg, seq = get_arch("whisper-large-v3"), smoke.TRAIN["10a"]["seq"]
     rows = smoke.TRAIN_BATCH // 2
@@ -1089,9 +1277,9 @@ def test_deploy_gates(smoke):
 
 @pytest.fixture(scope="module")
 def phase11_on_the_cpu(smoke, tmp_path_factory):
-    """Phases 11b-11d on the reference's reduced configs on the CPU (their
-    gates raise on failure), and the shapes 11b and 11c gave the kernels'
-    wrappers: K1 (batch, Sq, Sk, causal, window, dtype), B2-B4 (batch,
+    """Phases 11b-11e on the reference's reduced configs on the CPU (their
+    gates raise on failure), and the shapes 11b, 11c and 11e gave the
+    kernels' wrappers: K1 (batch, Sq, Sk, causal, window, dtype), B2-B4 (batch,
     Sq, Sk, causal, dtype: the attention differentiated), K2 (lanes, page
     size, table width, pool pages, dtype) and K3 (rows, d, dtype), each
     -> calls; the same on the reduced configs as at full width, since
@@ -1130,6 +1318,7 @@ def phase11_on_the_cpu(smoke, tmp_path_factory):
         launches = smoke._serve_family(cpu, smoke.LLAMA4, use_reduced=True,
                                        param_dtype="bfloat16")
         launches.update(smoke._deploy(cpu, use_reduced=True))
+        launches.update(smoke._serve_stablelm_bf16(cpu, use_reduced=True))
     finally:
         ops.flash_attention, ops.paged_attention, ops.rmsnorm = (
             flash, paged, norm)
@@ -1164,7 +1353,7 @@ def test_phase2_holds_every_shape_phase11_gives(smoke, phase11_on_the_cpu):
     heads = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)
     assert {k[3:6] for k in smoke.LLAMA4_K1} == {heads}
     assert set(seen["K2"]) == {(4, 16, 10, 41, "bfloat16")}
-    assert set(smoke.LLAMA4_K2) == {heads[:2]}
+    assert set(smoke.LLAMA4_K2) == {heads}
     assert {(rows, cfg.d_model, dt) for rows, _, dt in seen["K3"]} <= {
         (rows, d, dt) for dt, shapes in smoke.SLICE_K3.items()
         for rows, d in shapes}
@@ -1177,6 +1366,22 @@ def test_phase2_holds_every_shape_phase11_gives(smoke, phase11_on_the_cpu):
     # every batch the suite runs, in each dtype it runs it in
     assert {(b, dt) for b, _, _, _, dt in seen["B2-B4"]} == {
         *((b, "float32") for b in smoke.DEPLOY_BATCHES), (8, "bfloat16")}
+
+
+def test_phase2_holds_the_training_and_norm_shapes_of_6e_and_10f(smoke):
+    """Phase 2's lines at stablelm-12b's training microbatch (B2-B4, f32,
+    as 6e's steps launch them) and at qwen1.5-110b's norm over a prompt
+    of phase 3's mix (K3, d_model 8192, f32)."""
+    from repro_torch.configs import get_arch
+    rcfg = smoke._train_config("6e", "kernel")
+    cfg = rcfg.model
+    rows = smoke.TRAIN_BATCH // rcfg.microbatches
+    assert smoke.STABLELM_ATTN == ((
+        rows, rcfg.shape.seq_len, cfg.num_heads, cfg.num_kv_heads,
+        cfg.resolved_head_dim, True),)
+    assert cfg.resolved_head_dim == 160
+    prompts = {len(r.prompt) for r in smoke._request_mix(cfg)}
+    assert smoke.QWEN15_K3 == ((max(prompts), get_arch(smoke.QWEN15).d_model),)
 
 
 def test_phase12_is_wired(smoke):

@@ -105,6 +105,7 @@ def _ulp_err():
     (128, 32, 8, 128, 0),        # granite-3-8b's serving prefill
     (2048, 32, 8, 128, 0),
     (1100, 25, 5, 64, 1024),     # hymba-1.5b's long prefill, past its window
+    (128, 32, 8, 160, 0),        # stablelm-12b's prefill, on mma.sync
 ])
 def test_forward_bf16_within_a_unit_of_rounding(dev, s, hq, hkv, d, window):
     """K1 in bf16 within one unit of bf16 rounding of the plain version
@@ -248,9 +249,11 @@ def _paged_inputs(rng, dtype, dev, hq, hkv, d, ps, layout):
     256-page table (the engine's table is cache_span / page_size wide).
     ``b4_ctx4096``: 4 rows near 4096 tokens. ``sparse``: 4 rows of 1, 16,
     17 and 33 tokens in a 64-page table, so most of each row's splits
-    hold no page."""
+    hold no page. ``table10``: phase 3's paged table, 4 rows of 160, 159,
+    155 and 145 tokens in 10 pages each."""
     B, npag, lengths = {
         "mixed": (5, 12, [1, ps + 3, 5 * ps, 12 * ps, 7]),
+        "table10": (4, 10, [160, 159, 155, 145]),
         "b1_wide": (1, 256, [160]),
         "b4_ctx4096": (4, 4096 // ps, [4096, 4095, 4091, 4081]),
         "sparse": (4, 64, [1, 16, 17, 33]),
@@ -275,7 +278,8 @@ def _paged_inputs(rng, dtype, dev, hq, hkv, d, ps, layout):
     (32, 8, 128, 16, "mixed"), (4, 4, 32, 4, "mixed"),
     (8, 2, 64, 16, "mixed"), (8, 1, 128, 32, "mixed"),
     (32, 8, 128, 16, "b1_wide"), (32, 8, 128, 16, "b4_ctx4096"),
-    (32, 8, 128, 16, "sparse")])
+    (32, 8, 128, 16, "sparse"),
+    (32, 8, 160, 16, "table10")])     # stablelm-12b's decode at D160
 def test_paged_kernel_matches_plain(dev, dtype, hq, hkv, d, ps, layout):
     """K2 against its plain version: ragged lengths, null-padded tables and
     a retired all-null row (``mixed``), a table far wider than its live

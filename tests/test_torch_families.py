@@ -10,7 +10,8 @@ kernels' plain versions).
 Held: the loss with the MoE's ``aux_loss`` and ``expert_load``, every
 gradient leaf, prefill logits and caches (whisper's cross K/V too),
 decode against the JAX decode and against teacher forcing, chunked
-prefill with paged decode (moe, vlm), the training step's trajectory,
+prefill with paged decode (moe, vlm), the training step's trajectory
+(also of the dense stablelm-12b and qwen1.5-110b),
 greedy tokens through the engines (moe, vlm) and through
 ``serve_loop.generate`` (whisper), the refusals, and the plain attention
 functions' non-causal and Sq != Sk lines. Parameters come from the JAX
@@ -270,6 +271,10 @@ def test_unrotated_key_biases_have_no_gradient():
 
 # ---------------------------------------------------------------- training
 STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 4, 32
+# the trajectory also holds the two dense configurations the other files
+# hold only a step of: stablelm-12b (LayerNorm, head dim 160 at full
+# width) and qwen1.5-110b (QKV bias)
+TRAJECTORY_ARCHS = ARCHS + ["stablelm-12b", "qwen1.5-110b"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -298,7 +303,7 @@ def _jax_trajectory(arch: str, microbatches: int):
 
 @pytest.mark.parametrize("microbatches,backend", [(1, "dense"),
                                                   (2, "kernel")])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", TRAJECTORY_ARCHS)
 def test_train_step_trajectory_matches_jax(arch, microbatches, backend):
     """STEPS steps of build_train_step from the JAX init on the same
     batches: loss (with the MoE's aux_loss, which reaches the gradient)

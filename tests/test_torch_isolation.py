@@ -18,7 +18,7 @@ from repro_torch.launch.serve import build_engine
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "ab_attention.py"]
+    REPO / "chip_smoke.py", REPO / "ab_attention.py", REPO / "host_turns.py"]
 
 
 def _imported_modules(path: Path) -> set:

@@ -3,7 +3,8 @@ parameters (JAX's init, through :func:`repro_torch.bridge.params_from_jax`)
 and the same token inputs (numpy, seeded).
 
 Reduced ``granite-3-8b`` (GQA, RMSNorm, tied vocab), ``qwen2.5-32b``
-(``qkv_bias``) and ``stablelm-12b`` (LayerNorm), each with the port's
+(``qkv_bias``), ``stablelm-12b`` (LayerNorm) and ``qwen1.5-110b``
+(``qkv_bias``, rope theta 1e6, untied vocab), each with the port's
 ``dense`` and ``kernel`` attention backends (on the CPU the kernel backend
 runs the kernels' plain versions). Tolerance 1e-4: the two frameworks sum
 in different orders and the error accumulates over layers.
@@ -27,7 +28,7 @@ from repro_torch.models import Runtime, build
 
 torch.set_num_threads(2)
 TOL = 1e-4
-ARCHS = ["granite-3-8b", "qwen2.5-32b", "stablelm-12b"]
+ARCHS = ["granite-3-8b", "qwen2.5-32b", "stablelm-12b", "qwen1.5-110b"]
 B, PROMPT, SPAN = 2, 12, 24
 
 

@@ -1,7 +1,8 @@
 """The port's training slice against the JAX package's, on the CPU: the
 synthetic batches, ``Model.loss`` and its gradients, and the trajectory
 of ``build_train_step`` as ``examples/quickstart.py`` runs it (reduced
-granite-3-8b, rwkv6-3b and hymba-1.5b, f32, lr 1e-3, 5 warmup steps;
+granite-3-8b, rwkv6-3b, hymba-1.5b, stablelm-12b (LayerNorm, untied) and
+qwen1.5-110b (QKV bias, untied), f32, lr 1e-3, 5 warmup steps;
 hymba's sequences longer than its reduced window of 64, so the windowed
 attention trains through it; the ssm mixes in the plain ``chunked``
 form that training pins), from the same parameters
@@ -49,14 +50,17 @@ from repro_torch.runtime.steps import build_train_step
 torch.set_num_threads(2)
 TOL = 1e-4
 ARCH = "granite-3-8b"
-ARCHS = [ARCH, "rwkv6-3b", "hymba-1.5b"]
+ARCHS = [ARCH, "rwkv6-3b", "hymba-1.5b", "stablelm-12b", "qwen1.5-110b"]
 BATCH, SEQ, STEPS = 4, 64, 10
 # per arch: the loss test's and the trajectory's sequence lengths; hymba's
 # pass its reduced window of 64
-SEQS = {ARCH: (48, SEQ), "rwkv6-3b": (48, SEQ), "hymba-1.5b": (80, 96)}
+SEQS = {ARCH: (48, SEQ), "rwkv6-3b": (48, SEQ), "hymba-1.5b": (80, 96),
+        "stablelm-12b": (48, SEQ), "qwen1.5-110b": (48, SEQ)}
 # the trajectory's quantities held per arch (see the module docstring)
 HELD = {ARCH: ("loss", "grad_norm"), "rwkv6-3b": ("loss",),
-        "hymba-1.5b": ("loss", "grad_norm")}
+        "hymba-1.5b": ("loss", "grad_norm"),
+        "stablelm-12b": ("loss", "grad_norm"),
+        "qwen1.5-110b": ("loss", "grad_norm")}
 
 
 def _cfgs(layers=2, arch=ARCH):
