@@ -46,7 +46,7 @@ from .findings import Finding
 _BAD_DTYPES = (torch.float64, torch.complex128)
 _HOST_READ = "aten._local_scalar_dense"
 # a step's deliberate host reads: the train step's loss-spike guard
-# (runtime/steps.py: "if not torch.isfinite(loss)")
+# (runtime/steps.py: "bool(torch.isfinite(loss))")
 HOST_READS = {"train_step": 1}
 STEPS_PATH = "src/repro_torch/runtime/steps.py"
 PAGED_PATH = "src/repro_torch/serving/paged.py"

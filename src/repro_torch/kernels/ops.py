@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.spans import span
 from repro_torch.kernels import ref, tuning, work
 
 KERNELS = ("flash_attention", "flash_attention_lse", "flash_attention_dq",
@@ -158,35 +159,39 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     a gradient of q, k or v. q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D), Hq a
     multiple of Hkv, one dtype (f32 or bf16) -> (B,Sq,Hq,D). Any
     Sq/Sk."""
-    what = "flash_attention"
-    cuda = _on_cuda(what, q, k, v)
-    _require(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape, what,
-             f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
-             f"v{tuple(v.shape)}")
-    B, Sq, Hq, D = q.shape
-    _require(k.shape[0] == B and k.shape[3] == D
-             and k.shape[2] > 0 and Hq % k.shape[2] == 0, what,
-             f"q{tuple(q.shape)} does not match k{tuple(k.shape)}")
-    _require(q.dtype in _DTYPES and k.dtype == q.dtype == v.dtype, what,
-             f"dtypes {q.dtype}/{k.dtype}/{v.dtype}; need one of {_DTYPES}")
-    _require(window >= 0, what, f"window must be >= 0, got {window}")
-    if cuda:
-        from repro_torch.kernels.flash_attention import HEAD_DIMS
-        _require(D in HEAD_DIMS, what, f"head dim {D} not in {HEAD_DIMS}")
-        _require_contiguous(what, q=q, k=k, v=v)
-        _require_aligned16(what, q=q, k=k, v=v)
-    if _needs_grad(q, k, v):
-        return _FlashAttention.apply(q, k, v, causal, window)
-    kw = dict(causal=causal, window=window)
-    with work.kernel("flash_attention",
-                     lambda: work.flash_forward(q, k, **kw)):
-        if not cuda:
-            return _dense(ref.flash_attention_ref(q, k, v, **kw))[0]
-        from repro_torch.kernels.flash_attention import flash_attention_cuda
-        out = flash_attention_cuda(q, k, v, **kw)
-        if out.numel():     # the C entry launches nothing for an empty output
-            LAUNCHES["flash_attention"] += 1
-        return out
+    with span("repro_torch.kernels.flash_attention"):
+        what = "flash_attention"
+        cuda = _on_cuda(what, q, k, v)
+        _require(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape, what,
+                 f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                 f"v{tuple(v.shape)}")
+        B, Sq, Hq, D = q.shape
+        _require(k.shape[0] == B and k.shape[3] == D
+                 and k.shape[2] > 0 and Hq % k.shape[2] == 0, what,
+                 f"q{tuple(q.shape)} does not match k{tuple(k.shape)}")
+        _require(q.dtype in _DTYPES and k.dtype == q.dtype == v.dtype, what,
+                 f"dtypes {q.dtype}/{k.dtype}/{v.dtype}; need one of "
+                 f"{_DTYPES}")
+        _require(window >= 0, what, f"window must be >= 0, got {window}")
+        if cuda:
+            from repro_torch.kernels.flash_attention import HEAD_DIMS
+            _require(D in HEAD_DIMS, what, f"head dim {D} not in {HEAD_DIMS}")
+            _require_contiguous(what, q=q, k=k, v=v)
+            _require_aligned16(what, q=q, k=k, v=v)
+        if _needs_grad(q, k, v):
+            return _FlashAttention.apply(q, k, v, causal, window)
+        kw = dict(causal=causal, window=window)
+        with work.kernel("flash_attention",
+                         lambda: work.flash_forward(q, k, **kw)):
+            if not cuda:
+                return _dense(ref.flash_attention_ref(q, k, v, **kw))[0]
+            from repro_torch.kernels.flash_attention import (
+                flash_attention_cuda)
+            out = flash_attention_cuda(q, k, v, **kw)
+            # the C entry launches nothing for an empty output
+            if out.numel():
+                LAUNCHES["flash_attention"] += 1
+            return out
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -199,50 +204,53 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     ``splits``: the blocks (a thread-block cluster) sharing a row's live
     pages, 1 to 8, clamped to n_pages; None resolves it
     (:func:`tuning.resolve_paged_splits`)."""
-    what = "paged_attention"
-    cuda = _on_cuda(what, q, k_pages, v_pages, block_tables, lengths)
-    _require(q.dim() == 4 and q.shape[1] == 1, what,
-             f"takes one query token per row, got q{tuple(q.shape)}")
-    B, _, Hq, D = q.shape
-    _require(k_pages.dim() == 4 and v_pages.shape == k_pages.shape
-             and k_pages.shape[3] == D and k_pages.shape[2] > 0
-             and Hq % k_pages.shape[2] == 0, what,
-             f"pools k{tuple(k_pages.shape)} v{tuple(v_pages.shape)} do not "
-             f"match q{tuple(q.shape)}")
-    _require(block_tables.dim() == 2 and block_tables.shape[0] == B
-             and block_tables.shape[1] > 0 and lengths.shape == (B,), what,
-             f"block_tables{tuple(block_tables.shape)} / "
-             f"lengths{tuple(lengths.shape)} do not match batch {B}")
-    _require(q.dtype in _DTYPES and k_pages.dtype == q.dtype == v_pages.dtype,
-             what, f"dtypes {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
-    _require(block_tables.dtype == torch.int32 and lengths.dtype == torch.int32,
-             what, "block_tables and lengths must be int32")
-    counted = work.kernel("paged_attention", lambda: work.paged_decode(
-        q, k_pages, lengths, k_pages.shape[1]))
-    if splits is not None:
-        tuning.check_splits(splits)
-    if not cuda:
+    with span("repro_torch.kernels.paged_attention"):
+        what = "paged_attention"
+        cuda = _on_cuda(what, q, k_pages, v_pages, block_tables, lengths)
+        _require(q.dim() == 4 and q.shape[1] == 1, what,
+                 f"takes one query token per row, got q{tuple(q.shape)}")
+        B, _, Hq, D = q.shape
+        _require(k_pages.dim() == 4 and v_pages.shape == k_pages.shape
+                 and k_pages.shape[3] == D and k_pages.shape[2] > 0
+                 and Hq % k_pages.shape[2] == 0, what,
+                 f"pools k{tuple(k_pages.shape)} v{tuple(v_pages.shape)} "
+                 f"do not match q{tuple(q.shape)}")
+        _require(block_tables.dim() == 2 and block_tables.shape[0] == B
+                 and block_tables.shape[1] > 0 and lengths.shape == (B,), what,
+                 f"block_tables{tuple(block_tables.shape)} / "
+                 f"lengths{tuple(lengths.shape)} do not match batch {B}")
+        _require(q.dtype in _DTYPES
+                 and k_pages.dtype == q.dtype == v_pages.dtype,
+                 what, f"dtypes {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+        _require(block_tables.dtype == torch.int32
+                 and lengths.dtype == torch.int32,
+                 what, "block_tables and lengths must be int32")
+        counted = work.kernel("paged_attention", lambda: work.paged_decode(
+            q, k_pages, lengths, k_pages.shape[1]))
+        if splits is not None:
+            tuning.check_splits(splits)
+        if not cuda:
+            with counted:
+                return _dense(ref.paged_decode_attention_ref(
+                    q, k_pages, v_pages, block_tables, lengths))[0]
+        from repro_torch.kernels.paged_attention import (VEC,
+                                                         paged_attention_cuda)
+        _require(D % VEC == 0 and D <= 1024, what,
+                 f"head dim {D} must be a multiple of {VEC}, at most 1024")
+        _require_contiguous(what, q=q, k_pages=k_pages, v_pages=v_pages,
+                            block_tables=block_tables, lengths=lengths)
+        _require(all(t.data_ptr() % (VEC * t.element_size()) == 0
+                     for t in (k_pages, v_pages)), what,
+                 f"pools must start on a {VEC}-element boundary")
+        splits = tuning.resolve_paged_splits(
+            splits, q_shape=q.shape, pages_shape=k_pages.shape,
+            n_pages=block_tables.shape[1], dtype=q.dtype)
         with counted:
-            return _dense(ref.paged_decode_attention_ref(
-                q, k_pages, v_pages, block_tables, lengths))[0]
-    from repro_torch.kernels.paged_attention import (VEC,
-                                                     paged_attention_cuda)
-    _require(D % VEC == 0 and D <= 1024, what,
-             f"head dim {D} must be a multiple of {VEC}, at most 1024")
-    _require_contiguous(what, q=q, k_pages=k_pages, v_pages=v_pages,
-                        block_tables=block_tables, lengths=lengths)
-    _require(all(t.data_ptr() % (VEC * t.element_size()) == 0
-                 for t in (k_pages, v_pages)), what,
-             f"pools must start on a {VEC}-element boundary")
-    splits = tuning.resolve_paged_splits(
-        splits, q_shape=q.shape, pages_shape=k_pages.shape,
-        n_pages=block_tables.shape[1], dtype=q.dtype)
-    with counted:
-        out = paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
-                                   splits)
-        if out.numel():
-            LAUNCHES["paged_attention"] += 1
-    return out
+            out = paged_attention_cuda(q, k_pages, v_pages, block_tables,
+                                       lengths, splits)
+            if out.numel():
+                LAUNCHES["paged_attention"] += 1
+        return out
 
 
 def _rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float,
@@ -284,19 +292,20 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     scale (d,) f32 -> x's shape and dtype. ``threads``: a row's block,
     whole warps from 32 to 512; None resolves it
     (:func:`tuning.resolve_rmsnorm_threads`)."""
-    what = "rmsnorm"
-    cuda = _on_cuda(what, x, scale)
-    _require(x.dim() >= 1 and scale.shape == (x.shape[-1],), what,
-             f"scale{tuple(scale.shape)} does not match x{tuple(x.shape)}")
-    _require(x.dtype in _DTYPES and scale.dtype == torch.float32, what,
-             f"dtypes x {x.dtype} / scale {scale.dtype}")
-    if threads is not None:
-        tuning.check_threads(threads)
-    if cuda:
-        _require_contiguous(what, x=x, scale=scale)
-    if _needs_grad(x, scale):
-        return _RMSNorm.apply(x, scale, eps, threads)
-    return _rmsnorm_fwd(x, scale, eps, threads)
+    with span("repro_torch.kernels.rmsnorm"):
+        what = "rmsnorm"
+        cuda = _on_cuda(what, x, scale)
+        _require(x.dim() >= 1 and scale.shape == (x.shape[-1],), what,
+                 f"scale{tuple(scale.shape)} does not match x{tuple(x.shape)}")
+        _require(x.dtype in _DTYPES and scale.dtype == torch.float32, what,
+                 f"dtypes x {x.dtype} / scale {scale.dtype}")
+        if threads is not None:
+            tuning.check_threads(threads)
+        if cuda:
+            _require_contiguous(what, x=x, scale=scale)
+        if _needs_grad(x, scale):
+            return _RMSNorm.apply(x, scale, eps, threads)
+        return _rmsnorm_fwd(x, scale, eps, threads)
 
 
 def wkv6(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor,

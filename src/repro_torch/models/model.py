@@ -21,6 +21,7 @@ import torch
 
 from repro_torch._tree import layer_at
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.spans import span
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (apply_norm, embed_tokens,
                                        embedding_init, lm_logits, norm_init,
@@ -176,11 +177,12 @@ def build(cfg: ModelConfig, rt: Runtime = Runtime(),
     def _head(params, x_last):
         # the last position of a (B>1, S, d) batch is a strided view; the
         # RMSNorm kernel takes contiguous rows
-        x_last = apply_norm(params["final_norm"], x_last.contiguous(),
-                            cfg.norm)
-        logits = lm_logits(params["embed"], x_last, cfg.tie_embeddings,
-                           true_vocab=cfg.vocab_size)
-        return logits.float()[..., :cfg.vocab_size]
+        with span("repro_torch.model.head"):
+            x_last = apply_norm(params["final_norm"], x_last.contiguous(),
+                                cfg.norm)
+            logits = lm_logits(params["embed"], x_last, cfg.tie_embeddings,
+                               true_vocab=cfg.vocab_size)
+            return logits.float()[..., :cfg.vocab_size]
 
     def loss(params, batch):
         """Mean next-token NLL over ``batch["labels"]`` (B,S), from f32
@@ -198,12 +200,13 @@ def build(cfg: ModelConfig, rt: Runtime = Runtime(),
         x, positions = _embed_inputs(params, batch)
         x, aux = tfm.stack_apply(_per_layer(params["layers"]), x, cfg, rt,
                                  positions, enc_out)
-        x = apply_norm(params["final_norm"], x, cfg.norm)
-        logits = lm_logits(params["embed"], x, cfg.tie_embeddings,
-                           true_vocab=cfg.vocab_size).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
-        nll = (logz - gold).mean()
+        with span("repro_torch.model.head"):
+            x = apply_norm(params["final_norm"], x, cfg.norm)
+            logits = lm_logits(params["embed"], x, cfg.tie_embeddings,
+                               true_vocab=cfg.vocab_size).float()
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+            nll = (logz - gold).mean()
         return nll + aux["aux_loss"], {"nll": nll, **aux}
 
     def prefill(params, batch, cache_span: int):

@@ -34,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._tree import layer_at, tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.spans import span
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -114,12 +115,13 @@ def _ffn(p, x, cfg: ModelConfig, rt: Runtime):
     """The MLP, or the MoE FFN, on x's second pre-norm, added to x.
     Returns (x, aux): the MoE's ``aux_loss``, ``expert_load`` and
     ``capacity``, or {} for an MLP."""
-    h_in = apply_norm(p["norm2"], x, cfg.norm)
-    if cfg.moe is not None:
-        h, aux = moe_mod.moe_ffn(p["moe"], h_in, cfg, rt)
-        return x + h, aux
-    return x + apply_mlp_tp(p["mlp"], h_in, cfg.activation, cfg.d_ff,
-                            rt.mesh), {}
+    with span("repro_torch.model.mlp"):
+        h_in = apply_norm(p["norm2"], x, cfg.norm)
+        if cfg.moe is not None:
+            h, aux = moe_mod.moe_ffn(p["moe"], h_in, cfg, rt)
+            return x + h, aux
+        return x + apply_mlp_tp(p["mlp"], h_in, cfg.activation, cfg.d_ff,
+                                rt.mesh), {}
 
 
 # ============================================================ mesh helpers
@@ -247,37 +249,38 @@ def layer_apply(p, x, cfg: ModelConfig, rt: Runtime, positions,
                  if return_cache else None)
         return x + h, {}, entry
 
-    h_in = apply_norm(p["norm1"], x, cfg.norm)
-    tp = _attn_tp(p["attn"], cfg)
-    a_in = coll.copy_to(h_in, rt.mesh) if tp else h_in
-    q, k, v = attn_mod.project_qkv(p["attn"], a_in, a_in, cfg)
-    q, k = _rope_q_k(cfg, q, k, positions)
-    window = cfg.window if cfg.attention_kind == "sliding" else 0
-    o = attn_mod.attention(q, k, v, backend=rt.attention_backend,
-                           causal=causal, window=window)
-    h = o.reshape(*x.shape[:-1], -1) @ p["attn"]["wo"]
-    if tp:
-        h = coll.reduce_from(h, rt.mesh)
-    entry = None
-    if return_cache:
-        k, v = _heads_all(k, rt, tp), _heads_all(v, rt, tp)
-        if cfg.attention_kind == "sliding":
-            span = min(cache_span, window) if window else cache_span
-            entry = {"k": _ring_from_prefill(k, span),
-                     "v": _ring_from_prefill(v, span)}
-        else:
-            pad = (0, 0, 0, 0, 0, cache_span - k.shape[1])
-            entry = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
-            if rt.decode_partitioned and cfg.attention_kind == "full":
-                entry = {n: _seq_shard(t, rt) for n, t in entry.items()}
-    if cfg.family == "hybrid":
-        h_ssm, ssd_state = ssm_mod.ssd_mix(p["ssm"], h_in, cfg,
-                                           backend=rt.ssm_backend,
-                                           factored=rt.ssm_factored)
-        h = (h + h_ssm) * 0.5
+    with span("repro_torch.model.attention"):
+        h_in = apply_norm(p["norm1"], x, cfg.norm)
+        tp = _attn_tp(p["attn"], cfg)
+        a_in = coll.copy_to(h_in, rt.mesh) if tp else h_in
+        q, k, v = attn_mod.project_qkv(p["attn"], a_in, a_in, cfg)
+        q, k = _rope_q_k(cfg, q, k, positions)
+        window = cfg.window if cfg.attention_kind == "sliding" else 0
+        o = attn_mod.attention(q, k, v, backend=rt.attention_backend,
+                               causal=causal, window=window)
+        h = o.reshape(*x.shape[:-1], -1) @ p["attn"]["wo"]
+        if tp:
+            h = coll.reduce_from(h, rt.mesh)
+        entry = None
         if return_cache:
-            entry["ssd_state"] = ssd_state
-    x = x + h
+            k, v = _heads_all(k, rt, tp), _heads_all(v, rt, tp)
+            if cfg.attention_kind == "sliding":
+                ring = min(cache_span, window) if window else cache_span
+                entry = {"k": _ring_from_prefill(k, ring),
+                         "v": _ring_from_prefill(v, ring)}
+            else:
+                pad = (0, 0, 0, 0, 0, cache_span - k.shape[1])
+                entry = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+                if rt.decode_partitioned and cfg.attention_kind == "full":
+                    entry = {n: _seq_shard(t, rt) for n, t in entry.items()}
+        if cfg.family == "hybrid":
+            h_ssm, ssd_state = ssm_mod.ssd_mix(p["ssm"], h_in, cfg,
+                                               backend=rt.ssm_backend,
+                                               factored=rt.ssm_factored)
+            h = (h + h_ssm) * 0.5
+            if return_cache:
+                entry["ssd_state"] = ssd_state
+        x = x + h
     if enc_out is not None:          # cross attention (whisper's decoder)
         h_in = apply_norm(p["norm_cross"], x, cfg.norm)
         tp = _attn_tp(p["cross_attn"], cfg)
@@ -620,20 +623,21 @@ def layer_decode_paged(p, x, cache, pos, block_tables, cfg: ModelConfig,
     a null-page entry of its table. Attention runs over ``pos + 1`` tokens
     for every row, inactive ones included, as in the reference."""
     B = x.shape[0]
-    h_in = apply_norm(p["norm1"], x, cfg.norm)
-    q, k, v = attn_mod.project_qkv(p["attn"], h_in, h_in, cfg)
-    q, k = _rope_q_k(cfg, q, k, _streams(cfg, pos.reshape(-1, 1)))
-    ps = cache["k"].shape[1]
-    bidx = torch.arange(B, device=x.device)
-    # clamp like the reference's gather, which clamps out-of-range indices
-    col = torch.clamp(pos // ps, max=block_tables.shape[1] - 1).long()
-    pages = block_tables[bidx, col].long()
-    offs = (pos % ps).long()
-    cache["k"][pages, offs] = k[:, 0]
-    cache["v"][pages, offs] = v[:, 0]
-    o = _paged_attend(q, cache["k"], cache["v"], block_tables,
-                      (pos + 1).to(torch.int32), rt)
-    x = x + o.reshape(*x.shape[:-1], -1) @ p["attn"]["wo"]
+    with span("repro_torch.model.attention"):
+        h_in = apply_norm(p["norm1"], x, cfg.norm)
+        q, k, v = attn_mod.project_qkv(p["attn"], h_in, h_in, cfg)
+        q, k = _rope_q_k(cfg, q, k, _streams(cfg, pos.reshape(-1, 1)))
+        ps = cache["k"].shape[1]
+        bidx = torch.arange(B, device=x.device)
+        # clamp like the reference's gather, which clamps out-of-range indices
+        col = torch.clamp(pos // ps, max=block_tables.shape[1] - 1).long()
+        pages = block_tables[bidx, col].long()
+        offs = (pos % ps).long()
+        cache["k"][pages, offs] = k[:, 0]
+        cache["v"][pages, offs] = v[:, 0]
+        o = _paged_attend(q, cache["k"], cache["v"], block_tables,
+                          (pos + 1).to(torch.int32), rt)
+        x = x + o.reshape(*x.shape[:-1], -1) @ p["attn"]["wo"]
     return _ffn(p, x, cfg, rt)[0], cache
 
 
@@ -662,21 +666,22 @@ def layer_prefill_chunk(p, x, cache, block_tables, start_pos: int,
     keys past the chunk are masked causally."""
     B, C = x.shape[0], x.shape[1]
     positions = start_pos + torch.arange(C, device=x.device)
-    h_in = apply_norm(p["norm1"], x, cfg.norm)
-    q, k, v = attn_mod.project_qkv(p["attn"], h_in, h_in, cfg)
-    q, k = _rope_q_k(cfg, q, k, _streams(cfg, positions[None]))
-    _, ps, Hkv, D = cache["k"].shape
-    npag = block_tables.shape[1]
-    pages = block_tables[:, positions // ps].long()             # (B, C)
-    offs = (positions % ps).long().expand(B, C)
-    cache["k"][pages, offs] = k
-    cache["v"][pages, offs] = v
-    idx = block_tables.long()
-    k_all = cache["k"][idx].reshape(B, npag * ps, Hkv, D)
-    v_all = cache["v"][idx].reshape(B, npag * ps, Hkv, D)
-    o = attn_mod.dense_attention(q, k_all, v_all, causal=True,
-                                 q_offset=start_pos)
-    x = x + o.reshape(*x.shape[:-1], -1) @ p["attn"]["wo"]
+    with span("repro_torch.model.attention"):
+        h_in = apply_norm(p["norm1"], x, cfg.norm)
+        q, k, v = attn_mod.project_qkv(p["attn"], h_in, h_in, cfg)
+        q, k = _rope_q_k(cfg, q, k, _streams(cfg, positions[None]))
+        _, ps, Hkv, D = cache["k"].shape
+        npag = block_tables.shape[1]
+        pages = block_tables[:, positions // ps].long()             # (B, C)
+        offs = (positions % ps).long().expand(B, C)
+        cache["k"][pages, offs] = k
+        cache["v"][pages, offs] = v
+        idx = block_tables.long()
+        k_all = cache["k"][idx].reshape(B, npag * ps, Hkv, D)
+        v_all = cache["v"][idx].reshape(B, npag * ps, Hkv, D)
+        o = attn_mod.dense_attention(q, k_all, v_all, causal=True,
+                                     q_offset=start_pos)
+        x = x + o.reshape(*x.shape[:-1], -1) @ p["attn"]["wo"]
     return _ffn(p, x, cfg, rt)[0], cache
 
 

@@ -18,6 +18,7 @@ import torch.distributed as dist
 
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.configs.base import RunConfig
+from repro_torch.core.spans import span
 from repro_torch.models import Runtime, build
 from repro_torch.models.model import abstract_params
 from repro_torch.models.transformer import num_layers_of
@@ -131,15 +132,17 @@ def accumulate_grads(model, params, batch, microbatches: int,
     for i in range(microbatches):
         mbatch = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
         tree, pairs = _grad_leaves(params, gsum)
-        loss, aux = model.loss(tree, mbatch)
+        with span("repro_torch.train.forward"):
+            loss, aux = model.loss(tree, mbatch)
         # a leaf the loss does not reach (the token table under the vision
         # stub's embeds) has no gradient: its accumulator stays 0, the
         # reference's zero gradient
-        grads = torch.autograd.grad(loss, [t for t, _ in pairs],
-                                    allow_unused=True)
-        for (_, acc), g in zip(pairs, grads):
-            if g is not None:
-                acc.add_(g.to(acc_dtype))
+        with span("repro_torch.train.backward"):
+            grads = torch.autograd.grad(loss, [t for t, _ in pairs],
+                                        allow_unused=True)
+            for (_, acc), g in zip(pairs, grads):
+                if g is not None:
+                    acc.add_(g.to(acc_dtype))
         del tree, pairs, grads
         losses.append(loss.detach())
         if "expert_load" in aux:
@@ -253,15 +256,18 @@ def build_train_step(rcfg: RunConfig, total_steps: int = 10000, *,
     def train_step(params, opt_state, batch):
         gsum, loss, stats, gnorm = gradients(params, batch)
         metrics = {"loss": loss, **stats}
-        if not torch.isfinite(loss):       # the loop skips this step
+        with span("repro_torch.train.loss_read"):
+            finite = bool(torch.isfinite(loss))
+        if not finite:                     # the loop skips this step
             return params, opt_state, metrics
         try:
-            params, opt_state, m = opt.update(gsum, opt_state, params,
-                                              gnorm=gnorm)
-            # inside the try: an asynchronous error of the update's
-            # kernels shows here, after its first in-place write
-            if loss.is_cuda:
-                torch.cuda.synchronize(loss.device)
+            with span("repro_torch.train.optimizer"):
+                params, opt_state, m = opt.update(gsum, opt_state, params,
+                                                  gnorm=gnorm)
+                # inside the try: an asynchronous error of the update's
+                # kernels shows here, after its first in-place write
+                if loss.is_cuda:
+                    torch.cuda.synchronize(loss.device)
         except Exception as e:
             raise UpdateFailed(f"optimizer update failed: {e}") from e
         metrics.update(m)

@@ -59,6 +59,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.spans import span
 from repro_torch.serving.engine import (SCHEDULERS, _admit_lane,
                                         _advance_lanes, _EngineBase,
                                         _generator, _sample_tokens)
@@ -196,10 +197,13 @@ class PagedEngine(_EngineBase):
         for lo in range(start, plen, cs):
             end = min(lo + cs, plen)
             n_live = pages_needed(end, self.page_size)
-            chunk = torch.as_tensor(prompt[None, lo:end], device=self.device)
-            logits, self._caches = self._prefill_fn(
-                self.params, self._caches, chunk, btab_dev[:, :n_live], lo)
-            sync(self.device)
+            with span("repro_torch.serve.prefill_chunk"):
+                chunk = torch.as_tensor(prompt[None, lo:end],
+                                        device=self.device)
+                logits, self._caches = self._prefill_fn(
+                    self.params, self._caches, chunk, btab_dev[:, :n_live],
+                    lo)
+                sync(self.device)
             clock.charge("prefill")     # each chunk is a prefill dispatch
             chunks += 1
         return logits, chunks
@@ -417,81 +421,85 @@ class PagedEngine(_EngineBase):
                 if inj is not None and inj.refuse_alloc():
                     blocked += 1     # transient injected refusal: retry
                     break            # next engine step
-                # PrefillWorker role: reserve under the prefill owner key
-                got = pw.reserve(req, alloc, radix)
-                if radix is not None:
-                    lookups += 1
-                while got is None and try_preempt(req):
+                with span("repro_torch.serve.admit"):
+                    # PrefillWorker role: reserve under the prefill owner key
                     got = pw.reserve(req, alloc, radix)
-                if got is None:
-                    blocked += 1     # queue head waits for retirements
-                    break
-                pages, s0 = got
-                sched.take(req)
-                prompt_np = np.asarray(req.prompt, np.int32)
-                rs.prompt_of[req.rid] = prompt_np
-                slot = dw.free_lane()
-                m = metrics[req.rid]
-                base = len(rs.partial.get(req.rid, ()))
-                m.admitted_s = clock.now() - t0
-                m.slot = slot
-                m.cached_prompt_tokens = s0
-                if s0 > 0:
-                    hits += 1
-                    tokens_saved += s0
-                peak_conc = max(peak_conc, alloc.num_owners)
-                btab_row = np.zeros(self.npag_max, np.int32)
-                btab_row[:len(pages)] = pages
-                btab_dev = torch.as_tensor(btab_row, device=self.device)[None]
-                try:
+                    if radix is not None:
+                        lookups += 1
+                    while got is None and try_preempt(req):
+                        got = pw.reserve(req, alloc, radix)
+                    if got is None:
+                        blocked += 1     # queue head waits for retirements
+                        break
+                    pages, s0 = got
+                    sched.take(req)
+                    prompt_np = np.asarray(req.prompt, np.int32)
+                    rs.prompt_of[req.rid] = prompt_np
+                    slot = dw.free_lane()
+                    m = metrics[req.rid]
+                    base = len(rs.partial.get(req.rid, ()))
+                    m.admitted_s = clock.now() - t0
+                    m.slot = slot
+                    m.cached_prompt_tokens = s0
+                    if s0 > 0:
+                        hits += 1
+                        tokens_saved += s0
+                    peak_conc = max(peak_conc, alloc.num_owners)
+                    btab_row = np.zeros(self.npag_max, np.int32)
+                    btab_row[:len(pages)] = pages
+                    btab_dev = torch.as_tensor(btab_row,
+                                               device=self.device)[None]
+                    try:
+                        if inj is not None:
+                            inj.check_prefill()
+                        logits, chunks = pw.prefill(prompt_np, btab_dev,
+                                                    clock, start=s0)
+                    except InjectedFault:
+                        # contain the fault to this request: give back its
+                        # pages (un-prefilled: check_prefill fires before any
+                        # chunk writes) and retry or fail it alone
+                        handoff.abort(req.rid)
+                        self._audit(rs)
+                        self._requeue_or_fail(
+                            rs, req.rid, np.zeros(0, np.int32),
+                            clock.now() - t0, "failed")
+                        inj.note_prefill_resolved(step)
+                        continue
+                    prefills += chunks
+                    if radix is not None:   # index the prompt's full pages
+                        radix.insert(prompt_np, pages)
+                    tok0 = _sample_tokens(logits[:, -1:], gen, self.greedy)
+                    if base == 0:
+                        m.first_token_s = clock.now() - t0
+                    m.new_tokens = base + 1
+                    done0 = req.max_new_tokens == 1
+                    if self.eos_id is not None:
+                        done0 = done0 or int(tok0[0, 0]) == self.eos_id
+                    # PageHandoff role: decode takes ownership of the pages.
+                    # Interleaved, the lane picks the request up in the same
+                    # engine step, so handoff latency is zero by construction
+                    # (the disaggregated engine measures the real queue-wait)
+                    handoff.transfer(req.rid)
+                    handoff.latencies_s.append(0.0)
+                    dw.admit(tok0, btab_dev[0], slot, req.prompt_len,
+                             req.max_new_tokens, not done0)
+                    dw.slot_tokens[slot] += 1
+                    admissions += 1
+                    dw.admit_seq[slot] = admissions
                     if inj is not None:
-                        inj.check_prefill()
-                    logits, chunks = pw.prefill(prompt_np, btab_dev, clock,
-                                                start=s0)
-                except InjectedFault:
-                    # contain the fault to this request: give back its
-                    # pages (un-prefilled: check_prefill fires before any
-                    # chunk writes) and retry or fail it alone
-                    handoff.abort(req.rid)
-                    self._audit(rs)
-                    self._requeue_or_fail(rs, req.rid, np.zeros(0, np.int32),
-                                          clock.now() - t0, "failed")
-                    inj.note_prefill_resolved(step)
-                    continue
-                prefills += chunks
-                if radix is not None:   # index the prompt's full pages
-                    radix.insert(prompt_np, pages)
-                tok0 = _sample_tokens(logits[:, -1:], gen, self.greedy)
-                if base == 0:
-                    m.first_token_s = clock.now() - t0
-                m.new_tokens = base + 1
-                done0 = req.max_new_tokens == 1
-                if self.eos_id is not None:
-                    done0 = done0 or int(tok0[0, 0]) == self.eos_id
-                # PageHandoff role: decode takes ownership of the pages.
-                # Interleaved, the lane picks the request up in the same
-                # engine step, so handoff latency is zero by construction
-                # (the disaggregated engine measures the real queue-wait)
-                handoff.transfer(req.rid)
-                handoff.latencies_s.append(0.0)
-                dw.admit(tok0, btab_dev[0], slot, req.prompt_len,
-                         req.max_new_tokens, not done0)
-                dw.slot_tokens[slot] += 1
-                admissions += 1
-                dw.admit_seq[slot] = admissions
-                if inj is not None:
-                    inj.note_admission(step)
-                if done0:
-                    m.finished = True
-                    m.outcome = "completed"
-                    m.finish_s = clock.now() - t0
-                    m.tokens = self._cumulative(
-                        rs, req.rid, np.asarray([int(tok0[0, 0])], np.int32))
-                    self._release_pages(alloc, req.rid)
-                    self._audit(rs)
-                else:
-                    dw.active_host[slot] = True
-                    dw.slot_rid[slot] = req.rid
+                        inj.note_admission(step)
+                    if done0:
+                        m.finished = True
+                        m.outcome = "completed"
+                        m.finish_s = clock.now() - t0
+                        m.tokens = self._cumulative(
+                            rs, req.rid,
+                            np.asarray([int(tok0[0, 0])], np.int32))
+                        self._release_pages(alloc, req.rid)
+                        self._audit(rs)
+                    else:
+                        dw.active_host[slot] = True
+                        dw.slot_rid[slot] = req.rid
             if not dw.active_host.any():
                 if sched.queue:
                     # pool idle until the next arrival; when admission is
@@ -506,31 +514,32 @@ class PagedEngine(_EngineBase):
             dw.note_step_start(t_step - t0)
             new_active, ncounts = dw.step(gen)
             dur = clock.now() - t_step
-            dw.busy_s += dur
             decode_steps += 1
-            for s in np.flatnonzero(dw.active_host):
-                rid = dw.slot_rid[s]
-                m = metrics[rid]
-                base = len(rs.partial.get(rid, ()))
-                m.token_latencies_s.append(dur)
-                m.new_tokens = base + int(ncounts[s])
-                dw.slot_tokens[s] += 1
-                if not new_active[s]:         # EOS or budget: free pages
-                    m.finished = True
-                    m.outcome = "completed"
-                    m.finish_s = clock.now() - t0
-                    gen_toks = host(dw.state["tokbuf"][s, :int(ncounts[s])])
-                    m.tokens = self._cumulative(rs, rid, gen_toks)
-                    if radix is not None:
-                        self._index_sequence(rs, rid, gen_toks)
-                    self._release_pages(alloc, rid)
-                    self._audit(rs)
-                    dw.slot_rid[s] = None
-            dw.active_host = new_active.copy() & dw.active_host
-            dw.note_step_end(clock.now() - t0)
-            live = sum(rs.plen_of[dw.slot_rid[s]] + int(ncounts[s])
-                       for s in np.flatnonzero(dw.active_host))
-            stats.sample(alloc, live)
+            with span("repro_torch.serve.retire"):
+                for s in np.flatnonzero(dw.active_host):
+                    rid = dw.slot_rid[s]
+                    m = metrics[rid]
+                    base = len(rs.partial.get(rid, ()))
+                    m.token_latencies_s.append(dur)
+                    m.new_tokens = base + int(ncounts[s])
+                    dw.slot_tokens[s] += 1
+                    if not new_active[s]:     # EOS or budget: free pages
+                        m.finished = True
+                        m.outcome = "completed"
+                        m.finish_s = clock.now() - t0
+                        gen_toks = host(
+                            dw.state["tokbuf"][s, :int(ncounts[s])])
+                        m.tokens = self._cumulative(rs, rid, gen_toks)
+                        if radix is not None:
+                            self._index_sequence(rs, rid, gen_toks)
+                        self._release_pages(alloc, rid)
+                        self._audit(rs)
+                        dw.slot_rid[s] = None
+                dw.active_host = new_active.copy() & dw.active_host
+                dw.note_step_end(clock.now() - t0)
+                live = sum(rs.plen_of[dw.slot_rid[s]] + int(ncounts[s])
+                           for s in np.flatnonzero(dw.active_host))
+                stats.sample(alloc, live)
         self._caches = None          # free the pool between runs
         return ServeReport(
             metrics=[metrics[r.rid] for r in (*reqs, *rejected)],

@@ -30,6 +30,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.spans import span
 from repro_torch.serving.pages import PageAllocator, PoolInvariantError
 from repro_torch.serving.request import Request
 
@@ -320,11 +321,13 @@ class DecodeWorker:
         clock. Returns host copies of (new_active, ncounts), read back in
         one transfer."""
         eng = self.engine
-        eng._caches = eng._pool_step(eng.params, eng._caches, self.state, gen)
-        sync(self.device)
-        eng.clock.charge("decode")
-        self.steps += 1
-        return read_flags(self.state)
+        with span("repro_torch.serve.decode_step"):
+            eng._caches = eng._pool_step(eng.params, eng._caches, self.state,
+                                         gen)
+            sync(self.device)
+            eng.clock.charge("decode")
+            self.steps += 1
+            return read_flags(self.state)
 
 
 def lane_state(lanes: int, span: int, device: torch.device,
